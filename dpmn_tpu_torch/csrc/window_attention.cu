@@ -155,8 +155,11 @@ __global__ void ln_proj_kernel(const float* __restrict__ xq, const float* __rest
 
 // (b) windowed attention of one channel group.  A block holds WPB windows of
 // one image; thread (window, head, query).  Shared: k and v of the block's
-// windows, [WPB][N][ch] each.
-template <int N, int GCH>
+// windows, [WPB][N][ch] each.  GCH is the head dim the path gives (32
+// channels per group over 2 heads).
+constexpr int GCH = 16;
+
+template <int N>
 __global__ void window_attn_kernel(const float* __restrict__ q, const float* __restrict__ kv,
                                    const float* __restrict__ bias, const float* __restrict__ mask,
                                    float* __restrict__ out, int H, int W, int D, int g, int gh,
@@ -383,7 +386,7 @@ __global__ void skconv_out_kernel(const float* __restrict__ attn, const float* _
   }
 }
 
-template <int N, int GCH>
+template <int N>
 cudaError_t launch_attn(const float* q, const float* kv, const float* bias, const float* mask, float* out,
                         int B, int H, int W, int D, int g, int gh, int ws, int sh, float scale,
                         int corrected, cudaStream_t st) {
@@ -392,22 +395,10 @@ cudaError_t launch_attn(const float* q, const float* kv, const float* bias, cons
   const int nw = (H / ws) * (W / ws);
   const size_t smem = (size_t)2 * wpb * N * gh * GCH * sizeof(float);
   dim3 grid((nw + wpb - 1) / wpb, B);
-  cudaFuncSetAttribute(window_attn_kernel<N, GCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  window_attn_kernel<N, GCH><<<grid, threads, smem, st>>>(q, kv, bias, mask, out, H, W, D, g, gh, ws, sh,
+  cudaFuncSetAttribute(window_attn_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  window_attn_kernel<N><<<grid, threads, smem, st>>>(q, kv, bias, mask, out, H, W, D, g, gh, ws, sh,
                                                           wpb, scale, corrected);
   return cudaGetLastError();
-}
-
-template <int N>
-cudaError_t launch_attn_n(int gch, const float* q, const float* kv, const float* bias, const float* mask,
-                          float* out, int B, int H, int W, int D, int g, int gh, int ws, int sh, float scale,
-                          int corrected, cudaStream_t st) {
-  switch (gch) {
-    case 8: return launch_attn<N, 8>(q, kv, bias, mask, out, B, H, W, D, g, gh, ws, sh, scale, corrected, st);
-    case 16: return launch_attn<N, 16>(q, kv, bias, mask, out, B, H, W, D, g, gh, ws, sh, scale, corrected, st);
-    case 32: return launch_attn<N, 32>(q, kv, bias, mask, out, B, H, W, D, g, gh, ws, sh, scale, corrected, st);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -420,7 +411,7 @@ cudaError_t launch_attn_n(int gch, const float* q, const float* kv, const float*
 // (B, L, 2D), attn and feats (B, L, D), partial (B, L/64, D), gate
 // (B, n_group, ch).  ws and shifts are host arrays of n_group ints.  Needs
 // L % 64 == 0, D % 32 == 0 with D <= 96, windows of 2, 4 or 8 dividing H and
-// W, and head dims of 8, 16 or 32; the Python wrapper checks these.  Returns
+// W, and a head dim (ch / gh) of GCH = 16; the Python wrapper checks these.  Returns
 // cudaGetLastError() after the last launch (or the first failing one).
 extern "C" int window_attention_block_forward(
     const float* xq, const float* xkv, const float* ln_qs, const float* ln_qb, const float* ln_ks,
@@ -431,9 +422,10 @@ extern "C" int window_attention_block_forward(
     int H, int W, int D, int n_group, const int* ws, const int* shifts, int gh, int dz, float scale,
     int corrected, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int L = H * W, ntok = B * L, ch = D / n_group, gch = ch / gh;
+  const int L = H * W, ntok = B * L, ch = D / n_group;
   const int do_ln = ln_qs != nullptr;
   cudaError_t err;
+  if (ch != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
 
   const size_t smem_a = (size_t)(D * (3 * D + 1) + 2 * TOK * D) * sizeof(float);
   cudaFuncSetAttribute(ln_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
@@ -446,9 +438,9 @@ extern "C" int window_attention_block_forward(
     const int n = ws[g] * ws[g];
     const float* mg = shifts[g] > 0 ? mask + moff : nullptr;
     switch (ws[g]) {
-      case 2: err = launch_attn_n<4>(gch, qbuf, kvbuf, bias + boff, mg, attn, B, H, W, D, g, gh, ws[g], shifts[g], scale, corrected, st); break;
-      case 4: err = launch_attn_n<16>(gch, qbuf, kvbuf, bias + boff, mg, attn, B, H, W, D, g, gh, ws[g], shifts[g], scale, corrected, st); break;
-      case 8: err = launch_attn_n<64>(gch, qbuf, kvbuf, bias + boff, mg, attn, B, H, W, D, g, gh, ws[g], shifts[g], scale, corrected, st); break;
+      case 2: err = launch_attn<4>(qbuf, kvbuf, bias + boff, mg, attn, B, H, W, D, g, gh, ws[g], shifts[g], scale, corrected, st); break;
+      case 4: err = launch_attn<16>(qbuf, kvbuf, bias + boff, mg, attn, B, H, W, D, g, gh, ws[g], shifts[g], scale, corrected, st); break;
+      case 8: err = launch_attn<64>(qbuf, kvbuf, bias + boff, mg, attn, B, H, W, D, g, gh, ws[g], shifts[g], scale, corrected, st); break;
       default: err = cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -134,8 +134,8 @@ def window_attention_block(xq, xkv, weights: dict, biases, masks, window_sizes, 
     dz = weights["fc1_w"].shape[0]
     if l != h * w or l % 64 != 0 or dim % 32 != 0 or dim > 96 or channel * n_group != dim:
         raise ValueError(f"window_attention kernel: unsupported geometry L={l} ({h}x{w}) D={dim} groups={n_group}")
-    if gch not in (8, 16, 32) or gch * gnum_heads != channel:
-        raise ValueError(f"window_attention kernel: head dim {gch} not in (8, 16, 32)")
+    if gch != 16 or gch * gnum_heads != channel:
+        raise ValueError(f"window_attention kernel: head dim {channel}/{gnum_heads}, the kernel takes 16")
     for ws in window_sizes:
         if ws not in (2, 4, 8) or h % ws or w % ws:
             raise ValueError(f"window_attention kernel: window {ws} on a {h}x{w} grid")

@@ -3,8 +3,9 @@
     python -m dpmn_tpu_torch.profile_path [--batch 64]
 
 Builds the flagship DPMNSystem with seeded random weights, warms it up, then
-(1) times each stage of one forward (PSN, each student + glyph prior, each
-PGRM, CMM) with a synchronise around it, (2) records one forward with
+(1) times each stage of one real sr_forward (the CRNN text prior, the TATT
+PSN, each student, each glyph render, each PGRM, CMM) with CUDA events that
+forward hooks on those modules record, (2) records one forward with
 torch.profiler and prints the device time by kernel and the device's busy
 share of the forward's wall time, and (3) prints the same forward's wall
 time without the profiler.  Prints the card's name and power limit first.
@@ -20,38 +21,53 @@ import numpy as np
 import torch
 
 from .config import TrainCfg, flagship_args
-from .models.visionlan import parse_visionlan_input
-from .ops.mask_prior import to_mask
 from .system import DPMNSystem
 
 
-def _timed(fn, label, rows):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    rows.append((label, (time.perf_counter() - t0) * 1e3))
-    return out
+def stage_modules(system: DPMNSystem):
+    """(label, module) for every stage of sr_forward that is a module call."""
+    stages = [("CRNN text prior", system.crnn_psn), ("TATT PSN", system.psn)]
+    stages += [(f"VisionLAN student {k}", s) for k, s in enumerate(system.students)]
+    stages.append(("glyph render", system.glyph))
+    stages += [(f"PGRM {i} ({'graphic' if p.graphic_mode else 'semantic'})", p)
+               for i, p in enumerate(system.pgrms)]
+    stages.append(("CMM", system.cmm))
+    return stages
 
 
-def stage_times(system: DPMNSystem, x: torch.Tensor):
-    rows = []
-    psn = _timed(lambda: system._psn_forward(x), "psn (CRNN text prior + TATT)", rows)
-    cascade, b1 = psn, []
-    for k in range(system.b1):
-        logits, lengths = _timed(lambda: system.students[k](parse_visionlan_input(cascade[:, :3])),
-                                 f"student {k} (VisionLAN)", rows)
-        prior = _timed(lambda: system._prior_from_preds(logits.argmax(-1), lengths), f"glyph prior {k}", rows)
-        cascade = _timed(lambda: system._pgrm(k)(prior, cascade[:, :3], b1[:k]), f"pgrm {k} (graphic)", rows)
-        b1.append(cascade)
-    cascade, b2 = psn, []
-    for k in range(system.b1, system.b1 + system.b2):
-        mask = _timed(lambda: to_mask(cascade), f"to_mask {k}", rows)
-        cascade = _timed(lambda: system._pgrm(k)(mask, cascade[:, :3], b2[: k - system.b2]),
-                         f"pgrm {k} (semantic)", rows)
-        b2.append(cascade)
-    _timed(lambda: system.cmm(b1[-1], b2[-1]), "cmm", rows)
-    return rows
+def hooked_stage_times(system: DPMNSystem, lr: np.ndarray):
+    """One sr_forward with a CUDA event recorded before and after each call of
+    a stage module.  Returns [(label, calls, device ms)] in first-call order
+    and the forward's device ms from the first to the last event; the rest
+    (input copy, to_mask, argmax and EOS compaction, the α-blend) is the gap."""
+    open_calls, spans, handles = [], [], []
+    for label, mod in stage_modules(system):
+        def pre(mod, args, label=label):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            open_calls.append((label, ev))
+
+        def post(mod, args, out):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            label, start = open_calls.pop()
+            spans.append((label, start, ev))
+
+        handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+    first, last = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    try:
+        first.record()
+        system.sr_forward(lr)
+        last.record()
+        torch.cuda.synchronize()
+    finally:
+        for hd in handles:
+            hd.remove()
+    rows = {}
+    for label, start, end in spans:
+        calls, ms = rows.get(label, (0, 0.0))
+        rows[label] = (calls + 1, ms + start.elapsed_time(end))
+    return [(label, calls, ms) for label, (calls, ms) in rows.items()], first.elapsed_time(last)
 
 
 def main(argv=None):
@@ -65,14 +81,13 @@ def main(argv=None):
     lr = np.random.RandomState(0).rand(a.batch, 16, 64, 4).astype(np.float32)
     for _ in range(2):
         system.sr_forward(lr)
-    x = torch.from_numpy(lr).permute(0, 3, 1, 2).contiguous().to(system.device)
-    with torch.no_grad():
-        rows = stage_times(system, x)
-    total = sum(ms for _, ms in rows)
-    print(f"stages of one forward at B={a.batch} (host clock around each, synchronised):")
-    for label, ms in rows:
-        print(f"  {label:34s} {ms:9.3f} ms  {100 * ms / total:5.1f} %")
-    print(f"  {'sum':34s} {total:9.3f} ms")
+    rows, total = hooked_stage_times(system, lr)
+    print(f"stages of one sr_forward at B={a.batch} (CUDA events from forward hooks):")
+    for label, calls, ms in rows:
+        print(f"  {label:26s} x{calls}  {ms:9.3f} ms  {100 * ms / total:5.1f} %")
+    rest = total - sum(ms for _, _, ms in rows)
+    print(f"  {'outside the stage modules':26s}     {rest:9.3f} ms  {100 * rest / total:5.1f} %")
+    print(f"  {'forward':26s}     {total:9.3f} ms")
 
     from torch.profiler import ProfilerActivity, profile
 

@@ -80,3 +80,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     kw = blk.attn.block_args(blk.ln_params())
     with pytest.raises(ValueError):
         window_attention_block(torch.randn(2, 1000, 96, device=dev), torch.randn(2, 1000, 96, device=dev), **kw)
+    x = torch.randn(2, 1024, 96, device=dev)
+    for heads in (3, 12):  # head dims 32 and 8
+        blk = SwinTransformerBlock(96, (16, 64), heads, [2, 4, 8], [0, 0, 0]).to(dev)
+        with pytest.raises(ValueError):
+            window_attention_block(x, x, **blk.attn.block_args(blk.ln_params()))
