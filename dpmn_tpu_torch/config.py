@@ -1,8 +1,9 @@
 """Configuration dataclasses and the PGRM hyper-parameter parser.
 
-Counterpart of dpmn_tpu/config.py for the eval path: the fields it reads,
-without the YAML loader and the CLI, which this port does not carry yet (the
-training and data fields come with the slices that read them).  The PGRM hyper-parameter strings are comma
+Counterpart of dpmn_tpu/config.py for the eval path and the train step: the
+fields they read, without the YAML loader and the CLI, which this port does
+not carry yet (the Trainer's and the data's fields come with the slices
+that read them).  The PGRM hyper-parameter strings are comma
 lists parsed with eval() semantics, window sizes grouped by `window_num` per
 layer and num_heads grouped by depth (reference interfaces/base.py:64-82).
 """
@@ -20,21 +21,26 @@ def _eval_list(s: str) -> list:
 
 @dataclass
 class TrainCfg:
-    """The fields of dpmn_tpu's TrainCfg that the eval path reads."""
+    """The fields of dpmn_tpu's TrainCfg that the eval path and the train
+    step read."""
 
     batch_size: int = 1024
     width: int = 128
     height: int = 32
     down_sample_scale: int = 2
+    lr: float = 0.001
+    optimizer: str = "Adam"  # "Adam" | "AdamW"
+    beta1: float = 0.5
 
 
 @dataclass
 class Args:
-    """The fields of the reference CLI (main.py:36-68) that the eval path
-    reads, plus dpmn_tpu's `faithful`."""
+    """The fields of the reference CLI (main.py:36-68) that the eval path and
+    the train step read, plus dpmn_tpu's `faithful`."""
 
     arch: str = "tsrn"
     mask: bool = False
+    gradient: bool = False
     hd_u: int = 32
     srb: int = 5
     patch_size: str = "4,"
@@ -43,6 +49,9 @@ class Args:
     depths: str = "1,"
     num_heads: str = "6,"
     mlp_ratio: str = "4,"
+    drop_rate: str = "0,"
+    attn_drop_rate: str = "0,"
+    drop_path_rate: str = "0.1,"
     stu_iter_b1: int = 1
     stu_iter_b2: int = 1
     font_path: Optional[str] = None
@@ -62,6 +71,9 @@ class PGRMHParams:
     window_size: list  # list (per iter) of lists (per-layer window group)
     num_heads: list  # list (per iter) of per-layer head counts
     mlp_ratio: list
+    drop_rate: list
+    attn_drop_rate: list
+    drop_path_rate: list
 
 
 def parse_pgrm_hparams(args: Args) -> PGRMHParams:
@@ -83,17 +95,22 @@ def parse_pgrm_hparams(args: Args) -> PGRMHParams:
         window_size=window_size,
         num_heads=num_heads,
         mlp_ratio=_eval_list(args.mlp_ratio),
+        drop_rate=_eval_list(args.drop_rate),
+        attn_drop_rate=_eval_list(args.attn_drop_rate),
+        drop_path_rate=_eval_list(args.drop_path_rate),
     )
 
 
 def flagship_args(**overrides) -> Args:
     """The flagship configuration: TATT PSN + DPMN dual 3+3 branch at embed 96
     with windows 2/4/8 and 6 heads (the reference README's training command;
-    what the JAX package's bench runs).  Its training-only flags (gradient
-    loss, dropout rates of 0.1) do not act in eval and are not carried."""
+    what the JAX package's bench runs, __graft_entry__.py:34-55), with its
+    training flags: the gradient-prior loss and drop / attn_drop / drop_path
+    rates of 0.1.  Eval ignores them."""
     base = dict(
         arch="tatt",
         mask=True,
+        gradient=True,
         stu_iter_b1=3,
         stu_iter_b2=3,
         patch_size="2,2,2,2,2,2,",
@@ -102,6 +119,9 @@ def flagship_args(**overrides) -> Args:
         depths="1,1,1,1,1,1,",
         num_heads="6,6,6,6,6,6,",
         mlp_ratio="4,4,4,4,4,4,",
+        drop_rate="0.1,0.1,0.1,0.1,0.1,0.1,",
+        attn_drop_rate="0.1,0.1,0.1,0.1,0.1,0.1,",
+        drop_path_rate="0.1,0.1,0.1,0.1,0.1,0.1,",
         alpha=0.5,
     )
     base.update(overrides)

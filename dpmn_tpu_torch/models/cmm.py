@@ -1,10 +1,11 @@
-"""CMM — Complementation Modulation Module (dual-encoder U-Net fuser), eval.
+"""CMM — Complementation Modulation Module (dual-encoder U-Net fuser).
 
 Counterpart of dpmn_tpu/models/cmm.py (reference model/cmm.py:38-161): two
 6-stage encoders (one per PGRM branch output), an SE-style channel gate at the
 bottleneck applied as residual * weight + residual, and a skip-concat
 transpose-conv decoder.  NCHW; on 32x128 inputs the stages run 32x128 →
-16x64 → 8x32 → 4x16 → 2x8 → 1x4.
+16x64 → 8x32 → 4x16 → 2x8 → 1x4.  In train mode its BatchNorms use batch
+statistics and move their running statistics as flax does (ops/batch_norm.py).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.batch_norm import BatchNorm2d
 
 
 def _leaky(x):
@@ -22,9 +25,9 @@ class EncodeBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, in_channels, 4, stride=2, padding=3, dilation=2)
-        self.bn1 = nn.BatchNorm2d(in_channels)
+        self.bn1 = BatchNorm2d(in_channels)
         self.conv2 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.bn2 = nn.BatchNorm2d(out_channels)
+        self.bn2 = BatchNorm2d(out_channels)
 
     def forward(self, x):
         x = self.bn1(self.conv1(_leaky(x)))
@@ -35,9 +38,9 @@ class DecodeBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.deconv1 = nn.ConvTranspose2d(in_channels, out_channels, 3, stride=1, padding=1)
-        self.bn1 = nn.BatchNorm2d(out_channels)
+        self.bn1 = BatchNorm2d(out_channels)
         self.deconv2 = nn.ConvTranspose2d(out_channels, out_channels, 4, stride=2, padding=1)
-        self.bn2 = nn.BatchNorm2d(out_channels)
+        self.bn2 = BatchNorm2d(out_channels)
 
     def forward(self, x):
         x = self.bn1(self.deconv1(F.relu(x)))
@@ -58,7 +61,7 @@ class CMM(nn.Module):
         self.fc_1 = nn.Linear(16 * cn, 4 * cn)
         self.fc_2 = nn.Linear(4 * cn, 16 * cn)
         self.de_6_conv = nn.ConvTranspose2d(16 * cn, cn * 8, 4, stride=2, padding=1)
-        self.de_6_bn = nn.BatchNorm2d(cn * 8)
+        self.de_6_bn = BatchNorm2d(cn * 8)
         self.de_5 = DecodeBlock(cn * 8 * 3, cn * 8)
         self.de_4 = DecodeBlock(cn * 8 * 3, cn * 4)
         self.de_3 = DecodeBlock(cn * 4 * 3, cn * 2)

@@ -1,12 +1,16 @@
-"""PGRM — Prior-Guided Refinement Module, eval path.
+"""PGRM — Prior-Guided Refinement Module.
 
 Counterpart of dpmn_tpu/models/pgrm.py (reference model/pgrm.py).  The query
 is the prior image (2-channel glyph render or 3-channel binarized mask), key
 and value the current SR image; channels split into len(window_size) groups,
 each attending inside its own (shifted) window with a learned relative
 position bias, fused by SKConv; an Mlp with a depthwise conv completes each
-block.  Every block's attention + SKConv + residual runs in one call of
-`window_attention_block` (the CUDA kernel on the card).
+block.  In eval every block's attention + SKConv + residual runs in one call
+of `window_attention_block` (kernel K1 on the card).  In train mode (the
+module's `training` flag) LN + projections + attention run in
+`window_attention_block_core` (kernel K3, forward and backward), SKConv in
+PyTorch after it, as dpmn_tpu/models/pgrm.py:378-447 does; dropout, attention
+dropout and drop path draw from the step's `TrainRng`.
 
 Faithful quirks (`faithful=True`, the default): the attention output's
 window-major rows are read back as raster rows (model/pgrm.py:263), and the
@@ -25,8 +29,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.dropout import TrainRng, drop_path, dropout
 from ..ops.torch_compat import LN_EPS
 from ..ops.window_attention import window_attention_block
+from ..ops.window_attention_train import corrected_relayout, window_attention_block_core
 
 
 def _relative_position_index(ws: int) -> np.ndarray:
@@ -60,21 +66,34 @@ class SKConv(nn.Module):
         super().__init__()
         channel = dim // m
         d = channel // r
+        self.m, self.channel = m, channel
         self.proj = nn.Linear(dim, dim)
         self.fc1 = nn.Linear(dim, d)
         self.fc2 = nn.Linear(d, m * channel)
         self.proj_head = nn.Linear(channel, dim)
 
+    def forward(self, x):
+        """x: (B, L, dim), the concat of the m groups → (B, L, dim).  K1 fuses
+        the same computation on the eval path."""
+        b, l, _ = x.shape
+        feats = self.proj(x)
+        s = F.gelu(feats).mean(dim=1)  # GAP
+        a = self.fc2(F.gelu(self.fc1(s))).reshape(b, self.m, self.channel)
+        a = torch.softmax(a, dim=1)  # over the groups
+        feats_v = torch.einsum("blmc,bmc->blc", x.reshape(b, l, self.m, self.channel), a)
+        return feats + self.proj_head(feats_v)
+
 
 class WindowAttention(nn.Module):
-    """Grouped multi-window cross attention (ref :108-271), eval."""
+    """Grouped multi-window cross attention (ref :108-271)."""
 
     def __init__(self, dim: int, window_size: Sequence[int], shift_size: Sequence[int], num_heads: int,
-                 input_resolution: Tuple[int, int], qk_scale: float = None, faithful: bool = True):
+                 input_resolution: Tuple[int, int], qk_scale: float = None, attn_drop: float = 0.0,
+                 faithful: bool = True):
         super().__init__()
         h, w = input_resolution
         n_group = len(window_size)
-        self.dim, self.faithful = dim, faithful
+        self.dim, self.faithful, self.attn_drop = dim, faithful, attn_drop
         self.hw = (h, w)
         self.gnum_heads = num_heads // n_group
         gchannel = dim // n_group // self.gnum_heads
@@ -124,26 +143,38 @@ class WindowAttention(nn.Module):
                     gnum_heads=self.gnum_heads, scale=self.scale, hw_shape=self.hw, ln=ln,
                     layout="faithful" if self.faithful else "corrected")
 
-    def forward(self, x_q, x_kv, ln=None):
-        """x_q, x_kv: (B, L, dim) tokens, pre-norm when `ln` is given; then the
-        x_kv residual is included."""
-        return window_attention_block(x_q, x_kv, **self.block_args(ln))
+    def forward(self, x_q, x_kv, ln=None, rng: TrainRng = None):
+        """x_q, x_kv: (B, L, dim) tokens, pre-norm when `ln` is given.  Eval:
+        with `ln` the x_kv residual is included.  Train mode (needs `ln`):
+        the attention output after SKConv, without the residual."""
+        if not self.training:
+            return window_attention_block(x_q, x_kv, **self.block_args(ln))
+        masks = [getattr(self, f"shift_mask_{i}") if sh > 0 else None for i, sh in enumerate(self.shf)]
+        keep = 1.0 - self.attn_drop
+        seed = rng.kernel_seed() if keep < 1.0 else 0
+        out = window_attention_block_core(x_q, x_kv, ln["qs"], ln["qb"], ln["ks"], ln["kb"], self.q.weight,
+                                          self.q.bias, self.kv.weight, self.kv.bias, self.biases(), masks, seed,
+                                          keep, self.win, self.shf, self.gnum_heads, self.scale, self.hw)
+        if not self.faithful:
+            out = corrected_relayout(out, self.win, self.shf, self.hw)
+        return self.SKConv(out)
 
 
 class Mlp(nn.Module):
     """fc → gelu → depthwise 3x3 conv → pointwise conv → fc (ref :16-41)."""
 
-    def __init__(self, dim: int, hidden: int, grid: Tuple[int, int], faithful: bool = True):
+    def __init__(self, dim: int, hidden: int, grid: Tuple[int, int], drop: float = 0.0, faithful: bool = True):
         super().__init__()
-        self.hidden, self.grid, self.faithful = hidden, grid, faithful
+        self.hidden, self.grid, self.drop, self.faithful = hidden, grid, drop, faithful
         self.fc1 = nn.Linear(dim, hidden)
         self.dwconv = nn.Conv2d(hidden, hidden, 3, padding=1, groups=hidden)
         self.pwconv = nn.Conv2d(hidden, hidden, 1)
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x):
+    def forward(self, x, rng: TrainRng = None):
         b, hw, _ = x.shape
-        x = F.gelu(self.fc1(x))
+        drop = self.drop if self.training else 0.0
+        x = dropout(F.gelu(self.fc1(x)), drop, rng)
         if self.faithful:
             # QUIRK (ref :33-38): a C-order view of the (B, HW, hidden) buffer
             s = int(math.sqrt(hw))
@@ -154,59 +185,70 @@ class Mlp(nn.Module):
             xg = x.reshape(b, gh, gw, self.hidden).permute(0, 3, 1, 2)
             xg = self.pwconv(F.gelu(self.dwconv(xg)))
             x = xg.permute(0, 2, 3, 1).reshape(b, hw, self.hidden)
-        return self.fc2(x)
+        return dropout(self.fc2(x), drop, rng)
 
 
 class SwinTransformerBlock(nn.Module):
-    def __init__(self, dim, input_resolution, num_heads, window_size, shift_size, mlp_ratio=4.0,
-                 faithful=True):
+    def __init__(self, dim, input_resolution, num_heads, window_size, shift_size, mlp_ratio=4.0, drop=0.0,
+                 attn_drop=0.0, drop_path=0.0, faithful=True):
         super().__init__()
+        self.drop_path = drop_path
         self.norm1_q = nn.LayerNorm(dim, eps=LN_EPS)
         self.norm1_kv = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowAttention(dim, window_size, shift_size, num_heads, input_resolution,
-                                    faithful=faithful)
+                                    attn_drop=attn_drop, faithful=faithful)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), input_resolution, faithful)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), input_resolution, drop, faithful)
 
     def ln_params(self) -> dict:
         return {"qs": self.norm1_q.weight, "qb": self.norm1_q.bias,
                 "ks": self.norm1_kv.weight, "kb": self.norm1_kv.bias}
 
-    def forward(self, x_q, x_kv):
-        # norm1_q / norm1_kv and the shortcut add run inside the block call
-        x_kv = self.attn(x_q, x_kv, ln=self.ln_params())
-        x_kv = x_kv + self.mlp(self.norm2(x_kv))
+    def forward(self, x_q, x_kv, rng: TrainRng = None):
+        # norm1_q / norm1_kv run inside the attention call; in eval so does
+        # the shortcut add (ref :620-633)
+        if not self.training:
+            x_kv = self.attn(x_q, x_kv, ln=self.ln_params())
+            return x_q, x_kv + self.mlp(self.norm2(x_kv))
+        x_kv = x_kv + drop_path(self.attn(x_q, x_kv, self.ln_params(), rng), self.drop_path, rng)
+        x_kv = x_kv + drop_path(self.mlp(self.norm2(x_kv), rng), self.drop_path, rng)
         return x_q, x_kv
 
 
 class BasicLayer(nn.Module):
     """Two Swin blocks: unshifted, then shifted by window//2 (ref :347-384)."""
 
-    def __init__(self, dim, input_resolution, num_heads, window_size, mlp_ratio=4.0, faithful=True):
+    def __init__(self, dim, input_resolution, num_heads, window_size, mlp_ratio=4.0, drop=0.0, attn_drop=0.0,
+                 drop_path=(0.0, 0.0), faithful=True):
         super().__init__()
         self.blocks = nn.ModuleList([
             SwinTransformerBlock(dim, input_resolution, num_heads, list(window_size),
                                  [0] * len(window_size) if i == 0 else [ws // 2 for ws in window_size],
-                                 mlp_ratio, faithful)
+                                 mlp_ratio, drop, attn_drop, float(drop_path[min(i, len(drop_path) - 1)]),
+                                 faithful)
             for i in range(2)
         ])
 
-    def forward(self, x_q, x_kv):
+    def forward(self, x_q, x_kv, rng: TrainRng = None):
         for blk in self.blocks:
-            x_q, x_kv = blk(x_q, x_kv)
+            x_q, x_kv = blk(x_q, x_kv, rng)
         return x_q, x_kv
 
 
 class PGRM(nn.Module):
     """The refiner (ref :460-565), NCHW: x_q (B, 2 or 3, H, W) prior, x_kv
-    (B, 3, H, W) image; residual_list of earlier (B, 3, H, W) outputs."""
+    (B, 3, H, W) image; residual_list of earlier (B, 3, H, W) outputs.
+
+    The drop-path schedule spans sum(depths) * 2 positions across all cascade
+    iterations (`depths_total`); this module's layers take the slice at
+    `depths_before` * 2 (ref :499-512)."""
 
     def __init__(self, img_size=(32, 128), patch_size=2, embed_dim=96, num_layers=1, num_heads=(6,),
-                 window_size=(2, 4, 8), mlp_ratio=4.0, iter=0, graphic_mode=False, hidden_size=3,
-                 faithful=True):
+                 window_size=(2, 4, 8), mlp_ratio=4.0, drop_rate=0.0, attn_drop_rate=0.0, drop_path_rate=0.1,
+                 iter=0, graphic_mode=False, hidden_size=3, depths_total=0, depths_before=0, faithful=True):
         super().__init__()
         self.img_size, self.patch_size, self.embed_dim = tuple(img_size), patch_size, embed_dim
-        self.hidden_size, self.graphic_mode = hidden_size, graphic_mode
+        self.hidden_size, self.graphic_mode, self.drop_rate = hidden_size, graphic_mode, drop_rate
         ph, pw = self.img_size[0] // patch_size, self.img_size[1] // patch_size
         self.grid = (ph, pw)
         if graphic_mode:
@@ -214,9 +256,12 @@ class PGRM(nn.Module):
             self.prior_fusion = nn.Conv2d(2, 3, 3, padding=1)
         self.patch_embed = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
         self.patch_norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        total = depths_total or num_layers
+        before = min(depths_before, max(total - num_layers, 0))
+        dpr = np.linspace(0.0, drop_path_rate, max(total, num_layers) * 2)[before * 2:(before + num_layers) * 2]
         self.layers = nn.ModuleList([
             BasicLayer(embed_dim * 2**i, (ph // 2**i, pw // 2**i), num_heads[i], window_size, mlp_ratio,
-                       faithful)
+                       drop_rate, attn_drop_rate, tuple(dpr[i * 2:(i + 1) * 2]), faithful)
             for i in range(num_layers)
         ])
         up_ch = hidden_size * patch_size**2
@@ -229,16 +274,17 @@ class PGRM(nn.Module):
             [nn.Parameter(torch.ones(1, hidden_size, *self.img_size)) for _ in range(iter + 1)]
         )
 
-    def forward(self, x_q, x_kv, residual_list=()):
+    def forward(self, x_q, x_kv, residual_list=(), rng: TrainRng = None):
         if x_q.shape[1] == 2:
             x_q = self.prior_fusion(x_q)
 
         def embed(img):
             return self.patch_norm(self.patch_embed(img).flatten(2).transpose(1, 2))
 
-        x_q, x_kv = embed(x_q), embed(x_kv)
+        drop = self.drop_rate if self.training else 0.0
+        x_q, x_kv = dropout(embed(x_q), drop, rng), dropout(embed(x_kv), drop, rng)  # pos_drop
         for layer in self.layers:
-            x_q, x_kv = layer(x_q, x_kv)
+            x_q, x_kv = layer(x_q, x_kv, rng)
         ph, pw = self.grid
         x = x_kv.transpose(1, 2).reshape(-1, self.embed_dim, ph, pw)  # patch_unembed (ref :450-453)
         x = F.leaky_relu(self.conv_before_upsample(x), 0.01)

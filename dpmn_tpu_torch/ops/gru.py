@@ -44,7 +44,8 @@ def gru_scan_plain(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
 def gru_scan(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
              reverse: bool = False) -> torch.Tensor:
     """The GRU recurrence: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  Same signature and result as `gru_scan_plain`."""
+    for CPU tensors.  Same signature and result as `gru_scan_plain`.  The
+    kernel has no backward: on the card it raises if autograd would need one."""
     if x_proj.device.type == "cpu":
         return gru_scan_plain(x_proj, w_hh, b_hh, reverse)
     n, t_len, g = x_proj.shape
@@ -55,6 +56,7 @@ def gru_scan(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     kernels.check_f32_cuda("x_proj", x_proj, device=dev)
     kernels.check_f32_cuda("w_hh", w_hh, (g, hdim), dev)
     kernels.check_f32_cuda("b_hh", b_hh, (g,), dev)
+    kernels.refuse_autograd("gru_scan", (x_proj, w_hh, b_hh))
     out = torch.empty(n, t_len, hdim, device=dev, dtype=torch.float32)
     lib = kernels.library("gru_scan")
     fn = lib.gru_scan_forward

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels under `csrc/`.
 
 Each `csrc/<name>.cu` exports a plain C function and is compiled by nvcc for
-sm_90a into its own shared library `_build/<name>-<hash>.so` (the hash is of
-the source, so an edited source is rebuilt), then loaded with ctypes.  All
+sm_90a into its own shared library `_build/<name>-<hash>.so` (the hash covers
+the source and every `csrc/*.cuh` header, so an edited source or header is
+rebuilt), then loaded with ctypes.  All
 sources are compiled in parallel, one nvcc process each.  Nothing here runs
 when a module is imported: the build happens at the first launch, or when
 `build_all()` is called.
@@ -22,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("window_attention", "gru_scan")
+SOURCES = ("window_attention", "gru_scan", "window_attention_train")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -46,8 +47,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD / f"{name}-{digest}.so"
+    """The library path of `csrc/<name>.cu`, keyed by the hash of the source
+    and of every header in `csrc/` (any of which it may include)."""
+    sha = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        sha.update(header.name.encode())
+        sha.update(header.read_bytes())
+    return BUILD / f"{name}-{sha.hexdigest()[:12]}.so"
 
 
 def build_all() -> float:
@@ -84,6 +90,15 @@ def library(name: str) -> ctypes.CDLL:
             build_all()
         _libs[name] = ctypes.CDLL(str(_target(name)))
     return _libs[name]
+
+
+def refuse_autograd(what: str, tensors) -> None:
+    """Raise when autograd would need a gradient through a kernel that has no
+    backward: grad mode is on and one of `tensors` requires grad.  Without
+    this, the weights behind such a kernel would silently get no gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward; call it under torch.no_grad() "
+                           "or with tensors that do not require grad")
 
 
 def check_launch(err: int, what: str) -> None:

@@ -120,7 +120,9 @@ def window_attention_block(xq, xkv, weights: dict, biases, masks, window_sizes, 
                            gnum_heads: int, scale: float, hw_shape, ln: Optional[dict] = None,
                            layout: str = "faithful") -> torch.Tensor:
     """The block: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors.  Same signature and result as `window_attention_block_plain`."""
+    tensors.  Same signature and result as `window_attention_block_plain`.
+    The kernel has no backward: on the card it raises if autograd would need
+    one (training runs ops/window_attention_train.py instead)."""
     if xq.device.type == "cpu":
         return window_attention_block_plain(xq, xkv, weights, biases, masks, window_sizes, shifts,
                                             gnum_heads, scale, hw_shape, ln, layout)
@@ -161,6 +163,8 @@ def window_attention_block(xq, xkv, weights: dict, biases, masks, window_sizes, 
             raise ValueError(f"mask {i}: wrong shape {tuple(masks[i].shape)}")
     kernels.check_f32_cuda("bias", bias, device=dev)
     kernels.check_f32_cuda("mask", mask, device=dev)
+    kernels.refuse_autograd("window_attention_block",
+                            (xq, xkv, *weights.values(), *biases, *(ln.values() if ln is not None else ())))
 
     def scratch(*shape):
         return torch.empty(*shape, device=dev, dtype=torch.float32)

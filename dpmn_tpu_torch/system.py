@@ -1,7 +1,9 @@
-"""DPMN system, eval: frozen PSN, the dual PGRM cascade, CMM and the α-blend.
+"""DPMN system: frozen PSN, the dual PGRM cascade, CMM and the α-blend (eval),
+and the joint train step.
 
 Counterpart of dpmn_tpu/system.py::DPMNSystem._sr_forward_impl (:583-594)
-with the device glyph atlas (glyph_mode='atlas').  Per batch:
+and ._train_step_impl (:502-507) with the device glyph atlas
+(glyph_mode='atlas').  Per batch:
   1. the frozen CRNN reads the LR image; its softmaxed frames are the text
      prior of the frozen TATT PSN (system.py:264-279);
   2. branch 1: before each of the b1 graphic PGRMs a VisionLAN student reads
@@ -11,13 +13,22 @@ with the device glyph atlas (glyph_mode='atlas').  Per batch:
      residuals cascade_list[:(k - b2)] (system.py:397-405);
   4. CMM fuses the two branch outputs; the result is blended with the PSN
      output by α (system.py:427-434, :593-594).
-The losses and the distill cascade of the JAX `_cascade` never reach the
-eval output and are not computed.  With `sr_share` both branches run
-model_list[0], a reference quirk.
+The losses and the distill cascade reach only the train step.  With
+`sr_share` both branches run model_list[0], a reference quirk.
 
-`sr_forward` keeps the JAX package's NHWC contract: (B, h, w, 4) LR in,
-(B, 2h, 2w, 3) SR out.  Modules run NCHW on `device`: the card unless the
-caller passes device="cpu".
+`train_step` (system.py:452-500) runs the frozen PSN, CRNN and students
+under no_grad in eval mode (their priors carry no gradient, :279, :345,
+:401) and the PGRMs, distills and CMM in train mode; the loss is the sum of
+image_loss(sr, hr[:3]) * 100 per PGRM and for the CMM output and the distill
+losses * 100, over b1 + b2 + 1.  The update is the global pre-clip gradient
+norm, then a clip at 0.25 per top-level module (pgrm_i, cmm, distill_i;
+per_module_clip, :65-83), then Adam (or AdamW with weight decay 0.01) with
+betas (beta1, 0.999) and eps 1e-8.  A parameter that autograd leaves without
+a gradient (the unused weight_list_i) gets a zero one, as optax sees it.
+
+Entry points keep the JAX package's NHWC contract: (B, h, w, 4) LR in,
+(B, 2h, 2w, 3) SR out; (B, 2h, 2w, 4) HR for training.  Modules run NCHW on
+`device`: the card unless the caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -29,11 +40,14 @@ import torch.nn as nn
 from . import resolve_device
 from .config import Args, TrainCfg, parse_pgrm_hparams
 from .data.glyph_atlas import DeviceGlyph
+from .losses import image_loss
 from .models.cmm import CMM
 from .models.crnn import CRNN, parse_crnn_input
+from .models.distill import DistillModule
 from .models.pgrm import PGRM
 from .models.tatt import TSRN_TL_TRANS
 from .models.visionlan import VisionLAN, parse_visionlan_input
+from .ops.dropout import TrainRng
 from .ops.mask_prior import to_mask
 
 
@@ -58,11 +72,15 @@ class DPMNSystem(nn.Module):
                 return lst[min(idx, len(lst) - 1)]
 
             i = min(iter_, len(hp.depths) - 1) if len(hp.depths) == 1 else iter_
+            depths_clamped = [pick(hp.depths, j) for j in range(iter_ + 1)]
             return PGRM(
                 img_size=self.hr_shape, patch_size=pick(hp.patch_size, i), embed_dim=pick(hp.embed_dim, i),
                 num_layers=pick(hp.depths, i), num_heads=tuple(pick(hp.num_heads, i)),
                 window_size=tuple(pick(hp.window_size, i)), mlp_ratio=float(pick(hp.mlp_ratio, i)),
-                iter=iter_, graphic_mode=graphic, hidden_size=3, faithful=a.faithful,
+                drop_rate=float(pick(hp.drop_rate, i)), attn_drop_rate=float(pick(hp.attn_drop_rate, i)),
+                drop_path_rate=float(pick(hp.drop_path_rate, i)), iter=iter_, graphic_mode=graphic,
+                hidden_size=3, depths_total=sum(hp.depths), depths_before=sum(depths_clamped[:-1]),
+                faithful=a.faithful,
             )
 
         if a.sr_share:
@@ -78,9 +96,22 @@ class DPMNSystem(nn.Module):
         self.crnn_psn = CRNN()
         self.students = nn.ModuleList([VisionLAN() for _ in range(self.b1)])
         self.glyph = DeviceGlyph(self.hr_shape)
+        self.distills = nn.ModuleList([DistillModule() for _ in range(max(self.b1 + self.b2 - 2, 0))])
         init_weights(self, seed)
         self.device = device
         self.to(device).eval()
+        if cfg.optimizer not in ("Adam", "AdamW"):
+            raise ValueError(f"optimizer {cfg.optimizer!r}")
+        self.optimizer = None  # made at the first update: eval never needs it
+
+    def trainable_modules(self) -> dict:
+        """The top-level trainable modules by their dpmn_tpu names; each is
+        clipped on its own (per_module_clip)."""
+        return {**{f"pgrm_{i}": m for i, m in enumerate(self.pgrms)}, "cmm": self.cmm,
+                **{f"distill_{i}": m for i, m in enumerate(self.distills)}}
+
+    def trainable_parameters(self) -> list:
+        return [p for m in self.trainable_modules().values() for p in m.parameters()]
 
     # ------------------------------------------------------------- internals
 
@@ -106,31 +137,121 @@ class DPMNSystem(nn.Module):
     def _pgrm(self, idx):
         return self.pgrms[0 if self.args.sr_share else idx]
 
-    def _cascade(self, images_lr_psn):
+    def _cascade(self, images_lr_psn, images_hr=None, rng: TrainRng = None):
+        """The two branches and CMM → (sr, loss).  With `images_hr` (the
+        train step) the loss sums the per-PGRM and CMM image losses and the
+        distill cascade (system.py:383-436); without, it is None."""
+        losses = []
+
+        def image_term(sr):
+            if images_hr is not None:
+                losses.append(image_loss(sr, images_hr[:, :3], self.args.gradient) * 100.0)
+
         cascade, b1_list = images_lr_psn, []
         for k in range(self.b1):
-            sr = self._pgrm(k)(self._glyph_prior(k, cascade), cascade[:, :3], b1_list[:k])
+            with torch.no_grad():
+                prior = self._glyph_prior(k, cascade)
+            sr = self._pgrm(k)(prior, cascade[:, :3], b1_list[:k], rng)
             b1_list.append(sr)
             cascade = sr
+            image_term(sr)
         cascade, b2_list = images_lr_psn, []
         for k in range(self.b1, self.b1 + self.b2):
-            sr = self._pgrm(k)(to_mask(cascade), cascade[:, :3], b2_list[: (k - self.b2)])
+            with torch.no_grad():
+                prior = to_mask(cascade)
+            sr = self._pgrm(k)(prior, cascade[:, :3], b2_list[: (k - self.b2)], rng)
             b2_list.append(sr)
             cascade = sr
-        return self.cmm(b1_list[-1], b2_list[-1])
+            image_term(sr)
+        if images_hr is not None:  # distill, deep → shallow per branch (:418-425)
+            feat = b1_list[-1]
+            for k in range(self.b1 - 1, 0, -1):
+                loss, feat = self.distills[k - 1](feat, b1_list[k - 1])
+                losses.append(loss * 100.0)
+            feat = b2_list[-1]
+            for k in range(self.b2 - 1, 0, -1):
+                loss, feat = self.distills[k + self.b1 - 2](feat, b2_list[k - 1])
+                losses.append(loss * 100.0)
+        sr = self.cmm(b1_list[-1], b2_list[-1])
+        image_term(sr)
+        if images_hr is None:
+            return sr, None
+        return sr, sum(losses[1:], losses[0]) / (self.b1 + self.b2 + 1)
+
+    def _nchw(self, images) -> torch.Tensor:
+        """NHWC images → NCHW on the device, in the dtype of the parameters
+        (float32 unless the caller converted the system)."""
+        x = images if torch.is_tensor(images) else torch.from_numpy(np.asarray(images))
+        return x.to(self.device, self.psn.conv_in.weight.dtype).permute(0, 3, 1, 2).contiguous()
 
     # ------------------------------------------------------------ entry point
 
     @torch.no_grad()
     def sr_forward(self, images_lr) -> torch.Tensor:
         """(B, h, w, 4) NHWC LR images (numpy or tensor) → (B, 2h, 2w, 3) NHWC SR."""
-        x = images_lr if torch.is_tensor(images_lr) else torch.from_numpy(np.asarray(images_lr))
-        x = x.to(self.device, torch.float32).permute(0, 3, 1, 2).contiguous()
-        images_lr_psn = self._psn_forward(x)
-        sr = self._cascade(images_lr_psn)
+        images_lr_psn = self._psn_forward(self._nchw(images_lr))
+        sr, _ = self._cascade(images_lr_psn)
         alpha = self.args.alpha
         out = alpha * sr + (1 - alpha) * images_lr_psn[:, :3]
         return out.permute(0, 2, 3, 1).contiguous()
+
+    def train_step(self, images_hr, images_lr, seed: int = 0) -> dict:
+        """One joint train step on (B, 2h, 2w, 4) HR and (B, h, w, 4) LR NHWC
+        images (numpy or tensors); `seed` seeds the step's dropout.  Updates
+        the trainable parameters, the BatchNorm statistics and the optimizer
+        state in place; returns {"loss", "grad_norm"} as 0-d tensors on the
+        device, without a host sync."""
+        loss, grads = self._micro_grads(images_hr, images_lr, seed)
+        return self._apply_update(grads, loss)
+
+    def _micro_grads(self, images_hr, images_lr, seed: int):
+        """The loss and the gradient of every trainable parameter (in
+        `trainable_parameters()` order, zeros where autograd gives none);
+        moves the BatchNorm running statistics (system.py:452-479)."""
+        loss = self._train_loss(images_hr, images_lr, seed)
+        return loss.detach(), self._loss_grads(loss)
+
+    def _train_loss(self, images_hr, images_lr, seed: int) -> torch.Tensor:
+        """The forward of the train step: the frozen PSN under no_grad, the
+        cascade with the trainable modules in train mode, the joint loss."""
+        hr, lr = self._nchw(images_hr), self._nchw(images_lr)
+        with torch.no_grad():
+            images_lr_psn = self._psn_forward(lr)
+        modules = self.trainable_modules().values()
+        for m in modules:
+            m.train()
+        try:
+            return self._cascade(images_lr_psn, hr, TrainRng(seed, self.device))[1]
+        finally:
+            for m in modules:
+                m.eval()
+
+    def _loss_grads(self, loss: torch.Tensor) -> list:
+        params = self.trainable_parameters()
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+    def _apply_update(self, grads, loss) -> dict:
+        """Global pre-clip norm, the per-module clip at 0.25, the optimizer
+        step (system.py:481-500)."""
+        sq = [n * n for n in torch._foreach_norm(grads)]
+        grad_norm = torch.sqrt(torch.stack(sq).sum())
+        i = 0
+        for module in self.trainable_modules().values():
+            ps = list(module.parameters())
+            norm = torch.sqrt(torch.stack(sq[i:i + len(ps)]).sum())
+            scale = torch.clamp(0.25 / (norm + 1e-6), max=1.0)
+            for p, g in zip(ps, grads[i:i + len(ps)]):
+                p.grad = g * scale
+            i += len(ps)
+        if self.optimizer is None:
+            adam = dict(lr=self.cfg.lr, betas=(self.cfg.beta1, 0.999), eps=1e-8)
+            params = self.trainable_parameters()
+            self.optimizer = (torch.optim.AdamW(params, weight_decay=0.01, **adam) if self.cfg.optimizer == "AdamW"
+                              else torch.optim.Adam(params, **adam))
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        return {"loss": loss, "grad_norm": grad_norm}
 
 
 def init_weights(model: nn.Module, seed: int) -> None:

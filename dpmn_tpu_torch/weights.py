@@ -1,6 +1,6 @@
 """Carry a dpmn_tpu state into the port's modules.
 
-`from_jax(state, system)` takes the JAX package's eval state — the `params`,
+`from_jax(state, system)` takes the JAX package's state — the `params`,
 `batch_stats` and `frozen` trees of DPMNSystem.init_state, as nested dicts of
 numpy arrays — and copies every leaf into the port's DPMNSystem:
   * flax Dense kernel (in, out) → torch Linear weight (out, in);
@@ -13,7 +13,7 @@ numpy arrays — and copies every leaf into the port's DPMNSystem:
   * the PGRM residual weights (1, H, W, 3) → (1, 3, H, W).
 It raises on a leaf of the JAX state that no port tensor takes, on a port
 parameter or buffer that no leaf fills, and on any shape mismatch.  The
-distill modules and the optimizer state are training state and are skipped.
+distill modules come over with the rest; the optimizer state is not read.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ class _Copier:
         self.filled = set()
 
     def put(self, tensor: torch.Tensor, value: np.ndarray, path: str):
-        value = torch.from_numpy(np.array(value, dtype=np.float32))
+        value = torch.as_tensor(np.asarray(value), dtype=tensor.dtype)
         if tuple(value.shape) != tuple(tensor.shape):
             raise ValueError(f"from_jax: {path}: shape {tuple(value.shape)} does not fit {tuple(tensor.shape)}")
         with torch.no_grad():
@@ -232,6 +232,13 @@ def _cmm(c: _Copier, m, p, s):
     c.conv(m.de_1_conv, f"{p}/de_1_conv")
 
 
+def _distill(c: _Copier, m, p, s):
+    c.conv(m.conv_cat_feature, f"{p}/conv_cat_feature")
+    c.conv(m.conv_feature, f"{p}/conv_feature")
+    c.bn(m.bn_1, f"{p}/bn_1", f"{s}/bn_1")
+    c.bn(m.bn_2, f"{p}/bn_2", f"{s}/bn_2")
+
+
 def _rename_mlp_convs(leaves: _Leaves):
     """The JAX Mlp stores its convs as dw_kernel/dw_bias/pw_kernel/pw_bias;
     give them the kernel/bias leaf names the conv copier reads."""
@@ -251,16 +258,16 @@ def _check_all(leaves: _Leaves, c: _Copier, module: nn.Module) -> None:
 
 
 def from_jax(state: dict, system) -> None:
-    """Copy the JAX eval state into `system` (a dpmn_tpu_torch DPMNSystem) in
+    """Copy the JAX state into `system` (a dpmn_tpu_torch DPMNSystem) in
     place.  Raises on a missing or extra leaf, or a shape mismatch."""
     leaves = _Leaves({k: state[k] for k in ("params", "batch_stats", "frozen") if k in state})
-    for k in [k for k in leaves.flat if k.split("/")[1].startswith("distill_")]:
-        del leaves.flat[k]  # training-only modules
     _rename_mlp_convs(leaves)
     c = _Copier(leaves)
     for i, m in enumerate(system.pgrms):
         _pgrm(c, m, f"params/pgrm_{i}")
     _cmm(c, system.cmm, "params/cmm", "batch_stats/cmm")
+    for i, d in enumerate(system.distills):
+        _distill(c, d, f"params/distill_{i}", f"batch_stats/distill_{i}")
     _psn(c, system.psn, "frozen/psn/params", "frozen/psn/batch_stats")
     _crnn(c, system.crnn_psn, "frozen/crnn_psn/params", "frozen/crnn_psn/batch_stats")
     for k, st in enumerate(system.students):
@@ -274,6 +281,7 @@ def module_from_jax(module: nn.Module, variables: dict) -> None:
     like `from_jax`."""
     from .models.cmm import CMM
     from .models.crnn import CRNN
+    from .models.distill import DistillModule
     from .models.pgrm import PGRM, SwinTransformerBlock, WindowAttention
     from .models.tatt import TSRN_TL_TRANS
     from .models.visionlan import VisionLAN
@@ -292,6 +300,7 @@ def module_from_jax(module: nn.Module, variables: dict) -> None:
         CRNN: lambda: _crnn(c, module, p, s),
         VisionLAN: lambda: _student(c, module, p, s),
         BiGRU: lambda: c.rnn(module, p),
+        DistillModule: lambda: _distill(c, module, p, s),
     }
     if type(module) not in table:
         raise TypeError(f"module_from_jax: no mapping for {type(module).__name__}")

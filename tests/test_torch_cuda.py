@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from dpmn_tpu_torch.models.pgrm import SwinTransformerBlock
+from dpmn_tpu_torch.ops import window_attention_train as WT
 from dpmn_tpu_torch.ops.gru import gru_scan, gru_scan_counter, gru_scan_plain
 from dpmn_tpu_torch.ops.window_attention import (
     window_attention_block,
@@ -85,3 +86,67 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         blk = SwinTransformerBlock(96, (16, 64), heads, [2, 4, 8], [0, 0, 0]).to(dev)
         with pytest.raises(ValueError):
             window_attention_block(x, x, **blk.attn.block_args(blk.ln_params()))
+
+
+def train_core_inputs(dev, shift, batch=2, seed=0):
+    """Random pre-norm tokens, LN, projection and relative-bias parameters of
+    one flagship block (16x64 grid, dim 96, windows 2/4/8, 6 heads), leaves
+    that require grad, and the core's static arguments."""
+    gen = torch.Generator().manual_seed(seed)
+    blk = SwinTransformerBlock(96, (16, 64), 6, [2, 4, 8], list(shift))
+    init_weights(blk, seed=seed + 1)
+    leaf = lambda t: t.detach().clone().to(dev).requires_grad_()
+    rnd = lambda *s, scale=1.0: leaf(scale * torch.randn(*s, generator=gen))
+    a = blk.attn
+    prim = [rnd(batch, 1024, 96), rnd(batch, 1024, 96),
+            leaf(1 + 0.1 * torch.randn(96, generator=gen)), rnd(96, scale=0.1),
+            leaf(1 + 0.1 * torch.randn(96, generator=gen)), rnd(96, scale=0.1),
+            leaf(a.q.weight), rnd(96, scale=0.1), leaf(a.kv.weight), rnd(192, scale=0.1)]
+    biases = [rnd(*b.shape, scale=0.1) for b in a.biases()]
+    masks = [getattr(a, f"shift_mask_{i}").to(dev) if sh > 0 else None for i, sh in enumerate(a.shf)]
+    return prim, biases, dict(masks=masks, window_sizes=a.win, shifts=a.shf, gnum_heads=a.gnum_heads,
+                              scale=a.scale, hw_shape=a.hw)
+
+
+def run_train_core(fn, prim, biases, static, seed, keep, layout, cot):
+    out = fn(*prim, biases, static["masks"], seed, keep, static["window_sizes"], static["shifts"],
+             static["gnum_heads"], static["scale"], static["hw_shape"])
+    if layout == "corrected":
+        out = WT.corrected_relayout(out, static["window_sizes"], static["shifts"], static["hw_shape"])
+    return out, torch.autograd.grad(out, prim + biases, cot)
+
+
+@pytest.mark.parametrize("shift", [(0, 0, 0), (1, 2, 4)])
+@pytest.mark.parametrize("layout", ["faithful", "corrected"])
+@pytest.mark.parametrize("keep", [1.0, 0.9])
+def test_window_attention_train_kernel(dev, shift, layout, keep):
+    """K3 forward and backward against autograd through the plain version on
+    the card, dropout mask for mask; each launch counter moves by one."""
+    prim, biases, static = train_core_inputs(dev, shift)
+    cot = torch.randn(2, 1024, 96, generator=torch.Generator().manual_seed(9)).to(dev)
+    before = (WT.forward_counter.launches, WT.backward_counter.launches)
+    out, grads = run_train_core(WT.window_attention_block_core, prim, biases, static, 123, keep, layout, cot)
+    torch.cuda.synchronize()
+    assert (WT.forward_counter.launches, WT.backward_counter.launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_grads = run_train_core(WT.window_attention_block_core_plain, prim, biases, static, 123, keep,
+                                    layout, cot)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+    for g, r in zip(grads, ref_grads):
+        assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item() + 1e-5
+
+
+def test_kernels_without_backward_refuse_autograd(dev):
+    """K1 and K2 raise on the card when autograd would need their gradient,
+    and run under no_grad."""
+    blk = SwinTransformerBlock(96, (16, 64), 6, [2, 4, 8], [0, 0, 0]).to(dev)
+    x = torch.randn(2, 1024, 96, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        window_attention_block(x, x, **blk.attn.block_args(blk.ln_params()))
+    with torch.no_grad():
+        window_attention_block(x, x, **blk.attn.block_args(blk.ln_params()))
+    w = torch.randn(96, 32, device=dev, requires_grad=True)
+    b = torch.randn(96, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gru_scan(torch.randn(4, 6, 96, device=dev), w, b)
+    with torch.no_grad():
+        gru_scan(torch.randn(4, 6, 96, device=dev), w, b)

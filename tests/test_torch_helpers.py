@@ -10,6 +10,14 @@ JAX package and NCHW for the port.
 import jax
 import numpy as np
 import torch
+import torch._dynamo  # noqa: F401
+
+# torch.optim imports torch._dynamo (and with it torch.distributed) on its
+# first use, and that import inspects the source of every loaded module.
+# Tests that run the reference tree install stub modules whose module-level
+# __getattr__ answers any name, `__file__` included, which breaks that
+# inspection (tests/reference_bridge.py).  Importing it here, while the
+# port's test files are collected, puts it ahead of any stub.
 
 
 def random_variables(shape_tree, seed: int):

@@ -89,6 +89,8 @@ def test_kernel_sources_and_assets_ship():
 
     for name in kernels.SOURCES:
         assert (kernels.CSRC / f"{name}.cu").is_file()
+    assert (kernels.CSRC / "window_attention_train.cu").is_file()
+    assert (kernels.CSRC / "window_common.cuh").is_file()
     assert (PORT / "assets" / "glyph_atlas_32x128.npz").is_file()
     pyproject = (ROOT / "pyproject.toml").read_text()
-    assert "csrc/*.cu" in pyproject and "assets/*.npz" in pyproject
+    assert "csrc/*.cu" in pyproject and "csrc/*.cuh" in pyproject and "assets/*.npz" in pyproject

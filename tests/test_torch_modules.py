@@ -76,7 +76,7 @@ def test_pgrm_matches(graphic):
     jm = JPGRM(**kw)
     variables = init_variables(jm, 5, jnp.asarray(x_q), jnp.asarray(x_kv), ())
     ref = np.asarray(jm.apply(variables, jnp.asarray(x_q), jnp.asarray(x_kv), [jnp.asarray(r) for r in res]))
-    port = PGRM(**kw)
+    port = PGRM(**kw).eval()  # the eval path (K1); train mode runs K3
     module_from_jax(port, variables)
     with torch.no_grad():
         out = nhwc(port(nchw(x_q), nchw(x_kv), [nchw(r) for r in res]))

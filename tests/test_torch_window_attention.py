@@ -93,7 +93,7 @@ def test_swin_block_matches_xla(shift, faithful):
     variables = init_variables(blk, 7, jnp.asarray(xq), jnp.asarray(xkv))
     ref_q, ref_kv = blk.apply(variables, jnp.asarray(xq), jnp.asarray(xkv))
 
-    port = TP.SwinTransformerBlock(C, (H, W), 6, list(WIN), list(shift), faithful=faithful)
+    port = TP.SwinTransformerBlock(C, (H, W), 6, list(WIN), list(shift), faithful=faithful).eval()
     module_from_jax(port, variables)
     with torch.no_grad():
         out_q, out_kv = port(torch.from_numpy(xq), torch.from_numpy(xkv))
