@@ -17,21 +17,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
   5. the training window-attention kernel K3, forward and backward, against
      autograd through its plain version at B = 64 and the flagship geometry:
      both shift sets, both layouts, dropout off and at keep 0.9 from one seed;
-     times of kernel, plain version and an SDPA yardstick, and the bounds;
-  6. the train path: the flagship DPMNSystem.train_step at B = 64 (fp32,
-     dropout 0.1) — launch counts over one step, finite loss and grad_norm,
-     images/s, ms/step and peak memory; then the same weights at rates 0 on 2
-     images on the CPU against the card (loss, grad_norm, every gradient, the
-     students' ids);
-  7. one JSON line with every kernel's numbers, then the final JSON line.
+     times of kernel and plain version, and the bounds;
+  6. the train path with train_core "block" (K3): the flagship
+     DPMNSystem.train_step at B = 64 (fp32, dropout 0.1) — launch counts over
+     one step, finite loss and grad_norm, images/s, ms/step and peak memory;
+     then the same weights at rates 0 on 2 images on the CPU against the card
+     (loss, grad_norm, every gradient, the students' ids);
+  7. K4 (the attention core on projected q, k, v) as phase 5 does K3, with
+     F.scaled_dot_product_attention's forward and backward timed beside it;
+     then the train path with train_core "attention", as phase 6;
+  8. K5 (K3 with SKConv fused in, faithful layout) as phase 5 does K3; then
+     the train path with train_core "full", as phase 6;
+  9. one JSON line with every kernel's numbers, then the final JSON line.
 
 Times are CUDA-event times after warm-up, with the inputs resident in L2
 where they fit.  `ms`, `plain_ms`, `library_ms` and `bound_ms` in the kernels
 line are per call of the path that launches the kernel: K1 and K2 per
 flagship forward (the sum over their launches in one sr_forward at B = 64),
-K3 per flagship train step (12 forward and 12 backward launches).  Bounds use
-the published H100 SXM peaks: 3.35 TB/s and 67 TFLOP/s float32 on the CUDA
-cores.  It imports nothing of JAX.
+K3, K4 and K5 per flagship train step on their path (12 forward and 12
+backward launches).  Bounds use the published H100 SXM peaks: 3.35 TB/s and
+67 TFLOP/s float32 on the CUDA cores.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ K1_TOL = 1e-4  # max abs error: float32, other summation orders over <= 96-term 
 K2_TOL = 1e-5  # max abs error of a tanh-bounded state after <= 64 float32 steps
 K3_TOL = 1e-4  # forward max abs error: as K1
 K3_GRAD_RTOL, K3_GRAD_ATOL = 1e-4, 1e-5  # per gradient: max abs <= rtol * max|ref| + atol (sums over 65536 tokens)
+# K4 and K5 are held as K3: forward max abs K3_TOL, each gradient as above
 
 
 def log(msg):
@@ -198,13 +204,24 @@ def phase_gru(dev):
 
 
 def counters():
+    from dpmn_tpu_torch.ops import window_attention_core as wc
+    from dpmn_tpu_torch.ops import window_attention_full as wf
     from dpmn_tpu_torch.ops import window_attention_train as wt
     from dpmn_tpu_torch.ops.gru import gru_scan_counter
     from dpmn_tpu_torch.ops.window_attention import window_attention_counter
 
     return {"window_attention_block": window_attention_counter, "gru_scan": gru_scan_counter,
             "window_attention_train_forward": wt.forward_counter,
-            "window_attention_train_backward": wt.backward_counter}
+            "window_attention_train_backward": wt.backward_counter,
+            "window_attention_core_forward": wc.forward_counter,
+            "window_attention_core_backward": wc.backward_counter,
+            "window_attention_full_forward": wf.forward_counter,
+            "window_attention_full_backward": wf.backward_counter}
+
+
+def expected_counts(**launches):
+    """Every counter at 0 but those given."""
+    return {name: launches.get(name, 0) for name in counters()}
 
 
 def reset_counts():
@@ -236,8 +253,7 @@ def phase_path(dev, card):
     launches = read_counts()
     log(f"path: launches in one forward {launches} (expected 12 window-attention blocks, "
         f"22 GRU scans: 5 SRBs x 2 sweeps x 2 directions + gru_encoding x 2; no training kernel)")
-    if launches != {"window_attention_block": 12, "gru_scan": 22, "window_attention_train_forward": 0,
-                    "window_attention_train_backward": 0}:
+    if launches != expected_counts(window_attention_block=12, gru_scan=22):
         raise AssertionError(f"main path launch counts {launches}")
     if tuple(out.shape) != (B, 32, 128, 3) or not torch.isfinite(out).all():
         raise AssertionError(f"bad output: shape {tuple(out.shape)}, finite {torch.isfinite(out).all().item()}")
@@ -295,12 +311,69 @@ def k3_cost(batch, hw_shape, dim, window_sizes):
             "bwd_bytes": 5 * io, "bwd_flops": 3 * proj + 5 * attn_pass}
 
 
+def k4_cost(batch, hw_shape, dim, window_sizes):
+    """Bytes and float32 operations of one K4 forward and one backward call:
+    the attention passes of k3_cost without LN or projections; q, k, v and
+    out move in the forward, q, k, v, dout, dq, dk and dv in the backward."""
+    t = batch * hw_shape[0] * hw_shape[1]
+    attn_pass = 2 * t * (dim // len(window_sizes)) * sum(ws * ws for ws in window_sizes)
+    io = 4 * t * dim
+    return {"fwd_bytes": 4 * io, "fwd_flops": 2 * attn_pass, "bwd_bytes": 7 * io, "bwd_flops": 5 * attn_pass}
+
+
+def k5_cost(batch, hw_shape, dim, window_sizes):
+    """Bytes and float32 operations of one K5 forward and one backward call:
+    K3's, plus SKConv's products (proj 2 t c c, proj_head 2 t ch c; the
+    per-image fc layers are negligible) once in the forward; in the backward
+    the tokens' P v pass, SKConv's forward again and its backward (twice its
+    forward's products)."""
+    cost = k3_cost(batch, hw_shape, dim, window_sizes)
+    t = batch * hw_shape[0] * hw_shape[1]
+    channel = dim // len(window_sizes)
+    skconv = 2 * t * dim * dim + 2 * t * channel * dim
+    attn_pass = 2 * t * channel * sum(ws * ws for ws in window_sizes)
+    return dict(cost, fwd_flops=cost["fwd_flops"] + skconv, bwd_flops=cost["bwd_flops"] + attn_pass + 3 * skconv)
+
+
+def hold_against_plain(tag, out, ref, grads, ref_grads):
+    """Forward max abs within K3_TOL and each gradient within K3_GRAD_RTOL of
+    its largest value + K3_GRAD_ATOL; returns (forward max abs, worst
+    gradient max abs)."""
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    gerr = max(((g - r).abs().max() / (K3_GRAD_RTOL * r.abs().max() + K3_GRAD_ATOL)).item()
+               for g, r in zip(grads, ref_grads))
+    ok = bool(torch.isfinite(out).all()) and err <= K3_TOL and gerr <= 1.0
+    log(f"{tag}: forward max_abs_err {err:.3e} (tol {K3_TOL:g}); worst gradient at {gerr:.3f} of its tolerance "
+        f"(max abs <= {K3_GRAD_RTOL:g} * max|ref| + {K3_GRAD_ATOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: kernel disagrees with its plain version: {err}, {gerr}")
+    return err, max((g - r).abs().max().item() for g, r in zip(grads, ref_grads))
+
+
+def sdpa_groups(a, b_det, masks, h, w, gen, dev):
+    """The attention core of one call as F.scaled_dot_product_attention takes
+    it: per group the window-partitioned q, k, v (B*nW, heads, N, 16) with
+    bias + shift mask as attn_mask, and a cotangent."""
+    args = []
+    for g, (ws, sh) in enumerate(zip(a.win, a.shf)):
+        n, nw = ws * ws, (h // ws) * (w // ws)
+        qkv = [torch.randn(B * nw, a.gnum_heads, n, 16, generator=gen).to(dev).requires_grad_() for _ in range(3)]
+        mask = b_det[g][None].expand(B * nw, -1, -1, -1)
+        if sh > 0:
+            mask = (b_det[g][None, None] + masks[g][None, :, None]).expand(B, -1, -1, -1, -1).reshape(
+                B * nw, a.gnum_heads, n, n)
+        args.append((qkv, mask.contiguous(), torch.randn(B * nw, a.gnum_heads, n, 16, generator=gen).to(dev)))
+    return args
+
+
 def phase_k3(dev):
     """K3 forward and backward against autograd through the plain version at
     B = 64; returns the kernels-line entries of its two entry points (timing
-    fields per train step: 6 unshifted + 6 shifted calls, keep 0.9)."""
-    import torch.nn.functional as F
-
+    fields per train step: 6 unshifted + 6 shifted calls, keep 0.9).  No
+    PyTorch call computes LN + projections + grouped window attention with
+    dropout; phase 7 times SDPA on the attention core alone as K4's library
+    call."""
     from dpmn_tpu_torch.models.pgrm import SwinTransformerBlock
     from dpmn_tpu_torch.ops import window_attention_train as wt
     from dpmn_tpu_torch.system import init_weights
@@ -321,7 +394,7 @@ def phase_k3(dev):
                 leaf(1 + 0.1 * torch.randn(dim, generator=gen)), rnd(dim), leaf(a.q.weight), rnd(dim),
                 leaf(a.kv.weight), rnd(2 * dim)]
         biases = [rnd(*b.shape) for b in a.biases()]
-        masks = [getattr(a, f"shift_mask_{i}").to(dev) if sh > 0 else None for i, sh in enumerate(a.shf)]
+        masks = [m.to(dev) if m is not None else None for m in a.masks()]
         static = (a.win, a.shf, a.gnum_heads, a.scale, a.hw)
         for layout in ("faithful", "corrected"):
             for keep in (1.0, 0.9):
@@ -333,21 +406,12 @@ def phase_k3(dev):
 
                 out, grads = run(wt.window_attention_block_core)
                 ref, ref_grads = run(wt.window_attention_block_core_plain)
-                torch.cuda.synchronize()
-                err = (out - ref).abs().max().item()
-                gerr = max(((g - r).abs().max() / (K3_GRAD_RTOL * r.abs().max() + K3_GRAD_ATOL)).item()
-                           for g, r in zip(grads, ref_grads))
-                ok = bool(torch.isfinite(out).all()) and err <= K3_TOL and gerr <= 1.0
-                log(f"K3 shift={shift} layout={layout} keep={keep}: forward max_abs_err {err:.3e} (tol {K3_TOL:g}); "
-                    f"worst gradient at {gerr:.3f} of its tolerance (max abs <= {K3_GRAD_RTOL:g} * max|ref| + "
-                    f"{K3_GRAD_ATOL:g}) {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"window_attention_train kernels disagree with the plain version: {err}, {gerr}")
-                worst_fwd = max(worst_fwd, err)
-                worst_grad = max(worst_grad, max((g - r).abs().max().item() for g, r in zip(grads, ref_grads)))
+                err, gerr = hold_against_plain(f"K3 shift={shift} layout={layout} keep={keep}", out, ref, grads,
+                                               ref_grads)
+                worst_fwd, worst_grad = max(worst_fwd, err), max(worst_grad, gerr)
         # times at the main path's call: faithful layout, keep 0.9
         keep = 0.9
-        st = wt._Static(tuple(masks), tuple(a.win), tuple(a.shf), a.gnum_heads, float(a.scale), a.hw, seed, keep)
+        st = wt.make_static(masks, seed, keep, *static)
         p_det = [t.detach() for t in prim]
         b_det = [t.detach() for t in biases]
         k_fwd = cuda_ms(lambda: wt._forward_cuda(st, p_det, b_det))
@@ -357,78 +421,54 @@ def phase_k3(dev):
         out = wt.window_attention_block_core_plain(*prim, biases, masks, seed, keep, *static)
         p_bwd = cuda_ms(lambda: torch.autograd.grad(out, prim + biases, cot, retain_graph=True), iters=5)
         del out
-        # the attention core alone through SDPA, forward + backward, on the
-        # window-partitioned q/k/v of each group with bias + shift mask as
-        # attn_mask (no LN, projections or dropout)
-        sdpa_args = []
-        for g, (ws, sh) in enumerate(zip(a.win, a.shf)):
-            n, nw = ws * ws, (h // ws) * (w // ws)
-            qkv = [torch.randn(B * nw, a.gnum_heads, n, 16, generator=gen).to(dev).requires_grad_() for _ in range(3)]
-            mask = b_det[g][None].expand(B * nw, -1, -1, -1)
-            if sh > 0:
-                mask = (b_det[g][None, None] + masks[g][None, :, None]).expand(B, -1, -1, -1, -1).reshape(
-                    B * nw, a.gnum_heads, n, n)
-            sdpa_args.append((qkv, mask.contiguous(), torch.randn(B * nw, a.gnum_heads, n, 16, generator=gen).to(dev)))
-
-        def sdpa():
-            for qkv, mask, do in sdpa_args:
-                o = F.scaled_dot_product_attention(*qkv, attn_mask=mask, scale=a.scale)
-                torch.autograd.grad(o, qkv, do)
-
-        times[shift] = (k_fwd, k_bwd, p_fwd, p_bwd, cuda_ms(sdpa))
-    cost = k3_cost(B, (h, w), dim, (2, 4, 8))
-    fb_ms, fb_by = bound_ms(cost["fwd_bytes"], cost["fwd_flops"])
-    bb_ms, bb_by = bound_ms(cost["bwd_bytes"], cost["bwd_flops"])
-    for shift, (kf, kb, pf, pb, sd) in times.items():
-        log(f"K3 B={B} shift={shift} keep=0.9: forward kernel_ms {kf:.4f} plain_ms {pf:.4f} bound_ms {fb_ms:.4f} "
-            f"({fb_by}; {cost['fwd_bytes'] / 1e6:.1f} MB, {cost['fwd_flops'] / 1e9:.2f} GFLOP); backward kernel_ms "
-            f"{kb:.4f} plain_ms {pb:.4f} bound_ms {bb_ms:.4f} ({bb_by}; {cost['bwd_bytes'] / 1e6:.1f} MB, "
-            f"{cost['bwd_flops'] / 1e9:.2f} GFLOP); SDPA attention core fwd+bwd {sd:.4f} ms")
-    per_step = lambda i: 6 * (times[(0, 0, 0)][i] + times[(1, 2, 4)][i])
-    common = {"route": "cuda", "source": "dpmn_tpu_torch/csrc/window_attention_train.cu", "library_ms": None,
-              "sdpa_attention_core_fwd_bwd_ms": per_step(4)}
-    fwd = {"name": "window_attention_train_forward", **common, "replaces": "dpmn_tpu/ops/pallas_window_train.py:399",
-           "max_abs_err": worst_fwd, "ms": per_step(0), "plain_ms": per_step(2), "bound_ms": 12 * fb_ms,
-           "bound_by": fb_by}
-    bwd = {"name": "window_attention_train_backward", **common, "replaces": "dpmn_tpu/ops/pallas_window_train.py:525",
-           "max_abs_err": worst_grad, "ms": per_step(1), "plain_ms": per_step(3), "bound_ms": 12 * bb_ms,
-           "bound_by": bb_by}
-    return fwd, bwd
+        times[shift] = (k_fwd, k_bwd, p_fwd, p_bwd)
+    return kernel_entries("K3", "window_attention_train", times, k3_cost(B, (h, w), dim, (2, 4, 8)),
+                          worst_fwd, worst_grad, library=False)
 
 
-def phase_train(dev, card):
-    """The flagship train_step at B = 64; returns the launch counts of one step."""
+# launches of one flagship train step under each core: 12 blocks (6 PGRMs x 2)
+# forward and backward, 22 GRU scans in the frozen PSN, no eval block
+TRAIN_LAUNCHES = {
+    "block": expected_counts(gru_scan=22, window_attention_train_forward=12, window_attention_train_backward=12),
+    "attention": expected_counts(gru_scan=22, window_attention_core_forward=12, window_attention_core_backward=12),
+    "full": expected_counts(gru_scan=22, window_attention_full_forward=12, window_attention_full_backward=12),
+}
+
+
+def phase_train(dev, card, train_core, timed):
+    """The flagship train_step at B = 64 with `train_core`: a warm-up step,
+    one step whose launches are counted, `timed` timed steps; then card
+    against CPU on 2 images.  Returns the launch counts of one step."""
     from dpmn_tpu_torch.config import TrainCfg, flagship_args
     from dpmn_tpu_torch.system import DPMNSystem
 
+    tag = f"train[{train_core}]"
     t0 = time.perf_counter()
-    system = DPMNSystem(TrainCfg(batch_size=B), flagship_args(), device=dev, seed=0)
-    log(f"train: flagship system built in {time.perf_counter() - t0:.1f} s "
+    system = DPMNSystem(TrainCfg(batch_size=B), flagship_args(), device=dev, seed=0, train_core=train_core)
+    log(f"{tag}: flagship system built in {time.perf_counter() - t0:.1f} s "
         f"({sum(p.numel() for p in system.trainable_parameters()) / 1e6:.1f} M trainable parameters)")
     rng = np.random.RandomState(1)
     batches = [(rng.rand(B, 32, 128, 4).astype(np.float32), rng.rand(B, 16, 64, 4).astype(np.float32))
-               for _ in range(6)]
+               for _ in range(2 + timed)]
     m = system.train_step(*batches[0], seed=0)  # warm-up
     torch.cuda.synchronize()
     reset_counts()
     m = system.train_step(*batches[1], seed=1)
     torch.cuda.synchronize()
     launches = read_counts()
-    log(f"train: launches in one step {launches} (expected 12 K3 forward and 12 backward, 22 GRU scans in the "
-        f"frozen PSN, no eval block)")
-    if launches != {"window_attention_block": 0, "gru_scan": 22, "window_attention_train_forward": 12,
-                    "window_attention_train_backward": 12}:
-        raise AssertionError(f"train path launch counts {launches}")
+    log(f"{tag}: launches in one step {launches} (expected {TRAIN_LAUNCHES[train_core]})")
+    if launches != TRAIN_LAUNCHES[train_core]:
+        raise AssertionError(f"{tag}: launch counts {launches}")
     loss, gnorm = m["loss"].item(), m["grad_norm"].item()
     if not (np.isfinite(loss) and np.isfinite(gnorm)):
-        raise AssertionError(f"train step: loss {loss}, grad_norm {gnorm}")
+        raise AssertionError(f"{tag}: loss {loss}, grad_norm {gnorm}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for i, (hr, lr) in enumerate(batches[2:]):
         m = system.train_step(hr, lr, seed=2 + i)
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / len(batches[2:])
-    log(f"train: flagship train_step B={B} fp32 dropout 0.1: {dt * 1e3:.2f} ms/step, {B / dt:.1f} images/s on {card}; "
+    dt = (time.perf_counter() - t0) / timed
+    log(f"{tag}: flagship train_step B={B} fp32 dropout 0.1: {dt * 1e3:.2f} ms/step, {B / dt:.1f} images/s on {card}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last loss {m['loss'].item():.4f} "
         f"grad_norm {m['grad_norm'].item():.4f}")
     del system
@@ -442,7 +482,8 @@ def phase_train(dev, card):
     # of its own norm plus 1e-4 of the whole gradient's, all of them together
     # within 1e-3, and loss and grad_norm tightly.
     zero = dict(drop_rate="0,", attn_drop_rate="0,", drop_path_rate="0,")
-    systems = {d: DPMNSystem(TrainCfg(batch_size=2), flagship_args(**zero), device=d, seed=0) for d in (dev, "cpu")}
+    systems = {d: DPMNSystem(TrainCfg(batch_size=2), flagship_args(**zero), device=d, seed=0, train_core=train_core)
+               for d in (dev, "cpu")}
     hr, lr = batches[1][0][:2], batches[1][1][:2]
     res = {}
     for d, s in systems.items():
@@ -460,13 +501,161 @@ def phase_train(dev, card):
                             for n, a, b in zip(names, gg, gc))
     total = (torch.sqrt(sum(((a - b).double() ** 2).sum() for a, b in zip(gg, gc))) / nc).item()
     l_rel, n_rel = abs(lg - lc) / abs(lc), abs(ng - nc) / nc
-    log(f"train: card vs CPU on 2 images at rates 0: loss {lg:.6f} vs {lc:.6f} (rel {l_rel:.2e}, tol 1e-5); grad_norm "
+    log(f"{tag}: card vs CPU on 2 images at rates 0: loss {lg:.6f} vs {lc:.6f} (rel {l_rel:.2e}, tol 1e-5); grad_norm "
         f"{ng:.4f} vs {nc:.4f} (rel {n_rel:.2e}, tol 1e-4); gradients: worst leaf {worst_name} at {worst:.3f} of its "
         f"tolerance (|diff| <= 5e-2 |ref| + 1e-4 grad_norm, in norm), all together {total:.2e} of their norm (tol "
         f"1e-3); students' ids equal {ids_ok}")
     if not (l_rel <= 1e-5 and n_rel <= 1e-4 and worst <= 1.0 and total <= 1e-3 and ids_ok):
-        raise AssertionError("card and CPU disagree on the train path")
+        raise AssertionError(f"{tag}: card and CPU disagree on the train path")
     return launches
+
+
+def phase_k4(dev):
+    """K4 forward and backward against autograd through its plain version at
+    B = 64 on q, k, v drawn at random: both shift sets, both layouts (the
+    relayout runs after the core), keep 1 and 0.9; returns the kernels-line
+    entries of its two entry points (timing fields per train step: 6
+    unshifted + 6 shifted calls, faithful, keep 0.9)."""
+    import torch.nn.functional as F
+
+    from dpmn_tpu_torch.models.pgrm import SwinTransformerBlock
+    from dpmn_tpu_torch.ops import window_attention_core as wc
+    from dpmn_tpu_torch.ops import window_attention_train as wt
+
+    h, w, dim, seed = 16, 64, 96, 4321
+    gen = torch.Generator().manual_seed(6)
+    leaf = lambda t: t.detach().clone().to(dev).requires_grad_()
+    qkv = [leaf(torch.randn(B, h * w, dim, generator=gen)) for _ in range(3)]
+    cot = torch.randn(B, h * w, dim, generator=gen).to(dev)
+    worst_fwd, worst_grad, times = 0.0, 0.0, {}
+    for shift in ((0, 0, 0), (1, 2, 4)):
+        a = SwinTransformerBlock(dim, (h, w), 6, [2, 4, 8], list(shift)).attn
+        biases = [leaf(0.1 * torch.randn(*b.shape, generator=gen)) for b in a.biases()]
+        masks = [m.to(dev) if m is not None else None for m in a.masks()]
+        static = (a.win, a.shf, a.gnum_heads, a.scale, a.hw)
+        for layout in ("faithful", "corrected"):
+            for keep in (1.0, 0.9):
+                def run(fn):
+                    out = fn(*qkv, biases, masks, seed, keep, *static)
+                    if layout == "corrected":
+                        out = wt.corrected_relayout(out, a.win, a.shf, a.hw)
+                    return out, torch.autograd.grad(out, qkv + biases, cot)
+
+                out, grads = run(wc.window_attention_core)
+                ref, ref_grads = run(wc.window_attention_core_plain)
+                err, gerr = hold_against_plain(f"K4 shift={shift} layout={layout} keep={keep}", out, ref, grads,
+                                               ref_grads)
+                worst_fwd, worst_grad = max(worst_fwd, err), max(worst_grad, gerr)
+        keep = 0.9
+        st = wt.make_static(masks, seed, keep, *static)
+        q_det = [t.detach() for t in qkv]
+        b_det = [t.detach() for t in biases]
+        k_fwd = cuda_ms(lambda: wc._forward_cuda(st, q_det, b_det))
+        k_bwd = cuda_ms(lambda: wc._backward_cuda(st, q_det, b_det, cot))
+        p_fwd = cuda_ms(lambda: wc.window_attention_core_plain(*q_det, b_det, masks, seed, keep, *static), iters=5)
+        out = wc.window_attention_core_plain(*qkv, biases, masks, seed, keep, *static)
+        p_bwd = cuda_ms(lambda: torch.autograd.grad(out, qkv + biases, cot, retain_graph=True), iters=5)
+        del out
+        # the library call: F.scaled_dot_product_attention on the
+        # window-partitioned q, k, v of the call's three groups, bias + shift
+        # mask as attn_mask (no dropout), forward and backward timed apart
+        sdpa_args = sdpa_groups(a, b_det, masks, h, w, gen, dev)
+        l_fwd = cuda_ms(lambda: [F.scaled_dot_product_attention(*qkv_g, attn_mask=m, scale=a.scale)
+                                 for qkv_g, m, _ in sdpa_args])
+        outs = [F.scaled_dot_product_attention(*qkv_g, attn_mask=m, scale=a.scale) for qkv_g, m, _ in sdpa_args]
+        l_bwd = cuda_ms(lambda: [torch.autograd.grad(o, qkv_g, do, retain_graph=True)
+                                 for o, (qkv_g, _, do) in zip(outs, sdpa_args)])
+        del outs
+        times[shift] = (k_fwd, k_bwd, p_fwd, p_bwd, l_fwd, l_bwd)
+    return kernel_entries("K4", "window_attention_core", times, k4_cost(B, (h, w), dim, (2, 4, 8)),
+                          worst_fwd, worst_grad, library=True)
+
+
+def phase_k5(dev):
+    """K5 forward and backward against autograd through its plain version at
+    B = 64: faithful layout (the only one it takes), both shift sets, keep 1
+    and 0.9; returns the kernels-line entries of its two entry points (timing
+    fields per train step, keep 0.9)."""
+    from dpmn_tpu_torch.models.pgrm import SwinTransformerBlock
+    from dpmn_tpu_torch.ops import window_attention_full as wf
+    from dpmn_tpu_torch.ops import window_attention_train as wt
+    from dpmn_tpu_torch.system import init_weights
+
+    h, w, dim, seed = 16, 64, 96, 2468
+    gen = torch.Generator().manual_seed(8)
+    leaf = lambda t: t.detach().clone().to(dev).requires_grad_()
+    xq = leaf(torch.randn(B, h * w, dim, generator=gen))
+    xkv = leaf(torch.randn(B, h * w, dim, generator=gen))
+    cot = torch.randn(B, h * w, dim, generator=gen).to(dev)
+    worst_fwd, worst_grad, times = 0.0, 0.0, {}
+    for shift in ((0, 0, 0), (1, 2, 4)):
+        blk = SwinTransformerBlock(dim, (h, w), 6, [2, 4, 8], list(shift))
+        init_weights(blk, seed=9)
+        a = blk.attn
+        rnd = lambda *shape: leaf(0.1 * torch.randn(*shape, generator=gen))
+        prim = [xq, xkv, leaf(1 + 0.1 * torch.randn(dim, generator=gen)), rnd(dim),
+                leaf(1 + 0.1 * torch.randn(dim, generator=gen)), rnd(dim), leaf(a.q.weight), rnd(dim),
+                leaf(a.kv.weight), rnd(2 * dim)] + [leaf(t) if t.dim() == 2 else rnd(*t.shape)
+                                                    for t in a.SKConv.weights()]
+        biases = [rnd(*b.shape) for b in a.biases()]
+        masks = [m.to(dev) if m is not None else None for m in a.masks()]
+        static = (a.win, a.shf, a.gnum_heads, a.scale, a.hw)
+        for keep in (1.0, 0.9):
+            def run(fn):
+                out = fn(*prim, biases, masks, seed, keep, *static)
+                return out, torch.autograd.grad(out, prim + biases, cot)
+
+            out, grads = run(wf.window_attention_full_core)
+            ref, ref_grads = run(wf.window_attention_full_core_plain)
+            err, gerr = hold_against_plain(f"K5 shift={shift} keep={keep}", out, ref, grads, ref_grads)
+            worst_fwd, worst_grad = max(worst_fwd, err), max(worst_grad, gerr)
+        keep = 0.9
+        st = wt.make_static(masks, seed, keep, *static)
+        p_det = [t.detach() for t in prim]
+        b_det = [t.detach() for t in biases]
+        k_fwd = cuda_ms(lambda: wf._forward_cuda(st, p_det, b_det))
+        k_bwd = cuda_ms(lambda: wf._backward_cuda(st, p_det, b_det, cot))
+        p_fwd = cuda_ms(lambda: wf.window_attention_full_core_plain(*p_det, b_det, masks, seed, keep, *static),
+                        iters=5)
+        out = wf.window_attention_full_core_plain(*prim, biases, masks, seed, keep, *static)
+        p_bwd = cuda_ms(lambda: torch.autograd.grad(out, prim + biases, cot, retain_graph=True), iters=5)
+        del out
+        times[shift] = (k_fwd, k_bwd, p_fwd, p_bwd)
+    return kernel_entries("K5", "window_attention_full", times, k5_cost(B, (h, w), dim, (2, 4, 8)),
+                          worst_fwd, worst_grad, library=False)
+
+
+# the pallas_call lines of the TPU kernels K3, K4 and K5 replace
+REPLACES = {"window_attention_train": ("dpmn_tpu/ops/pallas_window_train.py:399",
+                                       "dpmn_tpu/ops/pallas_window_train.py:525"),
+            "window_attention_core": ("dpmn_tpu/ops/pallas_window_train.py:147",
+                                      "dpmn_tpu/ops/pallas_window_train.py:229"),
+            "window_attention_full": ("dpmn_tpu/ops/pallas_window_train.py:766",
+                                      "dpmn_tpu/ops/pallas_window_train.py:952")}
+
+
+def kernel_entries(tag, name, times, cost, worst_fwd, worst_grad, library):
+    """Log the per-call times against the bounds; return the kernels-line
+    entries of a training core's forward and backward, per train step (6
+    unshifted + 6 shifted calls).  times[shift] = (kernel fwd, kernel bwd,
+    plain fwd, plain bwd[, library fwd, library bwd]) in ms per call."""
+    fb_ms, fb_by = bound_ms(cost["fwd_bytes"], cost["fwd_flops"])
+    bb_ms, bb_by = bound_ms(cost["bwd_bytes"], cost["bwd_flops"])
+    for shift, t in times.items():
+        lib = f"; library (SDPA) fwd {t[4]:.4f} bwd {t[5]:.4f}" if library else ""
+        log(f"{tag} B={B} shift={shift} keep=0.9: forward kernel_ms {t[0]:.4f} plain_ms {t[2]:.4f} bound_ms "
+            f"{fb_ms:.4f} ({fb_by}; {cost['fwd_bytes'] / 1e6:.1f} MB, {cost['fwd_flops'] / 1e9:.2f} GFLOP); backward "
+            f"kernel_ms {t[1]:.4f} plain_ms {t[3]:.4f} bound_ms {bb_ms:.4f} ({bb_by}; {cost['bwd_bytes'] / 1e6:.1f} MB, "
+            f"{cost['bwd_flops'] / 1e9:.2f} GFLOP){lib}")
+    per_step = lambda i: 6 * (times[(0, 0, 0)][i] + times[(1, 2, 4)][i])
+    common = {"route": "cuda", "source": f"dpmn_tpu_torch/csrc/{name}.cu"}
+    fwd = {"name": f"{name}_forward", **common, "replaces": REPLACES[name][0], "max_abs_err": worst_fwd,
+           "ms": per_step(0), "plain_ms": per_step(2), "bound_ms": 12 * fb_ms, "bound_by": fb_by,
+           "library_ms": per_step(4) if library else None}
+    bwd = {"name": f"{name}_backward", **common, "replaces": REPLACES[name][1], "max_abs_err": worst_grad,
+           "ms": per_step(1), "plain_ms": per_step(3), "bound_ms": 12 * bb_ms, "bound_by": bb_by,
+           "library_ms": per_step(5) if library else None}
+    return fwd, bwd
 
 
 def main():
@@ -479,12 +668,16 @@ def main():
     k2 = phase_gru(dev)
     launches = phase_path(dev, card)
     k1["launches"], k2["launches"] = launches["window_attention_block"], launches["gru_scan"]
-    k3f, k3b = phase_k3(dev)
-    launches = phase_train(dev, card)
-    k3f["launches"] = launches["window_attention_train_forward"]
-    k3b["launches"] = launches["window_attention_train_backward"]
+    entries = [k1, k2]
+    for phase_kernel, core, name, timed in ((phase_k3, "block", "window_attention_train", 4),
+                                            (phase_k4, "attention", "window_attention_core", 3),
+                                            (phase_k5, "full", "window_attention_full", 3)):
+        fwd, bwd = phase_kernel(dev)
+        launches = phase_train(dev, card, core, timed)
+        fwd["launches"], bwd["launches"] = launches[f"{name}_forward"], launches[f"{name}_backward"]
+        entries += [fwd, bwd]
     log(card)
-    print(json.dumps({"kernels": [k1, k2, k3f, k3b]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

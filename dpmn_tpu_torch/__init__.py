@@ -2,9 +2,12 @@
 
 The JAX package `dpmn_tpu` is the reference this package is held against; the
 port imports nothing of it (and nothing of JAX).  Plain tensor code is
-PyTorch in NCHW; the two TPU kernels on the eval path are CUDA C++ kernels
-for sm_90a under `csrc/`, built with nvcc at first use and bound with ctypes
-(see `ops/kernels.py`).  Each kernel has a plain PyTorch version of the same
+PyTorch in NCHW; the TPU kernels of the eval forward and the train step are
+CUDA C++ kernels for sm_90a under `csrc/`, built with nvcc at first use and
+bound with ctypes (see `ops/kernels.py`): the eval window-attention block
+(K1), the GRU scan (K2), and the three training window-attention cores with
+their backward — LN + projections + attention (K3), attention on projected
+q, k, v (K4), K3 with SKConv inside (K5).  Each kernel has a plain PyTorch version of the same
 function beside it, which the CPU tests use and which runs for CPU tensors
 only: a CUDA tensor launches the kernel or raises.
 

@@ -21,8 +21,8 @@
 // Five kernels behind one entry point: (a) ln_proj, (b) one window-attention
 // launch per group, (c) skconv_proj (feats and per-tile partial sums of the
 // GAP), skconv_gate (the fixed-order sum of the partials: no float atomics,
-// so reruns agree bit for bit) and skconv_out.  (a) and (b) live in
-// window_common.cuh, which the training kernel shares.
+// so reruns agree bit for bit) and skconv_out.  All of them live in
+// window_common.cuh, which the training kernels share.
 //
 // What bounds it on an H100, at B = 64 and the flagship geometry (L = 1024,
 // D = 96, windows 2/4/8, 2 heads of 16 channels per group), counting each
@@ -40,168 +40,6 @@
 // later work.
 
 #include "window_common.cuh"
-
-namespace {
-
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));
-}
-
-// (c1) feats = attn Wp^T + bp, and per-tile sums of gelu(feats).  Shared:
-// wt [D][D + 1], x [TOK][D], red [8][D].
-__global__ void skconv_proj_kernel(const float* __restrict__ attn, const float* __restrict__ pw,
-                                   const float* __restrict__ pb, float* __restrict__ feats,
-                                   float* __restrict__ partial, int D) {
-  extern __shared__ float sm[];
-  float* wt = sm;  // [D][D + 1]
-  float* x = wt + D * (D + 1);
-  float* red = x + TOK * D;
-  for (int idx = threadIdx.x; idx < D * D; idx += blockDim.x) {
-    const int o = idx / D, i = idx % D;
-    wt[i * (D + 1) + o] = pw[idx];
-  }
-  const int64_t t0 = (int64_t)blockIdx.x * TOK;
-  for (int idx = threadIdx.x; idx < TOK * D; idx += blockDim.x) x[idx] = attn[t0 * D + idx];
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nj = (D + 31) / 32;
-  float acc[8][4];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[a][j] = 0.f;
-  for (int i = 0; i < D; ++i) {
-    float w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = lane + 32 * j;
-      w[j] = (j < nj && o < D) ? wt[i * (D + 1) + o] : 0.f;
-    }
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const float v = x[(warp * 8 + a) * D + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[a][j] = fmaf(v, w[j], acc[a][j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int o = lane + 32 * j;
-    if (j >= nj || o >= D) continue;
-    float gs = 0.f;
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const float f = acc[a][j] + pb[o];
-      feats[(t0 + warp * 8 + a) * D + o] = f;
-      gs += gelu_erf(f);
-    }
-    red[warp * D + o] = gs;
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < D; o += blockDim.x) {
-    float s = 0.f;
-    for (int w8 = 0; w8 < 8; ++w8) s += red[w8 * D + o];
-    partial[(int64_t)blockIdx.x * D + o] = s;
-  }
-}
-
-// (c2) one block per image: GAP from the partial sums, fc1 -> GELU -> fc2,
-// softmax over the groups.  gate: (B, n_group, ch).
-__global__ void skconv_gate_kernel(const float* __restrict__ partial, const float* __restrict__ f1w,
-                                   const float* __restrict__ f1b, const float* __restrict__ f2w,
-                                   const float* __restrict__ f2b, float* __restrict__ gate,
-                                   int L, int D, int dz, int n_group, int ch) {
-  extern __shared__ float sm[];
-  float* s = sm;
-  float* z = s + D;
-  float* a = z + dz;
-  const int b = blockIdx.x, ntile = L / TOK;
-  for (int o = threadIdx.x; o < D; o += blockDim.x) {
-    float acc = 0.f;
-    for (int tl = 0; tl < ntile; ++tl) acc += partial[((int64_t)b * ntile + tl) * D + o];
-    s[o] = acc / L;
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < dz; k += blockDim.x) {
-    float acc = f1b[k];
-    for (int o = 0; o < D; ++o) acc = fmaf(s[o], f1w[k * D + o], acc);
-    z[k] = gelu_erf(acc);
-  }
-  __syncthreads();
-  for (int m = threadIdx.x; m < n_group * ch; m += blockDim.x) {
-    float acc = f2b[m];
-    for (int k = 0; k < dz; ++k) acc = fmaf(z[k], f2w[m * dz + k], acc);
-    a[m] = acc;
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < ch; c += blockDim.x) {
-    float mx = -INFINITY;
-    for (int g = 0; g < n_group; ++g) mx = fmaxf(mx, a[g * ch + c]);
-    float den = 0.f;
-    for (int g = 0; g < n_group; ++g) den += expf(a[g * ch + c] - mx);
-    for (int g = 0; g < n_group; ++g) gate[((int64_t)b * n_group + g) * ch + c] = expf(a[g * ch + c] - mx) / den;
-  }
-}
-
-// (c3) out = [xkv +] feats + (sum_g gate_g * attn_g) Wph^T + bph.  Shared:
-// wt [ch][D + 1], fv [TOK][ch].
-__global__ void skconv_out_kernel(const float* __restrict__ attn, const float* __restrict__ feats,
-                                  const float* __restrict__ gate, const float* __restrict__ phw,
-                                  const float* __restrict__ phb, const float* __restrict__ xkv,
-                                  float* __restrict__ out, int L, int D, int n_group, int ch,
-                                  int residual) {
-  extern __shared__ float sm[];
-  float* wt = sm;  // [ch][D + 1]
-  float* fv = wt + ch * (D + 1);
-  for (int idx = threadIdx.x; idx < D * ch; idx += blockDim.x) {
-    const int o = idx / ch, c = idx % ch;
-    wt[c * (D + 1) + o] = phw[idx];
-  }
-  const int64_t t0 = (int64_t)blockIdx.x * TOK;
-  const int b = (int)(t0 / L);
-  for (int idx = threadIdx.x; idx < TOK * ch; idx += blockDim.x) {
-    const int lt = idx / ch, c = idx % ch;
-    float acc = 0.f;
-    for (int g = 0; g < n_group; ++g)
-      acc = fmaf(attn[(t0 + lt) * D + g * ch + c], gate[((int64_t)b * n_group + g) * ch + c], acc);
-    fv[idx] = acc;
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nj = (D + 31) / 32;
-  float acc[8][4];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[a][j] = 0.f;
-  for (int c = 0; c < ch; ++c) {
-    float w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = lane + 32 * j;
-      w[j] = (j < nj && o < D) ? wt[c * (D + 1) + o] : 0.f;
-    }
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const float v = fv[(warp * 8 + a) * ch + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[a][j] = fmaf(v, w[j], acc[a][j]);
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int64_t t = t0 + warp * 8 + a;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = lane + 32 * j;
-      if (j >= nj || o >= D) continue;
-      const float sk = feats[t * D + o] + (acc[a][j] + phb[o]);
-      out[t * D + o] = residual ? xkv[t * D + o] + sk : sk;
-    }
-  }
-}
-
-}  // namespace
 
 // Shapes: xq, xkv, out (B, L, D) with L = H*W; q_w (D, D); kv_w (2D, D);
 // proj_w (D, D); fc1_w (dz, D); fc2_w (n_group*ch, dz); ph_w (D, ch) — torch
@@ -229,22 +67,10 @@ extern "C" int window_attention_block_forward(
 
   err = launch_ln_proj(xq, xkv, ln_qs, ln_qb, ln_ks, ln_kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, D, do_ln, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_attn_groups<false>(qbuf, kvbuf, bias, mask, attn, B, H, W, D, n_group, ws, shifts, gh, scale,
-                                  corrected, 0u, 0u, 1.f, st);
+  err = launch_attn_groups<false>(qbuf, kvbuf, kvbuf + D, 2 * D, bias, mask, attn, B, H, W, D, n_group, ws, shifts,
+                                  gh, scale, corrected, 0u, 0u, 1.f, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t smem_c1 = (size_t)(D * (D + 1) + TOK * D + 8 * D) * sizeof(float);
-  cudaFuncSetAttribute(skconv_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c1);
-  skconv_proj_kernel<<<ntok / TOK, THREADS, smem_c1, st>>>(attn, proj_w, proj_b, feats, partial, D);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  const size_t smem_c2 = (size_t)(D + dz + n_group * ch) * sizeof(float);
-  skconv_gate_kernel<<<B, 128, smem_c2, st>>>(partial, fc1_w, fc1_b, fc2_w, fc2_b, gate, L, D, dz, n_group, ch);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  const size_t smem_c3 = (size_t)(ch * (D + 1) + TOK * ch) * sizeof(float);
-  cudaFuncSetAttribute(skconv_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c3);
-  skconv_out_kernel<<<ntok / TOK, THREADS, smem_c3, st>>>(attn, feats, gate, ph_w, ph_b, xkv, out, L, D, n_group,
-                                                          ch, do_ln);
-  return static_cast<int>(cudaGetLastError());
+  err = launch_skconv(attn, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, xkv, feats, partial, gate, out, B,
+                      L, D, n_group, dz, do_ln, st);
+  return static_cast<int>(err);
 }

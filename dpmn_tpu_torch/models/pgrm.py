@@ -7,10 +7,16 @@ each attending inside its own (shifted) window with a learned relative
 position bias, fused by SKConv; an Mlp with a depthwise conv completes each
 block.  In eval every block's attention + SKConv + residual runs in one call
 of `window_attention_block` (kernel K1 on the card).  In train mode (the
-module's `training` flag) LN + projections + attention run in
-`window_attention_block_core` (kernel K3, forward and backward), SKConv in
-PyTorch after it, as dpmn_tpu/models/pgrm.py:378-447 does; dropout, attention
-dropout and drop path draw from the step's `TrainRng`.
+module's `training` flag) the attention runs in one of three cores with a
+backward, chosen by `train_core` as dpmn_tpu/models/pgrm.py:378-510 chooses
+(`resolve_train_core`):
+  * "block": LN + projections + attention in `window_attention_block_core`
+    (kernel K3), SKConv in PyTorch after it;
+  * "attention": LN and the q / kv projections in PyTorch, the attention in
+    `window_attention_core` (kernel K4), SKConv in PyTorch after it;
+  * "full": all of it, SKConv included, in `window_attention_full_core`
+    (kernel K5); faithful layout only, "block" runs in its place otherwise.
+Dropout, attention dropout and drop path draw from the step's `TrainRng`.
 
 Faithful quirks (`faithful=True`, the default): the attention output's
 window-major rows are read back as raster rows (model/pgrm.py:263), and the
@@ -22,7 +28,8 @@ spatially correct variant of both.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+import os
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,8 +38,27 @@ import torch.nn.functional as F
 
 from ..ops.dropout import TrainRng, drop_path, dropout
 from ..ops.torch_compat import LN_EPS
-from ..ops.window_attention import window_attention_block
+from ..ops.window_attention import layer_norm, skconv, window_attention_block
+from ..ops.window_attention_core import window_attention_core
+from ..ops.window_attention_full import window_attention_full_core
 from ..ops.window_attention_train import corrected_relayout, window_attention_block_core
+
+TRAIN_CORES = ("block", "attention", "full")
+
+
+def resolve_train_core(train_core: Optional[str] = None) -> str:
+    """The training core of WindowAttention.  None reads the JAX package's two
+    switches with its defaults and precedence (dpmn_tpu/models/pgrm.py:61-65,
+    :378-447): DPMN_TPU_FUSE_QKV other than "1" (default "1") selects
+    "attention"; else DPMN_TPU_FUSE_SKCONV = "1" (default "0") selects
+    "full"; else "block"."""
+    if train_core is None:
+        if os.environ.get("DPMN_TPU_FUSE_QKV", "1") != "1":
+            return "attention"
+        return "full" if os.environ.get("DPMN_TPU_FUSE_SKCONV", "0") == "1" else "block"
+    if train_core not in TRAIN_CORES:
+        raise ValueError(f"train_core {train_core!r}: one of {TRAIN_CORES} or None")
+    return train_core
 
 
 def _relative_position_index(ws: int) -> np.ndarray:
@@ -66,22 +92,20 @@ class SKConv(nn.Module):
         super().__init__()
         channel = dim // m
         d = channel // r
-        self.m, self.channel = m, channel
+        self.m = m
         self.proj = nn.Linear(dim, dim)
         self.fc1 = nn.Linear(dim, d)
         self.fc2 = nn.Linear(d, m * channel)
         self.proj_head = nn.Linear(channel, dim)
 
+    def weights(self) -> tuple:
+        """proj, fc1, fc2, proj_head weight and bias, in `skconv`'s order."""
+        return tuple(t for lin in (self.proj, self.fc1, self.fc2, self.proj_head) for t in (lin.weight, lin.bias))
+
     def forward(self, x):
-        """x: (B, L, dim), the concat of the m groups → (B, L, dim).  K1 fuses
-        the same computation on the eval path."""
-        b, l, _ = x.shape
-        feats = self.proj(x)
-        s = F.gelu(feats).mean(dim=1)  # GAP
-        a = self.fc2(F.gelu(self.fc1(s))).reshape(b, self.m, self.channel)
-        a = torch.softmax(a, dim=1)  # over the groups
-        feats_v = torch.einsum("blmc,bmc->blc", x.reshape(b, l, self.m, self.channel), a)
-        return feats + self.proj_head(feats_v)
+        """x: (B, L, dim), the concat of the m groups → (B, L, dim).  K1 (eval)
+        and K5 (train_core "full") fuse the same computation."""
+        return skconv(x, *self.weights(), self.m)
 
 
 class WindowAttention(nn.Module):
@@ -89,11 +113,15 @@ class WindowAttention(nn.Module):
 
     def __init__(self, dim: int, window_size: Sequence[int], shift_size: Sequence[int], num_heads: int,
                  input_resolution: Tuple[int, int], qk_scale: float = None, attn_drop: float = 0.0,
-                 faithful: bool = True):
+                 faithful: bool = True, train_core: Optional[str] = None):
         super().__init__()
         h, w = input_resolution
         n_group = len(window_size)
         self.dim, self.faithful, self.attn_drop = dim, faithful, attn_drop
+        # "full" runs SKConv on the faithful row order inside the kernel, so
+        # the corrected layout takes "block" (dpmn_tpu/models/pgrm.py:418-421)
+        core = resolve_train_core(train_core)
+        self.train_core = "block" if core == "full" and not faithful else core
         self.hw = (h, w)
         self.gnum_heads = num_heads // n_group
         gchannel = dim // n_group // self.gnum_heads
@@ -129,32 +157,40 @@ class WindowAttention(nn.Module):
             out.append(table[idx].reshape(n, n, self.gnum_heads).permute(2, 0, 1).contiguous())
         return out
 
+    def masks(self):
+        return [getattr(self, f"shift_mask_{i}") if sh > 0 else None for i, sh in enumerate(self.shf)]
+
     def block_args(self, ln=None) -> dict:
         """The keyword arguments of `window_attention_block` for this module;
         `ln` holds the norm1_q / norm1_kv parameters (qs, qb, ks, kb)."""
-        sk = self.SKConv
-        weights = {
-            "q_w": self.q.weight, "q_b": self.q.bias, "kv_w": self.kv.weight, "kv_b": self.kv.bias,
-            "proj_w": sk.proj.weight, "proj_b": sk.proj.bias, "fc1_w": sk.fc1.weight, "fc1_b": sk.fc1.bias,
-            "fc2_w": sk.fc2.weight, "fc2_b": sk.fc2.bias, "ph_w": sk.proj_head.weight, "ph_b": sk.proj_head.bias,
-        }
-        masks = [getattr(self, f"shift_mask_{i}") if sh > 0 else None for i, sh in enumerate(self.shf)]
-        return dict(weights=weights, biases=self.biases(), masks=masks, window_sizes=self.win, shifts=self.shf,
-                    gnum_heads=self.gnum_heads, scale=self.scale, hw_shape=self.hw, ln=ln,
+        names = ("proj_w", "proj_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b", "ph_w", "ph_b")
+        weights = {"q_w": self.q.weight, "q_b": self.q.bias, "kv_w": self.kv.weight, "kv_b": self.kv.bias,
+                   **dict(zip(names, self.SKConv.weights()))}
+        return dict(weights=weights, biases=self.biases(), masks=self.masks(), window_sizes=self.win,
+                    shifts=self.shf, gnum_heads=self.gnum_heads, scale=self.scale, hw_shape=self.hw, ln=ln,
                     layout="faithful" if self.faithful else "corrected")
 
     def forward(self, x_q, x_kv, ln=None, rng: TrainRng = None):
         """x_q, x_kv: (B, L, dim) tokens, pre-norm when `ln` is given.  Eval:
         with `ln` the x_kv residual is included.  Train mode (needs `ln`):
-        the attention output after SKConv, without the residual."""
+        the attention output after SKConv, without the residual, through the
+        core `train_core` names."""
         if not self.training:
             return window_attention_block(x_q, x_kv, **self.block_args(ln))
-        masks = [getattr(self, f"shift_mask_{i}") if sh > 0 else None for i, sh in enumerate(self.shf)]
         keep = 1.0 - self.attn_drop
         seed = rng.kernel_seed() if keep < 1.0 else 0
-        out = window_attention_block_core(x_q, x_kv, ln["qs"], ln["qb"], ln["ks"], ln["kb"], self.q.weight,
-                                          self.q.bias, self.kv.weight, self.kv.bias, self.biases(), masks, seed,
-                                          keep, self.win, self.shf, self.gnum_heads, self.scale, self.hw)
+        tail = (self.biases(), self.masks(), seed, keep, self.win, self.shf, self.gnum_heads, self.scale, self.hw)
+        if self.train_core == "full":
+            return window_attention_full_core(x_q, x_kv, ln["qs"], ln["qb"], ln["ks"], ln["kb"], self.q.weight,
+                                              self.q.bias, self.kv.weight, self.kv.bias, *self.SKConv.weights(),
+                                              *tail)
+        if self.train_core == "attention":
+            q = self.q(layer_norm(x_q, ln["qs"], ln["qb"]))
+            kv = self.kv(layer_norm(x_kv, ln["ks"], ln["kb"]))
+            out = window_attention_core(q, kv[..., :self.dim].contiguous(), kv[..., self.dim:].contiguous(), *tail)
+        else:
+            out = window_attention_block_core(x_q, x_kv, ln["qs"], ln["qb"], ln["ks"], ln["kb"], self.q.weight,
+                                              self.q.bias, self.kv.weight, self.kv.bias, *tail)
         if not self.faithful:
             out = corrected_relayout(out, self.win, self.shf, self.hw)
         return self.SKConv(out)
@@ -190,13 +226,13 @@ class Mlp(nn.Module):
 
 class SwinTransformerBlock(nn.Module):
     def __init__(self, dim, input_resolution, num_heads, window_size, shift_size, mlp_ratio=4.0, drop=0.0,
-                 attn_drop=0.0, drop_path=0.0, faithful=True):
+                 attn_drop=0.0, drop_path=0.0, faithful=True, train_core=None):
         super().__init__()
         self.drop_path = drop_path
         self.norm1_q = nn.LayerNorm(dim, eps=LN_EPS)
         self.norm1_kv = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowAttention(dim, window_size, shift_size, num_heads, input_resolution,
-                                    attn_drop=attn_drop, faithful=faithful)
+                                    attn_drop=attn_drop, faithful=faithful, train_core=train_core)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), input_resolution, drop, faithful)
 
@@ -219,13 +255,13 @@ class BasicLayer(nn.Module):
     """Two Swin blocks: unshifted, then shifted by window//2 (ref :347-384)."""
 
     def __init__(self, dim, input_resolution, num_heads, window_size, mlp_ratio=4.0, drop=0.0, attn_drop=0.0,
-                 drop_path=(0.0, 0.0), faithful=True):
+                 drop_path=(0.0, 0.0), faithful=True, train_core=None):
         super().__init__()
         self.blocks = nn.ModuleList([
             SwinTransformerBlock(dim, input_resolution, num_heads, list(window_size),
                                  [0] * len(window_size) if i == 0 else [ws // 2 for ws in window_size],
                                  mlp_ratio, drop, attn_drop, float(drop_path[min(i, len(drop_path) - 1)]),
-                                 faithful)
+                                 faithful, train_core)
             for i in range(2)
         ])
 
@@ -238,6 +274,7 @@ class BasicLayer(nn.Module):
 class PGRM(nn.Module):
     """The refiner (ref :460-565), NCHW: x_q (B, 2 or 3, H, W) prior, x_kv
     (B, 3, H, W) image; residual_list of earlier (B, 3, H, W) outputs.
+    `train_core` picks every block's training core (`resolve_train_core`).
 
     The drop-path schedule spans sum(depths) * 2 positions across all cascade
     iterations (`depths_total`); this module's layers take the slice at
@@ -245,7 +282,8 @@ class PGRM(nn.Module):
 
     def __init__(self, img_size=(32, 128), patch_size=2, embed_dim=96, num_layers=1, num_heads=(6,),
                  window_size=(2, 4, 8), mlp_ratio=4.0, drop_rate=0.0, attn_drop_rate=0.0, drop_path_rate=0.1,
-                 iter=0, graphic_mode=False, hidden_size=3, depths_total=0, depths_before=0, faithful=True):
+                 iter=0, graphic_mode=False, hidden_size=3, depths_total=0, depths_before=0, faithful=True,
+                 train_core=None):
         super().__init__()
         self.img_size, self.patch_size, self.embed_dim = tuple(img_size), patch_size, embed_dim
         self.hidden_size, self.graphic_mode, self.drop_rate = hidden_size, graphic_mode, drop_rate
@@ -261,7 +299,7 @@ class PGRM(nn.Module):
         dpr = np.linspace(0.0, drop_path_rate, max(total, num_layers) * 2)[before * 2:(before + num_layers) * 2]
         self.layers = nn.ModuleList([
             BasicLayer(embed_dim * 2**i, (ph // 2**i, pw // 2**i), num_heads[i], window_size, mlp_ratio,
-                       drop_rate, attn_drop_rate, tuple(dpr[i * 2:(i + 1) * 2]), faithful)
+                       drop_rate, attn_drop_rate, tuple(dpr[i * 2:(i + 1) * 2]), faithful, train_core)
             for i in range(num_layers)
         ])
         up_ch = hidden_size * patch_size**2

@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("window_attention", "gru_scan", "window_attention_train")
+SOURCES = ("window_attention", "gru_scan", "window_attention_train", "window_attention_core",
+           "window_attention_full")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -59,6 +59,21 @@ def _window_reverse(t: torch.Tensor, ws: int, h: int, w: int) -> torch.Tensor:
     return t.reshape(b, h, w, -1)
 
 
+def skconv(x, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, n_group: int) -> torch.Tensor:
+    """SKConv (reference model/pgrm.py:62-96) on (B, L, dim) tokens, the
+    concat of n_group channel groups, with torch-layout Linear weights:
+    feats = proj(x); the GAP of gelu(feats); a softmax over the groups of
+    fc2(gelu(fc1(.))); feats + proj_head(the gated sum of the groups)."""
+    b, l, dim = x.shape
+    channel = dim // n_group
+    feats = F.linear(x, proj_w, proj_b)
+    s = F.gelu(feats).mean(dim=1)
+    a = F.linear(F.gelu(F.linear(s, fc1_w, fc1_b)), fc2_w, fc2_b).reshape(b, n_group, channel)
+    a = torch.softmax(a, dim=1)
+    feats_v = torch.einsum("blmc,bmc->blc", x.reshape(b, l, n_group, channel), a)
+    return feats + F.linear(feats_v, ph_w, ph_b)
+
+
 def window_attention_block_plain(xq, xkv, weights: dict, biases: Sequence[torch.Tensor],
                                  masks: Sequence[Optional[torch.Tensor]], window_sizes: Sequence[int],
                                  shifts: Sequence[int], gnum_heads: int, scale: float, hw_shape,
@@ -105,14 +120,7 @@ def window_attention_block_plain(xq, xkv, weights: dict, biases: Sequence[torch.
                 xg = torch.roll(xg, (sh, sh), dims=(1, 2))
         groups.append(xg)
     tokens = torch.cat(groups, dim=-1).reshape(b, l, dim)
-
-    # SKConv (reference model/pgrm.py:62-96)
-    feats = tokens @ weights["proj_w"].T + weights["proj_b"]
-    s = F.gelu(feats).mean(dim=1)
-    z = F.gelu(s @ weights["fc1_w"].T + weights["fc1_b"])
-    a = torch.softmax((z @ weights["fc2_w"].T + weights["fc2_b"]).reshape(b, n_group, channel), dim=1)
-    feats_v = torch.einsum("blmc,bmc->blc", tokens.reshape(b, l, n_group, channel), a)
-    out = feats + (feats_v @ weights["ph_w"].T + weights["ph_b"])
+    out = skconv(tokens, *(weights[k] for k in _WEIGHTS[4:]), n_group)
     return shortcut + out if ln is not None else out
 
 

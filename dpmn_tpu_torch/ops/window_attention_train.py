@@ -1,8 +1,8 @@
 """The training forward and backward of a PGRM window-attention block core.
 
 Counterpart of dpmn_tpu/ops/pallas_window_train.py::window_attention_block_core.
-`window_attention_block_core` is a `torch.autograd.Function`: for CUDA
-tensors its forward and backward launch the CUDA kernels of
+`window_attention_block_core` runs the autograd Function `KernelCore`: for
+CUDA tensors its forward and backward launch the CUDA kernels of
 csrc/window_attention_train.cu, for CPU tensors they run the plain version
 `window_attention_block_core_plain` (the backward through autograd on a
 recomputed plain forward).  Both compute, from pre-norm tokens xq, xkv
@@ -16,7 +16,10 @@ recomputed plain forward).  Both compute, from pre-norm tokens xq, xkv
   * the output in the faithful raw layout (the window-major rows read as
     raster rows, reference model/pgrm.py:263), before SKConv.
 The backward saves only the inputs: it recomputes the forward and draws the
-same dropout mask again.
+same dropout mask again.  The module also holds what the other two training
+cores share with this one (ops/window_attention_core.py, kernel K4, and
+ops/window_attention_full.py, kernel K5): the attention plain version after
+the projections, the dropout hash, the geometry checks and `KernelCore`.
 
 The dropout mask comes from a counter-based hash of (seed, image, group,
 head, window, query, key) — a murmur3 fmix32 chain — that the kernel and
@@ -28,7 +31,7 @@ PRNG, which nothing else reproduces: parity with dpmn_tpu holds at keep = 1.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -100,26 +103,25 @@ def keep_multiplier(bits: torch.Tensor, keep: float) -> torch.Tensor:
 # ----------------------------------------------------------- plain version
 
 
-def window_attention_block_core_plain(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b,
-                                      biases: Sequence[torch.Tensor], masks: Sequence[Optional[torch.Tensor]],
-                                      seed: int, keep: float, window_sizes: Sequence[int], shifts: Sequence[int],
-                                      gnum_heads: int, scale: float, hw_shape) -> torch.Tensor:
-    """Plain PyTorch version of the core; returns the faithful-layout
-    attention output (B, L, dim).  Weights in torch layout: q_w (dim, c),
-    kv_w (2 dim, c); `biases` per group (heads, N, N), `masks` per group
-    (nW, N, N) or None."""
-    b, l, _ = xq.shape
+def window_attention_core_plain(q, k, v, biases: Sequence[torch.Tensor], masks: Sequence[Optional[torch.Tensor]],
+                                seed: int, keep: float, window_sizes: Sequence[int], shifts: Sequence[int],
+                                gnum_heads: int, scale: float, hw_shape) -> torch.Tensor:
+    """Plain PyTorch version of the grouped window-attention core on
+    projected q, k, v (B, L, dim) — kernel K4's function, and the part of
+    K3's after the projections: per group the -sh roll, the window
+    partition, per head softmax(scale q k^T + bias [+ mask]) with dropout,
+    times v; returns the faithful-layout output (B, L, dim).  `biases` per
+    group (heads, N, N), `masks` per group (nW, N, N) or None."""
+    b, l, dim = q.shape
     h, w = hw_shape
-    dim = q_w.shape[0]
     n_group = len(window_sizes)
     channel = dim // n_group
     gch = channel // gnum_heads
-    q = (layer_norm(xq, qs, qb) @ q_w.T + q_b).reshape(b, h, w, dim)
-    kv = (layer_norm(xkv, ks, kb) @ kv_w.T + kv_b).reshape(b, h, w, 2 * dim)
+    q, k, v = (t.reshape(b, h, w, dim) for t in (q, k, v))
     groups = []
     for g, (ws, sh) in enumerate(zip(window_sizes, shifts)):
         sl = slice(g * channel, (g + 1) * channel)
-        qg, kg, vg = q[..., sl], kv[..., sl], kv[..., dim:][..., sl]
+        qg, kg, vg = q[..., sl], k[..., sl], v[..., sl]
         if sh > 0:
             qg, kg, vg = (torch.roll(t, (-sh, -sh), dims=(1, 2)) for t in (qg, kg, vg))
         n = ws * ws
@@ -141,6 +143,21 @@ def window_attention_block_core_plain(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, k
         out = (attn @ vh).permute(0, 2, 1, 3).reshape(b, h, w, channel)  # faithful raw layout
         groups.append(out)
     return torch.cat(groups, dim=-1).reshape(b, l, dim)
+
+
+def window_attention_block_core_plain(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b,
+                                      biases: Sequence[torch.Tensor], masks: Sequence[Optional[torch.Tensor]],
+                                      seed: int, keep: float, window_sizes: Sequence[int], shifts: Sequence[int],
+                                      gnum_heads: int, scale: float, hw_shape) -> torch.Tensor:
+    """Plain PyTorch version of the core; returns the faithful-layout
+    attention output (B, L, dim).  Weights in torch layout: q_w (dim, c),
+    kv_w (2 dim, c); `biases` per group (heads, N, N), `masks` per group
+    (nW, N, N) or None."""
+    dim = q_w.shape[0]
+    q = layer_norm(xq, qs, qb) @ q_w.T + q_b
+    kv = layer_norm(xkv, ks, kb) @ kv_w.T + kv_b
+    return window_attention_core_plain(q, kv[..., :dim], kv[..., dim:], biases, masks, seed, keep, window_sizes,
+                                       shifts, gnum_heads, scale, hw_shape)
 
 
 def corrected_relayout(out: torch.Tensor, window_sizes: Sequence[int], shifts: Sequence[int],
@@ -173,39 +190,45 @@ class _Static(NamedTuple):
     seed: int
     keep: float
 
+    def plain_args(self):
+        """The plain versions' arguments after the biases."""
+        return (self.masks, self.seed, self.keep, self.window_sizes, self.shifts, self.gnum_heads, self.scale,
+                self.hw_shape)
+
+
+def make_static(masks, seed, keep, window_sizes, shifts, gnum_heads, scale, hw_shape) -> _Static:
+    """The non-tensor arguments of a training core; raises on keep outside (0, 1]."""
+    if not 0.0 < keep <= 1.0:
+        raise ValueError(f"keep {keep} outside (0, 1]")
+    return _Static(tuple(masks), tuple(int(v) for v in window_sizes), tuple(int(v) for v in shifts), int(gnum_heads),
+                   float(scale), (int(hw_shape[0]), int(hw_shape[1])), int(seed), float(keep))
+
 
 _PRIMALS = ("xq", "xkv", "qs", "qb", "ks", "kb", "q_w", "q_b", "kv_w", "kv_b")
 
 
-def _bwd_chunks(n: int, gnum_heads: int, n_windows: int) -> int:
-    """Blocks per image of a group's attention backward (launch_attn_bwd in
-    csrc/window_attention_train.cu): windows in batches of wpb, 4 batches a
-    block."""
-    wpb = max(1, 128 // (n * gnum_heads))
-    return -(-n_windows // (4 * wpb))
-
-
-def _prepare(st: _Static, primals, biases):
-    """Check what the kernels take; returns (B, H, W, D, bias, mask, ws_arr,
-    sh_arr) with the per-group tables concatenated."""
-    xq = primals[0]
-    b, l, dim = xq.shape
+def check_geometry(what: str, st: _Static, l: int, dim: int) -> None:
+    """Raise on a geometry the training kernels do not take: L = H*W a
+    multiple of 64, D a multiple of 32 up to 96, head dim 16, windows 2, 4
+    or 8 dividing the grid."""
     h, w = st.hw_shape
     n_group = len(st.window_sizes)
     channel = dim // n_group
     if l != h * w or l % 64 != 0 or dim % 32 != 0 or dim > 96 or channel * n_group != dim:
-        raise ValueError(f"window_attention_train kernel: unsupported geometry L={l} ({h}x{w}) D={dim} "
-                         f"groups={n_group}")
+        raise ValueError(f"{what} kernel: unsupported geometry L={l} ({h}x{w}) D={dim} groups={n_group}")
     if channel != 16 * st.gnum_heads:
-        raise ValueError(f"window_attention_train kernel: head dim {channel}/{st.gnum_heads}, the kernel takes 16")
+        raise ValueError(f"{what} kernel: head dim {channel}/{st.gnum_heads}, the kernel takes 16")
     for ws in st.window_sizes:
         if ws not in (2, 4, 8) or h % ws or w % ws:
-            raise ValueError(f"window_attention_train kernel: window {ws} on a {h}x{w} grid")
-    dev = xq.device
-    shapes = {"xq": (b, l, dim), "xkv": (b, l, dim), "qs": (dim,), "qb": (dim,), "ks": (dim,), "kb": (dim,),
-              "q_w": (dim, dim), "q_b": (dim,), "kv_w": (2 * dim, dim), "kv_b": (2 * dim,)}
-    for name, t in zip(_PRIMALS, primals):
-        kernels.check_f32_cuda(name, t, shapes[name], dev)
+            raise ValueError(f"{what} kernel: window {ws} on a {h}x{w} grid")
+
+
+def pack_tables(st: _Static, biases, dev):
+    """Check the per-group bias and mask tables; returns (bias, mask, ws_arr,
+    sh_arr): the tables concatenated (masks of shifted groups only) and the
+    windows and shifts as C int arrays."""
+    h, w = st.hw_shape
+    n_group = len(st.window_sizes)
     for i, (ws, sh) in enumerate(zip(st.window_sizes, st.shifts)):
         n = ws * ws
         kernels.check_f32_cuda(f"bias {i}", biases[i], (st.gnum_heads, n, n), dev)
@@ -216,10 +239,42 @@ def _prepare(st: _Static, primals, biases):
     mask = torch.cat(shifted) if shifted else bias.new_zeros(1)
     ws_arr = (ctypes.c_int * n_group)(*st.window_sizes)
     sh_arr = (ctypes.c_int * n_group)(*st.shifts)
-    return b, h, w, dim, bias, mask, ws_arr, sh_arr
+    return bias, mask, ws_arr, sh_arr
 
 
-def _drop_args(st: _Static):
+def split_bias_grad(dbias: torch.Tensor, biases):
+    """The concatenated bias gradient as one view per group."""
+    out, off = [], 0
+    for bb in biases:
+        out.append(dbias[off:off + bb.numel()].view(bb.shape))
+        off += bb.numel()
+    return out
+
+
+def _prepare(st: _Static, primals, biases):
+    """Check what the K3 kernels take; returns (B, H, W, D, bias, mask,
+    ws_arr, sh_arr) with the per-group tables concatenated."""
+    xq = primals[0]
+    b, l, dim = xq.shape
+    check_geometry("window_attention_train", st, l, dim)
+    dev = xq.device
+    shapes = {"xq": (b, l, dim), "xkv": (b, l, dim), "qs": (dim,), "qb": (dim,), "ks": (dim,), "kb": (dim,),
+              "q_w": (dim, dim), "q_b": (dim,), "kv_w": (2 * dim, dim), "kv_b": (2 * dim,)}
+    for name, t in zip(_PRIMALS, primals):
+        kernels.check_f32_cuda(name, t, shapes[name], dev)
+    return (b, *st.hw_shape, dim, *pack_tables(st, biases, dev))
+
+
+def scratch_floats(fn, b, h, w, n_group, ws_arr, gnum_heads) -> int:
+    """The floats of an attention backward's dbias_part scratch, from the C
+    function `fn` of its library (attn_bwd_part_floats)."""
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_size_t
+    return fn(b, h, w, n_group, ws_arr, gnum_heads)
+
+
+def drop_args(st: _Static):
+    """(seed, thresh, inv_keep, drop) as the C entry points take them."""
     drop = st.keep < 1.0
     return (ctypes.c_uint32(st.seed & _M32), ctypes.c_uint32(keep_threshold(st.keep) if drop else 0),
             ctypes.c_float(np.float32(1.0 / st.keep)), int(drop))
@@ -238,7 +293,7 @@ def _forward_cuda(st: _Static, primals, biases) -> torch.Tensor:
     fn.restype = ctypes.c_int
     ptrs = [kernels.ptr(t) for t in (*primals, bias, mask, qbuf, kvbuf, out)]
     err = fn(*ptrs, b, h, w, dim, len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, float(st.scale),
-             *_drop_args(st), kernels.stream_ptr(dev))
+             *drop_args(st), kernels.stream_ptr(dev))
     kernels.check_launch(err, "window_attention_train_forward")
     forward_counter.launches += 1
     return out
@@ -254,8 +309,9 @@ def _backward_cuda(st: _Static, primals, biases, dout: torch.Tensor):
     def scratch(*shape):
         return torch.empty(*shape, device=dev)
 
-    n_part = sum(b * _bwd_chunks(ws * ws, st.gnum_heads, (h // ws) * (w // ws)) * st.gnum_heads * (ws * ws) ** 2
-                 for ws in st.window_sizes)
+    lib = kernels.library("window_attention_train")
+    n_part = scratch_floats(lib.window_attention_train_backward_scratch, b, h, w, len(st.window_sizes), ws_arr,
+                            st.gnum_heads)
     n_chunk = -(-ntok // 512)
     bufs = [scratch(b, l, dim), scratch(b, l, 2 * dim), scratch(b, l, dim), scratch(b, l, 2 * dim),
             scratch(n_part), scratch(n_chunk, dim * dim + dim), scratch(n_chunk, 2 * dim * dim + 2 * dim),
@@ -264,49 +320,60 @@ def _backward_cuda(st: _Static, primals, biases, dout: torch.Tensor):
     gq, gkv = scratch(dim * dim + dim), scratch(2 * dim * dim + 2 * dim)
     gln_q, gln_kv = scratch(2 * dim), scratch(2 * dim)
     dbias = scratch(bias.numel())
-    fn = kernels.library("window_attention_train").window_attention_train_backward
+    fn = lib.window_attention_train_backward
     fn.argtypes = ([ctypes.c_void_p] * 29 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_float]
                    + [ctypes.c_uint32] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     ptrs = [kernels.ptr(t) for t in (*primals, bias, mask, dout, *bufs, dxq, dxkv, gq, gkv, gln_q, gln_kv, dbias)]
     err = fn(*ptrs, b, h, w, dim, len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, float(st.scale),
-             *_drop_args(st), kernels.stream_ptr(dev))
+             *drop_args(st), kernels.stream_ptr(dev))
     kernels.check_launch(err, "window_attention_train_backward")
     backward_counter.launches += 1
-    dbiases, off = [], 0
-    for bb in biases:
-        dbiases.append(dbias[off:off + bb.numel()].view(bb.shape))
-        off += bb.numel()
     return (dxq, dxkv, gln_q[:dim], gln_q[dim:], gln_kv[:dim], gln_kv[dim:],
             gq[:dim * dim].view(dim, dim), gq[dim * dim:], gkv[:2 * dim * dim].view(2 * dim, dim),
-            gkv[2 * dim * dim:], *dbiases)
+            gkv[2 * dim * dim:], *split_bias_grad(dbias, biases))
 
 
-class _BlockCore(torch.autograd.Function):
+class CoreImpl(NamedTuple):
+    """One training core: its number of primal tensors (those before the
+    per-group biases), its plain version as plain(st, primals, biases), and
+    its kernels as forward_cuda(st, primals, biases) and backward_cuda(st,
+    primals, biases, dout) -> the primals' and the biases' gradients."""
+    n_primals: int
+    plain: Callable
+    forward_cuda: Callable
+    backward_cuda: Callable
+
+
+class KernelCore(torch.autograd.Function):
+    """A training core with its backward: the kernels for CUDA tensors, the
+    plain version for CPU tensors (the backward through autograd on a
+    recomputed plain forward).  Saves only its inputs."""
+
     @staticmethod
-    def forward(ctx, st: _Static, *tensors):
-        ctx.st = st
+    def forward(ctx, impl: CoreImpl, st: _Static, *tensors):
+        ctx.impl, ctx.st = impl, st
         ctx.save_for_backward(*tensors)
-        primals, biases = tensors[:10], tensors[10:]
+        primals, biases = tensors[:impl.n_primals], tensors[impl.n_primals:]
         if tensors[0].device.type == "cpu":
-            return window_attention_block_core_plain(*primals, list(biases), st.masks, st.seed, st.keep,
-                                                     st.window_sizes, st.shifts, st.gnum_heads, st.scale,
-                                                     st.hw_shape)
-        return _forward_cuda(st, primals, biases)
+            return impl.plain(st, primals, list(biases))
+        return impl.forward_cuda(st, primals, biases)
 
     @staticmethod
     def backward(ctx, dout):
-        st, tensors = ctx.st, ctx.saved_tensors
+        impl, st, tensors = ctx.impl, ctx.st, ctx.saved_tensors
+        n = impl.n_primals
         if dout.device.type == "cpu":
             with torch.enable_grad():
                 leaves = [t.detach().requires_grad_() for t in tensors]
-                out = window_attention_block_core_plain(*leaves[:10], leaves[10:], st.masks, st.seed, st.keep,
-                                                        st.window_sizes, st.shifts, st.gnum_heads, st.scale,
-                                                        st.hw_shape)
-                grads = torch.autograd.grad(out, leaves, dout)
+                grads = torch.autograd.grad(impl.plain(st, leaves[:n], leaves[n:]), leaves, dout)
         else:
-            grads = _backward_cuda(st, tensors[:10], tensors[10:], dout.contiguous())
-        return (None, *grads)
+            grads = impl.backward_cuda(st, tensors[:n], tensors[n:], dout.contiguous())
+        return (None, None, *grads)
+
+
+_BLOCK = CoreImpl(10, lambda st, p, b: window_attention_block_core_plain(*p, b, *st.plain_args()), _forward_cuda,
+                  _backward_cuda)
 
 
 def window_attention_block_core(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b,
@@ -318,9 +385,5 @@ def window_attention_block_core(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b,
     `window_attention_block_core_plain`; gradients flow to the 10 primals and
     the per-group biases.  `seed` is a host int in [0, SEED_BOUND); with
     keep = 1 it is not read."""
-    if not 0.0 < keep <= 1.0:
-        raise ValueError(f"keep {keep} outside (0, 1]")
-    st = _Static(tuple(masks), tuple(int(v) for v in window_sizes), tuple(int(v) for v in shifts), int(gnum_heads),
-                 float(scale), (int(hw_shape[0]), int(hw_shape[1])), int(seed), float(keep))
-    return _BlockCore.apply(st, xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, *biases)
-
+    st = make_static(masks, seed, keep, window_sizes, shifts, gnum_heads, scale, hw_shape)
+    return KernelCore.apply(_BLOCK, st, xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, *biases)

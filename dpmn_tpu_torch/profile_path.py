@@ -1,6 +1,6 @@
 """Where the time of the flagship sr_forward, or of its train step, goes on the card.
 
-    python -m dpmn_tpu_torch.profile_path [--batch 64] [--train]
+    python -m dpmn_tpu_torch.profile_path [--batch 64] [--train [--train-core {block,attention,full}]]
 
 Builds the flagship DPMNSystem with seeded random weights, warms it up, then
 (1) times each stage of one real sr_forward (the CRNN text prior, the TATT
@@ -14,7 +14,10 @@ With --train the same for one real train_step (fp32, the flagship's dropout
 0.1, synthetic HR/LR): the forward stages as above plus each distill, then
 the backward as a whole and the update (gradient norms, per-module clip,
 Adam), timed with CUDA events around the step's own two halves
-(`_train_loss`, `_loss_grads`) and `_apply_update`.
+(`_train_loss`, `_loss_grads`) and `_apply_update`.  --train-core picks the
+PGRMs' training attention core (kernel K3, K4 or K5; models/pgrm.py
+`resolve_train_core`, which reads DPMN_TPU_FUSE_QKV / DPMN_TPU_FUSE_SKCONV
+when the option is not given).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from .config import TrainCfg, flagship_args
+from .models.pgrm import TRAIN_CORES, resolve_train_core
 from .system import DPMNSystem
 
 
@@ -99,15 +103,17 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="per-stage and per-kernel time of the flagship sr_forward or train step")
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--train", action="store_true", help="profile one train_step instead of one sr_forward")
+    p.add_argument("--train-core", choices=TRAIN_CORES, default=None,
+                   help="the PGRMs' training attention core (default: from DPMN_TPU_FUSE_QKV / DPMN_TPU_FUSE_SKCONV)")
     a = p.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    system = DPMNSystem(TrainCfg(batch_size=a.batch), flagship_args(), seed=0)
+    system = DPMNSystem(TrainCfg(batch_size=a.batch), flagship_args(), seed=0, train_core=a.train_core)
     rng = np.random.RandomState(0)
     hr = rng.rand(a.batch, 32, 128, 4).astype(np.float32)
     lr = rng.rand(a.batch, 16, 64, 4).astype(np.float32)
-    what = "train_step" if a.train else "sr_forward"
+    what = f"train_step (train_core {resolve_train_core(a.train_core)})" if a.train else "sr_forward"
     seeds = iter(range(10**6))
     run = (lambda: system.train_step(hr, lr, next(seeds))) if a.train else (lambda: system.sr_forward(lr))
     for _ in range(2):

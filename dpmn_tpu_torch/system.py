@@ -26,6 +26,11 @@ per_module_clip, :65-83), then Adam (or AdamW with weight decay 0.01) with
 betas (beta1, 0.999) and eps 1e-8.  A parameter that autograd leaves without
 a gradient (the unused weight_list_i) gets a zero one, as optax sees it.
 
+`train_core` picks the PGRMs' training attention core: "block" (kernel K3,
+the default), "attention" (K4) or "full" (K5); None reads the JAX package's
+DPMN_TPU_FUSE_QKV / DPMN_TPU_FUSE_SKCONV (models/pgrm.py
+`resolve_train_core`).  Eval always runs K1.
+
 Entry points keep the JAX package's NHWC contract: (B, h, w, 4) LR in,
 (B, 2h, 2w, 3) SR out; (B, 2h, 2w, 4) HR for training.  Modules run NCHW on
 `device`: the card unless the caller passes device="cpu".
@@ -52,7 +57,7 @@ from .ops.mask_prior import to_mask
 
 
 class DPMNSystem(nn.Module):
-    def __init__(self, cfg: TrainCfg, args: Args, device=None, seed: int = 0):
+    def __init__(self, cfg: TrainCfg, args: Args, device=None, seed: int = 0, train_core: str = None):
         super().__init__()
         device = resolve_device(device)
         a = self.args = args
@@ -80,7 +85,7 @@ class DPMNSystem(nn.Module):
                 drop_rate=float(pick(hp.drop_rate, i)), attn_drop_rate=float(pick(hp.attn_drop_rate, i)),
                 drop_path_rate=float(pick(hp.drop_path_rate, i)), iter=iter_, graphic_mode=graphic,
                 hidden_size=3, depths_total=sum(hp.depths), depths_before=sum(depths_clamped[:-1]),
-                faithful=a.faithful,
+                faithful=a.faithful, train_core=train_core,
             )
 
         if a.sr_share:

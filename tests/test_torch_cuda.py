@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from dpmn_tpu_torch.models.pgrm import SwinTransformerBlock
+from dpmn_tpu_torch.ops import window_attention_core as WC
+from dpmn_tpu_torch.ops import window_attention_full as WF
 from dpmn_tpu_torch.ops import window_attention_train as WT
 from dpmn_tpu_torch.ops.gru import gru_scan, gru_scan_counter, gru_scan_plain
 from dpmn_tpu_torch.ops.window_attention import (
@@ -89,9 +91,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 
 def train_core_inputs(dev, shift, batch=2, seed=0):
-    """Random pre-norm tokens, LN, projection and relative-bias parameters of
-    one flagship block (16x64 grid, dim 96, windows 2/4/8, 6 heads), leaves
-    that require grad, and the core's static arguments."""
+    """Random pre-norm tokens, LN, projection, SKConv and relative-bias
+    parameters of one flagship block (16x64 grid, dim 96, windows 2/4/8, 6
+    heads), leaves that require grad (the 18 primals of K5, whose first 10
+    are K3's), and the core's static arguments."""
     gen = torch.Generator().manual_seed(seed)
     blk = SwinTransformerBlock(96, (16, 64), 6, [2, 4, 8], list(shift))
     init_weights(blk, seed=seed + 1)
@@ -102,8 +105,9 @@ def train_core_inputs(dev, shift, batch=2, seed=0):
             leaf(1 + 0.1 * torch.randn(96, generator=gen)), rnd(96, scale=0.1),
             leaf(1 + 0.1 * torch.randn(96, generator=gen)), rnd(96, scale=0.1),
             leaf(a.q.weight), rnd(96, scale=0.1), leaf(a.kv.weight), rnd(192, scale=0.1)]
+    prim += [leaf(t) if t.dim() == 2 else rnd(*t.shape, scale=0.1) for t in a.SKConv.weights()]
     biases = [rnd(*b.shape, scale=0.1) for b in a.biases()]
-    masks = [getattr(a, f"shift_mask_{i}").to(dev) if sh > 0 else None for i, sh in enumerate(a.shf)]
+    masks = [m.to(dev) if m is not None else None for m in a.masks()]
     return prim, biases, dict(masks=masks, window_sizes=a.win, shifts=a.shf, gnum_heads=a.gnum_heads,
                               scale=a.scale, hw_shape=a.hw)
 
@@ -123,16 +127,60 @@ def test_window_attention_train_kernel(dev, shift, layout, keep):
     """K3 forward and backward against autograd through the plain version on
     the card, dropout mask for mask; each launch counter moves by one."""
     prim, biases, static = train_core_inputs(dev, shift)
-    cot = torch.randn(2, 1024, 96, generator=torch.Generator().manual_seed(9)).to(dev)
-    before = (WT.forward_counter.launches, WT.backward_counter.launches)
-    out, grads = run_train_core(WT.window_attention_block_core, prim, biases, static, 123, keep, layout, cot)
+    check_core_on_card(WT, WT.window_attention_block_core, WT.window_attention_block_core_plain, prim[:10], biases,
+                       static, keep, layout)
+
+
+def check_core_on_card(mod, fn, plain, prim, biases, static, keep, layout):
+    """A training core's kernels against autograd through its plain version on
+    the card (forward max abs 1e-4, each gradient within 1e-4 of its largest
+    value + 1e-5); its launch counters move by one each."""
+    cot = torch.randn(2, 1024, 96, generator=torch.Generator().manual_seed(9)).to(prim[0].device)
+    before = (mod.forward_counter.launches, mod.backward_counter.launches)
+    out, grads = run_train_core(fn, prim, biases, static, 123, keep, layout, cot)
     torch.cuda.synchronize()
-    assert (WT.forward_counter.launches, WT.backward_counter.launches) == (before[0] + 1, before[1] + 1)
-    ref, ref_grads = run_train_core(WT.window_attention_block_core_plain, prim, biases, static, 123, keep,
-                                    layout, cot)
+    assert (mod.forward_counter.launches, mod.backward_counter.launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_grads = run_train_core(plain, prim, biases, static, 123, keep, layout, cot)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+    assert len(grads) == len(ref_grads) == len(prim) + len(biases)
     for g, r in zip(grads, ref_grads):
         assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item() + 1e-5
+
+
+@pytest.mark.parametrize("shift", [(0, 0, 0), (1, 2, 4)])
+@pytest.mark.parametrize("layout", ["faithful", "corrected"])
+@pytest.mark.parametrize("keep", [1.0, 0.9])
+def test_window_attention_core_kernel(dev, shift, layout, keep):
+    """K4 on random projected q, k, v (the relayout after it)."""
+    _, biases, static = train_core_inputs(dev, shift)
+    gen = torch.Generator().manual_seed(3)
+    qkv = [torch.randn(2, 1024, 96, generator=gen).to(dev).requires_grad_() for _ in range(3)]
+    check_core_on_card(WC, WC.window_attention_core, WC.window_attention_core_plain, qkv, biases, static, keep,
+                       layout)
+
+
+@pytest.mark.parametrize("shift", [(0, 0, 0), (1, 2, 4)])
+@pytest.mark.parametrize("keep", [1.0, 0.9])
+def test_window_attention_full_kernel(dev, shift, keep):
+    """K5, faithful layout: all 18 primal gradients and the bias gradients."""
+    prim, biases, static = train_core_inputs(dev, shift)
+    check_core_on_card(WF, WF.window_attention_full_core, WF.window_attention_full_core_plain, prim, biases,
+                       static, keep, "faithful")
+
+
+def test_training_cores_reject_what_the_kernels_do_not_take(dev):
+    prim, biases, static = train_core_inputs(dev, (0, 0, 0))
+    args = (biases, static["masks"], 0, 1.0, static["window_sizes"], static["shifts"], static["gnum_heads"],
+            static["scale"], static["hw_shape"])
+    q = prim[0]
+    with pytest.raises(ValueError):
+        WC.window_attention_core(q, q, q.double(), *args)
+    with pytest.raises(ValueError):
+        WC.window_attention_core(q, q, q.transpose(1, 2).contiguous().transpose(1, 2), *args)
+    with pytest.raises(ValueError):
+        WF.window_attention_full_core(*prim[:12], prim[12][:, :8].contiguous(), *prim[13:], *args)
+    with pytest.raises(ValueError):
+        WF.window_attention_full_core(*prim, *args[:-1], (16, 32))  # L != H * W
 
 
 def test_kernels_without_backward_refuse_autograd(dev):

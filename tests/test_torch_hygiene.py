@@ -89,8 +89,9 @@ def test_kernel_sources_and_assets_ship():
 
     for name in kernels.SOURCES:
         assert (kernels.CSRC / f"{name}.cu").is_file()
-    assert (kernels.CSRC / "window_attention_train.cu").is_file()
-    assert (kernels.CSRC / "window_common.cuh").is_file()
+    for name in ("window_attention_train.cu", "window_attention_core.cu", "window_attention_full.cu",
+                 "window_common.cuh", "window_train_common.cuh"):
+        assert (kernels.CSRC / name).is_file(), name
     assert (PORT / "assets" / "glyph_atlas_32x128.npz").is_file()
     pyproject = (ROOT / "pyproject.toml").read_text()
     assert "csrc/*.cu" in pyproject and "csrc/*.cuh" in pyproject and "assets/*.npz" in pyproject

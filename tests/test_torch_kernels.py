@@ -28,8 +28,9 @@ def test_build_key_covers_the_headers(tmp_path, monkeypatch):
 
 def test_every_source_has_a_key():
     names = {kernels._target(name).name for name in kernels.SOURCES}
-    assert len(names) == len(kernels.SOURCES) == 3
-    assert "window_attention_train" in kernels.SOURCES
+    assert len(names) == len(kernels.SOURCES) == 5
+    for name in ("window_attention_train", "window_attention_core", "window_attention_full"):
+        assert name in kernels.SOURCES
 
 
 def test_refuse_autograd():
