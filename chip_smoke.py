@@ -28,15 +28,32 @@ Phases, each of which raises (and so exits non-zero) on failure:
      then the train path with train_core "attention", as phase 6;
   8. K5 (K3 with SKConv fused in, faithful layout) as phase 5 does K3; then
      the train path with train_core "full", as phase 6;
-  9. one JSON line with every kernel's numbers, then the final JSON line.
+  9. K8, the per-window attention tiles: its entry point once at each of the
+     flagship's three folded window shapes at B = 64 (with a shift mask) and
+     at the JAX test's (10, 16, 8), launches counted, against the plain
+     version; F.scaled_dot_product_attention timed beside it;
+ 10. K7, the eval attention on projected q, k, v: its entry point at B = 64
+     on both shift sets, float32 then bf16, launches counted, against the
+     plain version (bf16 also against the float32 kernel); SDPA on the
+     partitioned windows beside it;
+ 11. K6, the faithful Mlp conv pair, at B = 64, hidden 384, s = 32, against
+     the plain version; the cuDNN depthwise + GELU + 1x1 pair that the port's
+     Mlp runs timed beside it;
+ 12. K9, the dropout-mask dump: the masks of one seed at B = 64 (exactly the
+     plain version's) and the port's debug_train_dropout tool at its own
+     geometry on the card (K4's forward and q-gradient against the rebuild
+     from the dumped masks, within K3's tolerances), launches counted;
+ 13. one JSON line with every kernel's numbers, then the final JSON line.
 
 Times are CUDA-event times after warm-up, with the inputs resident in L2
 where they fit.  `ms`, `plain_ms`, `library_ms` and `bound_ms` in the kernels
 line are per call of the path that launches the kernel: K1 and K2 per
 flagship forward (the sum over their launches in one sr_forward at B = 64),
 K3, K4 and K5 per flagship train step on their path (12 forward and 12
-backward launches).  Bounds use the published H100 SXM peaks: 3.35 TB/s and
-67 TFLOP/s float32 on the CUDA cores.  It imports nothing of JAX.
+backward launches); the standalone kernels K6-K9 per run of their phase's
+path (the launches it counts).  Bounds use the published H100 SXM peaks:
+3.35 TB/s and 67 TFLOP/s float32 on the CUDA cores.  It imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -57,6 +74,10 @@ K2_TOL = 1e-5  # max abs error of a tanh-bounded state after <= 64 float32 steps
 K3_TOL = 1e-4  # forward max abs error: as K1
 K3_GRAD_RTOL, K3_GRAD_ATOL = 1e-4, 1e-5  # per gradient: max abs <= rtol * max|ref| + atol (sums over 65536 tokens)
 # K4 and K5 are held as K3: forward max abs K3_TOL, each gradient as above
+K6_TOL = 1e-4  # max abs error: float32 sums of 9 and 384 terms in other orders
+K7_TOL = 1e-4  # float32 max abs error, as K1; bf16: one bf16 rounding of max|out| (2^-7 of it)
+K7_BF16_RTOL, K7_BF16_ATOL = 0.1, 0.15  # bf16 against the float32 kernel (tests/test_pallas_window.py)
+K8_TOL = 1e-5  # max abs error: float32 sums of <= 64 terms in other orders
 
 
 def log(msg):
@@ -207,8 +228,12 @@ def counters():
     from dpmn_tpu_torch.ops import window_attention_core as wc
     from dpmn_tpu_torch.ops import window_attention_full as wf
     from dpmn_tpu_torch.ops import window_attention_train as wt
+    from dpmn_tpu_torch.ops.dropout_mask import dropout_mask_counter
+    from dpmn_tpu_torch.ops.grouped_window_attention import grouped_window_attention_counter
     from dpmn_tpu_torch.ops.gru import gru_scan_counter
+    from dpmn_tpu_torch.ops.mlp_convs import mlp_convs_counter
     from dpmn_tpu_torch.ops.window_attention import window_attention_counter
+    from dpmn_tpu_torch.ops.window_tile_attention import window_tile_attention_counter
 
     return {"window_attention_block": window_attention_counter, "gru_scan": gru_scan_counter,
             "window_attention_train_forward": wt.forward_counter,
@@ -216,7 +241,10 @@ def counters():
             "window_attention_core_forward": wc.forward_counter,
             "window_attention_core_backward": wc.backward_counter,
             "window_attention_full_forward": wf.forward_counter,
-            "window_attention_full_backward": wf.backward_counter}
+            "window_attention_full_backward": wf.backward_counter,
+            "window_tile_attention": window_tile_attention_counter,
+            "grouped_window_attention": grouped_window_attention_counter,
+            "mlp_convs": mlp_convs_counter, "dropout_mask": dropout_mask_counter}
 
 
 def expected_counts(**launches):
@@ -231,6 +259,15 @@ def reset_counts():
 
 def read_counts():
     return {name: c.launches for name, c in counters().items()}
+
+
+def check_counts(tag, launches, **expected):
+    """Raise unless the counts read after a path's run are exactly
+    `expected` (every other counter 0)."""
+    want = expected_counts(**expected)
+    log(f"{tag}: launches in the path's run {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counts {launches}")
 
 
 def phase_path(dev, card):
@@ -625,13 +662,17 @@ def phase_k5(dev):
                           worst_fwd, worst_grad, library=False)
 
 
-# the pallas_call lines of the TPU kernels K3, K4 and K5 replace
+# the pallas_call lines of the TPU kernels K3-K9 replace (K3-K5: forward, backward)
 REPLACES = {"window_attention_train": ("dpmn_tpu/ops/pallas_window_train.py:399",
                                        "dpmn_tpu/ops/pallas_window_train.py:525"),
             "window_attention_core": ("dpmn_tpu/ops/pallas_window_train.py:147",
                                       "dpmn_tpu/ops/pallas_window_train.py:229"),
             "window_attention_full": ("dpmn_tpu/ops/pallas_window_train.py:766",
-                                      "dpmn_tpu/ops/pallas_window_train.py:952")}
+                                      "dpmn_tpu/ops/pallas_window_train.py:952"),
+            "mlp_convs": "dpmn_tpu/ops/pallas_mlp.py:76",
+            "grouped_window_attention": "dpmn_tpu/ops/pallas_window.py:135",
+            "window_tile_attention": "dpmn_tpu/ops/pallas_kernels.py:140",
+            "dropout_mask": "tools/debug_train_dropout.py:39"}
 
 
 def kernel_entries(tag, name, times, cost, worst_fwd, worst_grad, library):
@@ -658,6 +699,273 @@ def kernel_entries(tag, name, times, cost, worst_fwd, worst_grad, library):
     return fwd, bwd
 
 
+def standalone_entry(name, max_abs_err, launches, ms, plain_ms, bound, library_ms, suffix=""):
+    """The kernels-line entry of a standalone kernel (K6-K9): `bound` is a
+    {"bytes": ms, "operations": ms} split of its bound; bound_by names the
+    larger part."""
+    return {"name": name + suffix, "route": "cuda", "source": f"dpmn_tpu_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": sum(bound.values()), "bound_by": max(bound, key=bound.get),
+            "library_ms": library_ms}
+
+
+def flagship_attention(shift, gen, dev):
+    """A flagship WindowAttention (16x64 grid, dim 96, windows 2/4/8, 6 heads)
+    with relative-position tables drawn from `gen`, on the card."""
+    from dpmn_tpu_torch.models.pgrm import WindowAttention
+
+    a = WindowAttention(96, [2, 4, 8], list(shift), 6, (16, 64))
+    with torch.no_grad():
+        for i in range(3):
+            getattr(a, f"relative_position_bias_table_{i}").normal_(0, 0.1, generator=gen)
+    return a.to(dev)
+
+
+def phase_k8(dev):
+    """K8's entry point once at each of the flagship's three folded window
+    shapes at B = 64 (W = B x nW x heads windows of one shifted block's
+    group, bias and shift mask materialized per window) and at the JAX
+    test's (10, 16, 8) without a mask; returns its kernels-line entry
+    (timing fields summed over the four calls).  Library call:
+    F.scaled_dot_product_attention on (W, 1, N, C) with bias + mask added
+    beforehand as its float attn_mask, scale 1."""
+    import torch.nn.functional as F
+
+    from dpmn_tpu_torch.ops.window_tile_attention import window_tile_attention, window_tile_attention_plain
+
+    gen = torch.Generator().manual_seed(10)
+    a = flagship_attention((1, 2, 4), gen, dev)
+    cases = []
+    for ws, bias, mask in zip(a.win, a.biases(), a.masks()):
+        n, nw = ws * ws, mask.shape[0]
+        w = B * nw * a.gnum_heads
+        fold = lambda t: t.expand(B, nw, a.gnum_heads, n, n).reshape(w, n, n).contiguous()
+        cases.append(((w, n, 16), fold(bias.detach()[None, None]), fold(mask[None, :, None])))
+    cases.append(((10, 16, 8), (0.1 * torch.randn(10, 16, 16, generator=gen)).to(dev), None))
+    inputs = []
+    for (w, n, c), bias, mask in cases:
+        q = (c**-0.5 * torch.randn(w, n, c, generator=gen)).to(dev)  # pre-scaled
+        k, v = (torch.randn(w, n, c, generator=gen).to(dev) for _ in range(2))
+        inputs.append((q, k, v, bias, mask))
+    reset_counts()
+    outs = [window_tile_attention(*args) for args in inputs]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_counts("K8", launches, window_tile_attention=len(inputs))
+    worst, tot, bound = 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}, {"bytes": 0.0, "operations": 0.0}
+    for (q, k, v, bias, mask), out in zip(inputs, outs):
+        w, n, c = q.shape
+        ref = window_tile_attention_plain(q, k, v, bias, mask)
+        err = (out - ref).abs().max().item()
+        attn_mask = (bias if mask is None else bias + mask)[:, None]
+        lib = lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], attn_mask=attn_mask,
+                                                     scale=1.0)
+        lib_err = (lib()[:, 0] - ref).abs().max().item()
+        ok = bool(torch.isfinite(out).all()) and err <= K8_TOL
+        nbytes = 4 * (4 * w * n * c + (1 if mask is None else 2) * w * n * n)
+        flops = 4 * w * n * n * c
+        b_ms, b_by = bound_ms(nbytes, flops)
+        k_ms, p_ms, l_ms = cuda_ms(lambda: window_tile_attention(q, k, v, bias, mask)), cuda_ms(
+            lambda: window_tile_attention_plain(q, k, v, bias, mask), iters=5), cuda_ms(lib)
+        log(f"K8 (W, N, C)=({w}, {n}, {c}) mask={mask is not None}: max_abs_err {err:.3e} (tol {K8_TOL:g}) "
+            f"{'ok' if ok else 'FAIL'}; kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} (SDPA, |diff| "
+            f"{lib_err:.1e}) bound_ms {b_ms:.4f} ({b_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+        if not ok:
+            raise AssertionError(f"K8 disagrees with its plain version: {err}")
+        worst = max(worst, err)
+        for key, t in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms)):
+            tot[key] += t
+        bound[b_by] += b_ms
+    return standalone_entry("window_tile_attention", worst, launches["window_tile_attention"], tot["ms"],
+                            tot["plain_ms"], bound, tot["library_ms"])
+
+
+def k7_cost(a, dtype, h, w):
+    """Bytes and float32 operations of one K7 call at B: K4's forward (q, k,
+    v and out, in the io type) plus the bias tables (io type) and shift
+    masks (float32) read once."""
+    cost = k4_cost(B, (h, w), 96, a.win)
+    io = torch.tensor([], dtype=dtype).element_size()
+    tables = io * sum(b.numel() for b in a.biases()) + 4 * sum(m.numel() for m in a.masks() if m is not None)
+    return cost["fwd_bytes"] * io // 4 + tables, cost["fwd_flops"]
+
+
+def sdpa_windows(a, q, k, v, dtype):
+    """One K7 call's attention as F.scaled_dot_product_attention takes it: per
+    group the rolled, window-partitioned q, k, v (B*nW, heads, N, 16) and
+    bias [+ shift mask] as a float attn_mask, in the io type."""
+    from dpmn_tpu_torch.ops.window_attention import _window_partition
+
+    args = []
+    for g, (ws, sh, bias, mask) in enumerate(zip(a.win, a.shf, a.biases(), a.masks())):
+        n = ws * ws
+
+        def part(t):
+            t = t[..., g * 32:(g + 1) * 32]
+            if sh > 0:
+                t = torch.roll(t, (-sh, -sh), dims=(1, 2))
+            t = _window_partition(t, ws)
+            return t.reshape(t.shape[0], n, a.gnum_heads, 16).permute(0, 2, 1, 3).contiguous()
+
+        bw = B * (16 // ws) * (64 // ws)
+        m = bias.detach()[None].expand(bw, -1, -1, -1)
+        if sh > 0:
+            m = (bias.detach()[None, None] + mask[None, :, None]).expand(B, -1, -1, -1, -1).reshape(bw, -1, n, n)
+        args.append((part(q), part(k), part(v), m.to(dtype).contiguous()))
+    return args
+
+
+def phase_k7(dev):
+    """K7's entry point at B = 64 on both shift sets, float32 then bf16, each
+    dtype's pair of calls counted as one run of its path; returns the
+    kernels-line entries of both io types (timing fields summed over the
+    pair of calls)."""
+    import torch.nn.functional as F
+
+    from dpmn_tpu_torch.ops.grouped_window_attention import grouped_window_attention, grouped_window_attention_plain
+
+    h, w = 16, 64
+    gen = torch.Generator().manual_seed(11)
+    attns = [flagship_attention(shift, gen, dev) for shift in ((0, 0, 0), (1, 2, 4))]
+    q32, k32, v32 = ((0.5 * torch.randn(B, h, w, 96, generator=gen)).to(dev) for _ in range(3))
+    entries, out32 = [], {}
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        calls = [(q, k, v, [b.detach().to(dtype) for b in a.biases()], a.masks(), a.win, a.shf, a.gnum_heads,
+                  a.scale) for a in attns]
+        reset_counts()
+        outs = [grouped_window_attention(*args) for args in calls]
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check_counts(f"K7 {dtype}", launches, grouped_window_attention=len(calls))
+        worst, tot, bound = 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}, {"bytes": 0.0, "operations": 0.0}
+        for a, args, out in zip(attns, calls, outs):
+            ref = grouped_window_attention_plain(*args)
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = K7_TOL if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+            ok = bool(torch.isfinite(out).all()) and out.dtype == dtype and err <= tol
+            extra = ""
+            if dtype == torch.float32:
+                out32[tuple(a.shf)] = out
+            else:
+                f32 = out32[tuple(a.shf)]
+                excess = ((out.float() - f32).abs() - (K7_BF16_ATOL + K7_BF16_RTOL * f32.abs())).max().item()
+                ok = ok and excess <= 0
+                extra = (f"; against the float32 kernel max abs {(out.float() - f32).abs().max().item():.3e} "
+                         f"(rtol {K7_BF16_RTOL:g}, atol {K7_BF16_ATOL:g})")
+            sdpa = sdpa_windows(a, q, k, v, dtype)
+            lib = lambda: [F.scaled_dot_product_attention(qg, kg, vg, attn_mask=m, scale=a.scale)
+                           for qg, kg, vg, m in sdpa]
+            nbytes, flops = k7_cost(a, dtype, h, w)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            k_ms, p_ms, l_ms = cuda_ms(lambda: grouped_window_attention(*args)), cuda_ms(
+                lambda: grouped_window_attention_plain(*args), iters=5), cuda_ms(lib)
+            log(f"K7 {dtype} B={B} shift={tuple(a.shf)}: max_abs_err {err:.3e} (tol {tol:.3e}){extra} "
+                f"{'ok' if ok else 'FAIL'}; kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} (SDPA on "
+                f"the partitioned windows) bound_ms {b_ms:.4f} ({b_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+                f"GFLOP)")
+            if not ok:
+                raise AssertionError(f"K7 {dtype} disagrees with its plain version or the float32 kernel: {err}")
+            worst = max(worst, err)
+            for key, t in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms)):
+                tot[key] += t
+            bound[b_by] += b_ms
+        entries.append(standalone_entry("grouped_window_attention", worst, launches["grouped_window_attention"],
+                                        tot["ms"], tot["plain_ms"], bound, tot["library_ms"], suffix))
+    return entries
+
+
+def phase_k6(dev):
+    """K6's entry point once at B = 64 and the flagship Mlp (HW 1024, s 32,
+    hidden 384) with random weights; returns its kernels-line entry.
+    Library call: the cuDNN depthwise conv, GELU and 1x1 conv that the
+    port's Mlp runs (its own modules; TF32 off), which is also what the plain
+    version computes."""
+    import torch.nn.functional as F
+
+    from dpmn_tpu_torch.models.pgrm import Mlp
+    from dpmn_tpu_torch.ops.mlp_convs import mlp_convs, mlp_convs_plain
+
+    hw, hidden, s = 1024, 384, 32
+    gen = torch.Generator().manual_seed(12)
+    mlp = Mlp(96, hidden, (16, 64))
+    with torch.no_grad():
+        mlp.dwconv.weight.copy_(torch.randn(hidden, 1, 3, 3, generator=gen) / 3)
+        mlp.pwconv.weight.copy_(torch.randn(hidden, hidden, 1, 1, generator=gen) / hidden**0.5)
+        for conv in (mlp.dwconv, mlp.pwconv):
+            conv.bias.copy_(0.1 * torch.randn(hidden, generator=gen))
+    mlp = mlp.to(dev)
+    x = torch.randn(B, hw, hidden, generator=gen).to(dev)
+    with torch.no_grad():
+        weights = (mlp.dwconv.weight, mlp.dwconv.bias, mlp.pwconv.weight, mlp.pwconv.bias)
+        reset_counts()
+        out = mlp_convs(x, *weights)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check_counts("K6", launches, mlp_convs=1)
+        ref = mlp_convs_plain(x, *weights)
+        err = (out - ref).abs().max().item()
+        lib = lambda: mlp.pwconv(F.gelu(mlp.dwconv(x.view(B, hidden, s, s)))).view(B, hw, hidden)
+        lib_err = (lib() - out).abs().max().item()
+        ok = bool(torch.isfinite(out).all()) and err <= K6_TOL
+        nbytes = 4 * (2 * B * hw * hidden + hidden * 9 + hidden * hidden + 2 * hidden)
+        flops = 2 * B * hidden * hidden * hw + 2 * 9 * B * hidden * hw
+        b_ms, b_by = bound_ms(nbytes, flops)
+        k_ms, p_ms, l_ms = cuda_ms(lambda: mlp_convs(x, *weights)), cuda_ms(lambda: mlp_convs_plain(x, *weights),
+                                                                            iters=5), cuda_ms(lib)
+    log(f"K6 B={B} HW={hw} hidden={hidden}: max_abs_err {err:.3e} (tol {K6_TOL:g}) {'ok' if ok else 'FAIL'}; "
+        f"kernel_ms {k_ms:.4f} ({flops / k_ms / 1e9:.1f} TFLOP/s) plain_ms {p_ms:.4f} library_ms {l_ms:.4f} (cuDNN "
+        f"depthwise + GELU + 1x1 of the port's Mlp, |diff| {lib_err:.1e}) bound_ms {b_ms:.4f} ({b_by}; "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    if not ok:
+        raise AssertionError(f"K6 disagrees with its plain version: {err}")
+    return standalone_entry("mlp_convs", err, launches["mlp_convs"], k_ms, p_ms, {b_by: b_ms}, l_ms)
+
+
+def phase_k9(dev):
+    """K9's path: the masks of one seed at B = 64 and the flagship geometry,
+    then the port's debug_train_dropout tool at its own geometry (B = 4,
+    seed 7: one more dump, K4's forward and backward); returns its
+    kernels-line entry (timing fields of the B = 64 dump).  The B = 64
+    masks must equal the plain version's exactly; the tool's forward and
+    q-gradient differences are held at K3's tolerances.  No PyTorch call
+    computes these masks."""
+    from dpmn_tpu_torch.ops.dropout_mask import dropout_mask, dropout_mask_plain
+    from dpmn_tpu_torch.tools import debug_train_dropout as tool
+
+    seed, keep = 4242, 0.9
+    geo = (tool.WINDOWS, tool.HEADS, (tool.H, tool.W))
+    reset_counts()
+    masks = dropout_mask(seed, B, keep, *geo, dev)
+    r = tool.check(dev)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_counts("K9", launches, dropout_mask=2, window_attention_core_forward=1, window_attention_core_backward=1)
+    ref = dropout_mask_plain(seed, B, keep, *geo, dev)
+    err = max((a - b).abs().max().item() for a, b in zip(masks, ref))
+    exact = all(torch.equal(a, b) for a, b in zip(masks, ref))
+    kept = sum(int((m > 0).sum()) for m in masks) / sum(m.numel() for m in masks)
+    tool_ok = (r["fwd_max_abs"] <= K3_TOL
+               and r["grad_max_abs"] <= K3_GRAD_RTOL * r["grad_scale"] + K3_GRAD_ATOL)
+    log(f"K9 B={B}: masks equal to the plain version's {exact} (max abs {err:g}), keep fraction {kept:.5f}; tool "
+        f"(B=4, seed 7) keep fraction {r['keep_fraction']:.5f}, K4 forward vs the explicit-mask rebuild max abs "
+        f"{r['fwd_max_abs']:.3e} (tol {K3_TOL:g}), q-gradient {r['grad_max_abs']:.3e} (tol {K3_GRAD_RTOL:g} * "
+        f"{r['grad_scale']:.3f} + {K3_GRAD_ATOL:g}) {'ok' if exact and tool_ok else 'FAIL'}")
+    if not (exact and tool_ok):
+        raise AssertionError("K9: the dumped masks differ from the plain version's, or the core from the rebuild")
+    times = {}
+    for batch in (B, 4):
+        nbytes = 4 * sum(m.numel() for m in masks) * batch // B
+        b_ms, b_by = bound_ms(nbytes, 0)
+        k_ms = cuda_ms(lambda: dropout_mask(seed, batch, keep, *geo, dev))
+        p_ms = cuda_ms(lambda: dropout_mask_plain(seed, batch, keep, *geo, dev), iters=3)
+        log(f"K9 B={batch}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; "
+            f"{nbytes / 1e6:.1f} MB written; the integer hash chain not counted)")
+        times[batch] = (k_ms, p_ms, {b_by: b_ms})
+    # the entry times the B = 64 dump alone; the tool's B = 4 dump is only logged
+    return standalone_entry("dropout_mask", err, launches["dropout_mask"], *times[B], None)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the machine with the card", file=sys.stderr)
@@ -676,6 +984,10 @@ def main():
         launches = phase_train(dev, card, core, timed)
         fwd["launches"], bwd["launches"] = launches[f"{name}_forward"], launches[f"{name}_backward"]
         entries += [fwd, bwd]
+    entries.append(phase_k8(dev))
+    entries += phase_k7(dev)
+    entries.append(phase_k6(dev))
+    entries.append(phase_k9(dev))
     log(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,13 @@ CUDA C++ kernels for sm_90a under `csrc/`, built with nvcc at first use and
 bound with ctypes (see `ops/kernels.py`): the eval window-attention block
 (K1), the GRU scan (K2), and the three training window-attention cores with
 their backward — LN + projections + attention (K3), attention on projected
-q, k, v (K4), K3 with SKConv inside (K5).  Each kernel has a plain PyTorch version of the same
-function beside it, which the CPU tests use and which runs for CPU tensors
-only: a CUDA tensor launches the kernel or raises.
+q, k, v (K4), K3 with SKConv inside (K5) — and four standalone ops whose TPU
+kernels no path calls: the faithful Mlp conv pair (K6), the eval attention
+on projected q, k, v in float32 or bf16 (K7), per-window attention tiles
+(K8) and the dump of the training cores' dropout masks (K9).  Each kernel
+has a plain PyTorch version of the same function beside it, which the CPU
+tests use and which runs for CPU tensors only: a CUDA tensor launches the
+kernel or raises.
 
 Numerics: the card computes float32 in full float32.  TF32 is switched off
 for matmuls and for cuDNN (convolutions and RNNs), so that the card computes

@@ -1,18 +1,34 @@
 // Forward pieces shared by the window-attention kernels (window_attention.cu,
 // window_attention_train.cu, window_attention_core.cu,
-// window_attention_full.cu): the LayerNorm + Q/KV projection kernel, the
-// per-group window-attention forward, the counter-based hash that draws the
-// attention-dropout mask, and SKConv's three forward kernels.
+// window_attention_full.cu, grouped_window_attention.cu) and the
+// dropout-mask dump (dropout_mask.cu): the LayerNorm + Q/KV projection
+// kernel, the per-group window-attention forward (float32 or bf16 io), the
+// counter-based hash that draws the attention-dropout mask, and SKConv's
+// three forward kernels.
 //
 // The build hash of every csrc/*.cu covers this header (ops/kernels.py).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+// Loads and stores of the attention's io type, computing in float32.  For
+// float they are the plain load and store.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 
 constexpr int TOK = 64;      // tokens per block in the token-tile kernels
 constexpr int THREADS = 256;  // 8 warps x 8 tokens
@@ -152,13 +168,16 @@ __device__ __forceinline__ int window_token(int widx, int j, int ws, int nwc, in
 // one image; thread (window, head, query).  q rows have stride D; k and v
 // rows stride kvs (2D where they are the halves of one kv buffer, D where
 // they are tensors of their own).  Shared: k and v of the block's windows,
-// [WPB][N][ch] each.  With DROP the probabilities are multiplied by the
-// dropout mask (kept entries by inv_keep) before the product with v.
-template <int N, bool DROP>
-__global__ void window_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                   const float* __restrict__ v, int kvs,
-                                   const float* __restrict__ bias, const float* __restrict__ mask,
-                                   float* __restrict__ out, int H, int W, int D, int g, int gh,
+// [WPB][N][ch] each, in float32.  With DROP the probabilities are multiplied
+// by the dropout mask (kept entries by inv_keep) before the product with v.
+// T is the io type of q, k, v, bias and out (float, or bf16 for the eval
+// attention on projected q, k, v); the mask is float32 and every sum runs in
+// float32.
+template <int N, bool DROP, typename T = float>
+__global__ void window_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                   const T* __restrict__ v, int kvs,
+                                   const T* __restrict__ bias, const float* __restrict__ mask,
+                                   T* __restrict__ out, int H, int W, int D, int g, int gh,
                                    int ws, int sh, int wpb, float scale, int corrected,
                                    uint32_t seed, uint32_t thresh, float inv_keep) {
   extern __shared__ float sm[];
@@ -175,8 +194,8 @@ __global__ void window_attn_kernel(const float* __restrict__ q, const float* __r
     float kval = 0.f, vval = 0.f;
     if (widx < nw) {
       const int64_t off = kvbase + (int64_t)window_token(widx, j, ws, nwc, sh, H, W) * kvs + g * ch + c;
-      kval = k[off];
-      vval = v[off];
+      kval = to_f32(k[off]);
+      vval = to_f32(v[off]);
     }
     ks[e] = kval;
     vs[e] = vval;
@@ -187,12 +206,12 @@ __global__ void window_attn_kernel(const float* __restrict__ q, const float* __r
   if (lw >= wpb || widx >= nw) return;
   const int tok = window_token(widx, i, ws, nwc, sh, H, W);
   float qv[GCH];
-  const float* qrow = q + ((int64_t)b * L + tok) * D + g * ch + hd * GCH;
+  const T* qrow = q + ((int64_t)b * L + tok) * D + g * ch + hd * GCH;
 #pragma unroll
-  for (int d = 0; d < GCH; ++d) qv[d] = qrow[d] * scale;
+  for (int d = 0; d < GCH; ++d) qv[d] = to_f32(qrow[d]) * scale;
   const float* kw = ks + lw * N * ch + hd * GCH;
   const float* vw = vs + lw * N * ch + hd * GCH;
-  const float* brow = bias + (hd * N + i) * N;
+  const T* brow = bias + (hd * N + i) * N;
   const float* mrow = sh > 0 ? mask + ((int64_t)widx * N + i) * N : nullptr;
   float s[N];
   float mx = -INFINITY;
@@ -201,7 +220,7 @@ __global__ void window_attn_kernel(const float* __restrict__ q, const float* __r
     float acc = 0.f;
 #pragma unroll
     for (int d = 0; d < GCH; ++d) acc = fmaf(qv[d], kw[j * ch + d], acc);
-    acc += __ldg(brow + j);
+    acc += ldg_f32(brow + j);
     if (mrow) acc += __ldg(mrow + j);
     s[j] = acc;
     mx = fmaxf(mx, acc);
@@ -224,14 +243,14 @@ __global__ void window_attn_kernel(const float* __restrict__ q, const float* __r
     for (int d = 0; d < GCH; ++d) o[d] = fmaf(p, vw[j * ch + d], o[d]);
   }
   const int row = corrected ? tok : widx * N + i;
-  float* orow = out + ((int64_t)b * L + row) * D + g * ch + hd * GCH;
+  T* orow = out + ((int64_t)b * L + row) * D + g * ch + hd * GCH;
 #pragma unroll
-  for (int d = 0; d < GCH; ++d) orow[d] = o[d];
+  for (int d = 0; d < GCH; ++d) orow[d] = from_f32<T>(o[d]);
 }
 
-template <int N, bool DROP>
-cudaError_t launch_attn(const float* q, const float* k, const float* v, int kvs, const float* bias,
-                        const float* mask, float* out,
+template <int N, bool DROP, typename T = float>
+cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const T* bias,
+                        const float* mask, T* out,
                         int B, int H, int W, int D, int g, int gh, int ws, int sh, float scale,
                         int corrected, uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t st) {
   const int wpb = (N * gh >= 128) ? 1 : 128 / (N * gh);
@@ -239,17 +258,17 @@ cudaError_t launch_attn(const float* q, const float* k, const float* v, int kvs,
   const int nw = (H / ws) * (W / ws);
   const size_t smem = (size_t)2 * wpb * N * gh * GCH * sizeof(float);
   dim3 grid((nw + wpb - 1) / wpb, B);
-  cudaFuncSetAttribute(window_attn_kernel<N, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  window_attn_kernel<N, DROP><<<grid, threads, smem, st>>>(q, k, v, kvs, bias, mask, out, H, W, D, g, gh, ws,
-                                                           sh, wpb, scale, corrected, seed, thresh, inv_keep);
+  cudaFuncSetAttribute(window_attn_kernel<N, DROP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  window_attn_kernel<N, DROP, T><<<grid, threads, smem, st>>>(q, k, v, kvs, bias, mask, out, H, W, D, g, gh, ws,
+                                                              sh, wpb, scale, corrected, seed, thresh, inv_keep);
   return cudaGetLastError();
 }
 
 // Launch the forward attention of every group; bias and mask are the
 // per-group tables concatenated (masks of shifted groups only).
-template <bool DROP>
-cudaError_t launch_attn_groups(const float* q, const float* k, const float* v, int kvs, const float* bias,
-                               const float* mask, float* out, int B, int H, int W, int D, int n_group,
+template <bool DROP, typename T = float>
+cudaError_t launch_attn_groups(const T* q, const T* k, const T* v, int kvs, const T* bias,
+                               const float* mask, T* out, int B, int H, int W, int D, int n_group,
                                const int* ws, const int* shifts, int gh, float scale, int corrected, uint32_t seed,
                                uint32_t thresh, float inv_keep, cudaStream_t st) {
   size_t boff = 0, moff = 0;
@@ -258,9 +277,9 @@ cudaError_t launch_attn_groups(const float* q, const float* k, const float* v, i
     const float* mg = shifts[g] > 0 ? mask + moff : nullptr;
     cudaError_t err;
     switch (ws[g]) {
-      case 2: err = launch_attn<4, DROP>(q, k, v, kvs, bias + boff, mg, out, B, H, W, D, g, gh, ws[g], shifts[g], scale, corrected, seed, thresh, inv_keep, st); break;
-      case 4: err = launch_attn<16, DROP>(q, k, v, kvs, bias + boff, mg, out, B, H, W, D, g, gh, ws[g], shifts[g], scale, corrected, seed, thresh, inv_keep, st); break;
-      case 8: err = launch_attn<64, DROP>(q, k, v, kvs, bias + boff, mg, out, B, H, W, D, g, gh, ws[g], shifts[g], scale, corrected, seed, thresh, inv_keep, st); break;
+      case 2: err = launch_attn<4, DROP, T>(q, k, v, kvs, bias + boff, mg, out, B, H, W, D, g, gh, ws[g], shifts[g], scale, corrected, seed, thresh, inv_keep, st); break;
+      case 4: err = launch_attn<16, DROP, T>(q, k, v, kvs, bias + boff, mg, out, B, H, W, D, g, gh, ws[g], shifts[g], scale, corrected, seed, thresh, inv_keep, st); break;
+      case 8: err = launch_attn<64, DROP, T>(q, k, v, kvs, bias + boff, mg, out, B, H, W, D, g, gh, ws[g], shifts[g], scale, corrected, seed, thresh, inv_keep, st); break;
       default: err = cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return err;

@@ -21,13 +21,13 @@ Dropout, attention dropout and drop path draw from the step's `TrainRng`.
 Faithful quirks (`faithful=True`, the default): the attention output's
 window-major rows are read back as raster rows (model/pgrm.py:263), and the
 Mlp views its (B, HW, hidden) buffer as (B, hidden, s, s) in C order
-(model/pgrm.py:34), a free `.view` here.  `faithful=False` gives the
-spatially correct variant of both.
+(model/pgrm.py:34), a free `.view` here (`ops/mlp_convs.py`
+`mlp_convs_plain`, the plain version of kernel K6, which the Mlp runs).
+`faithful=False` gives the spatially correct variant of both.
 """
 
 from __future__ import annotations
 
-import math
 import os
 from typing import Optional, Sequence, Tuple
 
@@ -37,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dropout import TrainRng, drop_path, dropout
+from ..ops.mlp_convs import mlp_convs_plain
 from ..ops.torch_compat import LN_EPS
 from ..ops.window_attention import layer_norm, skconv, window_attention_block
 from ..ops.window_attention_core import window_attention_core
@@ -213,9 +214,7 @@ class Mlp(nn.Module):
         x = dropout(F.gelu(self.fc1(x)), drop, rng)
         if self.faithful:
             # QUIRK (ref :33-38): a C-order view of the (B, HW, hidden) buffer
-            s = int(math.sqrt(hw))
-            xg = self.pwconv(F.gelu(self.dwconv(x.reshape(b, self.hidden, s, s))))
-            x = xg.reshape(b, hw, self.hidden)
+            x = mlp_convs_plain(x, self.dwconv.weight, self.dwconv.bias, self.pwconv.weight, self.pwconv.bias)
         else:
             gh, gw = self.grid
             xg = x.reshape(b, gh, gw, self.hidden).permute(0, 3, 1, 2)

@@ -53,9 +53,9 @@ def gru_scan(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     if g != 3 * hdim or hdim % 32 != 0:
         raise ValueError(f"gru_scan kernel needs 3H columns with H a multiple of 32, got {g}")
     dev = x_proj.device
-    kernels.check_f32_cuda("x_proj", x_proj, device=dev)
-    kernels.check_f32_cuda("w_hh", w_hh, (g, hdim), dev)
-    kernels.check_f32_cuda("b_hh", b_hh, (g,), dev)
+    kernels.check_cuda_tensor("x_proj", x_proj, device=dev)
+    kernels.check_cuda_tensor("w_hh", w_hh, (g, hdim), dev)
+    kernels.check_cuda_tensor("b_hh", b_hh, (g,), dev)
     kernels.refuse_autograd("gru_scan", (x_proj, w_hh, b_hh))
     out = torch.empty(n, t_len, hdim, device=dev, dtype=torch.float32)
     lib = kernels.library("gru_scan")

@@ -24,7 +24,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("window_attention", "gru_scan", "window_attention_train", "window_attention_core",
-           "window_attention_full")
+           "window_attention_full", "window_tile_attention", "grouped_window_attention", "mlp_convs",
+           "dropout_mask")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -118,12 +119,13 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def check_f32_cuda(name: str, t: torch.Tensor, shape=None, device=None) -> None:
-    """Raise unless `t` is a contiguous float32 CUDA tensor of `shape`."""
+def check_cuda_tensor(name: str, t: torch.Tensor, shape=None, device=None, dtype=torch.float32) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (float32 by
+    default) and `shape`."""
     if t.device.type != "cuda" or (device is not None and t.device != device):
         raise ValueError(f"{name}: expected a tensor on {device or 'cuda'}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):

@@ -150,16 +150,16 @@ def window_attention_block(xq, xkv, weights: dict, biases, masks, window_sizes, 
         if ws not in (2, 4, 8) or h % ws or w % ws:
             raise ValueError(f"window_attention kernel: window {ws} on a {h}x{w} grid")
     dev = xq.device
-    kernels.check_f32_cuda("xq", xq, (b, l, dim), dev)
-    kernels.check_f32_cuda("xkv", xkv, (b, l, dim), dev)
+    kernels.check_cuda_tensor("xq", xq, (b, l, dim), dev)
+    kernels.check_cuda_tensor("xkv", xkv, (b, l, dim), dev)
     shapes = {"q_w": (dim, dim), "q_b": (dim,), "kv_w": (2 * dim, dim), "kv_b": (2 * dim,),
               "proj_w": (dim, dim), "proj_b": (dim,), "fc1_w": (dz, dim), "fc1_b": (dz,),
               "fc2_w": (dim, dz), "fc2_b": (dim,), "ph_w": (dim, channel), "ph_b": (dim,)}
     for k in _WEIGHTS:
-        kernels.check_f32_cuda(k, weights[k], shapes[k], dev)
+        kernels.check_cuda_tensor(k, weights[k], shapes[k], dev)
     if ln is not None:
         for k in _LN:
-            kernels.check_f32_cuda(k, ln[k], (dim,), dev)
+            kernels.check_cuda_tensor(k, ln[k], (dim,), dev)
     bias = torch.cat([bb.reshape(-1) for bb in biases]).contiguous()
     shifted = [m.reshape(-1) for m, sh in zip(masks, shifts) if sh > 0]
     mask = torch.cat(shifted).contiguous() if shifted else bias.new_zeros(1)
@@ -169,8 +169,8 @@ def window_attention_block(xq, xkv, weights: dict, biases, masks, window_sizes, 
             raise ValueError(f"bias {i}: expected {(gnum_heads, n, n)}, got {tuple(biases[i].shape)}")
         if sh > 0 and tuple(masks[i].shape) != ((h // ws) * (w // ws), n, n):
             raise ValueError(f"mask {i}: wrong shape {tuple(masks[i].shape)}")
-    kernels.check_f32_cuda("bias", bias, device=dev)
-    kernels.check_f32_cuda("mask", mask, device=dev)
+    kernels.check_cuda_tensor("bias", bias, device=dev)
+    kernels.check_cuda_tensor("mask", mask, device=dev)
     kernels.refuse_autograd("window_attention_block",
                             (xq, xkv, *weights.values(), *biases, *(ln.values() if ln is not None else ())))
 

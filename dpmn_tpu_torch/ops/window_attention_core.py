@@ -45,7 +45,7 @@ def _prepare(st: WT._Static, primals, biases):
     b, l, dim = q.shape
     WT.check_geometry(_NAME, st, l, dim)
     for name, t in zip("qkv", primals):
-        kernels.check_f32_cuda(name, t, (b, l, dim), q.device)
+        kernels.check_cuda_tensor(name, t, (b, l, dim), q.device)
     return (b, *st.hw_shape, dim, *WT.pack_tables(st, biases, q.device))
 
 
@@ -68,7 +68,7 @@ def _backward_cuda(st: WT._Static, primals, biases, dout: torch.Tensor):
     """dq, dk, dv and the per-group bias gradients."""
     b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device
-    kernels.check_f32_cuda("dout", dout, (b, h * w, dim), dev)
+    kernels.check_cuda_tensor("dout", dout, (b, h * w, dim), dev)
     lib = kernels.library(_NAME)
     dbias_part = torch.empty(WT.scratch_floats(lib.window_attention_core_backward_scratch, b, h, w,
                                                len(st.window_sizes), ws_arr, st.gnum_heads), device=dev)

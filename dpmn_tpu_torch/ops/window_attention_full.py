@@ -53,7 +53,7 @@ def _prepare(st: WT._Static, primals, biases):
     shapes = {"proj_w": (dim, dim), "proj_b": (dim,), "fc1_w": (dz, dim), "fc1_b": (dz,), "fc2_w": (dim, dz),
               "fc2_b": (dim,), "ph_w": (dim, ch), "ph_b": (dim,)}
     for name, t in zip(_SKCONV, primals[10:]):
-        kernels.check_f32_cuda(name, t, shapes[name], primals[0].device)
+        kernels.check_cuda_tensor(name, t, shapes[name], primals[0].device)
     wt = (ctypes.c_void_p * 16)(*[t.data_ptr() for t in primals[2:]])
     return b, h, w, dim, dz, wt, bias, mask, ws_arr, sh_arr
 
@@ -84,7 +84,7 @@ def _backward_cuda(st: WT._Static, primals, biases, dout: torch.Tensor):
     """The 18 primal gradients and the per-group bias gradients."""
     b, h, w, dim, dz, wt, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device
-    kernels.check_f32_cuda("dout", dout, (b, h * w, dim), dev)
+    kernels.check_cuda_tensor("dout", dout, (b, h * w, dim), dev)
     lib = kernels.library(_NAME)
     size = lib.window_attention_full_backward_scratch
     size.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 2

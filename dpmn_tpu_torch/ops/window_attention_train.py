@@ -223,20 +223,20 @@ def check_geometry(what: str, st: _Static, l: int, dim: int) -> None:
             raise ValueError(f"{what} kernel: window {ws} on a {h}x{w} grid")
 
 
-def pack_tables(st: _Static, biases, dev):
-    """Check the per-group bias and mask tables; returns (bias, mask, ws_arr,
-    sh_arr): the tables concatenated (masks of shifted groups only) and the
-    windows and shifts as C int arrays."""
+def pack_tables(st: _Static, biases, dev, bias_dtype=torch.float32):
+    """Check the per-group bias (of `bias_dtype`) and float32 mask tables;
+    returns (bias, mask, ws_arr, sh_arr): the tables concatenated (masks of
+    shifted groups only) and the windows and shifts as C int arrays."""
     h, w = st.hw_shape
     n_group = len(st.window_sizes)
     for i, (ws, sh) in enumerate(zip(st.window_sizes, st.shifts)):
         n = ws * ws
-        kernels.check_f32_cuda(f"bias {i}", biases[i], (st.gnum_heads, n, n), dev)
+        kernels.check_cuda_tensor(f"bias {i}", biases[i], (st.gnum_heads, n, n), dev, bias_dtype)
         if sh > 0:
-            kernels.check_f32_cuda(f"mask {i}", st.masks[i], ((h // ws) * (w // ws), n, n), dev)
+            kernels.check_cuda_tensor(f"mask {i}", st.masks[i], ((h // ws) * (w // ws), n, n), dev)
     bias = torch.cat([bb.reshape(-1) for bb in biases])
     shifted = [m.reshape(-1) for m, sh in zip(st.masks, st.shifts) if sh > 0]
-    mask = torch.cat(shifted) if shifted else bias.new_zeros(1)
+    mask = torch.cat(shifted) if shifted else torch.zeros(1, device=dev)
     ws_arr = (ctypes.c_int * n_group)(*st.window_sizes)
     sh_arr = (ctypes.c_int * n_group)(*st.shifts)
     return bias, mask, ws_arr, sh_arr
@@ -261,7 +261,7 @@ def _prepare(st: _Static, primals, biases):
     shapes = {"xq": (b, l, dim), "xkv": (b, l, dim), "qs": (dim,), "qb": (dim,), "ks": (dim,), "kb": (dim,),
               "q_w": (dim, dim), "q_b": (dim,), "kv_w": (2 * dim, dim), "kv_b": (2 * dim,)}
     for name, t in zip(_PRIMALS, primals):
-        kernels.check_f32_cuda(name, t, shapes[name], dev)
+        kernels.check_cuda_tensor(name, t, shapes[name], dev)
     return (b, *st.hw_shape, dim, *pack_tables(st, biases, dev))
 
 
@@ -304,7 +304,7 @@ def _backward_cuda(st: _Static, primals, biases, dout: torch.Tensor):
     b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device
     l, ntok = h * w, b * h * w
-    kernels.check_f32_cuda("dout", dout, (b, l, dim), dev)
+    kernels.check_cuda_tensor("dout", dout, (b, l, dim), dev)
 
     def scratch(*shape):
         return torch.empty(*shape, device=dev)

@@ -179,7 +179,10 @@ def _swin_block(c: _Copier, blk, q):
     for name in ("norm1_q", "norm1_kv", "norm2"):
         c.ln(getattr(blk, name), f"{q}/{name}")
     _window_attention(c, blk.attn, f"{q}/WindowAttention_0")
-    mlp, ml = blk.mlp, f"{q}/Mlp_0"
+    _mlp(c, blk.mlp, f"{q}/Mlp_0")
+
+
+def _mlp(c: _Copier, mlp, ml):
     c.dense(mlp.fc1, f"{ml}/Dense_0")
     c.dense(mlp.fc2, f"{ml}/Dense_1")
     c.conv(mlp.dwconv, f"{ml}/dw")  # dw_kernel / dw_bias
@@ -241,8 +244,9 @@ def _distill(c: _Copier, m, p, s):
 
 def _rename_mlp_convs(leaves: _Leaves):
     """The JAX Mlp stores its convs as dw_kernel/dw_bias/pw_kernel/pw_bias;
-    give them the kernel/bias leaf names the conv copier reads."""
-    for path in [k for k in leaves.flat if "/Mlp_0/" in k]:
+    give them the kernel/bias leaf names the conv copier reads (inside a
+    block's Mlp_0, or at the top of an Mlp's own tree)."""
+    for path in [k for k in leaves.flat if "/Mlp_0/" in k or k.rsplit("/", 1)[0] == "params"]:
         head, leaf = path.rsplit("/", 1)
         if leaf.startswith(("dw_", "pw_")):
             leaves.flat[f"{head}/{leaf[:2]}/{leaf[3:]}"] = leaves.flat.pop(path)
@@ -282,7 +286,7 @@ def module_from_jax(module: nn.Module, variables: dict) -> None:
     from .models.cmm import CMM
     from .models.crnn import CRNN
     from .models.distill import DistillModule
-    from .models.pgrm import PGRM, SwinTransformerBlock, WindowAttention
+    from .models.pgrm import PGRM, Mlp, SwinTransformerBlock, WindowAttention
     from .models.tatt import TSRN_TL_TRANS
     from .models.visionlan import VisionLAN
     from .ops.gru import BiGRU
@@ -295,6 +299,7 @@ def module_from_jax(module: nn.Module, variables: dict) -> None:
         PGRM: lambda: _pgrm(c, module, p),
         SwinTransformerBlock: lambda: _swin_block(c, module, p),
         WindowAttention: lambda: _window_attention(c, module, p),
+        Mlp: lambda: _mlp(c, module, p),
         CMM: lambda: _cmm(c, module, p, s),
         TSRN_TL_TRANS: lambda: _psn(c, module, p, s),
         CRNN: lambda: _crnn(c, module, p, s),

@@ -9,16 +9,21 @@ the card (which has no JAX, so the repository's conftest is skipped):
 import pytest
 import torch
 
-from dpmn_tpu_torch.models.pgrm import SwinTransformerBlock
+from dpmn_tpu_torch.models.pgrm import SwinTransformerBlock, WindowAttention
+from dpmn_tpu_torch.ops import dropout_mask as DM
+from dpmn_tpu_torch.ops import grouped_window_attention as GW
+from dpmn_tpu_torch.ops import mlp_convs as MC
 from dpmn_tpu_torch.ops import window_attention_core as WC
 from dpmn_tpu_torch.ops import window_attention_full as WF
 from dpmn_tpu_torch.ops import window_attention_train as WT
 from dpmn_tpu_torch.ops.gru import gru_scan, gru_scan_counter, gru_scan_plain
+from dpmn_tpu_torch.ops import window_tile_attention as WTA
 from dpmn_tpu_torch.ops.window_attention import (
     window_attention_block,
     window_attention_block_plain,
     window_attention_counter,
 )
+from dpmn_tpu_torch.tools import debug_train_dropout
 from dpmn_tpu_torch.system import init_weights
 
 pytestmark = pytest.mark.cuda
@@ -198,3 +203,98 @@ def test_kernels_without_backward_refuse_autograd(dev):
         gru_scan(torch.randn(4, 6, 96, device=dev), w, b)
     with torch.no_grad():
         gru_scan(torch.randn(4, 6, 96, device=dev), w, b)
+
+
+@pytest.mark.parametrize("wnc", [(10, 16, 8), (300, 4, 16), (96, 16, 16), (40, 64, 16), (7, 64, 64), (33, 9, 5)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_tile_attention_kernel(dev, wnc, masked):
+    """K8 against its plain version: ragged block ends, every window size of
+    the flagship, the largest N and C it takes, and odd ones."""
+    w, n, c = wnc
+    gen = torch.Generator().manual_seed(w + n)
+    q, k, v = ((0.5 * torch.randn(w, n, c, generator=gen)).to(dev) for _ in range(3))
+    bias = (0.1 * torch.randn(w, n, n, generator=gen)).to(dev)
+    mask = torch.where(torch.rand(w, n, n, generator=gen) < 0.3, -100.0, 0.0).to(dev) if masked else None
+    before = WTA.window_tile_attention_counter.launches
+    out = WTA.window_tile_attention(q, k, v, bias, mask)
+    ref = WTA.window_tile_attention_plain(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    assert WTA.window_tile_attention_counter.launches == before + 1
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shift", [(0, 0, 0), (1, 2, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_window_attention_kernel(dev, shift, dtype):
+    """K7 against its plain version in its io type: float32 to 1e-4; bf16 to
+    one bf16 rounding of the largest value."""
+    gen = torch.Generator().manual_seed(5)
+    wa = WindowAttention(96, [2, 4, 8], list(shift), 6, (16, 64))
+    with torch.no_grad():
+        for i in range(3):
+            getattr(wa, f"relative_position_bias_table_{i}").normal_(0, 0.1, generator=gen)
+    wa = wa.to(dev)
+    q, k, v = ((0.5 * torch.randn(2, 16, 64, 96, generator=gen)).to(dev, dtype) for _ in range(3))
+    args = ([b.detach().to(dtype) for b in wa.biases()], wa.masks(), wa.win, wa.shf, wa.gnum_heads, wa.scale)
+    before = GW.grouped_window_attention_counter.launches
+    out = GW.grouped_window_attention(q, k, v, *args)
+    ref = GW.grouped_window_attention_plain(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert GW.grouped_window_attention_counter.launches == before + 1
+    assert out.dtype == dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= (1e-4 if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item())
+
+
+@pytest.mark.parametrize("b,s,hidden", [(2, 8, 32), (2, 32, 384), (3, 5, 64)])
+def test_mlp_convs_kernel(dev, b, s, hidden):
+    """K6 against the cuDNN conv pair of its plain version (TF32 off)."""
+    gen = torch.Generator().manual_seed(s)
+    x = torch.randn(b, s * s, hidden, generator=gen).to(dev)
+    dw_w = (torch.randn(hidden, 1, 3, 3, generator=gen) / 3).to(dev)
+    pw_w = (torch.randn(hidden, hidden, 1, 1, generator=gen) / hidden**0.5).to(dev)
+    dw_b, pw_b = ((0.1 * torch.randn(hidden, generator=gen)).to(dev) for _ in range(2))
+    before = MC.mlp_convs_counter.launches
+    out = MC.mlp_convs(x, dw_w, dw_b, pw_w, pw_b)
+    ref = MC.mlp_convs_plain(x, dw_w, dw_b, pw_w, pw_b)
+    torch.cuda.synchronize()
+    assert MC.mlp_convs_counter.launches == before + 1
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("keep", [0.9, 0.5])
+def test_dropout_mask_kernel(dev, keep):
+    """K9 draws exactly the plain version's masks; the tool's check passes."""
+    before = DM.dropout_mask_counter.launches
+    got = DM.dropout_mask(99, 3, keep, (2, 4, 8), 2, (16, 64), dev)
+    torch.cuda.synchronize()
+    assert DM.dropout_mask_counter.launches == before + 1
+    want = DM.dropout_mask_plain(99, 3, keep, (2, 4, 8), 2, (16, 64), dev)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    r = debug_train_dropout.check(dev, batch=2)
+    assert r["fwd_max_abs"] <= 1e-4 and r["grad_max_abs"] <= 1e-4 * r["grad_scale"] + 1e-5
+
+
+def test_new_kernels_reject_what_they_do_not_take(dev):
+    x = torch.randn(4, 16, 8, device=dev)
+    bias = torch.zeros(4, 16, 16, device=dev)
+    with pytest.raises(ValueError):
+        WTA.window_tile_attention(x.double(), x.double(), x.double(), bias.double())
+    with pytest.raises(ValueError):
+        y = torch.randn(4, 80, 8, device=dev)  # N > 64
+        WTA.window_tile_attention(y, y, y, torch.zeros(4, 80, 80, device=dev))
+    with pytest.raises(RuntimeError, match="no backward"):
+        WTA.window_tile_attention(x.requires_grad_(), x, x, bias)
+    h = torch.randn(2, 64, 48, device=dev)  # hidden not a multiple of 32
+    with pytest.raises(ValueError):
+        MC.mlp_convs(h, torch.zeros(48, 1, 3, 3, device=dev), torch.zeros(48, device=dev),
+                     torch.zeros(48, 48, 1, 1, device=dev), torch.zeros(48, device=dev))
+    wa = WindowAttention(96, [2, 4, 8], [0, 0, 0], 6, (16, 64)).to(dev)
+    q = torch.randn(2, 16, 64, 96, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        GW.grouped_window_attention(q, q, q, [b.detach().half() for b in wa.biases()], wa.masks(), wa.win, wa.shf,
+                                    wa.gnum_heads, wa.scale)
+    qf = q.float()
+    with pytest.raises(ValueError):  # float32 q with bf16 biases
+        GW.grouped_window_attention(qf, qf, qf, [b.detach().bfloat16() for b in wa.biases()], wa.masks(), wa.win,
+                                    wa.shf, wa.gnum_heads, wa.scale)

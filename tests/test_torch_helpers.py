@@ -7,6 +7,8 @@ through dpmn_tpu_torch.weights.  Images cross as numpy arrays, NHWC for the
 JAX package and NCHW for the port.
 """
 
+import os
+
 import jax
 import numpy as np
 import torch
@@ -18,6 +20,14 @@ import torch._dynamo  # noqa: F401
 # __getattr__ answers any name, `__file__` included, which breaks that
 # inspection (tests/reference_bridge.py).  Importing it here, while the
 # port's test files are collected, puts it ahead of any stub.
+
+# Under pytest-xdist each worker is one of several processes on the host's
+# cores.  torch's OpenMP pool takes every core in each of them, and its
+# threads spin while they wait, so workers running torch-heavy tests at once
+# slow each other down many times over; each worker takes its share instead.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 
 def random_variables(shape_tree, seed: int):

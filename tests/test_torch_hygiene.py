@@ -1,6 +1,7 @@
-"""The port stands alone: it imports nothing of JAX or of dpmn_tpu, nor the
-host libraries the machine with the card lacks; its entry points refuse to
-fall back to the CPU; nothing builds a kernel at import."""
+"""The port stands alone: it imports nothing of JAX, of dpmn_tpu or of the
+repository's tools/, nor the host libraries the machine with the card lacks;
+its entry points refuse to fall back to the CPU; nothing builds a kernel at
+import."""
 
 import ast
 import pkgutil
@@ -15,7 +16,7 @@ import dpmn_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "dpmn_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dpmn_tpu", "yaml", "cv2", "PIL", "pygame")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dpmn_tpu", "tools", "yaml", "cv2", "PIL", "pygame")
 
 
 def _port_modules():
@@ -90,6 +91,7 @@ def test_kernel_sources_and_assets_ship():
     for name in kernels.SOURCES:
         assert (kernels.CSRC / f"{name}.cu").is_file()
     for name in ("window_attention_train.cu", "window_attention_core.cu", "window_attention_full.cu",
+                 "window_tile_attention.cu", "grouped_window_attention.cu", "mlp_convs.cu", "dropout_mask.cu",
                  "window_common.cuh", "window_train_common.cuh"):
         assert (kernels.CSRC / name).is_file(), name
     assert (PORT / "assets" / "glyph_atlas_32x128.npz").is_file()

@@ -1,6 +1,7 @@
 """The kernel build and launch helpers of dpmn_tpu_torch.ops.kernels, on the
-CPU: the build key covers every header a source may include, and kernels
-without a backward refuse autograd."""
+CPU: the build key covers every header a source may include, kernels
+without a backward refuse autograd, and the launch-side tensor check refuses
+a tensor that is not on the card."""
 
 import pytest
 import torch
@@ -28,8 +29,9 @@ def test_build_key_covers_the_headers(tmp_path, monkeypatch):
 
 def test_every_source_has_a_key():
     names = {kernels._target(name).name for name in kernels.SOURCES}
-    assert len(names) == len(kernels.SOURCES) == 5
-    for name in ("window_attention_train", "window_attention_core", "window_attention_full"):
+    assert len(names) == len(kernels.SOURCES) == 9
+    for name in ("window_attention_train", "window_attention_core", "window_attention_full", "mlp_convs",
+                 "grouped_window_attention", "window_tile_attention", "dropout_mask"):
         assert name in kernels.SOURCES
 
 
@@ -43,3 +45,9 @@ def test_refuse_autograd():
         kernels.refuse_autograd("k", (x, w))
     with torch.inference_mode():
         kernels.refuse_autograd("k", (x,))
+
+
+def test_check_cuda_tensor_refuses_other_devices():
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="expected a tensor on cuda"):
+            kernels.check_cuda_tensor("x", torch.zeros(2, dtype=dtype), (2,), dtype=dtype)

@@ -1,22 +1,11 @@
-"""The port's train step against the JAX package's, module by module and for
-the whole slice, on the same numpy-seeded weights and inputs.
-
-Modules: the losses, the flax-style BatchNorm (CMM and DistillModule in train
-mode: output, loss, feature and the new batch_stats), SKConv's forward, a
-train-mode SwinTransformerBlock (output and every parameter gradient against
-flax value_and_grad with deterministic=False; on the CPU the JAX block takes
-its XLA path, the port its K3 autograd Function over the plain version), and
-dropout / DropPath at rate 0.  Tolerances: rtol 1e-4, atol 1e-5 for values,
-rtol 2e-3, atol 2e-4 for the block's gradients (the JAX package's own for its
-training kernel, tests/test_pallas_train.py:173-182).
-
-The slice: the SMALL configuration of tests/test_torch_system.py with the
-gradient loss and every dropout rate at 0, B = 2, two train steps on both
-sides (so Adam's bias correction at step 2 is covered); the JAX side is
-`_micro_grads` + `_apply_update`, the port's `_micro_grads` + `_apply_update`
-(which `train_step` chains).  Held strictly where a test-local patch swaps
-to_mask for the same smooth function on both sides (its uint8 thresholds can
-flip on a 1e-6 difference), loosely with the real one.
+"""The port's train-mode modules against the JAX package's, on the same
+numpy-seeded weights and inputs: the losses, the flax-style BatchNorm (CMM
+and DistillModule in train mode: output, loss, feature and the new
+batch_stats), SKConv's forward, and dropout / DropPath.  Tolerances: rtol
+1e-4, atol 1e-5 for values.  The train-mode Swin blocks under each training
+core are in tests/test_torch_train_blocks.py; the whole train step in
+tests/test_torch_train_strict.py (float64) and
+tests/test_torch_train_float32.py.
 
 BatchNorm statistics: flax computes the batch variance as E[x^2] - E[x]^2
 (`use_fast_variance`), torch in two passes.  At B = 2 the CMM's deep
@@ -26,55 +15,30 @@ port, flax's float32 CMM gradients are off by up to 2.6e-2 of their leaf's
 largest value, the port's by 3.7e-6, and flax's with the two-pass variance
 by 3.5e-6 (test_cmm_gradients_against_float64).  So the tests with train-mode
 BatchNorms run the JAX side with the two-pass variance (`two_pass_variance`),
-a test-local patch of flax like the smooth to_mask; the port keeps torch's
-two-pass statistics."""
+a test-local patch of flax; the port keeps torch's two-pass statistics."""
 
 import flax.linen as fnn
-import flax.linen.normalization as flax_norm
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
 import dpmn_tpu.losses as JL
-import dpmn_tpu.models.pgrm as jax_pgrm
-import dpmn_tpu.system as JS
-import dpmn_tpu_torch.models.pgrm as port_pgrm
-import dpmn_tpu_torch.system as TS
-from dpmn_tpu.config import Args as JArgs
-from dpmn_tpu.config import TrainCfg as JTrainCfg
 from dpmn_tpu.models.cmm import CMM as JCMM
 from dpmn_tpu.models.distill import DistillModule as JDistill
 from dpmn_tpu.models.pgrm import SKConv as JSKConv
-from dpmn_tpu.models.pgrm import SwinTransformerBlock as JBlock
 from dpmn_tpu_torch import losses as TL
-from dpmn_tpu_torch.config import Args, TrainCfg, flagship_args
 from dpmn_tpu_torch.models.cmm import CMM
 from dpmn_tpu_torch.models.distill import DistillModule
-from dpmn_tpu_torch.models.pgrm import SKConv, SwinTransformerBlock
+from dpmn_tpu_torch.models.pgrm import SKConv
 from dpmn_tpu_torch.ops.batch_norm import BatchNorm2d
 from dpmn_tpu_torch.ops.dropout import TrainRng, drop_path, dropout
-from dpmn_tpu_torch.weights import from_jax, module_from_jax
-from test_torch_helpers import init_variables, nchw, nhwc, random_variables
-from test_torch_system import SMALL
+from dpmn_tpu_torch.weights import module_from_jax
+from test_torch_helpers import init_variables, nchw, nhwc
+from test_torch_train_helpers import _np, _patch_two_pass
 
 RTOL, ATOL = 1e-4, 1e-5
-
-
-def _np(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
-def _patch_two_pass(mp):
-    compute_stats = flax_norm._compute_stats
-
-    def two_pass(*args, **kwargs):
-        kwargs["use_fast_variance"] = False
-        return compute_stats(*args, **kwargs)
-
-    mp.setattr(flax_norm, "_compute_stats", two_pass)
 
 
 @pytest.fixture
@@ -229,119 +193,6 @@ def test_skconv_forward_matches():
     np.testing.assert_allclose(out.numpy().reshape(ref.shape), ref, rtol=RTOL, atol=ATOL)
 
 
-# the JAX package's switches for each training core (dpmn_tpu/models/pgrm.py:44,
-# :61-65): K4 and K5 run in interpret mode on the CPU; "block" keeps the
-# default, where the CPU takes the XLA formulation
-JAX_MODES = {"block": {}, "attention": {"_PALLAS_WINDOW_MODE": "1", "_FUSE_QKV_MODE": "0"},
-             "full": {"_PALLAS_WINDOW_MODE": "1", "_FUSE_QKV_MODE": "1", "_FUSE_SKCONV_MODE": "1"}}
-
-
-def _check_swin_block_train(monkeypatch, shift, faithful, train_core):
-    """Train mode at rates 0: output and every parameter gradient of
-    sum(tanh(x_kv)) against flax value_and_grad with deterministic=False.
-    Returns the port block."""
-    rng = np.random.RandomState(7)
-    xq = (rng.randn(2, 1024, 96) * 0.5).astype(np.float32)
-    xkv = (rng.randn(2, 1024, 96) * 0.5).astype(np.float32)
-    jm = JBlock(dim=96, input_resolution=(16, 64), num_heads=6, window_size=[2, 4, 8], shift_size=list(shift),
-                faithful=faithful)
-    variables = init_variables(jm, 8, jnp.asarray(xq), jnp.asarray(xkv))
-    for name, mode in JAX_MODES[train_core].items():
-        monkeypatch.setattr(jax_pgrm, name, mode)
-
-    def loss(params):
-        _, out = jm.apply({"params": params}, jnp.asarray(xq), jnp.asarray(xkv), False,
-                          rngs={"dropout": jax.random.PRNGKey(1)})
-        return jnp.sum(jnp.tanh(out)), out
-
-    (ref_l, ref_out), ref_g = jax.value_and_grad(loss, has_aux=True)(variables["params"])
-    port = SwinTransformerBlock(96, (16, 64), 6, [2, 4, 8], list(shift), faithful=faithful,
-                                train_core=train_core).train()
-    module_from_jax(port, variables)
-    x_q = torch.from_numpy(xq)
-    out_q, out = port(x_q, torch.from_numpy(xkv))
-    assert out_q is x_q
-    l = torch.tanh(out).sum()
-    l.backward()
-    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out), rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(l.item(), float(ref_l), rtol=1e-5)
-    want = SwinTransformerBlock(96, (16, 64), 6, [2, 4, 8], list(shift), faithful=faithful)
-    module_from_jax(want, {"params": _np(ref_g)})
-    want = dict(want.named_parameters())
-    names = [n for n, _ in port.named_parameters()]
-    assert len(names) == len(want) == 29
-    for name, p in port.named_parameters():
-        np.testing.assert_allclose(p.grad.numpy(), want[name].detach().numpy(), rtol=2e-3, atol=2e-4,
-                                   err_msg=name)
-    return port
-
-
-@pytest.mark.parametrize("shift", [(0, 0, 0), (1, 2, 4)])
-@pytest.mark.parametrize("faithful", [True, False])
-def test_swin_block_train_matches(monkeypatch, shift, faithful):
-    """The default core ("block", kernel K3's plain version) against flax."""
-    _check_swin_block_train(monkeypatch, shift, faithful, "block")
-
-
-@pytest.mark.parametrize("faithful", [True, False])
-@pytest.mark.parametrize("train_core", ["attention", "full"])
-def test_swin_block_train_core_matches(monkeypatch, train_core, faithful):
-    """The other two cores, shifted windows, against the flax block with the
-    JAX package's matching switches: "attention" (K4) against its
-    window_attention_core, "full" (K5) against its window_attention_full_core
-    — and with the corrected layout, where both packages run K3's core."""
-    calls = {"block": 0, "attention": 0, "full": 0}
-    for core, fn in (("block", "window_attention_block_core"), ("attention", "window_attention_core"),
-                     ("full", "window_attention_full_core")):
-        def spy(*args, _core=core, _fn=getattr(port_pgrm, fn)):
-            calls[_core] += 1
-            return _fn(*args)
-
-        monkeypatch.setattr(port_pgrm, fn, spy)
-    port = _check_swin_block_train(monkeypatch, (1, 2, 4), faithful, train_core)
-    ran = "block" if train_core == "full" and not faithful else train_core
-    assert port.attn.train_core == ran
-    assert calls == {core: int(core == ran) for core in calls}
-
-
-def test_train_core_resolves_from_the_environment(monkeypatch):
-    """None reads DPMN_TPU_FUSE_QKV / DPMN_TPU_FUSE_SKCONV with the JAX
-    package's defaults and precedence; an explicit core wins."""
-    table = [((None, None), "block"), (("1", "0"), "block"), ((None, "1"), "full"), (("1", "1"), "full"),
-             (("0", None), "attention"), (("0", "1"), "attention"), (("0", "0"), "attention")]
-    for (qkv, sk), want in table:
-        for name, value in (("DPMN_TPU_FUSE_QKV", qkv), ("DPMN_TPU_FUSE_SKCONV", sk)):
-            if value is None:
-                monkeypatch.delenv(name, raising=False)
-            else:
-                monkeypatch.setenv(name, value)
-        assert port_pgrm.resolve_train_core() == want, (qkv, sk)
-        assert port_pgrm.resolve_train_core("attention") == "attention"
-        for faithful in (True, False):
-            wa = port_pgrm.WindowAttention(48, [2, 4, 8], [1, 2, 4], 6, (8, 32), faithful=faithful)
-            assert wa.train_core == ("block" if want == "full" and not faithful else want)
-    with pytest.raises(ValueError):
-        port_pgrm.resolve_train_core("fused")
-
-
-@pytest.fixture(scope="module")
-def small_state():
-    """A random JAX train state of the small configuration (numpy leaves)."""
-    jsys = JS.DPMNSystem(JTrainCfg(batch_size=2), JArgs(**TRAIN), glyph_mode="atlas")
-    return _jax_state(jsys, 2)
-
-
-@pytest.mark.parametrize("train_core", port_pgrm.TRAIN_CORES)
-def test_weights_load_under_every_core(small_state, train_core):
-    """One JAX state fills the port system under each core with no missing or
-    extra leaf (from_jax raises on either); the cores share one tree, as the
-    JAX package's three paths do."""
-    system = TS.DPMNSystem(TrainCfg(batch_size=2), Args(**TRAIN), device="cpu", train_core=train_core)
-    from_jax(small_state, system)
-    cores = {m.train_core for m in system.modules() if isinstance(m, port_pgrm.WindowAttention)}
-    assert cores == {train_core}
-
-
 def test_dropout_rate_zero_is_the_identity_and_draws_nothing():
     x = torch.randn(4, 8, 6)
     rng = TrainRng(0, "cpu")
@@ -364,281 +215,3 @@ def test_dropout_is_seeded_and_scaled():
     assert torch.all((per_sample == 0).all(1) | (per_sample == 2.0).all(1))
     assert 0 < (per_sample[:, 0] == 0).sum() < 64
     assert TrainRng(5, "cpu").kernel_seed() == TrainRng(5, "cpu").kernel_seed()
-
-
-# -------------------------------------------------------------- whole slice
-
-TRAIN = dict(SMALL, gradient=True, drop_rate="0,", attn_drop_rate="0,", drop_path_rate="0,")
-
-
-def _images(seed, b=2):
-    rng = np.random.RandomState(seed)
-    return rng.rand(b, 32, 128, 4).astype(np.float32), rng.rand(b, 16, 64, 4).astype(np.float32)
-
-
-def _jax_state(jsys, seed, dtype=np.float32):
-    shapes = jax.eval_shape(lambda r: jsys.init_state(r, batch_size=2), jax.random.PRNGKey(0))
-    state = random_variables({k: shapes[k] for k in ("params", "batch_stats", "frozen")}, seed)
-    state = jax.tree_util.tree_map(lambda a: a.astype(dtype) if a.dtype == np.float32 else a, state)
-    state["opt_state"] = jsys._adam.init(state["params"])
-    state["step"] = jnp.zeros((), jnp.int32)
-    return state
-
-
-def _port_system(kw, dtype, tree=None):
-    system = TS.DPMNSystem(TrainCfg(batch_size=2), Args(**kw), device="cpu").to(dtype)
-    if tree is not None:
-        from_jax(tree, system)
-    return system
-
-
-def _load_jax_state(psys, kw, dtype, state):
-    """Put a JAX train state — params, batch_stats and Adam's count, mu, nu —
-    into the port system and its optimizer."""
-    from_jax(state, psys)
-    adam = [t for t in jax.tree_util.tree_leaves(state["opt_state"], is_leaf=lambda t: isinstance(
-        t, optax.ScaleByAdamState)) if isinstance(t, optax.ScaleByAdamState)][0]
-    moments = [_port_system(kw, dtype, dict(state, params=_np(tree))).trainable_parameters()
-               for tree in (adam.mu, adam.nu)]
-    for p, mu, nu in zip(psys.trainable_parameters(), *moments):
-        psys.optimizer.state[p] = {"step": torch.tensor(float(adam.count)), "exp_avg": mu.detach().clone(),
-                                   "exp_avg_sq": nu.detach().clone()}
-
-
-def _two_steps(kw, mask_patch, dtype, seed=0, images_seed=11, resync=False):
-    """Two train steps of each package from one state, both in `dtype`
-    (float64: JAX under jax.enable_x64).  With `resync` the port takes its
-    second step from the JAX package's state after the first (parameters,
-    batch_stats and Adam's moments), so step 2 is compared from one state.
-    Returns what the tests compare."""
-    x64 = dtype == torch.float64
-    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(x64):
-        if not x64:
-            _patch_two_pass(mp)
-        if mask_patch:
-            mp.setattr(JS, "to_mask", lambda img: jnp.clip(img[..., :3], 0.0, 1.0))
-            mp.setattr(TS, "to_mask", lambda img: img[:, :3].clamp(0.0, 1.0))
-        jsys = JS.DPMNSystem(JTrainCfg(batch_size=2), JArgs(**kw), glyph_mode="atlas")
-        state = _jax_state(jsys, seed, np.float64 if x64 else np.float32)
-        psys = _port_system(kw, dtype, state)
-
-        j_ids, p_ids = [], []
-        glyph_fn = jsys._device_glyph
-
-        def recording_glyph(ids, lengths):
-            jax.debug.callback(lambda i: j_ids.append(np.asarray(i)), ids)
-            return glyph_fn(ids, lengths)
-
-        jsys._device_glyph = recording_glyph
-        hook = psys.glyph.register_forward_hook(lambda m, inp, out: p_ids.append(inp[0].numpy().copy()))
-        micro, apply = jax.jit(jsys._micro_grads), jax.jit(jsys._apply_update)
-        res = {"j": [], "p": [], "kw": kw, "dtype": dtype}
-        try:
-            for step in range(2):
-                hr, lr = _images(images_seed + step)
-                jhr, jlr = (jnp.asarray(a, jnp.float64 if x64 else jnp.float32) for a in (hr, lr))
-                if resync and step == 1:
-                    _load_jax_state(psys, kw, dtype, state)
-                loss, grads, new_bs = micro(state["params"], state["batch_stats"], state["frozen"], jhr, jlr,
-                                            jax.random.PRNGKey(step))
-                state, metrics = apply(state, grads, new_bs, loss)
-                res["j"].append(dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
-                                     grads=_np(grads), state=_np(state)))
-                p_loss, p_grads = psys._micro_grads(hr, lr, step)
-                p_metrics = psys._apply_update(p_grads, p_loss)
-                res["p"].append(dict(loss=p_metrics["loss"].item(), grad_norm=p_metrics["grad_norm"].item(),
-                                     grads=[g.numpy() for g in p_grads],
-                                     state={k: v.clone() for k, v in psys.state_dict().items()}))
-        finally:
-            hook.remove()
-            jsys._device_glyph = glyph_fn
-    res["ids"] = (j_ids, p_ids)
-    return res
-
-
-def _trainable_names(system):
-    ids = {id(p) for p in system.trainable_parameters()}
-    return [n for n, p in system.named_parameters() if id(p) in ids]
-
-
-def _grad_leaves(res, step):
-    """(name, port grad, JAX grad in port layout) for every trainable parameter."""
-    j = res["j"][step]
-    view = _port_system(res["kw"], res["dtype"], dict(j["state"], params=j["grads"]))
-    ref = [p.detach().numpy() for p in view.trainable_parameters()]
-    names = _trainable_names(view)
-    assert len(names) == len(ref) == len(res["p"][step]["grads"])
-    return list(zip(names, res["p"][step]["grads"], ref))
-
-
-@pytest.fixture(scope="module")
-def strict():
-    """Both packages in float64 with the smooth to_mask, step 2 from the JAX
-    package's state after step 1.
-
-    In float32 the slice's gradients are not determined to 1e-3 at B = 2:
-    the CMM's 1x4 bottleneck sees 8 values per channel, and a leaky-ReLU
-    input within rounding of 0 changes slope there and moves the gradient of
-    everything upstream — the port's own float32 gradients sit up to 2e-2 of
-    a leaf's largest value from its float64 ones, the JAX package's likewise.
-    Both in float64, the two compute the same function to ~1e-7 (the JAX
-    cascade casts its losses to float32).  Adam's first step is ~lr * sign(g)
-    for every element, so an element whose gradient is at rounding level on
-    both sides (a fifth of the CMM's, whose deep weights get almost none)
-    takes a full step either way; the second step therefore starts from the
-    JAX package's state, which the chained run (the float32 test below) does
-    not need."""
-    return _two_steps(TRAIN, mask_patch=True, dtype=torch.float64, resync=True)
-
-
-@pytest.fixture(scope="module")
-def float32_real_mask():
-    return _two_steps(TRAIN, mask_patch=False, dtype=torch.float32, images_seed=21)
-
-
-def test_train_step_loss_and_grad_norm(strict):
-    for step, rtol in ((0, 1e-5), (1, 1e-4)):
-        j, p = strict["j"][step], strict["p"][step]
-        np.testing.assert_allclose(p["loss"], j["loss"], rtol=rtol)
-        np.testing.assert_allclose(p["grad_norm"], j["grad_norm"], rtol=1e-4)
-
-
-def test_train_step_student_ids(strict):
-    j_ids, p_ids = strict["ids"]
-    assert len(j_ids) == len(p_ids) == 4  # b1 = 2 students, two steps
-    for a, b in zip(j_ids, p_ids):
-        np.testing.assert_array_equal(a, b)
-
-
-def test_train_step_gradients(strict):
-    """Every gradient leaf of both steps: rtol 1e-3, atol 1e-5."""
-    for step in (0, 1):
-        for name, got, want in _grad_leaves(strict, step):
-            np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-5, err_msg=f"step {step + 1}: {name}")
-
-
-def test_train_step_batch_stats(strict):
-    """CMM and distill running statistics after each step, rtol 1e-4."""
-    for step in (0, 1):
-        view = _port_system(strict["kw"], strict["dtype"], strict["j"][step]["state"])
-        got = strict["p"][step]["state"]
-        n = 0
-        for name, buf in view.named_buffers():
-            if name.startswith(("cmm.", "distills.")) and name.endswith(("running_mean", "running_var")):
-                np.testing.assert_allclose(got[name].numpy(), buf.numpy(), rtol=1e-4, atol=1e-6, err_msg=name)
-                n += 1
-        assert n == 2 * (25 + 4)  # 25 CMM BatchNorms, 2 distills x 2; mean and var each
-
-
-def test_train_step_params(strict):
-    """The state after each step (the second from the JAX package's first):
-    trainable parameters at atol 1e-5 (1 % of one lr = 1e-3 step), except
-    elements whose gradients on the two sides differ in sign on that step,
-    where Adam's step (~lr * sign(g) at step 1) may go either way: their
-    share is counted and must stay under 1 %.  The BatchNorm statistics at
-    rtol 1e-4; everything else in the state_dict unchanged and exact."""
-    for step in (0, 1):
-        view = _port_system(strict["kw"], strict["dtype"], strict["j"][step]["state"])
-        got = strict["p"][step]["state"]
-        flips = {name: np.sign(g_p) != np.sign(g_j) for name, g_p, g_j in _grad_leaves(strict, step)}
-        share = sum(int(f.sum()) for f in flips.values()) / sum(f.size for f in flips.values())
-        assert share < 0.01, f"step {step + 1}: {share:.2%} of the elements have gradients of opposite signs"
-        for name, want in view.state_dict().items():
-            have, want = got[name].numpy(), want.numpy()
-            if name in flips:
-                off = (np.abs(have - want) > 1e-5) & ~flips[name]
-                assert not off.any(), f"step {step + 1}: {name}: {off.sum()} elements off by more than 1e-5"
-            elif name.endswith(("running_mean", "running_var")) and name.startswith(("cmm.", "distills.")):
-                np.testing.assert_allclose(have, want, rtol=1e-4, atol=1e-6, err_msg=name)
-            else:
-                np.testing.assert_array_equal(have, want, err_msg=name)
-
-
-def test_train_step_float32_real_mask(float32_real_mask):
-    """In float32 (how the port trains) and with the real to_mask: the ids
-    exact; step 1's loss within 1e-5 and grad_norm within 1e-4; step 2, after
-    an Adam step whose sign is undetermined for the elements with a
-    rounding-level gradient, loss within 1e-4 and grad_norm within 1e-2; the
-    parameters after two steps within 5 lr = 5e-3 everywhere and 1e-4 on
-    average (2.6e-5 seen)."""
-    res = float32_real_mask
-    j_ids, p_ids = res["ids"]
-    assert len(j_ids) == len(p_ids) == 4
-    for a, b in zip(j_ids, p_ids):
-        np.testing.assert_array_equal(a, b)
-    for step, (l_tol, g_tol) in enumerate(((1e-5, 1e-4), (1e-4, 1e-2))):
-        j, p = res["j"][step], res["p"][step]
-        np.testing.assert_allclose(p["loss"], j["loss"], rtol=l_tol)
-        np.testing.assert_allclose(p["grad_norm"], j["grad_norm"], rtol=g_tol)
-    view = _port_system(res["kw"], torch.float32, res["j"][1]["state"])
-    got = res["p"][1]["state"]
-    diffs = np.concatenate([np.abs(got[n].numpy() - p.detach().numpy()).ravel()
-                            for n, p in zip(_trainable_names(view), view.trainable_parameters())])
-    assert diffs.max() <= 5e-3 and diffs.mean() <= 1e-4, (diffs.max(), diffs.mean())
-
-
-def test_train_step_entry_point():
-    """`train_step` chains the two halves the tests above hold: same loss and
-    grad_norm, 0-d tensors; the trainable modules go back to eval mode, and
-    a later sr_forward still runs the eval path."""
-    hr, lr = _images(5)
-    a = TS.DPMNSystem(TrainCfg(batch_size=2), Args(**TRAIN), device="cpu", seed=1)
-    b = TS.DPMNSystem(TrainCfg(batch_size=2), Args(**TRAIN), device="cpu", seed=1)
-    m = a.train_step(hr, lr, seed=3)
-    loss, grads = b._micro_grads(hr, lr, 3)
-    m2 = b._apply_update(grads, loss)
-    assert m["loss"].dim() == 0 and m["grad_norm"].dim() == 0
-    assert torch.equal(m["loss"], m2["loss"]) and torch.equal(m["grad_norm"], m2["grad_norm"])
-    for (n, p), q in zip(a.state_dict().items(), b.state_dict().values()):
-        assert torch.equal(p, q), n
-    assert not any(mod.training for mod in a.modules())
-    assert a.sr_forward(lr).shape == (2, 32, 128, 3)
-
-
-def test_train_step_cores_agree_in_float64(monkeypatch, small_state):
-    """One train step of the port in float64 under each training core, from
-    one state, with the smooth to_mask of the float64 tests above: loss,
-    grad_norm and every gradient of "attention" and "full" equal "block"'s
-    to rtol 1e-9 ("block" is held against the JAX package by the `strict`
-    tests).  Gradients at rounding level (the biases ahead of a BatchNorm)
-    are held at 1e-9 of grad_norm."""
-    monkeypatch.setattr(TS, "to_mask", lambda img: img[:, :3].clamp(0.0, 1.0))
-    hr, lr = _images(7)
-    runs = {}
-    for core in port_pgrm.TRAIN_CORES:
-        system = TS.DPMNSystem(TrainCfg(batch_size=2), Args(**TRAIN), device="cpu", train_core=core).double()
-        from_jax(small_state, system)
-        loss, grads = system._micro_grads(hr, lr, 0)
-        metrics = system._apply_update(grads, loss)
-        runs[core] = (metrics["loss"].item(), metrics["grad_norm"].item(), grads)
-    loss, norm, grads = runs["block"]
-    for core in ("attention", "full"):
-        np.testing.assert_allclose(runs[core][0], loss, rtol=1e-9)
-        np.testing.assert_allclose(runs[core][1], norm, rtol=1e-9)
-        assert len(runs[core][2]) == len(grads)
-        for a, b in zip(runs[core][2], grads):
-            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-9, atol=1e-9 * norm)
-
-
-def test_train_step_with_dropout_is_seeded():
-    """At the flagship rates of 0.1 the step is a function of its seed."""
-    hr, lr = _images(6)
-    kw = dict(SMALL, gradient=True, drop_rate="0.1,", attn_drop_rate="0.1,", drop_path_rate="0.1,")
-    runs = []
-    for seed in (1, 1, 2):
-        s = TS.DPMNSystem(TrainCfg(batch_size=2, optimizer="AdamW"), Args(**kw), device="cpu", seed=0)
-        runs.append(s.train_step(hr, lr, seed=seed)["loss"].item())
-    assert runs[0] == runs[1] != runs[2]
-    assert np.isfinite(runs).all()
-
-
-@pytest.mark.slow
-def test_train_step_flagship_geometry():
-    """The flagship configuration (3+3 PGRMs at embed 96, 5 SRBs) at B = 2,
-    rates 0, smooth to_mask, both in float64: loss and grad_norm of two
-    steps."""
-    kw = dict(vars(flagship_args()), drop_rate="0,", attn_drop_rate="0,", drop_path_rate="0,")
-    res = _two_steps(kw, mask_patch=True, dtype=torch.float64, seed=3)
-    for step in (0, 1):
-        np.testing.assert_allclose(res["p"][step]["loss"], res["j"][step]["loss"], rtol=1e-5)
-        np.testing.assert_allclose(res["p"][step]["grad_norm"], res["j"][step]["grad_norm"], rtol=1e-4)
