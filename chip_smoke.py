@@ -8,8 +8,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      build of every CUDA kernel under dpmn_tpu_torch/csrc (nvcc, in parallel);
   2. the window-attention kernel against its plain PyTorch version on the
      card at B = 64 and the flagship geometry: both shift sets, both layouts;
-  3. the GRU-scan kernel against its plain version at the three main-path
-     shapes, forward and reverse, with torch.nn.GRU (cuDNN) timed beside it;
+  3. the GRU-scan kernel K2 against its plain versions at the three
+     main-path shapes: both directions in one launch (gru_bidir; the
+     gru_encoding input broadcast along time) and each direction alone
+     (gru_scan), with torch.nn.GRU(bidirectional=True) (cuDNN) timed beside
+     the launch and beside the port's whole BiGRU layer;
   4. the eval path: the flagship DPMNSystem.sr_forward at B = 64 with seeded
      random weights — launch counts of each kernel over one forward, output
      shape and finiteness, images/s; then the same weights on 2 images on the
@@ -176,49 +179,91 @@ def phase_window_attention(dev):
 
 
 def phase_gru(dev):
-    """K2 vs its plain version at the main-path shapes; torch.nn.GRU beside
-    it (identity input weights, so cuDNN runs the same recurrence over the
-    same x_proj — its time includes that extra input GEMM)."""
-    from dpmn_tpu_torch.ops.gru import gru_scan, gru_scan_plain
+    """K2 vs its plain versions at the main-path shapes: the fused launch
+    `gru_bidir` (both directions) and `gru_scan` (each direction alone), the
+    faithful gru_encoding's projection broadcast along time (stride 0) as the
+    path passes it.  torch.nn.GRU(bidirectional=True) is timed beside the
+    fused launch on the same x_proj, with identity input weights, so cuDNN
+    runs the same recurrence (its time includes that extra input GEMM); then
+    the like-for-like pair: the port's whole BiGRU (input GEMMs + kernel)
+    against nn.GRU on the same x with the same weights; last, the
+    cooperative regime's floor per step (the encoding launch at H = 64).
+    Returns K2's kernels-line entry (timing fields per flagship forward)."""
+    from dpmn_tpu_torch.ops.gru import BiGRU, gru_bidir, gru_bidir_plain, gru_scan, gru_scan_plain
 
-    # (N, T, H, scans per forward): vertical and horizontal SRB sweeps (5 SRBs
-    # x 2 directions each) and the faithful gru_encoding (2 directions)
-    shapes = [(64 * B, 16, 32, 10), (16 * B, 64, 32, 10), (64, B, 512, 2)]
+    # (N, T, H, GRU input size, launches per forward): the vertical and
+    # horizontal SRB sweeps (5 SRBs each) and the faithful gru_encoding
+    shapes = [(64 * B, 16, 32, 64, 5), (16 * B, 64, 32, 64, 5), (64, B, 512, 1024, 1)]
     gen = torch.Generator().manual_seed(3)
     worst, tot = 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     by_time = {"bytes": 0.0, "operations": 0.0}
-    for n, t, hd, count in shapes:
-        x_proj = (0.5 * torch.randn(n, t, 3 * hd, generator=gen)).to(dev)
-        w_hh = (torch.rand(3 * hd, hd, generator=gen) * 2 - 1).div(hd**0.5).to(dev)
-        b_hh = (torch.rand(3 * hd, generator=gen) * 2 - 1).div(hd**0.5).to(dev)
-        for reverse in (False, True):
-            out = gru_scan(x_proj, w_hh, b_hh, reverse)
-            ref = gru_scan_plain(x_proj, w_hh, b_hh, reverse)
-            torch.cuda.synchronize()
+    for n, t, hd, isz, count in shapes:
+        bcast = hd == 512  # gru_encoding: one projection at every step
+        xps = [(0.5 * torch.randn(n, 1 if bcast else t, 3 * hd, generator=gen)).to(dev) for _ in range(2)]
+        if bcast:
+            xps = [x.expand(-1, t, -1) for x in xps]
+        w_hh = [(torch.rand(3 * hd, hd, generator=gen) * 2 - 1).div(hd**0.5).to(dev) for _ in range(2)]
+        b_hh = [(torch.rand(3 * hd, generator=gen) * 2 - 1).div(hd**0.5).to(dev) for _ in range(2)]
+        args = (*xps, *w_hh, *b_hh)
+        checks = [("gru_bidir", gru_bidir(*args), gru_bidir_plain(*args))]
+        for d, reverse in ((0, False), (1, True)):
+            checks.append((f"gru_scan reverse={reverse}", gru_scan(xps[d], w_hh[d], b_hh[d], reverse),
+                           gru_scan_plain(xps[d], w_hh[d], b_hh[d], reverse)))
+        torch.cuda.synchronize()
+        for tag, out, ref in checks:
             err = (out - ref).abs().max().item()
             ok = torch.isfinite(out).all().item() and err <= K2_TOL
-            log(f"K2 N={n} T={t} H={hd} reverse={reverse}: max_abs_err {err:.3e} (tol {K2_TOL:g}) "
-                f"{'ok' if ok else 'FAIL'}")
+            log(f"K2 {tag} N={n} T={t} H={hd} time stride {xps[0].stride(1)}: max_abs_err {err:.3e} "
+                f"(tol {K2_TOL:g}) {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"gru_scan kernel disagrees with its plain version: {err}")
+                raise AssertionError(f"{tag} kernel disagrees with its plain version: {err}")
             worst = max(worst, err)
-        lib = torch.nn.GRU(3 * hd, hd, batch_first=True).to(dev)
+        lib = torch.nn.GRU(3 * hd, hd, batch_first=True, bidirectional=True).to(dev)
         with torch.no_grad():
-            lib.weight_ih_l0.copy_(torch.eye(3 * hd))
-            lib.bias_ih_l0.zero_()
-            lib.weight_hh_l0.copy_(w_hh)
-            lib.bias_hh_l0.copy_(b_hh)
-            lib_err = (lib(x_proj)[0] - gru_scan(x_proj, w_hh, b_hh)).abs().max().item()
-            k_ms = cuda_ms(lambda: gru_scan(x_proj, w_hh, b_hh))
-            p_ms = cuda_ms(lambda: gru_scan_plain(x_proj, w_hh, b_hh), iters=3)
-            l_ms = cuda_ms(lambda: lib(x_proj))
-        nbytes = 4 * (x_proj.numel() + w_hh.numel() + b_hh.numel() + n * t * hd)
-        b_ms, by_s = bound_ms(nbytes, 2 * n * t * 3 * hd * hd)
-        log(f"K2 N={n} T={t} H={hd}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
-            f"(torch.nn.GRU, |diff| {lib_err:.1e}) bound_ms {b_ms:.4f} ({by_s})")
+            for d, sfx in enumerate(("l0", "l0_reverse")):
+                getattr(lib, f"weight_ih_{sfx}").copy_(torch.eye(3 * hd))
+                getattr(lib, f"bias_ih_{sfx}").zero_()
+                getattr(lib, f"weight_hh_{sfx}").copy_(w_hh[d])
+                getattr(lib, f"bias_hh_{sfx}").copy_(b_hh[d])
+            same = (xps[0], xps[0], *w_hh, *b_hh)  # nn.GRU feeds one input to both directions
+            x_lib = xps[0].contiguous()
+            lib_err = (lib(x_lib)[0] - gru_bidir(*same)).abs().max().item()
+            k_ms = cuda_ms(lambda: gru_bidir(*args))
+            p_ms = cuda_ms(lambda: gru_bidir_plain(*args), iters=3)
+            l_ms = cuda_ms(lambda: lib(x_lib))
+            # like for like: the port's BiGRU (input GEMMs + kernel) and
+            # nn.GRU, the same weights, on the same x
+            port = BiGRU(isz, hd)
+            ref = torch.nn.GRU(isz, hd, batch_first=True, bidirectional=True)
+            for name, param in ref.named_parameters():
+                param.uniform_(-hd**-0.5, hd**-0.5, generator=gen)
+                getattr(port, name).copy_(param)
+            port, ref = port.to(dev), ref.to(dev)
+            x = torch.randn(n, 1 if bcast else t, isz, generator=gen).to(dev)
+            steps = t if bcast else None
+            x_ref = x.expand(-1, t, -1).contiguous()
+            pair_err = (port(x, steps) - ref(x_ref)[0]).abs().max().item()
+            m_ms = cuda_ms(lambda: port(x, steps))
+            r_ms = cuda_ms(lambda: ref(x_ref))
+        x_elems = sum(n * (1 if bcast else t) * 3 * hd for _ in xps)  # each input read once
+        nbytes = 4 * (x_elems + 2 * (w_hh[0].numel() + b_hh[0].numel()) + n * t * 2 * hd)
+        b_ms, by_s = bound_ms(nbytes, 2 * 2 * n * t * 3 * hd * hd)
+        log(f"K2 N={n} T={t} H={hd} both directions, one launch: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+            f"library_ms {l_ms:.4f} (torch.nn.GRU bidirectional on x_proj, |diff| {lib_err:.1e}) bound_ms "
+            f"{b_ms:.4f} ({by_s}; {nbytes / 1e6:.1f} MB); whole layer on x (I={isz}): BiGRU {m_ms:.4f} ms, "
+            f"torch.nn.GRU {r_ms:.4f} ms (|diff| {pair_err:.1e}); {count} per forward")
         for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms), ("bound_ms", b_ms)):
             tot[key] += count * v
         by_time[by_s] += count * b_ms
+    # the cooperative regime's floor per step (gi loads, gate math, grid
+    # sync): the gru_encoding launch at H = 64, 64x fewer operations
+    xps, w_hh, b_hh = [torch.randn(64, 1, 192, generator=gen).to(dev).expand(-1, B, -1) for _ in range(2)], [
+        (0.1 * torch.randn(192, 64, generator=gen)).to(dev) for _ in range(2)], [
+        (0.1 * torch.randn(192, generator=gen)).to(dev) for _ in range(2)]
+    with torch.no_grad():
+        f_ms = cuda_ms(lambda: gru_bidir(*xps, *w_hh, *b_hh))
+    log(f"K2 N=64 T={B} H=64 both directions: kernel_ms {f_ms:.4f} ({f_ms / B * 1e3:.2f} us a step: the cooperative "
+        f"regime's floor per step)")
     return {"name": "gru_scan", "route": "cuda", "source": "dpmn_tpu_torch/csrc/gru_scan.cu",
             "replaces": "dpmn_tpu/ops/pallas_kernels.py:76", "max_abs_err": worst, **tot,
             "bound_by": max(by_time, key=by_time.get)}
@@ -230,12 +275,13 @@ def counters():
     from dpmn_tpu_torch.ops import window_attention_train as wt
     from dpmn_tpu_torch.ops.dropout_mask import dropout_mask_counter
     from dpmn_tpu_torch.ops.grouped_window_attention import grouped_window_attention_counter
-    from dpmn_tpu_torch.ops.gru import gru_scan_counter
+    from dpmn_tpu_torch.ops.gru import gru_bidir_counter, gru_scan_counter
     from dpmn_tpu_torch.ops.mlp_convs import mlp_convs_counter
     from dpmn_tpu_torch.ops.window_attention import window_attention_counter
     from dpmn_tpu_torch.ops.window_tile_attention import window_tile_attention_counter
 
     return {"window_attention_block": window_attention_counter, "gru_scan": gru_scan_counter,
+            "gru_bidir": gru_bidir_counter,
             "window_attention_train_forward": wt.forward_counter,
             "window_attention_train_backward": wt.backward_counter,
             "window_attention_core_forward": wc.forward_counter,
@@ -288,9 +334,9 @@ def phase_path(dev, card):
     out = system.sr_forward(batches[1])
     torch.cuda.synchronize()
     launches = read_counts()
-    log(f"path: launches in one forward {launches} (expected 12 window-attention blocks, "
-        f"22 GRU scans: 5 SRBs x 2 sweeps x 2 directions + gru_encoding x 2; no training kernel)")
-    if launches != expected_counts(window_attention_block=12, gru_scan=22):
+    log(f"path: launches in one forward {launches} (expected 12 window-attention blocks, 11 GRU-scan "
+        f"launches through gru_bidir, both directions each: 5 SRBs x 2 sweeps + gru_encoding; no training kernel)")
+    if launches != expected_counts(window_attention_block=12, gru_bidir=11):
         raise AssertionError(f"main path launch counts {launches}")
     if tuple(out.shape) != (B, 32, 128, 3) or not torch.isfinite(out).all():
         raise AssertionError(f"bad output: shape {tuple(out.shape)}, finite {torch.isfinite(out).all().item()}")
@@ -464,11 +510,12 @@ def phase_k3(dev):
 
 
 # launches of one flagship train step under each core: 12 blocks (6 PGRMs x 2)
-# forward and backward, 22 GRU scans in the frozen PSN, no eval block
+# forward and backward, 11 fused bidirectional GRU scans in the frozen PSN,
+# no eval block
 TRAIN_LAUNCHES = {
-    "block": expected_counts(gru_scan=22, window_attention_train_forward=12, window_attention_train_backward=12),
-    "attention": expected_counts(gru_scan=22, window_attention_core_forward=12, window_attention_core_backward=12),
-    "full": expected_counts(gru_scan=22, window_attention_full_forward=12, window_attention_full_backward=12),
+    "block": expected_counts(gru_bidir=11, window_attention_train_forward=12, window_attention_train_backward=12),
+    "attention": expected_counts(gru_bidir=11, window_attention_core_forward=12, window_attention_core_backward=12),
+    "full": expected_counts(gru_bidir=11, window_attention_full_forward=12, window_attention_full_backward=12),
 }
 
 
@@ -975,7 +1022,8 @@ def main():
     k1 = phase_window_attention(dev)
     k2 = phase_gru(dev)
     launches = phase_path(dev, card)
-    k1["launches"], k2["launches"] = launches["window_attention_block"], launches["gru_scan"]
+    # K2 counts the launches of both its entry points (the path goes through gru_bidir alone)
+    k1["launches"], k2["launches"] = launches["window_attention_block"], launches["gru_bidir"] + launches["gru_scan"]
     entries = [k1, k2]
     for phase_kernel, core, name, timed in ((phase_k3, "block", "window_attention_train", 4),
                                             (phase_k4, "attention", "window_attention_core", 3),

@@ -1,10 +1,13 @@
 """Bidirectional GRU with torch gate math over the hand-written scan kernel.
 
 Counterpart of dpmn_tpu/ops/gru.py.  The input projection for all time steps
-is one matmul outside the kernel (as the JAX package computes it outside its
-Pallas kernel, gru.py:84); the recurrence runs in `gru_scan`, which launches
-the CUDA kernel csrc/gru_scan.cu for CUDA tensors and runs the plain version
-`gru_scan_plain` for CPU tensors.  Gate blocks are ordered [r; z; n]:
+is one matmul per direction outside the kernel (as the JAX package computes
+it outside its Pallas kernel, gru.py:84); the recurrence of both directions
+runs in one launch of the CUDA kernel csrc/gru_scan.cu (`gru_bidir`, the
+counterpart of pallas_bigru), and `gru_scan` runs one direction through the
+same kernel.  CUDA tensors launch the kernel; CPU tensors run the plain
+versions `gru_scan_plain` / `gru_bidir_plain`.  Gate blocks are ordered
+[r; z; n]:
     r = sigmoid(gi_r + gh_r); z = sigmoid(gi_z + gh_z)
     n = tanh(gi_n + r * gh_n); h' = (1 - z) * n + z * h
 """
@@ -20,6 +23,10 @@ from . import kernels
 
 
 gru_scan_counter = kernels.LaunchCounter()
+gru_bidir_counter = kernels.LaunchCounter()
+
+SEQ_CHUNK = 64  # sequences per chunk of the kernel's cooperative regime (LNC in csrc/gru_scan.cu)
+MAX_HIDDEN = 512  # the largest H of the cooperative regime (LMAX_H in csrc/gru_scan.cu)
 
 
 def gru_scan_plain(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
@@ -41,31 +48,74 @@ def gru_scan_plain(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     return out
 
 
+def gru_bidir_plain(xp_fw: torch.Tensor, xp_bw: torch.Tensor, w_hh_fw: torch.Tensor, w_hh_bw: torch.Tensor,
+                    b_hh_fw: torch.Tensor, b_hh_bw: torch.Tensor) -> torch.Tensor:
+    """Both directions: (N, T, 2H), the forward scan of xp_fw in [..., :H],
+    the reversed scan of xp_bw in [..., H:]."""
+    return torch.cat([gru_scan_plain(xp_fw, w_hh_fw, b_hh_fw), gru_scan_plain(xp_bw, w_hh_bw, b_hh_bw, True)], -1)
+
+
+def _launch(xps, w_hhs, b_hhs, reverse: bool) -> torch.Tensor:
+    """One launch of csrc/gru_scan.cu over len(xps) directions.  The inputs
+    may be strided along sequences and time (a time stride of 0 broadcasts
+    one projection); their gate axis must be contiguous."""
+    x = xps[0]
+    if x.dim() != 3:
+        raise ValueError(f"gru kernel: x_proj must be (N, T, 3H), got {tuple(x.shape)}")
+    n, t_len, g = x.shape
+    hdim = g // 3
+    if g != 3 * hdim or hdim % 32 != 0 or hdim > MAX_HIDDEN:
+        raise ValueError(f"gru kernel needs 3H columns with H a multiple of 32 up to {MAX_HIDDEN}, got {g}")
+    dev = x.device
+    for i, xp in enumerate(xps):
+        kernels.check_cuda_tensor(f"x_proj[{i}]", xp, (n, t_len, g), dev, contiguous=False)
+        if xp.stride(2) != 1 or xp.stride()[:2] != x.stride()[:2]:
+            raise ValueError(f"gru kernel: x_proj needs a contiguous gate axis and one pair of (sequence, step) "
+                             f"strides, got {[tuple(v.stride()) for v in xps]}")
+    for i, (w, b) in enumerate(zip(w_hhs, b_hhs)):
+        kernels.check_cuda_tensor(f"w_hh[{i}]", w, (g, hdim), dev)
+        kernels.check_cuda_tensor(f"b_hh[{i}]", b, (g,), dev)
+    kernels.refuse_autograd("gru_scan", (*xps, *w_hhs, *b_hhs))
+    ndir = len(xps)
+    out = torch.empty(n, t_len, ndir * hdim, device=dev, dtype=torch.float32)
+    # the cooperative regime's ping-pong h, [2][ndir][H][SEQ_CHUNK]
+    hbuf = None if hdim == 32 else torch.empty(2 * ndir * hdim * SEQ_CHUNK, device=dev, dtype=torch.float32)
+    fn = kernels.library("gru_scan").gru_scan_forward
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    second = 1 if ndir == 2 else 0
+    err = fn(kernels.ptr(xps[0]), kernels.ptr(xps[second]), kernels.ptr(w_hhs[0]), kernels.ptr(w_hhs[second]),
+             kernels.ptr(b_hhs[0]), kernels.ptr(b_hhs[second]), kernels.ptr(out),
+             ctypes.c_void_p(None if hbuf is None else hbuf.data_ptr()), n, t_len, hdim, ndir, int(reverse),
+             x.stride(0), x.stride(1), kernels.stream_ptr(dev))
+    kernels.check_launch(err, "gru_scan_forward")
+    return out
+
+
 def gru_scan(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
              reverse: bool = False) -> torch.Tensor:
-    """The GRU recurrence: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  Same signature and result as `gru_scan_plain`.  The
-    kernel has no backward: on the card it raises if autograd would need one."""
+    """One direction of the GRU recurrence: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors.  Same signature and result as
+    `gru_scan_plain`.  The kernel has no backward: on the card it raises if
+    autograd would need one."""
     if x_proj.device.type == "cpu":
         return gru_scan_plain(x_proj, w_hh, b_hh, reverse)
-    n, t_len, g = x_proj.shape
-    hdim = g // 3
-    if g != 3 * hdim or hdim % 32 != 0:
-        raise ValueError(f"gru_scan kernel needs 3H columns with H a multiple of 32, got {g}")
-    dev = x_proj.device
-    kernels.check_cuda_tensor("x_proj", x_proj, device=dev)
-    kernels.check_cuda_tensor("w_hh", w_hh, (g, hdim), dev)
-    kernels.check_cuda_tensor("b_hh", b_hh, (g,), dev)
-    kernels.refuse_autograd("gru_scan", (x_proj, w_hh, b_hh))
-    out = torch.empty(n, t_len, hdim, device=dev, dtype=torch.float32)
-    lib = kernels.library("gru_scan")
-    fn = lib.gru_scan_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(kernels.ptr(x_proj), kernels.ptr(w_hh), kernels.ptr(b_hh), kernels.ptr(out),
-             n, t_len, hdim, int(reverse), kernels.stream_ptr(dev))
-    kernels.check_launch(err, "gru_scan_forward")
+    out = _launch((x_proj,), (w_hh,), (b_hh,), reverse)
     gru_scan_counter.launches += 1
+    return out
+
+
+def gru_bidir(xp_fw: torch.Tensor, xp_bw: torch.Tensor, w_hh_fw: torch.Tensor, w_hh_bw: torch.Tensor,
+              b_hh_fw: torch.Tensor, b_hh_bw: torch.Tensor) -> torch.Tensor:
+    """Both directions in one launch of the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors; same signature and result as
+    `gru_bidir_plain`.  xp_fw and xp_bw (N, T, 3H) may be strided alike along
+    N and T (time stride 0: one projection at every step); each direction
+    writes its half of the output.  No backward, as `gru_scan`."""
+    if xp_fw.device.type == "cpu":
+        return gru_bidir_plain(xp_fw, xp_bw, w_hh_fw, w_hh_bw, b_hh_fw, b_hh_bw)
+    out = _launch((xp_fw, xp_bw), (w_hh_fw, w_hh_bw), (b_hh_fw, b_hh_bw), False)
+    gru_bidir_counter.launches += 1
     return out
 
 
@@ -85,12 +135,11 @@ class BiGRU(nn.Module):
 
     def forward(self, x: torch.Tensor, steps: int = None) -> torch.Tensor:
         """With `steps`, x is (N, 1, I): the same input at each of `steps`
-        time steps, projected once and broadcast (the faithful gru_encoding)."""
-        outs = []
-        for sfx, reverse in (("l0", False), ("l0_reverse", True)):
+        time steps, projected once and broadcast with a time stride of 0 (the
+        faithful gru_encoding)."""
+        xps = []
+        for sfx in ("l0", "l0_reverse"):
             xp = torch.matmul(x, getattr(self, f"weight_ih_{sfx}").T) + getattr(self, f"bias_ih_{sfx}")
-            if steps is not None:
-                xp = xp.expand(-1, steps, -1)
-            outs.append(gru_scan(xp.contiguous(), getattr(self, f"weight_hh_{sfx}"),
-                                 getattr(self, f"bias_hh_{sfx}"), reverse))
-        return torch.cat(outs, dim=-1)
+            xps.append(xp if steps is None else xp.expand(-1, steps, -1))
+        return gru_bidir(*xps, self.weight_hh_l0, self.weight_hh_l0_reverse, self.bias_hh_l0,
+                         self.bias_hh_l0_reverse)

@@ -119,14 +119,15 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def check_cuda_tensor(name: str, t: torch.Tensor, shape=None, device=None, dtype=torch.float32) -> None:
-    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (float32 by
-    default) and `shape`."""
+def check_cuda_tensor(name: str, t: torch.Tensor, shape=None, device=None, dtype=torch.float32,
+                      contiguous: bool = True) -> None:
+    """Raise unless `t` is a CUDA tensor of `dtype` (float32 by default) and
+    `shape`, contiguous unless `contiguous` is False."""
     if t.device.type != "cuda" or (device is not None and t.device != device):
         raise ValueError(f"{name}: expected a tensor on {device or 'cuda'}, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")

@@ -16,7 +16,14 @@ from dpmn_tpu_torch.ops import mlp_convs as MC
 from dpmn_tpu_torch.ops import window_attention_core as WC
 from dpmn_tpu_torch.ops import window_attention_full as WF
 from dpmn_tpu_torch.ops import window_attention_train as WT
-from dpmn_tpu_torch.ops.gru import gru_scan, gru_scan_counter, gru_scan_plain
+from dpmn_tpu_torch.ops.gru import (
+    gru_bidir,
+    gru_bidir_counter,
+    gru_bidir_plain,
+    gru_scan,
+    gru_scan_counter,
+    gru_scan_plain,
+)
 from dpmn_tpu_torch.ops import window_tile_attention as WTA
 from dpmn_tpu_torch.ops.window_attention import (
     window_attention_block,
@@ -59,19 +66,60 @@ def test_window_attention_kernel(dev, shift, faithful, with_ln):
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("n,t,h", [(300, 16, 32), (40, 9, 64), (64, 5, 128), (600, 3, 512)])
+# the SRB sweeps at B = 16 and 64 (H = 32, the register regime), the
+# faithful gru_encoding and more sequences than one chunk (H = 512), smaller
+# H of the cooperative regime
+GRU_SHAPES = [(300, 16, 32), (1024, 64, 32), (64, 64, 512), (600, 3, 512), (40, 9, 64), (64, 5, 128)]
+
+
+def gru_inputs(dev, n, t, h, stride0=False, seed=0):
+    """Projections of both directions (broadcast along time with stride 0
+    when `stride0`), recurrent weights and biases of both directions."""
+    gen = torch.Generator().manual_seed(n + t + seed)
+    xps = [(0.5 * torch.randn(n, 1 if stride0 else t, 3 * h, generator=gen)).to(dev) for _ in range(2)]
+    if stride0:
+        xps = [x.expand(-1, t, -1) for x in xps]
+    w_hh = [((torch.rand(3 * h, h, generator=gen) * 2 - 1) / h**0.5).to(dev) for _ in range(2)]
+    b_hh = [((torch.rand(3 * h, generator=gen) * 2 - 1) / h**0.5).to(dev) for _ in range(2)]
+    return xps, w_hh, b_hh
+
+
+@pytest.mark.parametrize("n,t,h", GRU_SHAPES)
 @pytest.mark.parametrize("reverse", [False, True])
 def test_gru_scan_kernel(dev, n, t, h, reverse):
-    gen = torch.Generator().manual_seed(n)
-    x_proj = (0.5 * torch.randn(n, t, 3 * h, generator=gen)).to(dev)
-    w_hh = ((torch.rand(3 * h, h, generator=gen) * 2 - 1) / h**0.5).to(dev)
-    b_hh = ((torch.rand(3 * h, generator=gen) * 2 - 1) / h**0.5).to(dev)
+    xps, w_hh, b_hh = gru_inputs(dev, n, t, h)
     before = gru_scan_counter.launches
-    out = gru_scan(x_proj, w_hh, b_hh, reverse)
-    ref = gru_scan_plain(x_proj, w_hh, b_hh, reverse)
+    out = gru_scan(xps[0], w_hh[0], b_hh[0], reverse)
+    ref = gru_scan_plain(xps[0], w_hh[0], b_hh[0], reverse)
     torch.cuda.synchronize()
     assert gru_scan_counter.launches == before + 1
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,t,h", GRU_SHAPES)
+@pytest.mark.parametrize("stride0", [False, True])
+def test_gru_bidir_kernel(dev, n, t, h, stride0):
+    """Both directions in one launch (the reversed one indexing time from
+    T - 1 down), with and without a time stride of 0, one launch counted."""
+    xps, w_hh, b_hh = gru_inputs(dev, n, t, h, stride0)
+    args = (*xps, *w_hh, *b_hh)
+    before = (gru_bidir_counter.launches, gru_scan_counter.launches)
+    out = gru_bidir(*args)
+    ref = gru_bidir_plain(*args)
+    torch.cuda.synchronize()
+    assert (gru_bidir_counter.launches, gru_scan_counter.launches) == (before[0] + 1, before[1])
+    assert out.shape == (n, t, 2 * h)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,t,h", [(4096, 16, 32), (1024, 64, 32), (64, 64, 512)])
+def test_gru_kernel_reruns_agree_bit_for_bit(dev, n, t, h):
+    """Sums in a fixed order, no atomics: two runs are equal, both entry
+    points, at the main path's shapes."""
+    xps, w_hh, b_hh = gru_inputs(dev, n, t, h, stride0=h == 512)
+    args = (*xps, *w_hh, *b_hh)
+    assert torch.equal(gru_bidir(*args), gru_bidir(*args))
+    assert torch.equal(gru_scan(xps[1], w_hh[1], b_hh[1], True), gru_scan(xps[1], w_hh[1], b_hh[1], True))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -84,6 +132,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         gru_scan(x, w.T.contiguous().T, b)  # not contiguous
     with pytest.raises(ValueError):
         gru_scan(torch.randn(4, 6, 30, device=dev), torch.randn(30, 10, device=dev), torch.randn(30, device=dev))
+    with pytest.raises(ValueError):
+        gru_bidir(x.double(), x.double(), w.double(), w.double(), b.double(), b.double())
+    with pytest.raises(ValueError):
+        gru_bidir(x, x, w, w.T.contiguous().T, b, b)  # not contiguous
+    with pytest.raises(ValueError):
+        gru_bidir(x, x[:, :, :].transpose(0, 1).contiguous().transpose(0, 1), w, w, b, b)  # other strides
+    with pytest.raises(ValueError):
+        x30 = torch.randn(4, 6, 30, device=dev)
+        w30 = torch.randn(30, 10, device=dev)
+        gru_bidir(x30, x30, w30, w30, torch.randn(30, device=dev), torch.randn(30, device=dev))
     blk = SwinTransformerBlock(96, (16, 64), 6, [2, 4, 8], [0, 0, 0]).to(dev)
     kw = blk.attn.block_args(blk.ln_params())
     with pytest.raises(ValueError):
@@ -203,6 +261,11 @@ def test_kernels_without_backward_refuse_autograd(dev):
         gru_scan(torch.randn(4, 6, 96, device=dev), w, b)
     with torch.no_grad():
         gru_scan(torch.randn(4, 6, 96, device=dev), w, b)
+    x = torch.randn(4, 6, 96, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gru_bidir(x, x, w, w, b, b)
+    with torch.no_grad():
+        gru_bidir(x, x, w, w, b, b)
 
 
 @pytest.mark.parametrize("wnc", [(10, 16, 8), (300, 4, 16), (96, 16, 16), (40, 64, 16), (7, 64, 64), (33, 9, 5)])
