@@ -5,9 +5,17 @@
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. setup: the card's name and power limit, torch / CUDA versions, and the
-     build of every CUDA kernel under dpmn_tpu_torch/csrc (nvcc, in parallel);
+     build of every CUDA kernel under dpmn_tpu_torch/csrc (nvcc, in parallel):
+     each kernel's registers and spills (nvcc -Xptxas -v), and for the
+     products on the tensor cores (LN + projections, SKConv's two products,
+     the projection backward, the weight gradient, the attention backward of
+     the 4x4 and 8x8 windows) no spill and HMMA instructions in their
+     machine code (cuobjdump -sass);
   2. the window-attention kernel against its plain PyTorch version on the
      card at B = 64 and the flagship geometry: both shift sets, both layouts;
+     the device time of each of its sub-kernels (torch.profiler) beside the
+     sub-kernel's bound, and F.layer_norm + F.linear twice (TF32 off) beside
+     the LN + projection kernel as that part's library time;
   3. the GRU-scan kernel K2 against its plain versions at the three
      main-path shapes: both directions in one launch (gru_bidir; the
      gru_encoding input broadcast along time) and each direction alone
@@ -20,7 +28,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
   5. the training window-attention kernel K3, forward and backward, against
      autograd through its plain version at B = 64 and the flagship geometry:
      both shift sets, both layouts, dropout off and at keep 0.9 from one seed;
-     times of kernel and plain version, and the bounds;
+     times of kernel and plain version, and the bounds; the sub-kernel split
+     of forward and backward as in phase 2;
   6. the train path with train_core "block" (K3): the flagship
      DPMNSystem.train_step at B = 64 (fp32, dropout 0.1) — launch counts over
      one step, finite loss and grad_norm, images/s, ms/step and peak memory;
@@ -55,13 +64,16 @@ flagship forward (the sum over their launches in one sr_forward at B = 64),
 K3, K4 and K5 per flagship train step on their path (12 forward and 12
 backward launches); the standalone kernels K6-K9 per run of their phase's
 path (the launches it counts).  Bounds use the published H100 SXM peaks:
-3.35 TB/s and 67 TFLOP/s float32 on the CUDA cores.  It imports nothing of
-JAX.
+3.35 TB/s and 67 TFLOP/s float32 on the CUDA cores; a sub-kernel's bound
+counts a product it runs on the tensor cores as 3xTF32 at 3 x its operations
+over 495 TFLOP/s.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -71,6 +83,10 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12  # dense, on the tensor cores
+# the sub-kernels whose products run on the tensor cores (3xTF32)
+TC_KERNELS = ("ln_proj_kernel", "skconv_proj_kernel", "skconv_out_kernel", "proj_ln_bwd_kernel", "wgrad_kernel",
+              "window_attn_bwd_tc_kernel")
 B = 64
 K1_TOL = 1e-4  # max abs error: float32, other summation orders over <= 96-term sums
 K2_TOL = 1e-5  # max abs error of a tanh-bounded state after <= 64 float32 steps
@@ -100,9 +116,87 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+def bound_ms(nbytes, flops, tc_flops=0.0):
+    """The larger of the bytes at 3.35 TB/s and the operations: float32 on
+    the CUDA cores at 67 TFLOP/s, plus tc_flops run as 3xTF32 on the tensor
+    cores (3 x tc_flops at 495 TFLOP/s)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3 + 3 * tc_flops / TF32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_split(fn, iters=5):
+    """Device time of every kernel that fn() launches, by name, under
+    torch.profiler over `iters` runs after one warm-up: {name: (ms, launches)}
+    per run of fn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"::(\w+)(<[^()]*>)?\(", e.name)  # the kernel's name, short template arguments kept
+        name = (m.group(1) + (m.group(2) if m.group(2) and len(m.group(2)) <= 24 else "")) if m else e.name[:60]
+        ms, n = split.get(name, (0.0, 0.0))
+        split[name] = (ms + e.device_time / 1e3 / iters, n + 1 / iters)
+    if not split:
+        raise AssertionError("torch.profiler recorded no device time")
+    return split
+
+
+def add_split(total, split, times):
+    for name, (ms, n) in split.items():
+        a, b = total.get(name, (0.0, 0.0))
+        total[name] = (a + times * ms, b + times * n)
+
+
+def log_split(tag, split, parts, library=None):
+    """Each sub-kernel's device time (ms and launches per path) beside the
+    bound of its part; parts: {kernel name: (bytes, float32 operations on
+    CUDA cores, operations on tensor cores)} per path.  `library`: (kernel
+    name, ms, what) logged beside that kernel."""
+    for name, (ms, n) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        base = name.split("<")[0]
+        line = f"{tag} sub-kernel {name}: {ms:.4f} ms, {n:g} launches a path"
+        if base in parts:
+            nbytes, flops, tc = parts[base]
+            b_ms, b_by = bound_ms(nbytes, flops, tc)
+            kind = "3xTF32 on tensor cores" if tc else "float32 on CUDA cores"
+            line += (f"; part {base} (all its launches): bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, "
+                     f"{(flops + tc) / 1e9:.2f} GFLOP, {kind})")
+        if library and base == library[0]:
+            line += f"; library {library[1]:.4f} ms ({library[2]})"
+        log(line)
+
+
+def ln_linear_library(xq, xkv, ln, q_w, q_b, kv_w, kv_b):
+    """One PyTorch call per step of the LN + projection part: F.layer_norm
+    and F.linear of both streams (TF32 off)."""
+    import torch.nn.functional as F
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    dim = xq.shape[-1]
+    return lambda: (F.linear(F.layer_norm(xq, (dim,), ln[0], ln[1], 1e-6), q_w, q_b),
+                    F.linear(F.layer_norm(xkv, (dim,), ln[2], ln[3], 1e-6), kv_w, kv_b))
+
+
+def ln_proj_part(t, dim):
+    """(bytes, CUDA-core operations, tensor-core operations) of one LN +
+    projection call on t tokens: xq, xkv in, q, kv out, the weights."""
+    return 4 * (5 * t * dim + 3 * dim * dim + 3 * dim), 0.0, 2 * t * dim * 3 * dim
+
+
+def attn_pass_flops(t, dim, window_sizes):
+    """Operations of one pass of N-long dots per token and channel (a score
+    or a P v product) over every group."""
+    return 2 * t * (dim // len(window_sizes)) * sum(ws * ws for ws in window_sizes)
 
 
 def phase_setup():
@@ -117,11 +211,71 @@ def phase_setup():
     log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32} cudnn {torch.backends.cudnn.allow_tf32}")
     secs = kernels.build_all()
     log(f"build: {secs:.1f} s for {', '.join(kernels.SOURCES)}")
+    if not kernels.ptxas_report:
+        log("  ptxas: every library was up to date, nothing compiled (no registers or spills to report)")
     for name, report in kernels.ptxas_report.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"  ptxas {name}: {line.strip()}")
+        funcs = ptxas_functions(report)
+        log(f"  ptxas {name} (registers / bytes spilled): " + ", ".join(f"{f} {r} / {sp}" for f, r, sp in funcs))
+        spilled = [f for f, _, sp in funcs if sp and base_name(f) in TC_KERNELS]
+        if spilled:
+            raise AssertionError(f"tensor-core kernels spill: {spilled}")
+    check_hmma(kernels)
     return card
+
+
+def demangle(names):
+    tool = shutil.which("cu++filt") or shutil.which("c++filt") or "/usr/local/cuda/bin/cu++filt"
+    try:
+        out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True, timeout=60).stdout
+        short = [re.sub(r"\(anonymous namespace\)::|<unnamed>::|^void |\(.*", "",
+                        re.sub(r"\((int|bool|unsigned int|float)\)", "", line)) for line in out.splitlines()]
+        return short if len(short) == len(names) else names
+    except OSError:
+        return names
+
+
+def base_name(func):
+    """A kernel's name without template arguments."""
+    return func.split("<")[0].split("::")[-1].strip()
+
+
+def ptxas_functions(report):
+    """[(kernel, registers, spill bytes)] from nvcc -Xptxas -v output."""
+    rows, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = [m.group(1), 0, 0]
+            rows.append(cur)
+        elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            cur[2] = int(m.group(1)) + int(m.group(2))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            cur[1] = int(m.group(1))
+    return [(f, r, s) for f, (_, r, s) in zip(demangle([r[0] for r in rows]), rows)]
+
+
+def check_hmma(kernels):
+    """Each tensor-core sub-kernel holds HMMA instructions (cuobjdump -sass)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    found = {}
+    for name in ("window_attention", "window_attention_train", "window_attention_core", "window_attention_full",
+                 "gru_scan"):
+        sass = subprocess.run([tool, "-sass", str(kernels._target(name))], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+        funcs = re.split(r"\n\s*Function : ", sass)[1:]
+        names = demangle([f.split(None, 1)[0] for f in funcs])
+        for func, body in zip(names, funcs):
+            if base_name(func) in TC_KERNELS + ("gru_large_kernel",):
+                found[f"{name}: {func}"] = body.count("HMMA")
+    by_lib = {}
+    for func, n in found.items():
+        lib, name = func.split(": ", 1)
+        by_lib.setdefault(lib, []).append(f"{name} {n}")
+    for lib, rows in by_lib.items():
+        log(f"  sass {lib}: HMMA instructions: {', '.join(rows)}")
+    missing = [f for f, n in found.items() if n == 0]
+    if missing or not any(base_name(f.split(": ", 1)[1]) in TC_KERNELS for f in found):
+        raise AssertionError(f"no HMMA in {missing or 'the tensor-core kernels'}")
 
 
 def phase_window_attention(dev):
@@ -135,7 +289,7 @@ def phase_window_attention(dev):
     gen = torch.Generator().manual_seed(1)
     xq = torch.randn(B, h * w, dim, generator=gen).to(dev)
     xkv = torch.randn(B, h * w, dim, generator=gen).to(dev)
-    worst, times = 0.0, {}
+    worst, times, kws = 0.0, {}, {}
     for shift in ((0, 0, 0), (1, 2, 4)):
         for faithful in (True, False):
             blk = SwinTransformerBlock(dim, (h, w), 6, [2, 4, 8], list(shift), faithful=faithful)
@@ -161,9 +315,28 @@ def phase_window_attention(dev):
                     raise AssertionError(f"window_attention kernel disagrees with its plain version: {err}")
                 worst = max(worst, err)
                 if faithful:
+                    kws[shift] = kw
                     times[shift] = (cuda_ms(lambda: window_attention_block(xq, xkv, **kw)),
                                     cuda_ms(lambda: window_attention_block_plain(xq, xkv, **kw), iters=5))
     l, n_sum, ch = h * w, 4 + 16 + 64, dim // 3
+    # the sub-kernels of one forward's 12 calls (6 of each shift set) and
+    # the bounds of their parts
+    t = B * l
+    split = {}
+    with torch.no_grad():
+        for kw in kws.values():
+            add_split(split, kernel_split(lambda: window_attention_block(xq, xkv, **kw)), 6)
+        parts = {"ln_proj_kernel": ln_proj_part(t, dim),
+                 "window_attn_kernel": (4 * 4 * t * dim, 2 * attn_pass_flops(t, dim, (2, 4, 8)), 0.0),
+                 "skconv_proj_kernel": (4 * (2 * t * dim + t // 64 * dim + dim * dim), 0.0, 2 * t * dim * dim),
+                 "skconv_gate_kernel": (4 * t // 64 * dim, 0.0, 0.0),
+                 "skconv_out_kernel": (4 * (4 * t * dim + dim * ch), 2 * t * dim, 2 * t * ch * dim)}
+        wts, ln = kw["weights"], kw["ln"]
+        lib = ln_linear_library(xq, xkv, [ln[k] for k in ("qs", "qb", "ks", "kb")], wts["q_w"], wts["q_b"],
+                                wts["kv_w"], wts["kv_b"])
+        l_ms = 12 * cuda_ms(lib)
+    log_split("K1", split, {k: tuple(12 * v for v in p) for k, p in parts.items()},
+              ("ln_proj_kernel", l_ms, "F.layer_norm + F.linear of both streams, TF32 off, 12 calls"))
     flops = B * (2 * l * dim * 3 * dim + 4 * l * ch * n_sum + 2 * l * dim * dim + 2 * l * ch * dim)
     nbytes = 3 * B * l * dim * 4
     b_ms, b_by = bound_ms(nbytes, flops)
@@ -466,7 +639,7 @@ def phase_k3(dev):
     xq = torch.randn(B, h * w, dim, generator=gen).to(dev)
     xkv = torch.randn(B, h * w, dim, generator=gen).to(dev)
     cot = torch.randn(B, h * w, dim, generator=gen).to(dev)
-    worst_fwd, worst_grad, times = 0.0, 0.0, {}
+    worst_fwd, worst_grad, times, split_fwd, split_bwd = 0.0, 0.0, {}, {}, {}
     for shift in ((0, 0, 0), (1, 2, 4)):
         blk = SwinTransformerBlock(dim, (h, w), 6, [2, 4, 8], list(shift))
         init_weights(blk, seed=5)
@@ -505,8 +678,50 @@ def phase_k3(dev):
         p_bwd = cuda_ms(lambda: torch.autograd.grad(out, prim + biases, cot, retain_graph=True), iters=5)
         del out
         times[shift] = (k_fwd, k_bwd, p_fwd, p_bwd)
+        add_split(split_fwd, kernel_split(lambda: wt._forward_cuda(st, p_det, b_det)), 6)
+        add_split(split_bwd, kernel_split(lambda: wt._backward_cuda(st, p_det, b_det, cot)), 6)
+    # the sub-kernels of one step's 12 + 12 calls and the bounds of their parts
+    t, win = B * h * w, (2, 4, 8)
+    ap = attn_pass_flops(t, dim, win)
+    ln_part = ln_proj_part(t, dim)
+    fwd_parts = {"ln_proj_kernel": ln_part, "window_attn_kernel": (4 * 4 * t * dim, 2 * ap, 0.0)}
+    wparts = -(-t // 512) * (3 * dim * dim + 3 * dim)  # the weight gradients' per-chunk partials
+
+    def dbias_floats(wins):
+        """The dbias partials of the groups with these windows (2 heads)."""
+        return sum(B * attn_bwd_chunks(ws * ws, 2, (h // ws) * (w // ws)) * 2 * ws**4 for ws in wins)
+
+    def attn_bwd(wins):
+        """Bytes and operations of the attention backward of the groups with
+        these windows: q, k, v, dout read, dq, dk, dv written, the dbias
+        partials; 5 passes of N-long dots."""
+        return (4 * (7 * t * (dim // 3) * len(wins) + dbias_floats(wins)),
+                5 * 2 * t * (dim // 3) * sum(ws * ws for ws in wins))
+
+    dbias_part = dbias_floats(win)
+
+    (b_row, f_row), (b_tc, f_tc) = attn_bwd((2,)), attn_bwd((4, 8))  # a thread per row; tensor cores
+    bwd_parts = {"ln_proj_kernel": ln_part,
+                 "window_attn_bwd_kernel": (b_row, f_row, 0.0),
+                 "window_attn_bwd_tc_kernel": (b_tc, 0.0, f_tc),
+                 "proj_ln_bwd_kernel": (4 * (3 * t * dim + 4 * t * dim + t // 64 * 4 * dim), 0.0, 2 * t * 3 * dim * dim),
+                 "wgrad_kernel": (4 * (2 * t * dim + 3 * t * dim + wparts), 0.0, 2 * t * 3 * dim * dim),
+                 "sum_rows_kernel": (4 * (dbias_part + wparts + t // 64 * 4 * dim), dbias_part + wparts, 0.0)}
+    with torch.no_grad():
+        lib = ln_linear_library(p_det[0], p_det[1], p_det[2:6], *p_det[6:10])
+        l_ms = 12 * cuda_ms(lib)
+    scale12 = lambda parts: {k: tuple(12 * v for v in p) for k, p in parts.items()}
+    library = ("ln_proj_kernel", l_ms, "F.layer_norm + F.linear of both streams, TF32 off, 12 calls")
+    log_split("K3 forward", split_fwd, scale12(fwd_parts), library)
+    log_split("K3 backward", split_bwd, scale12(bwd_parts), library)
     return kernel_entries("K3", "window_attention_train", times, k3_cost(B, (h, w), dim, (2, 4, 8)),
                           worst_fwd, worst_grad, library=False)
+
+
+def attn_bwd_chunks(n, gh, nw):
+    """Blocks per image of a group's attention backward (csrc/window_train_common.cuh)."""
+    wpb = 1 if n * gh >= 128 else 128 // (n * gh)
+    return -(-nw // (4 * wpb))
 
 
 # launches of one flagship train step under each core: 12 blocks (6 PGRMs x 2)

@@ -48,6 +48,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"  // cp.async, the 3xTF32 split, mma_tf32
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -80,27 +82,6 @@ struct Args {
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(addr), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-// wait until at most `pending` (0-7) of this thread's cp.async groups are in flight
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
-    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
-  }
 }
 
 // ---------------------------------------------------------------- H = 32
@@ -188,25 +169,6 @@ constexpr int LKS = 8;         // most 8-deep k-steps a warp holds
 constexpr int LMAX_H = 8 * LKS * LWARPS;
 
 size_t large_smem_bytes(int H) { return sizeof(float) * ((size_t)H * LNCP + (size_t)LWARPS * LNC * LG); }
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both tf32: the 3xTF32 split
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __global__ void __launch_bounds__(LTHREADS, 1) gru_large_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();

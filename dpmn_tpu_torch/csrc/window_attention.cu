@@ -30,14 +30,19 @@
 // the output written) = 22.5 us at 3.35 TB/s; and 92.8 MFLOP per image
 // (projections 56.6, attention 11.0, SKConv 25.2; elementwise work not
 // counted), 5.94 GFLOP per call = 89 us at the 67 TFLOP/s float32 rate of the
-// CUDA cores.  So it is bound by operations.  Measured on an H100 SXM at
-// 700 W: 1.04-1.11 ms per call, 12x the bound (PERF.md).  This first design
-// is far from either bound: the
-// projections run on CUDA cores from weights staged in shared memory (a
-// register tile of 8 tokens x 9 outputs per thread), and q, kv, the attention
-// output and feats make a round trip through device memory between the
-// kernels.  wgmma for the projections, TMA, and keeping q/kv on chip are
-// later work.
+// CUDA cores.  The design: (a), (c1) and (c3) are persistent CTAs (one per
+// SM) that stage their weight once, stream 64-token tiles in by cp.async
+// (two stages) and run the products on the tensor cores, mma.sync with the
+// 3xTF32 split (tc_common.cuh), which keeps float32 accuracy at three
+// tensor-core passes; (b) is a thread per query row on the CUDA cores.
+// Measured on an H100 SXM at 700 W (PERF.md): 0.50-0.56 ms a call, of which
+// ln_proj 0.126 ms (its bytes alone take 0.038 ms; it runs 3 x 3.62 GFLOP
+// on mma.sync), the attention 0.25 ms and SKConv's products 0.12 ms.  The
+// products are bound by the mma.sync rate times the split's three passes
+// (batching ln_proj's LN rows, which shortened its latency, moved nothing),
+// and each CTA serializes a tile's load wait, LN, product and stores.  Keeping q/kv on chip between (a) and (b), the attention on
+// the tensor cores, and wgmma for the products (which needs the split
+// operands in shared memory) are later work.
 
 #include "window_common.cuh"
 

@@ -34,10 +34,12 @@
 // 5.94 GFLOP (K3's 4.33, SKConv's 1.61) = 89 us at 67 TFLOP/s float32;
 // backward 126 MB (xq, xkv, dout, dxq, dxkv) and 17.81 GFLOP (K3's
 // backward 12.63, the tokens' P v 0.35, the recomputed SKConv forward 1.61,
-// its backward 3.22) = 266 us.  Both are bound by operations.  This first
-// design runs every product on CUDA cores and round-trips q, kv, the tokens,
-// feats and their gradients through device memory; wgmma for the products
-// and keeping the tokens on chip are later work.
+// its backward 3.22) = 266 us.  Both are bound by operations.  The LN +
+// projections, SKConv's two products, the projection backward, the weight
+// gradients and the attention backward of the 4x4 and 8x8 windows are K3's
+// tensor-core kernels (window_common.cuh, window_train_common.cuh); SKConv's
+// backward kernels below run on CUDA cores, and q, kv, the tokens, feats and
+// their gradients round-trip through device memory.
 
 #include "window_train_common.cuh"
 

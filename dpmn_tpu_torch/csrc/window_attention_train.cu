@@ -31,10 +31,17 @@
 // (projections 3.62, attention 0.70) = 65 us at 67 TFLOP/s float32;
 // backward 126 MB (xq, xkv, dout, dxq, dxkv) and 12.6 GFLOP (recomputed
 // projections 3.62, attention backward with the recomputed scores 1.76,
-// projection backward 7.25) = 188 us.  Both are bound by operations.  This
-// first design runs everything on CUDA cores and round-trips q, kv, dq and
-// dkv through device memory; wgmma for the projection products and keeping
-// q/kv on chip are later work.
+// projection backward 7.25) = 188 us.  The design: the projections, their
+// backward (dx_ln = dy W and dW = dy^T x_ln) and the attention backward of
+// the 4x4 and 8x8 windows run on the tensor cores (mma.sync with the 3xTF32
+// split, tc_common.cuh); the LN + projection and the projection backward
+// are persistent CTAs that stage their weight once; the forward attention
+// and the 2x2 windows' backward are a thread per query row.  Measured on an
+// H100 SXM at 700 W (PERF.md): forward 0.37-0.43 ms a call (the attention
+// 0.26, ln_proj 0.13), backward 0.79-0.84 ms (the projection backward and
+// dW 0.34, ln_proj 0.12, the attention backward 0.26, of it 0.12 the 2x2
+// windows' thread-per-row kernel, the fixed-order sums 0.04).  q, kv, dq and
+// dkv still round-trip through device memory.
 
 #include "window_train_common.cuh"
 

@@ -2,9 +2,10 @@
 // window_attention_train.cu, window_attention_core.cu,
 // window_attention_full.cu, grouped_window_attention.cu) and the
 // dropout-mask dump (dropout_mask.cu): the LayerNorm + Q/KV projection
-// kernel, the per-group window-attention forward (float32 or bf16 io), the
-// counter-based hash that draws the attention-dropout mask, and SKConv's
-// three forward kernels.
+// kernel (persistent CTAs, the product on the tensor cores), the per-group
+// window-attention forward (float32 or bf16 io), the counter-based hash
+// that draws the attention-dropout mask, and SKConv's three forward kernels
+// (the two products on the tensor cores).
 //
 // The build hash of every csrc/*.cu covers this header (ops/kernels.py).
 
@@ -14,6 +15,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tc_common.cuh"
 
 namespace {
 
@@ -30,109 +33,164 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 
-constexpr int TOK = 64;      // tokens per block in the token-tile kernels
-constexpr int THREADS = 256;  // 8 warps x 8 tokens
-constexpr int MAXJ = 9;       // output columns per lane: 3*D/32 for D <= 96
+constexpr int TOK = 64;      // tokens per tile of the token-tile kernels
+constexpr int THREADS = 256;  // 8 warps
 constexpr int GCH = 16;       // the head dim the path gives (32 channels per group over 2 heads)
+constexpr int LNP_WARPS = 12;  // ln_proj: warps 0-3 own the q columns, 4-11 the kv columns
+constexpr int LNP_THREADS = 32 * LNP_WARPS;
 
-// LN + projections.  Shared: wt [D][3D] (q columns then kv columns),
-// xn [2][TOK][D].  Rows of wt are padded by one float.
-__global__ void ln_proj_kernel(const float* __restrict__ xq, const float* __restrict__ xkv,
-                               const float* __restrict__ qs, const float* __restrict__ qb,
-                               const float* __restrict__ ks, const float* __restrict__ kb,
-                               const float* __restrict__ qw, const float* __restrict__ qbias,
-                               const float* __restrict__ kvw, const float* __restrict__ kvbias,
-                               float* __restrict__ qout, float* __restrict__ kvout,
-                               int ntok, int D, int do_ln) {
-  extern __shared__ float sm[];
-  const int G3 = 3 * D, WS = G3 + 1;  // padded row: conflict-free staging
-  float* wt = sm;
-  float* xnq = wt + D * WS;
-  float* xnk = xnq + TOK * D;
-  for (int idx = threadIdx.x; idx < G3 * D; idx += blockDim.x) {
-    const int o = idx / D, i = idx % D;
-    wt[i * WS + o] = o < D ? qw[o * D + i] : kvw[(o - D) * D + i];
+// Stage a weight W (rows x k, row-major in global memory) into shared
+// memory as [rows][ld] (ld = k + 4: conflict-free B fragments of mma_tile).
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ w, int rows, int k, int ld) {
+  for (int idx = threadIdx.x; idx < rows * k; idx += blockDim.x) dst[(idx / k) * ld + idx % k] = __ldg(w + idx);
+}
+
+// The tile of TOK tokens starting at token t0 of a (ntok, c) row-major
+// tensor into shared memory [TOK][ld] by cp.async (rows past ntok are
+// zero), as one committed group.  c % 4 == 0; rows 16-byte aligned.
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* __restrict__ x, int64_t t0, int ntok,
+                                          int c, int64_t row_stride) {
+  const int c4 = c / 4;
+  for (int e = threadIdx.x; e < TOK * c4; e += blockDim.x) {
+    const int r = e / c4, k = (e % c4) * 4;
+    const bool valid = t0 + r < ntok;
+    cp_async16_zfill(dst + r * ld + k, valid ? x + (t0 + r) * row_stride + k : x, valid);
   }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t0 = blockIdx.x * TOK;
-  for (int lt = warp * 8; lt < warp * 8 + 8; ++lt) {
-    const int t = t0 + lt;
-    for (int which = 0; which < 2; ++which) {
-      const float* x = which == 0 ? xq : xkv;
-      float* dst = (which == 0 ? xnq : xnk) + lt * D;
-      float v[4];
-      float sum = 0.f, sq = 0.f;
+}
+
+// Sums over the warp of R values at once: the same xor tree for each, the
+// R shuffle chains interleaved.
+template <int R>
+__device__ __forceinline__ void warp_sums(float (&v)[R]) {
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int c = lane + 32 * m;
-        v[m] = (t < ntok && c < D) ? x[(int64_t)t * D + c] : 0.f;
-        sum += v[m];
-        sq += v[m] * v[m];
-      }
-      if (do_ln) {
+  for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          sum += __shfl_xor_sync(0xffffffffu, sum, off);
-          sq += __shfl_xor_sync(0xffffffffu, sq, off);
-        }
-        const float mean = sum / D;
-        const float var = fmaxf(sq / D - mean * mean, 0.f);
-        const float rstd = 1.0f / sqrtf(var + 1e-6f);
-        const float* s = which == 0 ? qs : ks;
-        const float* b = which == 0 ? qb : kb;
+    for (int r = 0; r < R; ++r) v[r] += __shfl_xor_sync(0xffffffffu, v[r], off);
+}
+
+// The LN of rows r0, r0 + step, ..., (R of them, those below nrows) of a
+// [rows][ld] tile of c <= 96 channels in shared memory, in place, by one
+// warp (lane holds channels lane + 32 m): float32 statistics, var = E[x^2]
+// - mean^2 clamped at 0, eps 1e-6, then * s + b (s[m], b[m] the lane's
+// channels), the formula of the JAX package's fused path
+// (dpmn_tpu/ops/pallas_window.py:191-202).  The R rows' reductions run side
+// by side; each row's sums keep the order of one row alone.
+template <int R>
+__device__ __forceinline__ void ln_rows_inplace(float* tile, int ld, int r0, int step, int nrows, int c,
+                                                const float (&s)[3], const float (&b)[3]) {
+  const int lane = threadIdx.x & 31;
+  float v[R][3], sum[R], sq[R];
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const int c = lane + 32 * m;
-          if (c < D) dst[c] = (v[m] - mean) * rstd * s[c] + b[c];
-        }
-      } else {
+  for (int r = 0; r < R; ++r) {
+    const int row = r0 + r * step;
+    sum[r] = sq[r] = 0.f;
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const int c = lane + 32 * m;
-          if (c < D) dst[c] = v[m];
-        }
-      }
+    for (int m = 0; m < 3; ++m) {
+      const int k = lane + 32 * m;
+      v[r][m] = row < nrows && k < c ? tile[row * ld + k] : 0.f;
+      sum[r] += v[r][m];
+      sq[r] += v[r][m] * v[r][m];
     }
   }
-  __syncthreads();
-  const int nj = (G3 + 31) / 32;
-  float acc[8][MAXJ];
+  warp_sums(sum);
+  warp_sums(sq);
 #pragma unroll
-  for (int a = 0; a < 8; ++a)
+  for (int r = 0; r < R; ++r) {
+    const int row = r0 + r * step;
+    const float mean = sum[r] / c;
+    const float var = fmaxf(sq[r] / c - mean * mean, 0.f);
+    const float rstd = 1.0f / sqrtf(var + 1e-6f);
 #pragma unroll
-    for (int j = 0; j < MAXJ; ++j) acc[a][j] = 0.f;
-  const float* xa = xnq + warp * 8 * D;
-  const float* xb = xnk + warp * 8 * D;
-  for (int i = 0; i < D; ++i) {
-    float w[MAXJ];
-#pragma unroll
-    for (int j = 0; j < MAXJ; ++j) {
-      const int o = lane + 32 * j;
-      w[j] = (j < nj && o < G3) ? wt[i * WS + o] : 0.f;
-    }
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const float vq = xa[a * D + i], vk = xb[a * D + i];
-#pragma unroll
-      for (int j = 0; j < MAXJ; ++j) {
-        const int o = lane + 32 * j;
-        acc[a][j] = fmaf(o < D ? vq : vk, w[j], acc[a][j]);
-      }
+    for (int m = 0; m < 3; ++m) {
+      const int k = lane + 32 * m;
+      if (row < nrows && k < c) tile[row * ld + k] = (v[r][m] - mean) * rstd * s[m] + b[m];
     }
   }
+}
+
+// LN + projections, q = ln(xq) Wq^T + bq and kv = ln(xkv) Wkv^T + bkv, on
+// persistent CTAs.  Each CTA stages [Wq; Wkv] (3D x D) once into shared
+// memory, then walks the tiles of TOK tokens blockIdx.x, + gridDim.x, ...:
+// a tile's xq and xkv rows land by cp.async while the previous tile is
+// computed (two stages), are normalized in place (do_ln), and the product
+// runs on the tensor cores (mma_tile, 3xTF32): warp w owns the tile's 4
+// m-tiles and the D/32 n-tiles of output columns [w D/4, (w + 1) D/4),
+// which are q columns for w < 4 and kv columns after.  Shared: w [3D][D + 4],
+// xs [2 stages][2 streams][TOK][D + 4].
+template <int D>
+__global__ void __launch_bounds__(LNP_THREADS, 1)
+    ln_proj_kernel(const float* __restrict__ xq, const float* __restrict__ xkv, const float* __restrict__ qs,
+                   const float* __restrict__ qb, const float* __restrict__ ks, const float* __restrict__ kb,
+                   const float* __restrict__ qw, const float* __restrict__ qbias, const float* __restrict__ kvw,
+                   const float* __restrict__ kvbias, float* __restrict__ qout, float* __restrict__ kvout, int ntok,
+                   int do_ln) {
+  constexpr int S = D + 4, NT = D / 32;
+  extern __shared__ __align__(16) float sm[];
+  float* w = sm;
+  float* xs = w + 3 * D * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int ntile = (ntok + TOK - 1) / TOK;
+  auto load = [&](int tile, int stage) {
+    float* dst = xs + stage * 2 * TOK * S;
+    load_tile(dst, S, xq, (int64_t)tile * TOK, ntok, D, D);
+    load_tile(dst + TOK * S, S, xkv, (int64_t)tile * TOK, ntok, D, D);
+    cp_async_commit();
+  };
+  if (blockIdx.x < ntile) load(blockIdx.x, 0);
+  stage_rows(w, qw, D, D, S);
+  stage_rows(w + D * S, kvw, 2 * D, D, S);
+  float lsq[3], lbq[3], lsk[3], lbk[3];
 #pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int t = t0 + warp * 8 + a;
-    if (t >= ntok) continue;
+  for (int m = 0; m < 3; ++m) {
+    const int k = lane + 32 * m;
+    const bool on = do_ln && k < D;
+    lsq[m] = on ? qs[k] : 0.f;
+    lbq[m] = on ? qb[k] : 0.f;
+    lsk[m] = on ? ks[k] : 0.f;
+    lbk[m] = on ? kb[k] : 0.f;
+  }
+  const bool is_q = warp < 4;
+  const int n0 = warp * NT * 8;  // the warp's first column of the 3D outputs
+  float bias[NT][2];
 #pragma unroll
-    for (int j = 0; j < MAXJ; ++j) {
-      const int o = lane + 32 * j;
-      if (j >= nj || o >= G3) continue;
-      if (o < D)
-        qout[(int64_t)t * D + o] = acc[a][j] + qbias[o];
-      else
-        kvout[(int64_t)t * 2 * D + (o - D)] = acc[a][j] + kvbias[o - D];
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int o = n0 + 8 * j + 2 * t4 + e;
+      bias[j][e] = is_q ? qbias[o] : kvbias[o - D];
     }
+  int stage = 0;
+  for (int tile = blockIdx.x; tile < ntile; tile += gridDim.x, stage ^= 1) {
+    const int next = tile + gridDim.x;
+    if (next < ntile) load(next, stage ^ 1);
+    cp_async_wait(next < ntile ? 1 : 0);
+    __syncthreads();  // this tile's rows (and, the first time, w) are in shared memory
+    float* xt = xs + stage * 2 * TOK * S;
+    if (do_ln) {  // rows warp, warp + 12, ... of each stream
+      ln_rows_inplace<(TOK + LNP_WARPS - 1) / LNP_WARPS>(xt, S, warp, LNP_WARPS, TOK, D, lsq, lbq);
+      ln_rows_inplace<(TOK + LNP_WARPS - 1) / LNP_WARPS>(xt + TOK * S, S, warp, LNP_WARPS, TOK, D, lsk, lbk);
+      __syncthreads();
+    }
+    float acc[4][NT][4];
+    zero_acc(acc);
+    mma_tile<false, false, 4, NT>(acc, xt + (is_q ? 0 : TOK * S), S, 0, w, S, n0, D);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t t = (int64_t)tile * TOK + 16 * i + g8 + 8 * h;
+        if (t >= ntok) continue;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int o = n0 + 8 * j + 2 * t4;
+          const float2 val = make_float2(acc[i][j][2 * h] + bias[j][0], acc[i][j][2 * h + 1] + bias[j][1]);
+          if (is_q)
+            *reinterpret_cast<float2*>(qout + t * D + o) = val;
+          else
+            *reinterpret_cast<float2*>(kvout + t * 2 * D + o - D) = val;
+        }
+      }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 }
 
@@ -301,15 +359,44 @@ inline cudaError_t launch_attn_groups_any(const float* q, const float* k, const 
                                           corrected, seed, thresh, inv_keep, st);
 }
 
+// Persistent grids: one CTA per SM, or per tile where there are fewer.
+inline cudaError_t persistent_grid(int ntile, int* grid) {
+  int sms = 0;
+  const cudaError_t err = device_sms(&sms);
+  *grid = ntile < sms ? ntile : sms;
+  return err;
+}
+
+// 16-byte alignment of the rows that cp.async copies.
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <int D>
+cudaError_t launch_ln_proj_d(const float* xq, const float* xkv, const float* qs, const float* qb, const float* ks,
+                             const float* kb, const float* q_w, const float* q_b, const float* kv_w,
+                             const float* kv_b, float* qbuf, float* kvbuf, int ntok, int do_ln, cudaStream_t st) {
+  const size_t smem = (size_t)(3 * D + 4 * TOK) * (D + 4) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(ln_proj_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int grid = 0;
+  if (err != cudaSuccess || (err = persistent_grid((ntok + TOK - 1) / TOK, &grid)) != cudaSuccess) return err;
+  if (grid == 0) return cudaSuccess;
+  ln_proj_kernel<D><<<grid, LNP_THREADS, smem, st>>>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf,
+                                                     ntok, do_ln);
+  return cudaGetLastError();
+}
+
+// LN (when do_ln) + the q / kv projections of ntok tokens: qbuf (ntok, D),
+// kvbuf (ntok, 2D).  D in {32, 64, 96}; xq and xkv 16-byte aligned.
 inline cudaError_t launch_ln_proj(const float* xq, const float* xkv, const float* qs, const float* qb,
                                   const float* ks, const float* kb, const float* q_w, const float* q_b,
                                   const float* kv_w, const float* kv_b, float* qbuf, float* kvbuf, int ntok,
                                   int D, int do_ln, cudaStream_t st) {
-  const size_t smem = (size_t)(D * (3 * D + 1) + 2 * TOK * D) * sizeof(float);
-  cudaFuncSetAttribute(ln_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  ln_proj_kernel<<<(ntok + TOK - 1) / TOK, THREADS, smem, st>>>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b,
-                                                                qbuf, kvbuf, ntok, D, do_ln);
-  return cudaGetLastError();
+  if (!aligned16(xq) || !aligned16(xkv)) return cudaErrorMisalignedAddress;
+  switch (D) {
+    case 32: return launch_ln_proj_d<32>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
+    case 64: return launch_ln_proj_d<64>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
+    case 96: return launch_ln_proj_d<96>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------- SKConv
@@ -319,61 +406,83 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));
 }
 
-// (c1) feats = attn Wp^T + bp, and per-tile sums of gelu(feats).  Shared:
-// wt [D][D + 1], x [TOK][D], red [8][D].
-__global__ void skconv_proj_kernel(const float* __restrict__ attn, const float* __restrict__ pw,
-                                   const float* __restrict__ pb, float* __restrict__ feats,
-                                   float* __restrict__ partial, int D) {
-  extern __shared__ float sm[];
-  float* wt = sm;  // [D][D + 1]
-  float* x = wt + D * (D + 1);
-  float* red = x + TOK * D;
-  for (int idx = threadIdx.x; idx < D * D; idx += blockDim.x) {
-    const int o = idx / D, i = idx % D;
-    wt[i * (D + 1) + o] = pw[idx];
+// The warp layout of the D-wide token-tile products on 8 warps: warp w
+// owns m-tiles 2 (w / 4) and 2 (w / 4) + 1 of the TOK-token tile and the
+// D/32 n-tiles of output columns [(w % 4) D/4, (w % 4 + 1) D/4).
+struct TileWarp {
+  int mg, m0, n0, g8, t4;
+  template <int NT>
+  __device__ static TileWarp make() {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    return TileWarp{warp >> 2, 32 * (warp >> 2), (warp & 3) * NT * 8, lane >> 2, lane & 3};
   }
-  const int64_t t0 = (int64_t)blockIdx.x * TOK;
-  for (int idx = threadIdx.x; idx < TOK * D; idx += blockDim.x) x[idx] = attn[t0 * D + idx];
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nj = (D + 31) / 32;
-  float acc[8][4];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[a][j] = 0.f;
-  for (int i = 0; i < D; ++i) {
-    float w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = lane + 32 * j;
-      w[j] = (j < nj && o < D) ? wt[i * (D + 1) + o] : 0.f;
-    }
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const float v = x[(warp * 8 + a) * D + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[a][j] = fmaf(v, w[j], acc[a][j]);
-    }
+};
+
+// (c1) feats = attn Wp^T + bp, and per-tile sums of gelu(feats), on
+// persistent CTAs: Wp staged once, attn tiles by cp.async (two stages), the
+// product on the tensor cores (mma_tile, 3xTF32).  A tile's sum is fixed in
+// order: each thread's 4 rows, a shuffle tree over the 8 row groups of a
+// warp, then the two m-groups.  Shared: w [D][D + 4], xs [2][TOK][D + 4],
+// red [2][D].
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    skconv_proj_kernel(const float* __restrict__ attn, const float* __restrict__ pw, const float* __restrict__ pb,
+                       float* __restrict__ feats, float* __restrict__ partial, int ntile) {
+  constexpr int S = D + 4, NT = D / 32;
+  extern __shared__ __align__(16) float sm[];
+  float* w = sm;
+  float* xs = w + D * S;
+  float* red = xs + 2 * TOK * S;
+  const int ntok = ntile * TOK;
+  if (blockIdx.x < ntile) {
+    load_tile(xs, S, attn, (int64_t)blockIdx.x * TOK, ntok, D, D);
+    cp_async_commit();
   }
+  stage_rows(w, pw, D, D, S);
+  const TileWarp tw = TileWarp::make<NT>();
+  float bias[NT][2];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int o = lane + 32 * j;
-    if (j >= nj || o >= D) continue;
-    float gs = 0.f;
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const float f = acc[a][j] + pb[o];
-      feats[(t0 + warp * 8 + a) * D + o] = f;
-      gs += gelu_erf(f);
+    for (int e = 0; e < 2; ++e) bias[j][e] = pb[tw.n0 + 8 * j + 2 * tw.t4 + e];
+  int stage = 0;
+  for (int tile = blockIdx.x; tile < ntile; tile += gridDim.x, stage ^= 1) {
+    const int next = tile + gridDim.x;
+    if (next < ntile) {
+      load_tile(xs + (stage ^ 1) * TOK * S, S, attn, (int64_t)next * TOK, ntok, D, D);
+      cp_async_commit();
     }
-    red[warp * D + o] = gs;
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < D; o += blockDim.x) {
-    float s = 0.f;
-    for (int w8 = 0; w8 < 8; ++w8) s += red[w8 * D + o];
-    partial[(int64_t)blockIdx.x * D + o] = s;
+    cp_async_wait(next < ntile ? 1 : 0);
+    __syncthreads();
+    float acc[2][NT][4];
+    zero_acc(acc);
+    mma_tile<false, false, 2, NT>(acc, xs + stage * TOK * S, S, tw.m0, w, S, tw.n0, D);
+    float gs[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) gs[j][0] = gs[j][1] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t t = (int64_t)tile * TOK + tw.m0 + 16 * i + tw.g8 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float f0 = acc[i][j][2 * h] + bias[j][0], f1 = acc[i][j][2 * h + 1] + bias[j][1];
+          *reinterpret_cast<float2*>(feats + t * D + tw.n0 + 8 * j + 2 * tw.t4) = make_float2(f0, f1);
+          gs[j][0] += gelu_erf(f0);
+          gs[j][1] += gelu_erf(f1);
+        }
+      }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) gs[j][e] += __shfl_xor_sync(0xffffffffu, gs[j][e], off);
+        if (tw.g8 == 0) red[tw.mg * D + tw.n0 + 8 * j + 2 * tw.t4 + e] = gs[j][e];
+      }
+    __syncthreads();
+    for (int o = threadIdx.x; o < D; o += blockDim.x) partial[(int64_t)tile * D + o] = red[o] + red[D + o];
   }
 }
 
@@ -430,87 +539,118 @@ __global__ void skconv_gate_kernel(const float* __restrict__ partial, const floa
   for (int m = threadIdx.x; m < n_group * ch; m += blockDim.x) gate[(int64_t)b * n_group * ch + m] = a[m];
 }
 
-// (c3) out = [xkv +] feats + (sum_g gate_g * attn_g) Wph^T + bph.  Shared:
-// wt [ch][D + 1], fv [TOK][ch].
-__global__ void skconv_out_kernel(const float* __restrict__ attn, const float* __restrict__ feats,
-                                  const float* __restrict__ gate, const float* __restrict__ phw,
-                                  const float* __restrict__ phb, const float* __restrict__ xkv,
-                                  float* __restrict__ out, int L, int D, int n_group, int ch,
-                                  int residual) {
-  extern __shared__ float sm[];
-  float* wt = sm;  // [ch][D + 1]
-  float* fv = wt + ch * (D + 1);
-  for (int idx = threadIdx.x; idx < D * ch; idx += blockDim.x) {
-    const int o = idx / ch, c = idx % ch;
-    wt[c * (D + 1) + o] = phw[idx];
+// (c3) out = [xkv +] feats + (sum_g gate_g * attn_g) Wph^T + bph, on
+// persistent CTAs: Wph staged once, attn tiles by cp.async (two stages),
+// the gated sum fv of each tile into shared memory, its product with Wph on
+// the tensor cores (mma_tile over K = ch).  A tile lies in one image (L %
+// TOK == 0).  Shared: w [D][ch + 4], xs [2][TOK][D + 4], fv [TOK][ch + 4].
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    skconv_out_kernel(const float* __restrict__ attn, const float* __restrict__ feats, const float* __restrict__ gate,
+                      const float* __restrict__ phw, const float* __restrict__ phb, const float* __restrict__ xkv,
+                      float* __restrict__ out, int L, int n_group, int ch, int ntile, int residual) {
+  constexpr int S = D + 4, NT = D / 32;
+  const int SC = ch + 4;
+  extern __shared__ __align__(16) float sm[];
+  float* w = sm;
+  float* xs = w + D * SC;
+  float* fv = xs + 2 * TOK * S;
+  const int ntok = ntile * TOK;
+  if (blockIdx.x < ntile) {
+    load_tile(xs, S, attn, (int64_t)blockIdx.x * TOK, ntok, D, D);
+    cp_async_commit();
   }
-  const int64_t t0 = (int64_t)blockIdx.x * TOK;
-  const int b = (int)(t0 / L);
-  for (int idx = threadIdx.x; idx < TOK * ch; idx += blockDim.x) {
-    const int lt = idx / ch, c = idx % ch;
-    float acc = 0.f;
-    for (int g = 0; g < n_group; ++g)
-      acc = fmaf(attn[(t0 + lt) * D + g * ch + c], gate[((int64_t)b * n_group + g) * ch + c], acc);
-    fv[idx] = acc;
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nj = (D + 31) / 32;
-  float acc[8][4];
+  stage_rows(w, phw, D, ch, SC);
+  const TileWarp tw = TileWarp::make<NT>();
+  float bias[NT][2];
 #pragma unroll
-  for (int a = 0; a < 8; ++a)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[a][j] = 0.f;
-  for (int c = 0; c < ch; ++c) {
-    float w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = lane + 32 * j;
-      w[j] = (j < nj && o < D) ? wt[c * (D + 1) + o] : 0.f;
+    for (int e = 0; e < 2; ++e) bias[j][e] = phb[tw.n0 + 8 * j + 2 * tw.t4 + e];
+  int stage = 0;
+  for (int tile = blockIdx.x; tile < ntile; tile += gridDim.x, stage ^= 1) {
+    const int next = tile + gridDim.x;
+    if (next < ntile) {
+      load_tile(xs + (stage ^ 1) * TOK * S, S, attn, (int64_t)next * TOK, ntok, D, D);
+      cp_async_commit();
     }
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const float v = fv[(warp * 8 + a) * ch + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[a][j] = fmaf(v, w[j], acc[a][j]);
+    cp_async_wait(next < ntile ? 1 : 0);
+    __syncthreads();
+    const float* xt = xs + stage * TOK * S;
+    const float* gb = gate + (int64_t)((int64_t)tile * TOK / L) * n_group * ch;
+    for (int idx = threadIdx.x; idx < TOK * ch; idx += blockDim.x) {
+      const int r = idx / ch, c = idx % ch;
+      float acc = 0.f;
+      for (int g = 0; g < n_group; ++g) acc = fmaf(xt[r * S + g * ch + c], gb[g * ch + c], acc);
+      fv[r * SC + c] = acc;
     }
-  }
+    __syncthreads();
+    float acc[2][NT][4];
+    zero_acc(acc);
+    mma_tile<false, false, 2, NT>(acc, fv, SC, tw.m0, w, SC, tw.n0, ch);
 #pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int64_t t = t0 + warp * 8 + a;
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = lane + 32 * j;
-      if (j >= nj || o >= D) continue;
-      const float sk = feats[t * D + o] + (acc[a][j] + phb[o]);
-      out[t * D + o] = residual ? xkv[t * D + o] + sk : sk;
-    }
+      for (int h = 0; h < 2; ++h) {
+        const int64_t t = (int64_t)tile * TOK + tw.m0 + 16 * i + tw.g8 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int64_t off = t * D + tw.n0 + 8 * j + 2 * tw.t4;
+          const float2 f = *reinterpret_cast<const float2*>(feats + off);
+          float2 sk = make_float2(f.x + (acc[i][j][2 * h] + bias[j][0]), f.y + (acc[i][j][2 * h + 1] + bias[j][1]));
+          if (residual) {
+            const float2 r = *reinterpret_cast<const float2*>(xkv + off);
+            sk = make_float2(r.x + sk.x, r.y + sk.y);
+          }
+          *reinterpret_cast<float2*>(out + off) = sk;
+        }
+      }
   }
 }
 
+template <int D>
+cudaError_t launch_skconv_d(const float* attn, const float* proj_w, const float* proj_b, const float* fc1_w,
+                            const float* fc1_b, const float* fc2_w, const float* fc2_b, const float* ph_w,
+                            const float* ph_b, const float* xkv, float* feats, float* partial, float* gate,
+                            float* out, int B, int L, int n_group, int dz, int residual, cudaStream_t st) {
+  const int ntile = B * L / TOK, ch = D / n_group;
+  int grid = 0;
+  cudaError_t err = persistent_grid(ntile, &grid);
+  if (err != cudaSuccess || grid == 0) return err;
+  const size_t smem_c1 = (size_t)(D * (D + 4) + 2 * TOK * (D + 4) + 2 * D) * sizeof(float);
+  if ((err = cudaFuncSetAttribute(skconv_proj_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem_c1)) != cudaSuccess)
+    return err;
+  skconv_proj_kernel<D><<<grid, THREADS, smem_c1, st>>>(attn, proj_w, proj_b, feats, partial, ntile);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t smem_c2 = (size_t)(D + 2 * dz + n_group * ch) * sizeof(float);
+  skconv_gate_kernel<<<B, 128, smem_c2, st>>>(partial, fc1_w, fc1_b, fc2_w, fc2_b, gate, L, D, dz, n_group, ch);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t smem_c3 = (size_t)(D * (ch + 4) + 2 * TOK * (D + 4) + TOK * (ch + 4)) * sizeof(float);
+  if ((err = cudaFuncSetAttribute(skconv_out_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem_c3)) != cudaSuccess)
+    return err;
+  skconv_out_kernel<D><<<grid, THREADS, smem_c3, st>>>(attn, feats, gate, ph_w, ph_b, xkv, out, L, n_group, ch, ntile,
+                                                       residual);
+  return cudaGetLastError();
+}
 
 // SKConv after the attention: (c1) feats and the GAP partials, (c2) the
 // gate, (c3) out = [xkv +] feats + proj_head(sum_g gate_g * attn_g).
 // Scratch: feats (B, L, D), partial (B, L/64, D), gate (B, n_group, ch).
+// D in {32, 64, 96}, L % 64 == 0, ch = D / n_group a multiple of 8.
 inline cudaError_t launch_skconv(const float* attn, const float* proj_w, const float* proj_b, const float* fc1_w,
                                  const float* fc1_b, const float* fc2_w, const float* fc2_b, const float* ph_w,
                                  const float* ph_b, const float* xkv, float* feats, float* partial, float* gate,
                                  float* out, int B, int L, int D, int n_group, int dz, int residual,
                                  cudaStream_t st) {
-  const int ntok = B * L, ch = D / n_group;
-  const size_t smem_c1 = (size_t)(D * (D + 1) + TOK * D + 8 * D) * sizeof(float);
-  cudaFuncSetAttribute(skconv_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c1);
-  skconv_proj_kernel<<<ntok / TOK, THREADS, smem_c1, st>>>(attn, proj_w, proj_b, feats, partial, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t smem_c2 = (size_t)(D + 2 * dz + n_group * ch) * sizeof(float);
-  skconv_gate_kernel<<<B, 128, smem_c2, st>>>(partial, fc1_w, fc1_b, fc2_w, fc2_b, gate, L, D, dz, n_group, ch);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t smem_c3 = (size_t)(ch * (D + 1) + TOK * ch) * sizeof(float);
-  cudaFuncSetAttribute(skconv_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c3);
-  skconv_out_kernel<<<ntok / TOK, THREADS, smem_c3, st>>>(attn, feats, gate, ph_w, ph_b, xkv, out, L, D, n_group,
-                                                          ch, residual);
-  return cudaGetLastError();
+  if (!aligned16(attn) || (D / n_group) % 8 != 0) return cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return launch_skconv_d<32>(attn, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, xkv, feats, partial, gate, out, B, L, n_group, dz, residual, st);
+    case 64: return launch_skconv_d<64>(attn, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, xkv, feats, partial, gate, out, B, L, n_group, dz, residual, st);
+    case 96: return launch_skconv_d<96>(attn, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, xkv, feats, partial, gate, out, B, L, n_group, dz, residual, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

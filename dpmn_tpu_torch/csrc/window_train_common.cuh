@@ -1,10 +1,11 @@
 // Backward pieces shared by the training window-attention kernels
 // (window_attention_train.cu, window_attention_core.cu,
-// window_attention_full.cu): the per-group attention backward, the LN +
-// projection backward, the weight-gradient kernel and the fixed-order
-// second pass over per-block partials (sum_rows_kernel) that every
-// cross-block sum goes through: no float atomics, so reruns agree bit for
-// bit.
+// window_attention_full.cu): the per-group attention backward (on the
+// tensor cores for windows of 16 and 64 tokens with 1 or 2 heads, a thread
+// per row otherwise), the LN + projection backward and the weight-gradient
+// kernel (both on the tensor cores), and the fixed-order second pass over
+// per-block partials (sum_rows_kernel) that every cross-block sum goes
+// through: no float atomics, so reruns agree bit for bit.
 //
 // The build hash of every csrc/*.cu covers this header (ops/kernels.py).
 
@@ -14,9 +15,15 @@
 
 namespace {
 
-constexpr int TOKC = 512;  // tokens per block of the weight-gradient kernel
+// Tokens per block of the weight-gradient kernel.  At B = 64 (65536 tokens)
+// that is 128 blocks for a D-row weight, one wave of 132 SMs, and 256 for
+// the kv weight, two blocks an SM: longer chunks leave SMs idle, shorter
+// ones add partials for the fixed-order sum to read.
+constexpr int TOKC = 512;
 
-// Attention backward of one channel group.  Block (chunk, image) walks
+// Attention backward of one channel group, a thread per row: the windows
+// of 4 tokens, more than 2 heads, or rows that are not 16-byte aligned
+// (window_attn_bwd_tc_kernel takes the rest).  Block (chunk, image) walks
 // `wchunk` windows, `wpb` at a time; thread (window, head, row).  q, dq and
 // dout rows have stride D; k, v, dk and dv rows stride kvs (as in
 // window_attn_kernel).  Shared:
@@ -171,185 +178,411 @@ __global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float*
   for (int e = threadIdx.x; e < nb; e += blockDim.x) part[e] = dbacc[e];
 }
 
-// The LN statistics of one token of c <= 96 values, lane-strided: the
-// warp's lanes hold v[m] = x[lane + 32 m] (0 past c).  Returns (mean, rstd) as in the
-// forward's ln_proj_kernel.
-__device__ __forceinline__ float2 ln_stats(const float (&v)[3], int c) {
-  float sum = 0.f, sq = 0.f;
+// Attention backward of one group on the tensor cores, for windows of N =
+// 16 or 64 tokens and GH = 1 or 2 heads of 16 channels (the flagship's 4x4
+// and 8x8 windows).  Block (chunk, image) walks `wchunk` windows, WPS =
+// 128 / (N GH) at a time, one slot of shared memory each; warp (slot, head
+// hd, m-tile mi) owns query rows [16 mi, 16 mi + 16) of its head, then key
+// rows [16 mi, 16 mi + 16).  Per window, staged once by cp.async: q, k, v in
+// token order and dout in the faithful raw rows, [N][CH + 4] each; then on
+// mma.sync (3xTF32, mma_tile):
+//   S = scale q k^T + bias [+ mask], dPM = dO v^T      (the warp's rows)
+//   P = softmax(S); M the dropout mask; dP = dPM * M; PM = P * M;
+//   dS = P (dP - rowsum(dP P))                        (registers, quad sums)
+//   dQ = scale dS k                                    (the warp's rows)
+//   dK = scale dS^T q, dV = PM^T dO                    (the warp's keys)
+// with dS and PM shared per head [N][N + 4].  dbias: each warp sums its dS
+// over its windows in registers, the slots are added in order into the
+// block's partial (dbias_part [block][gh][N][N]).  Shared per slot: q, k, v,
+// dout [N][CH + 4]; dS, PM [GH][N][N + 4].
+template <int N, int GH, bool DROP>
+__global__ void __launch_bounds__(THREADS)
+    window_attn_bwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                              int kvs, const float* __restrict__ dout, const float* __restrict__ bias,
+                              const float* __restrict__ mask, float* __restrict__ dq, float* __restrict__ dk,
+                              float* __restrict__ dv, float* __restrict__ dbias_part, int H, int W, int D, int g,
+                              int ws, int sh, int wchunk, float scale, uint32_t seed, uint32_t thresh,
+                              float inv_keep) {
+  constexpr int CH = GCH * GH, SQ = CH + 4, SN = N + 4, MT = N / 16, NTN = N / 8;
+  constexpr int WPW = GH * MT, WPS = (THREADS / 32) / WPW, SLOT = 4 * N * SQ + 2 * GH * N * SN;
+  extern __shared__ __align__(16) float sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int lw = warp / WPW, hd = (warp % WPW) / MT, mi = (warp % WPW) % MT;
+  float* Qs = sm + lw * SLOT;
+  float* Ks = Qs + N * SQ;
+  float* Vs = Ks + N * SQ;
+  float* Os = Vs + N * SQ;
+  float* dSs = Os + N * SQ + hd * N * SN;  // this warp's head
+  float* PMs = Os + N * SQ + GH * N * SN + hd * N * SN;
+  const int L = H * W, nwc = W / ws, nw = (H / ws) * nwc, b = blockIdx.y;
+  const int64_t base = (int64_t)b * L;
+  const int w_begin = blockIdx.x * wchunk, w_end = min(nw, w_begin + wchunk);
+  const float* bh = bias + hd * N * N;
+  const int i0 = 16 * mi + g8;  // this thread's rows i0 and i0 + 8 of the warp's m-tile
+  float dbacc[NTN][4];
 #pragma unroll
-  for (int m = 0; m < 3; ++m) {  // lanes past c hold 0
-    sum += v[m];
-    sq += v[m] * v[m];
-  }
+  for (int jn = 0; jn < NTN; ++jn)
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    sq += __shfl_xor_sync(0xffffffffu, sq, off);
-  }
-  const float mean = sum / c;
-  const float var = fmaxf(sq / c - mean * mean, 0.f);
-  return make_float2(mean, 1.0f / sqrtf(var + 1e-6f));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// dx of one LN + projection pair, 64 tokens per block: dx_ln = dy W (W in
-// torch layout (O, c)), then the LN backward
-// dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)), dxhat = dx_ln*scale;
-// and this block's sums of dx_ln*xhat and dx_ln (lnpart [block][2][c]).
-// Shared: w [O][c], dy [TOK][O], red [8][2][c].
-__global__ void proj_ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ lns,
-                                   const float* __restrict__ w, const float* __restrict__ dy,
-                                   float* __restrict__ dx, float* __restrict__ lnpart, int c, int O) {
-  extern __shared__ float sm[];
-  float* ws_ = sm;
-  float* dys = ws_ + O * c;
-  float* red = dys + TOK * O;
-  const int64_t t0 = (int64_t)blockIdx.x * TOK;
-  for (int idx = threadIdx.x; idx < O * c; idx += blockDim.x) ws_[idx] = w[idx];
-  for (int idx = threadIdx.x; idx < TOK * O; idx += blockDim.x) dys[idx] = dy[t0 * O + idx];
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nm = c / 32;
-  float acc[8][3];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int m = 0; m < 3; ++m) acc[a][m] = 0.f;
-  for (int o = 0; o < O; ++o) {
-    float wv[3];
-#pragma unroll
-    for (int m = 0; m < 3; ++m) wv[m] = m < nm ? ws_[o * c + lane + 32 * m] : 0.f;
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const float d = dys[(warp * 8 + a) * O + o];
-#pragma unroll
-      for (int m = 0; m < 3; ++m) acc[a][m] = fmaf(d, wv[m], acc[a][m]);
+    for (int e = 0; e < 4; ++e) dbacc[jn][e] = 0.f;
+  for (int w0 = w_begin; w0 < w_end; w0 += WPS) {
+    for (int e = threadIdx.x; e < WPS * N * (CH / 4); e += THREADS) {
+      const int l = e / (N * (CH / 4)), j = (e / (CH / 4)) % N, c = (e % (CH / 4)) * 4;
+      const int widx = w0 + l;
+      if (widx >= w_end) continue;
+      float* sl = sm + l * SLOT + j * SQ + c;
+      const int64_t tok = base + window_token(widx, j, ws, nwc, sh, H, W);
+      cp_async16(sl, q + tok * D + g * CH + c);
+      cp_async16(sl + N * SQ, k + tok * kvs + g * CH + c);
+      cp_async16(sl + 2 * N * SQ, v + tok * kvs + g * CH + c);
+      cp_async16(sl + 3 * N * SQ, dout + (base + (int64_t)widx * N + j) * D + g * CH + c);
     }
-  }
-  float gsc[3] = {0.f, 0.f, 0.f}, gbi[3] = {0.f, 0.f, 0.f};
+    cp_async_commit();
+    cp_async_wait(0);
+    __syncthreads();
+    const int widx = w0 + lw;
+    const bool valid = widx < w_end;
+    if (valid) {
+      float s[1][NTN][4], dp[1][NTN][4];
+      zero_acc(s);
+      zero_acc(dp);
+      mma_tile<false, false, 1, NTN>(s, Qs + hd * GCH, SQ, 16 * mi, Ks + hd * GCH, SQ, 0, GCH);
+      mma_tile<false, false, 1, NTN>(dp, Os + hd * GCH, SQ, 16 * mi, Vs + hd * GCH, SQ, 0, GCH);
+      const float* mw = sh > 0 ? mask + (int64_t)widx * N * N : nullptr;
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int64_t t = t0 + warp * 8 + a;
-    float v[3];
+      for (int jn = 0; jn < NTN; ++jn)
 #pragma unroll
-    for (int m = 0; m < 3; ++m) v[m] = m < nm ? x[t * c + lane + 32 * m] : 0.f;
-    const float2 st = ln_stats(v, c);
-    float xh[3], dxh[3], s1 = 0.f, s2 = 0.f;
+        for (int r = 0; r < 2; ++r) {
+          const int off = (i0 + 8 * r) * N + 8 * jn + 2 * t4;
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(bh + off));
+          float s0 = s[0][jn][2 * r] * scale + bb.x, s1 = s[0][jn][2 * r + 1] * scale + bb.y;
+          if (mw) {
+            const float2 mm = __ldg(reinterpret_cast<const float2*>(mw + off));
+            s0 += mm.x;
+            s1 += mm.y;
+          }
+          s[0][jn][2 * r] = s0;
+          s[0][jn][2 * r + 1] = s1;
+          mx[r] = fmaxf(mx[r], fmaxf(s0, s1));
+        }
+      float den[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int m = 0; m < 3; ++m) {
-      xh[m] = dxh[m] = 0.f;
-      if (m < nm) {
-        xh[m] = (v[m] - st.x) * st.y;
-        dxh[m] = acc[a][m] * lns[lane + 32 * m];
-        s1 += dxh[m];
-        s2 += dxh[m] * xh[m];
-        gsc[m] = fmaf(acc[a][m], xh[m], gsc[m]);
-        gbi[m] += acc[a][m];
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+#pragma unroll
+      for (int jn = 0; jn < NTN; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[0][jn][e] = expf(s[0][jn][e] - mx[e >> 1]);
+          den[e >> 1] += s[0][jn][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        den[r] += __shfl_xor_sync(0xffffffffu, den[r], 1);
+        den[r] += __shfl_xor_sync(0xffffffffu, den[r], 2);
+      }
+      uint32_t rkey[2] = {0u, 0u};
+      if (DROP) {
+        rkey[0] = dropout_row_key(seed, b, g, hd, widx, i0);
+        rkey[1] = dropout_row_key(seed, b, g, hd, widx, i0 + 8);
+      }
+#pragma unroll
+      for (int jn = 0; jn < NTN; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, j = 8 * jn + 2 * t4 + (e & 1);
+          const float p = s[0][jn][e] / den[r];
+          float d = dp[0][jn][e], pm = p;
+          if (DROP) {
+            const float m = (hash_step(rkey[r], j) & 0x7fffffffu) < thresh ? inv_keep : 0.f;
+            d *= m;
+            pm = p * m;
+          }
+          s[0][jn][e] = p;
+          dp[0][jn][e] = d;
+          PMs[(i0 + 8 * r) * SN + j] = pm;
+          rs[r] = fmaf(d, p, rs[r]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      }
+#pragma unroll
+      for (int jn = 0; jn < NTN; ++jn)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float d0 = s[0][jn][2 * r] * (dp[0][jn][2 * r] - rs[r]);
+          const float d1 = s[0][jn][2 * r + 1] * (dp[0][jn][2 * r + 1] - rs[r]);
+          dbacc[jn][2 * r] += d0;
+          dbacc[jn][2 * r + 1] += d1;
+          *reinterpret_cast<float2*>(dSs + (i0 + 8 * r) * SN + 8 * jn + 2 * t4) = make_float2(d0, d1);
+        }
+      __syncwarp();
+      float a[1][2][4];
+      zero_acc(a);
+      mma_tile<false, true, 1, 2>(a, dSs, SN, 16 * mi, Ks + hd * GCH, SQ, 0, N);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int64_t tok = base + window_token(widx, i0 + 8 * r, ws, nwc, sh, H, W);
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn)
+          *reinterpret_cast<float2*>(dq + tok * D + g * CH + hd * GCH + 8 * jn + 2 * t4) =
+              make_float2(a[0][jn][2 * r] * scale, a[0][jn][2 * r + 1] * scale);
       }
     }
-    const float m1 = warp_sum(s1) / c, m2 = warp_sum(s2) / c;
+    __syncthreads();  // dS and PM of every head complete
+    if (valid) {
+      float a[1][2][4], c[1][2][4];
+      zero_acc(a);
+      zero_acc(c);
+      mma_tile<true, true, 1, 2>(a, dSs, SN, 16 * mi, Qs + hd * GCH, SQ, 0, N);
+      mma_tile<true, true, 1, 2>(c, PMs, SN, 16 * mi, Os + hd * GCH, SQ, 0, N);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int64_t off = (base + window_token(widx, i0 + 8 * r, ws, nwc, sh, H, W)) * kvs + g * CH + hd * GCH;
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn) {
+          *reinterpret_cast<float2*>(dk + off + 8 * jn + 2 * t4) =
+              make_float2(a[0][jn][2 * r] * scale, a[0][jn][2 * r + 1] * scale);
+          *reinterpret_cast<float2*>(dv + off + 8 * jn + 2 * t4) = make_float2(c[0][jn][2 * r], c[0][jn][2 * r + 1]);
+        }
+      }
+    }
+    __syncthreads();  // the slots are refilled next
+  }
+  // dbias: the slots' sums in order
+  float* part = dbias_part + ((int64_t)b * gridDim.x + blockIdx.x) * GH * N * N;
+  float* red = sm;  // [WPS][GH][N][N]
+#pragma unroll
+  for (int jn = 0; jn < NTN; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[((lw * GH + hd) * N + i0 + 8 * (e >> 1)) * N + 8 * jn + 2 * t4 + (e & 1)] = dbacc[jn][e];
+  __syncthreads();
+  for (int e = threadIdx.x; e < GH * N * N; e += THREADS) {
+    float acc = 0.f;
+#pragma unroll
+    for (int l = 0; l < WPS; ++l) acc += red[l * GH * N * N + e];
+    part[e] = acc;
+  }
+}
+
+// dx of one LN + projection pair, on persistent CTAs: dx_ln = dy W (W (O,
+// C) in torch layout, staged transposed once per CTA) on the tensor cores
+// (mma_tile, 3xTF32) per tile of TOK tokens (dy tiles by cp.async, two
+// stages), into shared memory; then the LN backward per token, a warp per
+// 8 tokens: dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)),
+// dxhat = dx_ln * scale; and the tile's sums of dx_ln * xhat and dx_ln
+// (lnpart [tile][2][C], fixed order: a warp's 8 tokens in turn, then the 8
+// warps).  Shared: wt [C][O + 4], dys [2][TOK][O + 4], dxs [TOK][C + 4],
+// red [8][2][C].
+template <int C, int O>
+__global__ void __launch_bounds__(THREADS, 1)
+    proj_ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ lns, const float* __restrict__ w,
+                       const float* __restrict__ dy, float* __restrict__ dx, float* __restrict__ lnpart, int ntile) {
+  constexpr int SO = O + 4, SC = C + 4, NT = C / 32, NM = C / 32;
+  extern __shared__ __align__(16) float sm[];
+  float* wt = sm;
+  float* dys = wt + C * SO;
+  float* dxs = dys + 2 * TOK * SO;
+  float* red = dxs + TOK * SC;
+  const int ntok = ntile * TOK;
+  if (blockIdx.x < ntile) {
+    load_tile(dys, SO, dy, (int64_t)blockIdx.x * TOK, ntok, O, O);
+    cp_async_commit();
+  }
+  for (int idx = threadIdx.x; idx < O * C; idx += blockDim.x) wt[(idx % C) * SO + idx / C] = __ldg(w + idx);
+  const TileWarp tw = TileWarp::make<NT>();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float sc[3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) sc[m] = m < NM ? lns[lane + 32 * m] : 0.f;
+  int stage = 0;
+  for (int tile = blockIdx.x; tile < ntile; tile += gridDim.x, stage ^= 1) {
+    const int next = tile + gridDim.x;
+    if (next < ntile) {
+      load_tile(dys + (stage ^ 1) * TOK * SO, SO, dy, (int64_t)next * TOK, ntok, O, O);
+      cp_async_commit();
+    }
+    cp_async_wait(next < ntile ? 1 : 0);
+    __syncthreads();
+    float acc[2][NT][4];
+    zero_acc(acc);
+    mma_tile<false, false, 2, NT>(acc, dys + stage * TOK * SO, SO, tw.m0, wt, SO, tw.n0, O);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          *reinterpret_cast<float2*>(dxs + (tw.m0 + 16 * i + tw.g8 + 8 * h) * SC + tw.n0 + 8 * j + 2 * tw.t4) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+    __syncthreads();
+    // the LN backward of the warp's 8 tokens, 4 side by side (each token's
+    // sums in the order of one token alone); the dscale / dbias sums over
+    // the tokens in order
+    float gsc[3] = {0.f, 0.f, 0.f}, gbi[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int a0 = 0; a0 < 8; a0 += 4) {
+      float v[4][3], dxl[4][3], mean[4], rstd[4], s1[4], s2[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int lt = warp * 8 + a0 + a;
+        mean[a] = rstd[a] = 0.f;
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          v[a][m] = m < NM ? x[((int64_t)tile * TOK + lt) * C + lane + 32 * m] : 0.f;
+          dxl[a][m] = m < NM ? dxs[lt * SC + lane + 32 * m] : 0.f;
+          mean[a] += v[a][m];
+          rstd[a] += v[a][m] * v[a][m];
+        }
+      }
+      warp_sums(mean);
+      warp_sums(rstd);
+      float xh[4][3], dxh[4][3];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        mean[a] /= C;
+        rstd[a] = 1.0f / sqrtf(fmaxf(rstd[a] / C - mean[a] * mean[a], 0.f) + 1e-6f);
+        s1[a] = s2[a] = 0.f;
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          xh[a][m] = dxh[a][m] = 0.f;
+          if (m < NM) {
+            xh[a][m] = (v[a][m] - mean[a]) * rstd[a];
+            dxh[a][m] = dxl[a][m] * sc[m];
+            s1[a] += dxh[a][m];
+            s2[a] += dxh[a][m] * xh[a][m];
+          }
+        }
+      }
+      warp_sums(s1);
+      warp_sums(s2);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int64_t t = (int64_t)tile * TOK + warp * 8 + a0 + a;
+        const float m1 = s1[a] / C, m2 = s2[a] / C;
+#pragma unroll
+        for (int m = 0; m < 3; ++m)
+          if (m < NM) {
+            dx[t * C + lane + 32 * m] = rstd[a] * (dxh[a][m] - m1 - xh[a][m] * m2);
+            gsc[m] = fmaf(dxl[a][m], xh[a][m], gsc[m]);
+            gbi[m] += dxl[a][m];
+          }
+      }
+    }
 #pragma unroll
     for (int m = 0; m < 3; ++m)
-      if (m < nm) dx[t * c + lane + 32 * m] = st.y * (dxh[m] - m1 - xh[m] * m2);
-  }
-#pragma unroll
-  for (int m = 0; m < 3; ++m)
-    if (m < nm) {
-      red[(warp * 2) * c + lane + 32 * m] = gsc[m];
-      red[(warp * 2 + 1) * c + lane + 32 * m] = gbi[m];
+      if (m < NM) {
+        red[(warp * 2) * C + lane + 32 * m] = gsc[m];
+        red[(warp * 2 + 1) * C + lane + 32 * m] = gbi[m];
+      }
+    __syncthreads();
+    for (int e = threadIdx.x; e < 2 * C; e += blockDim.x) {
+      float s = 0.f;
+      for (int w8 = 0; w8 < 8; ++w8) s += red[(w8 * 2 + e / C) * C + e % C];
+      lnpart[(int64_t)tile * 2 * C + e] = s;
     }
-  __syncthreads();
-  for (int e = threadIdx.x; e < 2 * c; e += blockDim.x) {
-    float s = 0.f;
-    for (int w8 = 0; w8 < 8; ++w8) s += red[(w8 * 2 + e / c) * c + e % c];
-    lnpart[(int64_t)blockIdx.x * 2 * c + e] = s;
   }
 }
 
 // Weight gradients of one projection y = x_in W^T + b: block (chunk of TOKC
-// tokens, D output rows o0 = blockIdx.y * D) writes part[chunk] = [dW (O, c)
+// tokens, R output rows o0 = blockIdx.y * R) writes part[chunk] = [dW (O, c)
 // | db (O)] entries for its rows: dW[o][i] = sum_t dy[t][o] x_in[t][i],
 // db[o] = sum_t dy[t][o].  x_in is LN(x) recomputed as the forward computes
-// it when lns is given, else x itself.  c <= 96; warp w owns rows
-// o0 + w*R .. + R (R = D/8 <= 12), lane the columns lane + 32 m.
-// Shared: xs [TOK][c], dys [TOK][D].
-__global__ void wgrad_kernel(const float* __restrict__ x, const float* __restrict__ lns,
-                             const float* __restrict__ lnb, const float* __restrict__ dy,
-                             float* __restrict__ part, int ntok, int c, int O, int D) {
-  extern __shared__ float sm[];
-  float* xs = sm;
-  float* dys = xs + TOK * c;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, R = D / 8;
-  const int o0 = blockIdx.y * D;
-  float acc[12][3];
+// it when lns is given, else x itself.  Sub-tiles of TOK tokens land by
+// cp.async (two stages); the product is the transposed form on the tensor
+// cores (mma_tile, 3xTF32): warp w owns the m-tiles of rows [(w / 4) R/2,
+// (w / 4 + 1) R/2) and n-tiles of columns [(w % 4) P, (w % 4 + 1) P) with P
+// = 8 ceil(c / 32).  db[o] sums the sub-tiles' rows in order.  R in {32,
+// 64, 96}, c a multiple of 16 up to 96.  Shared: dys [2][TOK][R + 8], xs
+// [2][TOK][c + 8] (row strides 8 or 24 mod 32: conflict-free fragments).
+__global__ void __launch_bounds__(THREADS, 2)
+    wgrad_kernel(const float* __restrict__ x, const float* __restrict__ lns, const float* __restrict__ lnb,
+                 const float* __restrict__ dy, float* __restrict__ part, int ntok, int c, int O, int R) {
+  extern __shared__ __align__(16) float sm[];
+  const int SR = R + 8, SX = c + 8;
+  float* dys = sm;
+  float* xs = dys + 2 * TOK * SR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int o0 = blockIdx.y * R;
+  const int mt = R / 32, m0 = (warp >> 2) * mt * 16;
+  const int ct = c / 8, per = (ct + 3) / 4, n0 = (warp & 3) * per * 8;
+  const int nt = min(per, max(0, ct - (warp & 3) * per));
+  float lsc[3], lbi[3];
 #pragma unroll
-  for (int r = 0; r < 12; ++r)
-#pragma unroll
-    for (int m = 0; m < 3; ++m) acc[r][m] = 0.f;
-  float bacc = 0.f;
+  for (int m = 0; m < 3; ++m) {
+    const bool on = lns != nullptr && lane + 32 * m < c;
+    lsc[m] = on ? lns[lane + 32 * m] : 0.f;
+    lbi[m] = on ? lnb[lane + 32 * m] : 0.f;
+  }
   const int64_t tbeg = (int64_t)blockIdx.x * TOKC;
   const int64_t tend = tbeg + TOKC < ntok ? tbeg + TOKC : (int64_t)ntok;
-  for (int64_t t0 = tbeg; t0 < tend; t0 += TOK) {
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const int lt = warp * 8 + a;
-      float v[3];
-#pragma unroll
-      for (int m = 0; m < 3; ++m) v[m] = lane + 32 * m < c ? x[(t0 + lt) * c + lane + 32 * m] : 0.f;
-      if (lns != nullptr) {
-        const float2 st = ln_stats(v, c);
-#pragma unroll
-        for (int m = 0; m < 3; ++m) v[m] = (v[m] - st.x) * st.y * (lane + 32 * m < c ? lns[lane + 32 * m] : 0.f) +
-                                           (lane + 32 * m < c ? lnb[lane + 32 * m] : 0.f);
-      }
-#pragma unroll
-      for (int m = 0; m < 3; ++m)
-        if (lane + 32 * m < c) xs[lt * c + lane + 32 * m] = v[m];
-    }
-    for (int idx = threadIdx.x; idx < TOK * D; idx += blockDim.x)
-      dys[idx] = dy[(t0 + idx / D) * O + o0 + idx % D];
+  auto load = [&](int64_t t0, int stage) {
+    load_tile(dys + stage * TOK * SR, SR, dy + o0, t0, (int)tend, R, O);
+    load_tile(xs + stage * TOK * SX, SX, x, t0, (int)tend, c, c);
+    cp_async_commit();
+  };
+  float acc[3][3][4];
+  zero_acc(acc);
+  float bacc = 0.f;
+  load(tbeg, 0);
+  int stage = 0;
+  for (int64_t t0 = tbeg; t0 < tend; t0 += TOK, stage ^= 1) {
+    const bool more = t0 + TOK < tend;
+    if (more) load(t0 + TOK, stage ^ 1);
+    cp_async_wait(more ? 1 : 0);
     __syncthreads();
-    for (int tt = 0; tt < TOK; ++tt) {
-      float xv[3];
-#pragma unroll
-      for (int m = 0; m < 3; ++m) xv[m] = lane + 32 * m < c ? xs[tt * c + lane + 32 * m] : 0.f;
-#pragma unroll
-      for (int r = 0; r < 12; ++r) {
-        if (r < R) {
-          const float d = dys[tt * D + warp * R + r];
-#pragma unroll
-          for (int m = 0; m < 3; ++m) acc[r][m] = fmaf(d, xv[m], acc[r][m]);
-        }
-      }
+    float* dyt = dys + stage * TOK * SR;
+    float* xt = xs + stage * TOK * SX;
+    if (lns != nullptr) {
+      for (int r0 = warp; r0 < TOK; r0 += 4 * (THREADS / 32))  // 4 rows side by side
+        ln_rows_inplace<4>(xt, SX, r0, THREADS / 32, TOK, c, lsc, lbi);
+      __syncthreads();
     }
-    if (threadIdx.x < D)
-      for (int tt = 0; tt < TOK; ++tt) bacc += dys[tt * D + threadIdx.x];
+    if (threadIdx.x < R)
+      for (int r = 0; r < TOK; ++r) bacc += dyt[r * SR + threadIdx.x];
+    mma_tile<true, true, 3, 3>(acc, dyt, SR, m0, xt, SX, n0, TOK, mt, nt);
     __syncthreads();
   }
   float* p = part + (int64_t)blockIdx.x * (O * c + O);
 #pragma unroll
-  for (int r = 0; r < 12; ++r)
+  for (int i = 0; i < 3; ++i)
 #pragma unroll
-    for (int m = 0; m < 3; ++m)
-      if (r < R && lane + 32 * m < c) p[(o0 + warp * R + r) * c + lane + 32 * m] = acc[r][m];
-  if (threadIdx.x < D) p[O * c + o0 + threadIdx.x] = bacc;
+    for (int j = 0; j < 3; ++j)
+      if (i < mt && j < nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = o0 + m0 + 16 * i + g8 + 8 * h, col = n0 + 8 * j + 2 * t4;
+          *reinterpret_cast<float2*>(p + (int64_t)o * c + col) = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        }
+  if (threadIdx.x < R) p[O * c + o0 + threadIdx.x] = bacc;
 }
 
-// out[e] = sum over rows r = 0, 1, ... of part[r][e], in that order.
+// out[e] = the sum over the rows r of part[r][e] in a fixed order: block
+// (32 columns x 8 row groups), thread (column, g) adds rows g, g + 8, ... in
+// turn, then the 8 group sums are added in order.
 __global__ void sum_rows_kernel(const float* __restrict__ part, float* __restrict__ out, int rows, int cols) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= cols) return;
+  __shared__ float red[8][33];
+  const int e = blockIdx.x * 32 + threadIdx.x, g = threadIdx.y;
   float s = 0.f;
-  for (int r = 0; r < rows; ++r) s += part[(int64_t)r * cols + e];
-  out[e] = s;
+  if (e < cols)
+    for (int r = g; r < rows; r += 8) s += part[(int64_t)r * cols + e];
+  red[g][threadIdx.x] = s;
+  __syncthreads();
+  if (g == 0 && e < cols) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) t += red[k][threadIdx.x];
+    out[e] = t;
+  }
 }
 
 cudaError_t launch_sum_rows(const float* part, float* out, int rows, int cols, cudaStream_t st) {
-  sum_rows_kernel<<<(cols + 255) / 256, 256, 0, st>>>(part, out, rows, cols);
+  sum_rows_kernel<<<(cols + 31) / 32, dim3(32, 8), 0, st>>>(part, out, rows, cols);
   return cudaGetLastError();
 }
 
@@ -368,6 +601,20 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
   const int wpb = (N * gh >= 128) ? 1 : 128 / (N * gh);
   const int nw = (H / ws) * (W / ws);
   const int nchunk = attn_bwd_chunks(N, gh, nw);
+  if constexpr (N == 16 || N == 64) {
+    // the tensor-core kernel (wpb windows a step, as below) where its
+    // cp.async rows are 16-byte aligned
+    if ((gh == 1 || gh == 2) && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)) {
+      auto kern = gh == 1 ? window_attn_bwd_tc_kernel<N, 1, DROP> : window_attn_bwd_tc_kernel<N, 2, DROP>;
+      const size_t smem_tc = (size_t)wpb * (4 * N * (gh * GCH + 4) + 2 * gh * N * (N + 4)) * sizeof(float);
+      cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_tc);
+      if (err != cudaSuccess) return err;
+      kern<<<dim3(nchunk, B), THREADS, smem_tc, st>>>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, H, W,
+                                                     D, g, ws, sh, 4 * wpb, scale, seed, thresh, inv_keep);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      return launch_sum_rows(dbias_part, dbias, B * nchunk, gh * N * N, st);
+    }
+  }
   const int threads = wpb * gh * N;
   const size_t smem = (size_t)(4 * wpb * N * gh * GCH + 2 * wpb * gh * N * (N + 1) + gh * N * N) * sizeof(float);
   cudaFuncSetAttribute(window_attn_bwd_kernel<N, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -433,21 +680,53 @@ inline size_t attn_bwd_part_floats(int B, int H, int W, int n_group, const int* 
 // Weight gradients of a projection, y = x_in W^T + b with W (O, c), summed
 // over ntok tokens: wgrad_kernel per chunk of TOKC tokens into part (ceil(ntok
 // / TOKC) rows of O*c + O), then the fixed-order sum into g = [dW | db].
-// O must be a multiple of D (the rows one block owns, D <= 96).
+// O must be a multiple of D (the rows one block owns, D in {32, 64, 96}); c
+// a multiple of 16 up to 96; x and dy 16-byte aligned.
 inline cudaError_t launch_wgrad(const float* x, const float* lns, const float* lnb, const float* dy, float* part,
                                 float* g, int ntok, int c, int O, int D, cudaStream_t st) {
+  if (!aligned16(x) || !aligned16(dy) || c % 16 != 0 || c > 96 || D % 32 != 0 || D > 96 || O % D != 0)
+    return cudaErrorInvalidValue;
   const int nchunk = (ntok + TOKC - 1) / TOKC;
-  const size_t smem = (size_t)(TOK * c + TOK * D) * sizeof(float);
-  wgrad_kernel<<<dim3(nchunk, O / D), THREADS, smem, st>>>(x, lns, lnb, dy, part, ntok, c, O, D);
-  cudaError_t err = cudaGetLastError();
+  const size_t smem = (size_t)2 * TOK * (D + 8 + c + 8) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  wgrad_kernel<<<dim3(nchunk, O / D), THREADS, smem, st>>>(x, lns, lnb, dy, part, ntok, c, O, D);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_sum_rows(part, g, nchunk, O * c + O, st);
+}
+
+template <int C, int O>
+cudaError_t launch_proj_ln_bwd(const float* x, const float* lns, const float* w, const float* dy, float* dx,
+                               float* lnpart, int ntok, cudaStream_t st) {
+  const size_t smem = (size_t)(C * (O + 4) + 2 * TOK * (O + 4) + TOK * (C + 4) + 16 * C) * sizeof(float);
+  cudaError_t err =
+      cudaFuncSetAttribute(proj_ln_bwd_kernel<C, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int grid = 0;
+  if (err != cudaSuccess || (err = persistent_grid(ntok / TOK, &grid)) != cudaSuccess || grid == 0) return err;
+  proj_ln_bwd_kernel<C, O><<<grid, THREADS, smem, st>>>(x, lns, w, dy, dx, lnpart, ntok / TOK);
+  return cudaGetLastError();
+}
+
+// dx and the LN sums of one LN + projection pair, O = k D (k = 1: q, 2: kv).
+inline cudaError_t launch_proj_ln_bwd_any(const float* x, const float* lns, const float* w, const float* dy,
+                                          float* dx, float* lnpart, int ntok, int D, int k, cudaStream_t st) {
+  if (!aligned16(dy)) return cudaErrorMisalignedAddress;
+  switch (D * 2 + k - 1) {
+    case 64: return launch_proj_ln_bwd<32, 32>(x, lns, w, dy, dx, lnpart, ntok, st);
+    case 65: return launch_proj_ln_bwd<32, 64>(x, lns, w, dy, dx, lnpart, ntok, st);
+    case 128: return launch_proj_ln_bwd<64, 64>(x, lns, w, dy, dx, lnpart, ntok, st);
+    case 129: return launch_proj_ln_bwd<64, 128>(x, lns, w, dy, dx, lnpart, ntok, st);
+    case 192: return launch_proj_ln_bwd<96, 96>(x, lns, w, dy, dx, lnpart, ntok, st);
+    case 193: return launch_proj_ln_bwd<96, 192>(x, lns, w, dy, dx, lnpart, ntok, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // The backward of LN + the q and kv projections, from dq (B*L, D) and dkv
 // (B*L, 2D): dxq, dxkv; gq = [dWq | dbq], gkv = [dWkv | dbkv]; gln_q = [dqs
 // | dqb], gln_kv = [dks | dkb].  Scratch: wpart_q (S, D*D + D), wpart_kv (S,
 // 2D*D + 2D) with S = ceil(ntok / 512); lnpart_q, lnpart_kv (ntok / 64, 2D).
+// ntok % 64 == 0.
 inline cudaError_t launch_ln_proj_bwd(const float* xq, const float* xkv, const float* qs, const float* qb,
                                       const float* ks, const float* kb, const float* q_w, const float* kv_w,
                                       const float* dqbuf, const float* dkvbuf, float* wpart_q, float* wpart_kv,
@@ -465,13 +744,12 @@ inline cudaError_t launch_ln_proj_bwd(const float* xq, const float* xkv, const f
   float* gws[2] = {gq, gkv};
   cudaError_t err;
   for (int k = 0; k < 2; ++k) {
-    const int O = (k + 1) * D;
-    const size_t smem_p = (size_t)(O * D + TOK * O + 16 * D) * sizeof(float);
-    cudaFuncSetAttribute(proj_ln_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_p);
-    proj_ln_bwd_kernel<<<ntok / TOK, THREADS, smem_p, st>>>(xs[k], lns[k], wts[k], dys[k], dxs[k], lnparts[k], D, O);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = launch_proj_ln_bwd_any(xs[k], lns[k], wts[k], dys[k], dxs[k], lnparts[k], ntok, D, k + 1, st)) !=
+        cudaSuccess)
+      return err;
     if ((err = launch_sum_rows(lnparts[k], glns[k], ntok / TOK, 2 * D, st)) != cudaSuccess) return err;
-    if ((err = launch_wgrad(xs[k], lns[k], lnb[k], dys[k], wparts[k], gws[k], ntok, D, O, D, st)) != cudaSuccess)
+    if ((err = launch_wgrad(xs[k], lns[k], lnb[k], dys[k], wparts[k], gws[k], ntok, D, (k + 1) * D, D, st)) !=
+        cudaSuccess)
       return err;
   }
   return cudaSuccess;

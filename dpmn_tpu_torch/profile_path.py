@@ -6,9 +6,10 @@ Builds the flagship DPMNSystem with seeded random weights, warms it up, then
 (1) times each stage of one real sr_forward (the CRNN text prior, the TATT
 PSN, each student, each glyph render, each PGRM, CMM) with CUDA events that
 forward hooks on those modules record, (2) records one forward with
-torch.profiler and prints the device time by kernel and the device's busy
-share of the forward's wall time, and (3) prints the same forward's wall
-time without the profiler.  Prints the card's name and power limit first.
+torch.profiler and prints the device time of every op and kernel and the
+device's busy share of the forward's wall time, and (3) prints the same
+forward's wall time without the profiler.  Prints the card's name and power
+limit first.
 
 With --train the same for one real train_step (fp32, the flagship's dropout
 0.1, synthetic HR/LR): the forward stages as above plus each distill, then
@@ -144,7 +145,7 @@ def main(argv=None):
     busy = sum(e.device_time for e in events) / 1e3 if events else 0.0
     print(f"profiled {what}: wall {wall:.3f} ms, device kernel time {busy:.3f} ms "
           f"({100 * busy / wall:.1f} % busy), {len(events)} device events")
-    print(prof.key_averages().table(sort_by="device_time_total", row_limit=30, max_name_column_width=60))
+    print(prof.key_averages().table(sort_by="device_time_total", row_limit=-1, max_name_column_width=60))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()

@@ -153,21 +153,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
             window_attention_block(x, x, **blk.attn.block_args(blk.ln_params()))
 
 
-def train_core_inputs(dev, shift, batch=2, seed=0):
+def train_core_inputs(dev, shift, batch=2, seed=0, dim=96, windows=(2, 4, 8), heads=6):
     """Random pre-norm tokens, LN, projection, SKConv and relative-bias
-    parameters of one flagship block (16x64 grid, dim 96, windows 2/4/8, 6
-    heads), leaves that require grad (the 18 primals of K5, whose first 10
-    are K3's), and the core's static arguments."""
+    parameters of one block on the flagship's 16x64 grid (by default the
+    flagship's: dim 96, windows 2/4/8, 6 heads), leaves that require grad
+    (the 18 primals of K5, whose first 10 are K3's), and the core's static
+    arguments."""
     gen = torch.Generator().manual_seed(seed)
-    blk = SwinTransformerBlock(96, (16, 64), 6, [2, 4, 8], list(shift))
+    blk = SwinTransformerBlock(dim, (16, 64), heads, list(windows), list(shift))
     init_weights(blk, seed=seed + 1)
     leaf = lambda t: t.detach().clone().to(dev).requires_grad_()
     rnd = lambda *s, scale=1.0: leaf(scale * torch.randn(*s, generator=gen))
     a = blk.attn
-    prim = [rnd(batch, 1024, 96), rnd(batch, 1024, 96),
-            leaf(1 + 0.1 * torch.randn(96, generator=gen)), rnd(96, scale=0.1),
-            leaf(1 + 0.1 * torch.randn(96, generator=gen)), rnd(96, scale=0.1),
-            leaf(a.q.weight), rnd(96, scale=0.1), leaf(a.kv.weight), rnd(192, scale=0.1)]
+    prim = [rnd(batch, 1024, dim), rnd(batch, 1024, dim),
+            leaf(1 + 0.1 * torch.randn(dim, generator=gen)), rnd(dim, scale=0.1),
+            leaf(1 + 0.1 * torch.randn(dim, generator=gen)), rnd(dim, scale=0.1),
+            leaf(a.q.weight), rnd(dim, scale=0.1), leaf(a.kv.weight), rnd(2 * dim, scale=0.1)]
     prim += [leaf(t) if t.dim() == 2 else rnd(*t.shape, scale=0.1) for t in a.SKConv.weights()]
     biases = [rnd(*b.shape, scale=0.1) for b in a.biases()]
     masks = [m.to(dev) if m is not None else None for m in a.masks()]
@@ -198,7 +199,7 @@ def check_core_on_card(mod, fn, plain, prim, biases, static, keep, layout):
     """A training core's kernels against autograd through its plain version on
     the card (forward max abs 1e-4, each gradient within 1e-4 of its largest
     value + 1e-5); its launch counters move by one each."""
-    cot = torch.randn(2, 1024, 96, generator=torch.Generator().manual_seed(9)).to(prim[0].device)
+    cot = torch.randn(*prim[0].shape, generator=torch.Generator().manual_seed(9)).to(prim[0].device)
     before = (mod.forward_counter.launches, mod.backward_counter.launches)
     out, grads = run_train_core(fn, prim, biases, static, 123, keep, layout, cot)
     torch.cuda.synchronize()
@@ -229,6 +230,93 @@ def test_window_attention_full_kernel(dev, shift, keep):
     prim, biases, static = train_core_inputs(dev, shift)
     check_core_on_card(WF, WF.window_attention_full_core, WF.window_attention_full_core_plain, prim, biases,
                        static, keep, "faithful")
+
+
+# the widths the wrappers admit (D % 32 == 0, D <= 96, head dim 16): dim,
+# windows, heads, shifts; 2 heads a group at D = 96 and 64, 1 at D = 32
+WIDTHS = [(96, (2, 4, 8), 6, (1, 2, 4)), (64, (2, 8), 4, (1, 4)), (32, (4, 8), 2, (2, 4))]
+# 16 tiles of 64 tokens an image: on a 132-SM card the persistent CTAs take
+# one tile each up to 8 images and walk more than one, unevenly, at 9
+BATCHES = [1, 3, 5, 9]
+
+
+def k1_inputs(dev, batch, dim=96, windows=(2, 4, 8), heads=6, shift=(1, 2, 4), faithful=True, with_ln=True,
+              seed=0):
+    """Tokens and the keyword arguments of `window_attention_block` for one
+    block on the 16x64 grid, with perturbed norms and relative biases."""
+    gen = torch.Generator().manual_seed(seed)
+    blk = SwinTransformerBlock(dim, (16, 64), heads, list(windows), list(shift), faithful=faithful)
+    init_weights(blk, seed=seed + 1)
+    with torch.no_grad():
+        for ln in (blk.norm1_q, blk.norm1_kv):
+            ln.weight.add_(0.1 * torch.randn(dim, generator=gen))
+            ln.bias.add_(0.1 * torch.randn(dim, generator=gen))
+        for i in range(len(windows)):
+            getattr(blk.attn, f"relative_position_bias_table_{i}").normal_(0, 0.1, generator=gen)
+    blk = blk.to(dev)
+    xq = torch.randn(batch, 1024, dim, generator=gen).to(dev)
+    xkv = torch.randn(batch, 1024, dim, generator=gen).to(dev)
+    return xq, xkv, blk.attn.block_args(blk.ln_params() if with_ln else None)
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("width", WIDTHS, ids=lambda wd: f"D{wd[0]}")
+@pytest.mark.parametrize("faithful", [True, False])
+def test_window_attention_kernel_batches_and_widths(dev, batch, width, faithful):
+    """K1 against its plain version at every width the wrapper admits and at
+    batches where the persistent CTAs take one tile each or walk several."""
+    dim, windows, heads, shift = width
+    xq, xkv, kw = k1_inputs(dev, batch, dim, windows, heads, shift, faithful, with_ln=batch != 3)
+    with torch.no_grad():
+        out = window_attention_block(xq, xkv, **kw)
+        ref = window_attention_block_plain(xq, xkv, **kw)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("width", WIDTHS, ids=lambda wd: f"D{wd[0]}")
+def test_window_attention_train_kernel_batches_and_widths(dev, batch, width):
+    """K3 forward and every gradient against autograd through its plain
+    version (dropout on), as test_window_attention_train_kernel."""
+    dim, windows, heads, shift = width
+    prim, biases, static = train_core_inputs(dev, shift, batch, dim=dim, windows=windows, heads=heads)
+    check_core_on_card(WT, WT.window_attention_block_core, WT.window_attention_block_core_plain, prim[:10], biases,
+                       static, 0.9, "faithful")
+
+
+@pytest.mark.parametrize("width", WIDTHS[1:], ids=lambda wd: f"D{wd[0]}")
+def test_window_attention_full_kernel_widths(dev, width):
+    """K5 at the narrower widths (SKConv's proj_head weight gradient over 16
+    or 32 channels), B = 9."""
+    dim, windows, heads, shift = width
+    prim, biases, static = train_core_inputs(dev, shift, 9, dim=dim, windows=windows, heads=heads)
+    check_core_on_card(WF, WF.window_attention_full_core, WF.window_attention_full_core_plain, prim, biases, static,
+                       0.9, "faithful")
+
+
+def test_window_attention_kernels_rerun_bit_for_bit(dev):
+    """K1's output, and K3's and K5's forward output and every gradient, are
+    equal across two runs (fixed-order sums, no float atomics)."""
+    xq, xkv, kw = k1_inputs(dev, 9)
+    with torch.no_grad():
+        assert torch.equal(window_attention_block(xq, xkv, **kw), window_attention_block(xq, xkv, **kw))
+    prim, biases, static = train_core_inputs(dev, (1, 2, 4), batch=9)
+    cot = torch.randn(*prim[0].shape, generator=torch.Generator().manual_seed(9)).to(dev)
+    for fn, n in ((WT.window_attention_block_core, 10), (WF.window_attention_full_core, 18)):
+        (o1, g1), (o2, g2) = (run_train_core(fn, prim[:n], biases, static, 123, 0.9, "faithful", cot) for _ in range(2))
+        assert torch.equal(o1, o2)
+        assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def test_window_kernels_reject_other_widths(dev):
+    """D = 128 (beyond the kernels' 96) raises in K1 and K3."""
+    xq, xkv, kw = k1_inputs(dev, 1, 128, (2, 4, 8, 4), 8, (0, 0, 0, 0))
+    with pytest.raises(ValueError), torch.no_grad():
+        window_attention_block(xq, xkv, **kw)
+    prim, biases, static = train_core_inputs(dev, (0, 0, 0, 0), 1, dim=128, windows=(2, 4, 8, 4), heads=8)
+    with pytest.raises(ValueError):
+        WT.window_attention_block_core(*prim[:10], biases, static["masks"], 0, 1.0, static["window_sizes"],
+                                       static["shifts"], static["gnum_heads"], static["scale"], static["hw_shape"])
 
 
 def test_training_cores_reject_what_the_kernels_do_not_take(dev):
