@@ -7,10 +7,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
   1. setup: the card's name and power limit, torch / CUDA versions, and the
      build of every CUDA kernel under dpmn_tpu_torch/csrc (nvcc, in parallel):
      each kernel's registers and spills (nvcc -Xptxas -v), and for the
-     products on the tensor cores (LN + projections, SKConv's two products,
-     the projection backward, the weight gradient, the attention backward of
-     the 4x4 and 8x8 windows) no spill and HMMA instructions in their
-     machine code (cuobjdump -sass);
+     products on the tensor cores (LN + projections, SKConv's two products
+     and its backward's two token passes, the projection backward, the
+     weight gradient, the attention backward of the 4x4 and 8x8 windows on
+     mma.sync; the Mlp conv pair's mix on wgmma) no spill and HMMA or HGMMA
+     instructions in their machine code (cuobjdump -sass);
   2. the window-attention kernel against its plain PyTorch version on the
      card at B = 64 and the flagship geometry: both shift sets, both layouts;
      the device time of each of its sub-kernels (torch.profiler) beside the
@@ -38,8 +39,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
   7. K4 (the attention core on projected q, k, v) as phase 5 does K3, with
      F.scaled_dot_product_attention's forward and backward timed beside it;
      then the train path with train_core "attention", as phase 6;
-  8. K5 (K3 with SKConv fused in, faithful layout) as phase 5 does K3; then
-     the train path with train_core "full", as phase 6;
+  8. K5 (K3 with SKConv fused in, faithful layout) as phase 5 does K3, with
+     the sub-kernel split of its forward and backward; then the train path
+     with train_core "full", as phase 6;
   9. K8, the per-window attention tiles: its entry point once at each of the
      flagship's three folded window shapes at B = 64 (with a shift mask) and
      at the JAX test's (10, 16, 8), launches counted, against the plain
@@ -50,7 +52,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      partitioned windows beside it;
  11. K6, the faithful Mlp conv pair, at B = 64, hidden 384, s = 32, against
      the plain version; the cuDNN depthwise + GELU + 1x1 pair that the port's
-     Mlp runs timed beside it;
+     Mlp runs timed beside it (K6 must be faster); the rate of TF32 work its
+     3xTF32 mix reaches, its tensor-core bound and its sub-kernel split;
  12. K9, the dropout-mask dump: the masks of one seed at B = 64 (exactly the
      plain version's) and the port's debug_train_dropout tool at its own
      geometry on the card (K4's forward and q-gradient against the rebuild
@@ -84,9 +87,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12  # dense, on the tensor cores
-# the sub-kernels whose products run on the tensor cores (3xTF32)
+# the sub-kernels whose products run on the tensor cores (3xTF32): mma.sync
+# (HMMA in their machine code), K6's on wgmma (HGMMA)
 TC_KERNELS = ("ln_proj_kernel", "skconv_proj_kernel", "skconv_out_kernel", "proj_ln_bwd_kernel", "wgrad_kernel",
-              "window_attn_bwd_tc_kernel")
+              "window_attn_bwd_tc_kernel", "skconv_bwd_a_kernel", "skconv_bwd_b_kernel", "mlp_convs_kernel")
 B = 64
 K1_TOL = 1e-4  # max abs error: float32, other summation orders over <= 96-term sums
 K2_TOL = 1e-5  # max abs error of a tanh-bounded state after <= 64 float32 steps
@@ -125,18 +129,21 @@ def bound_ms(nbytes, flops, tc_flops=0.0):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_split(fn, iters=5):
+def kernel_split(fn, iters=5, warmup=2):
     """Device time of every kernel that fn() launches, by name, under
-    torch.profiler over `iters` runs after one warm-up: {name: (ms, launches)}
-    per run of fn."""
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler over `iters` runs that follow `warmup` profiled runs (the
+    first runs under the profiler lose device events):
+    {name: (ms, launches)} per run of fn."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    cycle = schedule(wait=0, warmup=warmup, active=iters, repeat=1)
+    with profile(activities=[ProfilerActivity.CUDA], schedule=cycle) as prof:
+        for _ in range(warmup + iters):
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
     split = {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -157,13 +164,14 @@ def add_split(total, split, times):
 
 
 def log_split(tag, split, parts, library=None):
-    """Each sub-kernel's device time (ms and launches per path) beside the
-    bound of its part; parts: {kernel name: (bytes, float32 operations on
-    CUDA cores, operations on tensor cores)} per path.  `library`: (kernel
-    name, ms, what) logged beside that kernel."""
+    """Each sub-kernel's device time (ms and launches per path, and ms a
+    launch, which stays right where the profiler drops some of a run's
+    events) beside the bound of its part; parts: {kernel name: (bytes,
+    float32 operations on CUDA cores, operations on tensor cores)} per path.
+    `library`: (kernel name, ms, what) logged beside that kernel."""
     for name, (ms, n) in sorted(split.items(), key=lambda kv: -kv[1][0]):
         base = name.split("<")[0]
-        line = f"{tag} sub-kernel {name}: {ms:.4f} ms, {n:g} launches a path"
+        line = f"{tag} sub-kernel {name}: {ms:.4f} ms, {n:g} launches a path ({ms / n:.4f} ms a launch)"
         if base in parts:
             nbytes, flops, tc = parts[base]
             b_ms, b_by = bound_ms(nbytes, flops, tc)
@@ -255,27 +263,29 @@ def ptxas_functions(report):
 
 
 def check_hmma(kernels):
-    """Each tensor-core sub-kernel holds HMMA instructions (cuobjdump -sass)."""
+    """Each tensor-core sub-kernel holds HMMA (mma.sync) or HGMMA (wgmma)
+    instructions (cuobjdump -sass)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     found = {}
     for name in ("window_attention", "window_attention_train", "window_attention_core", "window_attention_full",
-                 "gru_scan"):
+                 "gru_scan", "mlp_convs"):
         sass = subprocess.run([tool, "-sass", str(kernels._target(name))], capture_output=True, text=True,
                               check=True, timeout=120).stdout
         funcs = re.split(r"\n\s*Function : ", sass)[1:]
         names = demangle([f.split(None, 1)[0] for f in funcs])
         for func, body in zip(names, funcs):
             if base_name(func) in TC_KERNELS + ("gru_large_kernel",):
-                found[f"{name}: {func}"] = body.count("HMMA")
+                found[f"{name}: {func}"] = (body.count("HMMA"), body.count("HGMMA"))
     by_lib = {}
-    for func, n in found.items():
+    for func, (hmma, hgmma) in found.items():
         lib, name = func.split(": ", 1)
-        by_lib.setdefault(lib, []).append(f"{name} {n}")
+        by_lib.setdefault(lib, []).append(f"{name} {hmma}" + (f" (HGMMA {hgmma})" if hgmma else ""))
     for lib, rows in by_lib.items():
         log(f"  sass {lib}: HMMA instructions: {', '.join(rows)}")
-    missing = [f for f, n in found.items() if n == 0]
-    if missing or not any(base_name(f.split(": ", 1)[1]) in TC_KERNELS for f in found):
-        raise AssertionError(f"no HMMA in {missing or 'the tensor-core kernels'}")
+    missing = [f for f, n in found.items() if sum(n) == 0]
+    absent = [k for k in TC_KERNELS if not any(base_name(f.split(": ", 1)[1]) == k for f in found)]
+    if missing or absent:
+        raise AssertionError(f"no HMMA or HGMMA in {missing}; tensor-core kernels not found: {absent}")
 
 
 def phase_window_attention(dev):
@@ -886,7 +896,7 @@ def phase_k5(dev):
     xq = leaf(torch.randn(B, h * w, dim, generator=gen))
     xkv = leaf(torch.randn(B, h * w, dim, generator=gen))
     cot = torch.randn(B, h * w, dim, generator=gen).to(dev)
-    worst_fwd, worst_grad, times = 0.0, 0.0, {}
+    worst_fwd, worst_grad, times, split_fwd, split_bwd = 0.0, 0.0, {}, {}, {}
     for shift in ((0, 0, 0), (1, 2, 4)):
         blk = SwinTransformerBlock(dim, (h, w), 6, [2, 4, 8], list(shift))
         init_weights(blk, seed=9)
@@ -912,16 +922,57 @@ def phase_k5(dev):
         st = wt.make_static(masks, seed, keep, *static)
         p_det = [t.detach() for t in prim]
         b_det = [t.detach() for t in biases]
+        kept = wf._forward_cuda(st, p_det, b_det)[1]
         k_fwd = cuda_ms(lambda: wf._forward_cuda(st, p_det, b_det))
-        k_bwd = cuda_ms(lambda: wf._backward_cuda(st, p_det, b_det, cot))
+        k_bwd = cuda_ms(lambda: wf._backward_cuda(st, p_det, b_det, cot, kept))
         p_fwd = cuda_ms(lambda: wf.window_attention_full_core_plain(*p_det, b_det, masks, seed, keep, *static),
                         iters=5)
         out = wf.window_attention_full_core_plain(*prim, biases, masks, seed, keep, *static)
         p_bwd = cuda_ms(lambda: torch.autograd.grad(out, prim + biases, cot, retain_graph=True), iters=5)
         del out
         times[shift] = (k_fwd, k_bwd, p_fwd, p_bwd)
+        add_split(split_fwd, kernel_split(lambda: wf._forward_cuda(st, p_det, b_det)), 6)
+        add_split(split_bwd, kernel_split(lambda: wf._backward_cuda(st, p_det, b_det, cot, kept)), 6)
+    fwd_parts, bwd_parts = k5_parts(B * h * w, dim, (2, 4, 8), h, w)
+    scale12 = lambda parts: {k: tuple(12 * v for v in p) for k, p in parts.items()}
+    log_split("K5 forward", split_fwd, scale12(fwd_parts))
+    log_split("K5 backward", split_bwd, scale12(bwd_parts))
     return kernel_entries("K5", "window_attention_full", times, k5_cost(B, (h, w), dim, (2, 4, 8)),
                           worst_fwd, worst_grad, library=False)
+
+
+def k5_parts(t, dim, win, h, w):
+    """{sub-kernel: (bytes, CUDA-core operations, tensor-core operations)}
+    of one K5 forward and one backward call on t tokens: K3's parts, and
+    SKConv's: forward feats = t Wp^T (+ the GAP sums), the gate, out = feats
+    + fv Wph^T; backward pass A (dfv = dout Wph, fv, the dw sums, dWph =
+    dout^T fv), the gate and fc backward, pass B (feats again, dt = dfeats
+    Wp + dfv w, dWp = dfeats^T t); the weight-gradient partials of the
+    persistent passes (one row a CTA, at most 132) in sum_rows."""
+    ch = dim // len(win)
+    ap = attn_pass_flops(t, dim, win)
+    io = 4 * t * dim
+    grid = min(132, t // 64)
+    parts_wgrad = grid * (dim * dim + dim + dim * ch + dim)
+    wparts = -(-t // 512) * (3 * dim * dim + 3 * dim)
+    dbias_part = sum(B * attn_bwd_chunks(ws * ws, 2, (h // ws) * (w // ws)) * 2 * ws**4 for ws in win)
+    attn_bwd = lambda wins: (4 * 7 * t * ch * len(wins), 5 * 2 * t * ch * sum(ws * ws for ws in wins))
+    (b_row, f_row), (b_tc, f_tc) = attn_bwd((2,)), attn_bwd((4, 8))
+    fwd = {"ln_proj_kernel": ln_proj_part(t, dim), "window_attn_kernel": (4 * io, 2 * ap, 0.0),
+           "skconv_proj_kernel": (2 * io + 4 * t // 64 * dim, 0.0, 2 * t * dim * dim),
+           "skconv_gate_kernel": (4 * t // 64 * dim, 0.0, 0.0),
+           "skconv_out_kernel": (3 * io, 2 * t * dim, 2 * t * ch * dim)}
+    bwd = {"ln_proj_kernel": ln_proj_part(t, dim),
+           "skconv_bwd_a_kernel": (2 * io + 4 * t * ch + 4 * (t // 64 + grid) * dim, 4 * t * dim,
+                                   2 * 2 * t * dim * ch),
+           "skconv_gate_bwd_kernel": (4 * (t // 64 * 2 * dim), 0.0, 0.0),
+           "skconv_bwd_b_kernel": (3 * io + 4 * t * ch + 4 * grid * dim * dim, 4 * t * dim, 3 * 2 * t * dim * dim),
+           "window_attn_bwd_kernel": (b_row, f_row, 0.0), "window_attn_bwd_tc_kernel": (b_tc, 0.0, f_tc),
+           "proj_ln_bwd_kernel": (4 * (3 * t * dim + 4 * t * dim + t // 64 * 4 * dim), 0.0, 2 * t * 3 * dim * dim),
+           "wgrad_kernel": (4 * (2 * t * dim + 3 * t * dim + wparts), 0.0, 2 * t * 3 * dim * dim),
+           "sum_rows_kernel": (4 * (dbias_part + wparts + parts_wgrad + t // 64 * 4 * dim),
+                               dbias_part + wparts + parts_wgrad, 0.0)}
+    return fwd, bwd
 
 
 # the pallas_call lines of the TPU kernels K3-K9 replace (K3-K5: forward, backward)
@@ -1175,12 +1226,19 @@ def phase_k6(dev):
         b_ms, b_by = bound_ms(nbytes, flops)
         k_ms, p_ms, l_ms = cuda_ms(lambda: mlp_convs(x, *weights)), cuda_ms(lambda: mlp_convs_plain(x, *weights),
                                                                             iters=5), cuda_ms(lib)
+        split = kernel_split(lambda: mlp_convs(x, *weights))
+    mix = 2 * B * hidden * hidden * hw  # the 1x1 mix, on the tensor cores as 3xTF32
+    tc_ms, _ = bound_ms(0, 0, mix)
     log(f"K6 B={B} HW={hw} hidden={hidden}: max_abs_err {err:.3e} (tol {K6_TOL:g}) {'ok' if ok else 'FAIL'}; "
-        f"kernel_ms {k_ms:.4f} ({flops / k_ms / 1e9:.1f} TFLOP/s) plain_ms {p_ms:.4f} library_ms {l_ms:.4f} (cuDNN "
-        f"depthwise + GELU + 1x1 of the port's Mlp, |diff| {lib_err:.1e}) bound_ms {b_ms:.4f} ({b_by}; "
-        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        f"kernel_ms {k_ms:.4f} ({flops / k_ms / 1e9:.1f} TFLOP/s; the mix's 3xTF32 at {3 * mix / k_ms / 1e9:.1f} "
+        f"TFLOP/s of TF32 work) plain_ms {p_ms:.4f} library_ms {l_ms:.4f} (cuDNN depthwise + GELU + 1x1 of the port's "
+        f"Mlp, |diff| {lib_err:.1e}) bound_ms {b_ms:.4f} ({b_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+        f"tensor-core bound {tc_ms:.4f} (3 x {mix / 1e9:.2f} GFLOP at 495 TFLOP/s)")
+    log_split("K6", split, {"mlp_convs_kernel": (nbytes, flops - mix, mix)})
     if not ok:
         raise AssertionError(f"K6 disagrees with its plain version: {err}")
+    if k_ms >= l_ms:
+        raise AssertionError(f"K6 ({k_ms:.4f} ms) is not faster than the cuDNN pair ({l_ms:.4f} ms)")
     return standalone_entry("mlp_convs", err, launches["mlp_convs"], k_ms, p_ms, {b_by: b_ms}, l_ms)
 
 

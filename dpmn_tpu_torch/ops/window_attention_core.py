@@ -49,7 +49,8 @@ def _prepare(st: WT._Static, primals, biases):
     return (b, *st.hw_shape, dim, *WT.pack_tables(st, biases, q.device))
 
 
-def _forward_cuda(st: WT._Static, primals, biases) -> torch.Tensor:
+def _forward_cuda(st: WT._Static, primals, biases):
+    """(out, ()): the backward takes the inputs alone."""
     b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device
     out = torch.empty(b, h * w, dim, device=dev)
@@ -61,10 +62,10 @@ def _forward_cuda(st: WT._Static, primals, biases) -> torch.Tensor:
              sh_arr, st.gnum_heads, float(st.scale), *WT.drop_args(st), kernels.stream_ptr(dev))
     kernels.check_launch(err, "window_attention_core_forward")
     forward_counter.launches += 1
-    return out
+    return out, ()
 
 
-def _backward_cuda(st: WT._Static, primals, biases, dout: torch.Tensor):
+def _backward_cuda(st: WT._Static, primals, biases, dout: torch.Tensor, kept=()):
     """dq, dk, dv and the per-group bias gradients."""
     b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device

@@ -9,10 +9,13 @@ csrc/window_attention_full.cu, for CPU tensors they run the plain version
 `window_attention_full_core_plain` — K3's plain version
 (`window_attention_block_core_plain`: LN, the q / kv projections, the
 grouped window attention with dropout, the faithful raw layout) followed by
-the functional SKConv of ops/window_attention.py, without the residual.  The
-backward saves only its inputs and returns the gradients of xq, xkv, the 16
-weights (LN x4, q / kv weights and biases, SKConv's proj, fc1, fc2 and
-proj_head weights and biases) and the per-group biases.
+the functional SKConv of ops/window_attention.py, without the residual.  On
+the card the forward also returns what the backward would otherwise
+recompute, the attention's tokens and SKConv's per-tile GAP sums and gate,
+and `KernelCore` saves them beside the inputs; on the CPU only the inputs
+are saved.  The backward returns the gradients of xq, xkv, the 16 weights
+(LN x4, q / kv weights and biases, SKConv's proj, fc1, fc2 and proj_head
+weights and biases) and the per-group biases.
 """
 
 from __future__ import annotations
@@ -58,7 +61,16 @@ def _prepare(st: WT._Static, primals, biases):
     return b, h, w, dim, dz, wt, bias, mask, ws_arr, sh_arr
 
 
-def _forward_cuda(st: WT._Static, primals, biases) -> torch.Tensor:
+def kept_shapes(b: int, l: int, dim: int):
+    """Shapes of what the forward keeps for the backward: the attention's
+    tokens (B, L, D), SKConv's GAP sums of gelu(feats) per 64-token tile
+    (B * L / 64, D) and its gate (B, D)."""
+    return (b, l, dim), (b * l // 64, dim), (b, dim)
+
+
+def _forward_cuda(st: WT._Static, primals, biases):
+    """(out, kept): SKConv's output and what the backward takes besides the
+    inputs (`kept_shapes`)."""
     b, h, w, dim, dz, wt, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device
     lib = kernels.library(_NAME)
@@ -67,24 +79,29 @@ def _forward_cuda(st: WT._Static, primals, biases) -> torch.Tensor:
     size.restype = ctypes.c_size_t
     scratch = torch.empty(size(b, h, w, dim), device=dev)
     out = torch.empty(b, h * w, dim, device=dev)
+    kept = tuple(torch.empty(shape, device=dev) for shape in kept_shapes(b, h * w, dim))
     fn = lib.window_attention_full_forward
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_uint32] * 2
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = fn(kernels.ptr(primals[0]), kernels.ptr(primals[1]), wt, kernels.ptr(bias), kernels.ptr(mask),
-             kernels.ptr(scratch), kernels.ptr(out), b, h, w, dim, len(st.window_sizes), ws_arr, sh_arr,
-             st.gnum_heads, dz, float(st.scale), *WT.drop_args(st), kernels.stream_ptr(dev))
+             kernels.ptr(scratch), kernels.ptr(out), *[kernels.ptr(t) for t in kept], b, h, w, dim,
+             len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, dz, float(st.scale), *WT.drop_args(st),
+             kernels.stream_ptr(dev))
     kernels.check_launch(err, "window_attention_full_forward")
     forward_counter.launches += 1
-    return out
+    return out, kept
 
 
-def _backward_cuda(st: WT._Static, primals, biases, dout: torch.Tensor):
-    """The 18 primal gradients and the per-group bias gradients."""
+def _backward_cuda(st: WT._Static, primals, biases, dout: torch.Tensor, kept):
+    """The 18 primal gradients and the per-group bias gradients, from the
+    inputs, what the forward kept and dout."""
     b, h, w, dim, dz, wt, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device
     kernels.check_cuda_tensor("dout", dout, (b, h * w, dim), dev)
+    for name, t, shape in zip(("tok", "partial", "gate"), kept, kept_shapes(b, h * w, dim)):
+        kernels.check_cuda_tensor(name, t, shape, dev)
     lib = kernels.library(_NAME)
     size = lib.window_attention_full_backward_scratch
     size.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 2
@@ -95,14 +112,14 @@ def _backward_cuda(st: WT._Static, primals, biases, dout: torch.Tensor):
     gw = torch.empty(sum(t.numel() for t in weights), device=dev)
     dbias = torch.empty(bias.numel(), device=dev)
     fn = lib.window_attention_full_backward
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_uint32] * 2
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = fn(kernels.ptr(primals[0]), kernels.ptr(primals[1]), wt, kernels.ptr(bias), kernels.ptr(mask),
-             kernels.ptr(dout), kernels.ptr(scratch), kernels.ptr(dxq), kernels.ptr(dxkv), kernels.ptr(gw),
-             kernels.ptr(dbias), b, h, w, dim, len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, dz,
-             float(st.scale), *WT.drop_args(st), kernels.stream_ptr(dev))
+             *[kernels.ptr(t) for t in (dout, *kept, scratch, dxq, dxkv, gw, dbias)], b, h, w, dim,
+             len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, dz, float(st.scale), *WT.drop_args(st),
+             kernels.stream_ptr(dev))
     kernels.check_launch(err, "window_attention_full_backward")
     backward_counter.launches += 1
     gws = [g.view(t.shape) for g, t in zip(gw.split([t.numel() for t in weights]), weights)]

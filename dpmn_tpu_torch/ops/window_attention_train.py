@@ -280,7 +280,8 @@ def drop_args(st: _Static):
             ctypes.c_float(np.float32(1.0 / st.keep)), int(drop))
 
 
-def _forward_cuda(st: _Static, primals, biases) -> torch.Tensor:
+def _forward_cuda(st: _Static, primals, biases):
+    """(out, ()): the backward takes the inputs alone."""
     b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device
     l = h * w
@@ -296,10 +297,10 @@ def _forward_cuda(st: _Static, primals, biases) -> torch.Tensor:
              *drop_args(st), kernels.stream_ptr(dev))
     kernels.check_launch(err, "window_attention_train_forward")
     forward_counter.launches += 1
-    return out
+    return out, ()
 
 
-def _backward_cuda(st: _Static, primals, biases, dout: torch.Tensor):
+def _backward_cuda(st: _Static, primals, biases, dout: torch.Tensor, kept=()):
     """All 10 primal gradients and the per-group bias gradients."""
     b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device
@@ -337,8 +338,10 @@ def _backward_cuda(st: _Static, primals, biases, dout: torch.Tensor):
 class CoreImpl(NamedTuple):
     """One training core: its number of primal tensors (those before the
     per-group biases), its plain version as plain(st, primals, biases), and
-    its kernels as forward_cuda(st, primals, biases) and backward_cuda(st,
-    primals, biases, dout) -> the primals' and the biases' gradients."""
+    its kernels as forward_cuda(st, primals, biases) -> (out, kept) and
+    backward_cuda(st, primals, biases, dout, kept) -> the primals' and the
+    biases' gradients, where kept are the tensors the forward made for the
+    backward besides the inputs (K5's tokens and gate; none for K3, K4)."""
     n_primals: int
     plain: Callable
     forward_cuda: Callable
@@ -348,27 +351,31 @@ class CoreImpl(NamedTuple):
 class KernelCore(torch.autograd.Function):
     """A training core with its backward: the kernels for CUDA tensors, the
     plain version for CPU tensors (the backward through autograd on a
-    recomputed plain forward).  Saves only its inputs."""
+    recomputed plain forward).  Saves its inputs and, on the card, what the
+    core's forward kept for its backward."""
 
     @staticmethod
     def forward(ctx, impl: CoreImpl, st: _Static, *tensors):
-        ctx.impl, ctx.st = impl, st
-        ctx.save_for_backward(*tensors)
+        ctx.impl, ctx.st, ctx.n_inputs = impl, st, len(tensors)
         primals, biases = tensors[:impl.n_primals], tensors[impl.n_primals:]
         if tensors[0].device.type == "cpu":
-            return impl.plain(st, primals, list(biases))
-        return impl.forward_cuda(st, primals, biases)
+            out, kept = impl.plain(st, primals, list(biases)), ()
+        else:
+            out, kept = impl.forward_cuda(st, primals, biases)
+        ctx.save_for_backward(*tensors, *kept)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        impl, st, tensors = ctx.impl, ctx.st, ctx.saved_tensors
+        impl, st, saved = ctx.impl, ctx.st, ctx.saved_tensors
+        tensors, kept = saved[:ctx.n_inputs], saved[ctx.n_inputs:]
         n = impl.n_primals
         if dout.device.type == "cpu":
             with torch.enable_grad():
                 leaves = [t.detach().requires_grad_() for t in tensors]
                 grads = torch.autograd.grad(impl.plain(st, leaves[:n], leaves[n:]), leaves, dout)
         else:
-            grads = impl.backward_cuda(st, tensors[:n], tensors[n:], dout.contiguous())
+            grads = impl.backward_cuda(st, tensors[:n], tensors[n:], dout.contiguous(), kept)
         return (None, None, *grads)
 
 

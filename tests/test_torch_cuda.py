@@ -232,6 +232,37 @@ def test_window_attention_full_kernel(dev, shift, keep):
                        static, keep, "faithful")
 
 
+def test_window_attention_full_backward_leaves_what_the_forward_kept(dev):
+    """K5's backward reads the tokens, GAP sums and gate its forward kept and
+    changes none of them: two backward passes over one forward give
+    identical gradients."""
+    prim, biases, static = train_core_inputs(dev, (1, 2, 4), batch=3)
+    cot = torch.randn(*prim[0].shape, generator=torch.Generator().manual_seed(9)).to(dev)
+    out = WF.window_attention_full_core(*prim, biases, static["masks"], 123, 0.9, static["window_sizes"],
+                                        static["shifts"], static["gnum_heads"], static["scale"], static["hw_shape"])
+    first = torch.autograd.grad(out, prim + biases, cot, retain_graph=True)
+    second = torch.autograd.grad(out, prim + biases, cot)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_training_cores_save_what_their_backward_reads(dev):
+    """K3 and K4 save their inputs alone; K5 saves its inputs and the three
+    tensors its forward kept (tokens, GAP sums, gate)."""
+    prim, biases, static = train_core_inputs(dev, (1, 2, 4))
+    args = (biases, static["masks"], 123, 0.9, static["window_sizes"], static["shifts"], static["gnum_heads"],
+            static["scale"], static["hw_shape"])
+    q = prim[0]
+    for fn, inputs in ((WT.window_attention_block_core, prim[:10]), (WC.window_attention_core, [q, q, q])):
+        out = fn(*inputs, *args)
+        saved = out.grad_fn.saved_tensors
+        assert len(saved) == len(inputs) + len(biases)
+        assert all(a.data_ptr() == b.data_ptr() for a, b in zip(saved, inputs + biases))
+    out = WF.window_attention_full_core(*prim, *args)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 18 + len(biases) + 3
+    assert [tuple(t.shape) for t in saved[-3:]] == list(WF.kept_shapes(2, 1024, 96))
+
+
 # the widths the wrappers admit (D % 32 == 0, D <= 96, head dim 16): dim,
 # windows, heads, shifts; 2 heads a group at D = 96 and 64, 1 at D = 32
 WIDTHS = [(96, (2, 4, 8), 6, (1, 2, 4)), (64, (2, 8), 4, (1, 4)), (32, (4, 8), 2, (2, 4))]
@@ -397,20 +428,46 @@ def test_grouped_window_attention_kernel(dev, shift, dtype):
     assert err <= (1e-4 if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item())
 
 
-@pytest.mark.parametrize("b,s,hidden", [(2, 8, 32), (2, 32, 384), (3, 5, 64)])
-def test_mlp_convs_kernel(dev, b, s, hidden):
-    """K6 against the cuDNN conv pair of its plain version (TF32 off)."""
+def mlp_inputs(dev, b, s, hidden):
     gen = torch.Generator().manual_seed(s)
     x = torch.randn(b, s * s, hidden, generator=gen).to(dev)
     dw_w = (torch.randn(hidden, 1, 3, 3, generator=gen) / 3).to(dev)
     pw_w = (torch.randn(hidden, hidden, 1, 1, generator=gen) / hidden**0.5).to(dev)
     dw_b, pw_b = ((0.1 * torch.randn(hidden, generator=gen)).to(dev) for _ in range(2))
+    return x, dw_w, dw_b, pw_w, pw_b
+
+
+@pytest.mark.parametrize("b,s,hidden", [(2, 8, 32), (2, 32, 384), (3, 5, 64)])
+def test_mlp_convs_kernel(dev, b, s, hidden):
+    """K6 against the cuDNN conv pair of its plain version (TF32 off)."""
+    x, dw_w, dw_b, pw_w, pw_b = mlp_inputs(dev, b, s, hidden)
     before = MC.mlp_convs_counter.launches
     out = MC.mlp_convs(x, dw_w, dw_b, pw_w, pw_b)
     ref = MC.mlp_convs_plain(x, dw_w, dw_b, pw_w, pw_b)
     torch.cuda.synchronize()
     assert MC.mlp_convs_counter.launches == before + 1
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("s", [5, 8, 16, 32])
+@pytest.mark.parametrize("hidden", [32, 96, 384])
+def test_mlp_convs_kernel_partial_tiles(dev, b, s, hidden):
+    """K6 where its tiles (192 rows of y, 128 positions) are cut: hidden 32
+    and 96 leave warpgroups without rows or with half a 64-row block, s = 5,
+    8 and 16 leave a tile's positions past the image's end; the stencil's
+    zero padding at columns 0 and s - 1."""
+    x, dw_w, dw_b, pw_w, pw_b = mlp_inputs(dev, b, s, hidden)
+    out = MC.mlp_convs(x, dw_w, dw_b, pw_w, pw_b)
+    ref = MC.mlp_convs_plain(x, dw_w, dw_b, pw_w, pw_b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+def test_mlp_convs_kernel_reruns_bit_for_bit(dev):
+    """K6 sums in a fixed order: two runs agree exactly."""
+    args = mlp_inputs(dev, 3, 32, 384)
+    assert torch.equal(MC.mlp_convs(*args), MC.mlp_convs(*args))
 
 
 @pytest.mark.parametrize("keep", [0.9, 0.5])

@@ -23,6 +23,7 @@ import torch
 from dpmn_tpu.ops import pallas_window_train as PWT
 from dpmn_tpu.ops.pallas_window import build_packed_bias
 from dpmn_tpu_torch.ops import window_attention_full as WF
+from dpmn_tpu_torch.ops import window_attention_train as WT
 from test_torch_window_attention_train import B, GEOMETRIES, GRAD_NAMES, SHIFTS, _case_inputs
 
 # SKConv's Dense_0..3 (flax kernels (in, out)), after K3's ten primals
@@ -124,3 +125,40 @@ def test_function_with_dropout_matches_plain_autograd(shift):
     other, _ = _run(d, WF.window_attention_full_core_plain, seed=78, keep=0.9)
     no_drop, _ = _run(d, WF.window_attention_full_core_plain)
     assert not torch.allclose(out, other) and not torch.allclose(out, no_drop)
+
+
+def test_cpu_path_saves_only_the_inputs():
+    """On the CPU the cores' Function saves its inputs and nothing else (its
+    backward runs autograd through the plain version): K5 and K3."""
+    d = _full_inputs("8x32", (0, 0, 0))
+    prim = [torch.from_numpy(_torch_layout(i, d["x"][k])).requires_grad_() for i, k in enumerate(JAX_ORDER)]
+    biases = [torch.from_numpy(b).requires_grad_() for b in d["biases"]]
+    masks = [None if m is None else torch.from_numpy(m) for m in d["masks"]]
+    static = (masks, 0, 1.0, d["win"], d["shf"], d["gh"], d["scale"], d["hw"])
+    for fn, n in ((WF.window_attention_full_core, 18), (WT.window_attention_block_core, 10)):
+        saved = fn(*prim[:n], biases, *static).grad_fn.saved_tensors
+        assert len(saved) == n + len(biases)
+        assert all(a.data_ptr() == b.data_ptr() for a, b in zip(saved, prim[:n] + biases))
+
+
+def test_kernel_core_hands_the_kept_tensors_to_the_backward():
+    """KernelCore off the CPU, through a stand-in core on the meta device:
+    the tensors the forward kept are saved beside the inputs and reach the
+    backward, which gives one gradient per input."""
+    seen = {}
+
+    def forward_cuda(st, primals, biases):
+        seen["kept"] = tuple(torch.empty(s, device="meta") for s in WF.kept_shapes(2, 128, 32))
+        return 2 * primals[0], seen["kept"]
+
+    def backward_cuda(st, primals, biases, dout, kept):
+        seen["got"] = kept
+        return (2 * dout, torch.zeros_like(primals[1]), *[torch.zeros_like(b) for b in biases])
+
+    impl = WT.CoreImpl(2, None, forward_cuda, backward_cuda)
+    x, w, bias = (torch.empty(s, device="meta", requires_grad=True) for s in ((2, 128, 32), (32,), (2, 4, 4)))
+    out = WT.KernelCore.apply(impl, None, x, w, bias)
+    assert len(out.grad_fn.saved_tensors) == 3 + 3
+    grads = torch.autograd.grad(out, (x, w, bias), torch.ones(2, 128, 32, device="meta"))
+    assert [g.shape for g in grads] == [x.shape, w.shape, bias.shape]
+    assert [tuple(t.shape) for t in seen["got"]] == [(2, 128, 32), (4, 32), (2, 32)]
