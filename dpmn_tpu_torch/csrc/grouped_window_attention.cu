@@ -12,18 +12,17 @@
 // the softmax and the product with v run in float32, and the result is
 // rounded once to the io type, as the TPU kernel does.
 //
-// The kernel is K4's forward at keep 1 (window_common.cuh window_attn_kernel,
-// one launch per group), templated on the io type: bf16 values are widened
-// to float32 as they are loaded into shared memory and registers.
+// The kernel is K4's forward at keep 1 (window_common.cuh
+// window_attn_fwd_kernel, one launch per group), templated on the io type:
+// bf16 rows are staged as they are and widened to float32 as the tensor
+// cores' fragments are read (bf16 values are exact in TF32, so their
+// products take one TF32 pass where float32 takes three).
 //
 // What bounds it on an H100 at B = 64 and the flagship geometry (L = 1024,
 // dim = 96, windows 2/4/8, 2 heads of 16 per group), each input read once
 // and each output written once: in float32 100.7 MB (q, k, v, out) plus
 // 0.35 MB of biases and masks = 30 us at 3.35 TB/s, and 0.70 GFLOP = 10 us at
-// 67 TFLOP/s; in bf16 half the bytes.  Both are bound by bytes.  Each group's
-// launch reads the whole rows of q, k and v for its 32 channels, and the
-// three launches together read q, k and v three times over; that and the
-// per-thread score rows on CUDA cores keep it above the bound.  Its times
+// 67 TFLOP/s; in bf16 half the bytes.  Both are bound by bytes.  Its times
 // stand in PERF.md.
 
 #include "window_common.cuh"

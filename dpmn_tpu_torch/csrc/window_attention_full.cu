@@ -40,9 +40,10 @@
 // backward skips the tokens' P v and most of SKConv's forward).  Both are
 // bound by operations.  Every product runs on the tensor cores (mma.sync,
 // 3xTF32, tc_common.cuh) on persistent CTAs that stage their weight once,
-// except the forward attention and the 2x2 windows' attention backward (a
-// thread per row); q, kv and the tokens' gradient still round-trip through
-// device memory.
+// and so does the forward attention of the 4x4 and 8x8 windows
+// (window_common.cuh window_attn_fwd_kernel); the 2x2 windows' attention
+// runs on the CUDA cores; q, kv and the tokens' gradient still round-trip
+// through device memory.
 
 #include "window_train_common.cuh"
 

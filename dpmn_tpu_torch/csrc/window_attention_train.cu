@@ -36,12 +36,13 @@
 // the 4x4 and 8x8 windows run on the tensor cores (mma.sync with the 3xTF32
 // split, tc_common.cuh); the LN + projection and the projection backward
 // are persistent CTAs that stage their weight once; the forward attention
-// and the 2x2 windows' backward are a thread per query row.  Measured on an
-// H100 SXM at 700 W (PERF.md): forward 0.37-0.43 ms a call (the attention
-// 0.26, ln_proj 0.13), backward 0.79-0.84 ms (the projection backward and
-// dW 0.34, ln_proj 0.12, the attention backward 0.26, of it 0.12 the 2x2
-// windows' thread-per-row kernel, the fixed-order sums 0.04).  q, kv, dq and
-// dkv still round-trip through device memory.
+// is window_common.cuh window_attn_fwd_kernel (4x4 and 8x8 windows on the
+// tensor cores), the 2x2 windows' backward window_attn_bwd4_kernel.
+// Measured on an H100 SXM at 700 W (PERF.md): forward about 0.22 ms a call
+// (ln_proj 0.13, the attention 0.07), backward about 0.72 ms (the
+// projection backward and dW 0.35, ln_proj 0.13, the attention backward
+// 0.18, of it 0.03 the 2x2 windows', the fixed-order sums 0.03).  q, kv, dq
+// and dkv still round-trip through device memory.
 
 #include "window_train_common.cuh"
 

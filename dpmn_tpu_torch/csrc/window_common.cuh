@@ -3,7 +3,8 @@
 // window_attention_full.cu, grouped_window_attention.cu) and the
 // dropout-mask dump (dropout_mask.cu): the LayerNorm + Q/KV projection
 // kernel (persistent CTAs, the product on the tensor cores), the per-group
-// window-attention forward (float32 or bf16 io), the counter-based hash
+// window-attention forward (float32 or bf16 io; the 4x4 and 8x8 windows on
+// the tensor cores through attn_tile.cuh), the counter-based hash
 // that draws the attention-dropout mask, and SKConv's three forward kernels
 // (the two products on the tensor cores).
 //
@@ -16,22 +17,72 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "tc_common.cuh"
+#include "attn_tile.cuh"
 
 namespace {
 
-// Loads and stores of the attention's io type, computing in float32.  For
-// float they are the plain load and store.
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+// Loads and stores of the attention's io type, computing in float32 (for
+// float the plain loads and stores): one element, two adjacent ones, a
+// head's row of GCH values (as 16-byte pieces where `vec`), and 4 adjacent
+// values.
+__device__ __forceinline__ float ldg_one(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_one(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ float2 ldg_pair(const float* p) { return __ldg(reinterpret_cast<const float2*>(p)); }
+__device__ __forceinline__ float2 ldg_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+__device__ __forceinline__ void load_row16(float (&x)[16], const float* p, int vec) {
+  if (vec) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p) + c);
+      x[4 * c] = t.x, x[4 * c + 1] = t.y, x[4 * c + 2] = t.z, x[4 * c + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < 16; ++d) x[d] = __ldg(p + d);
+  }
+}
+__device__ __forceinline__ void load_row16(float (&x)[16], const __nv_bfloat16* p, int vec) {
+  if (vec) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const uint4 t = __ldg(reinterpret_cast<const uint4*>(p) + c);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float2 f = __bfloat1622float2(h[m]);
+        x[8 * c + 2 * m] = f.x, x[8 * c + 2 * m + 1] = f.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < 16; ++d) x[d] = __bfloat162float(p[d]);
+  }
+}
+__device__ __forceinline__ void store4(float* p, float4 x, int vec) {
+  if (vec)
+    *reinterpret_cast<float4*>(p) = x;
+  else
+    p[0] = x.x, p[1] = x.y, p[2] = x.z, p[3] = x.w;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x, int vec) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y), b = __floats2bfloat162_rn(x.z, x.w);
+  if (vec) {
+    uint2 u;
+    u.x = *reinterpret_cast<const uint32_t*>(&a);
+    u.y = *reinterpret_cast<const uint32_t*>(&b);
+    *reinterpret_cast<uint2*>(p) = u;
+  } else {
+    p[0] = a.x, p[1] = a.y, p[2] = b.x, p[3] = b.y;
+  }
+}
 template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+__device__ __forceinline__ void store_row16(T* p, const float (&x)[16], int vec) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) store4(p + 4 * c, make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2], x[4 * c + 3]), vec);
+}
+
 
 constexpr int TOK = 64;      // tokens per tile of the token-tile kernels
 constexpr int THREADS = 256;  // 8 warps
@@ -222,104 +273,260 @@ __device__ __forceinline__ int window_token(int widx, int j, int ws, int nwc, in
   return ((r + sh) % H) * W + (cc + sh) % W;
 }
 
-// Windowed attention of one channel group.  A block holds WPB windows of
-// one image; thread (window, head, query).  q rows have stride D; k and v
-// rows stride kvs (2D where they are the halves of one kv buffer, D where
-// they are tensors of their own).  Shared: k and v of the block's windows,
-// [WPB][N][ch] each, in float32.  With DROP the probabilities are multiplied
-// by the dropout mask (kept entries by inv_keep) before the product with v.
-// T is the io type of q, k, v, bias and out (float, or bf16 for the eval
-// attention on projected q, k, v); the mask is float32 and every sum runs in
-// float32.
-template <int N, bool DROP, typename T = float>
-__global__ void window_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                   const T* __restrict__ v, int kvs,
-                                   const T* __restrict__ bias, const float* __restrict__ mask,
-                                   T* __restrict__ out, int H, int W, int D, int g, int gh,
-                                   int ws, int sh, int wpb, float scale, int corrected,
-                                   uint32_t seed, uint32_t thresh, float inv_keep) {
-  extern __shared__ float sm[];
-  const int ch = gh * GCH;
-  const int L = H * W;
-  const int nwc = W / ws, nw = (H / ws) * nwc;
-  const int b = blockIdx.y;
-  float* ks = sm;
-  float* vs = sm + wpb * N * ch;
-  const int64_t kvbase = (int64_t)b * L * kvs;
-  for (int e = threadIdx.x; e < wpb * N * ch; e += blockDim.x) {
-    const int lw = e / (N * ch), j = (e / ch) % N, c = e % ch;
-    const int widx = blockIdx.x * wpb + lw;
-    float kval = 0.f, vval = 0.f;
-    if (widx < nw) {
-      const int64_t off = kvbase + (int64_t)window_token(widx, j, ws, nwc, sh, H, W) * kvs + g * ch + c;
-      kval = to_f32(k[off]);
-      vval = to_f32(v[off]);
-    }
-    ks[e] = kval;
-    vs[e] = vval;
-  }
-  __syncthreads();
-  const int lw = threadIdx.x / (gh * N), hd = (threadIdx.x / N) % gh, i = threadIdx.x % N;
-  const int widx = blockIdx.x * wpb + lw;
-  if (lw >= wpb || widx >= nw) return;
-  const int tok = window_token(widx, i, ws, nwc, sh, H, W);
-  float qv[GCH];
-  const T* qrow = q + ((int64_t)b * L + tok) * D + g * ch + hd * GCH;
-#pragma unroll
-  for (int d = 0; d < GCH; ++d) qv[d] = to_f32(qrow[d]) * scale;
-  const float* kw = ks + lw * N * ch + hd * GCH;
-  const float* vw = vs + lw * N * ch + hd * GCH;
-  const T* brow = bias + (hd * N + i) * N;
-  const float* mrow = sh > 0 ? mask + ((int64_t)widx * N + i) * N : nullptr;
-  float s[N];
-  float mx = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    float acc = 0.f;
-#pragma unroll
-    for (int d = 0; d < GCH; ++d) acc = fmaf(qv[d], kw[j * ch + d], acc);
-    acc += ldg_f32(brow + j);
-    if (mrow) acc += __ldg(mrow + j);
-    s[j] = acc;
-    mx = fmaxf(mx, acc);
-  }
-  float denom = 0.f;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    s[j] = expf(s[j] - mx);
-    denom += s[j];
-  }
-  const uint32_t rkey = DROP ? dropout_row_key(seed, b, g, hd, widx, i) : 0u;
-  float o[GCH];
-#pragma unroll
-  for (int d = 0; d < GCH; ++d) o[d] = 0.f;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    float p = s[j] / denom;
-    if (DROP) p = (hash_step(rkey, j) & 0x7fffffffu) < thresh ? p * inv_keep : 0.f;
-#pragma unroll
-    for (int d = 0; d < GCH; ++d) o[d] = fmaf(p, vw[j * ch + d], o[d]);
-  }
-  const int row = corrected ? tok : widx * N + i;
-  T* orow = out + ((int64_t)b * L + row) * D + g * ch + hd * GCH;
-#pragma unroll
-  for (int d = 0; d < GCH; ++d) orow[d] = from_f32<T>(o[d]);
+// window_token for a window size known at compile time: one division, and
+// the roll's wrap a subtraction (sh < WS <= H, W).
+template <int WS>
+__device__ __forceinline__ int window_token_c(int widx, int j, int nwc, int sh, int H, int W) {
+  const int wr = widx / nwc, wc = widx - wr * nwc;
+  int r = wr * WS + j / WS + sh, c = wc * WS + j % WS + sh;
+  if (r >= H) r -= H;
+  if (c >= W) c -= W;
+  return r * W + c;
 }
 
-template <int N, bool DROP, typename T = float>
-cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const T* bias,
-                        const float* mask, T* out,
-                        int B, int H, int W, int D, int g, int gh, int ws, int sh, float scale,
-                        int corrected, uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t st) {
-  const int wpb = (N * gh >= 128) ? 1 : 128 / (N * gh);
-  const int threads = wpb * gh * N;
+// Persistent grids: one CTA per SM, or per tile where there are fewer.
+inline cudaError_t persistent_grid(int ntile, int* grid) {
+  int sms = 0;
+  const cudaError_t err = device_sms(&sms);
+  *grid = ntile < sms ? ntile : sms;
+  return err;
+}
+
+// 16-byte alignment of the rows that cp.async copies.
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The tensor-core attention forward's step (windows a CTA computes at once:
+// its 8 warps take the windows' gh x N/16 row tiles) and the row strides of
+// its shared slots, in elements of the io type (attn_tile.cuh).
+__host__ __device__ inline int fwd_windows_a_step(int n, int gh) {
+  const int tiles = gh * (n / 16);
+  return tiles >= 8 ? 1 : 8 / tiles;
+}
+__host__ __device__ inline int fwd_ldq(int ch) { return ch + 8; }
+template <typename T>
+__host__ __device__ inline int fwd_ldv(int ch) { return ch + (sizeof(T) == 4 ? 4 : 8); }
+
+// The windowed attention forward of one channel group, the one routine of
+// K1, K3, K4, K5 and K7.  q rows have stride D; k and v rows stride kvs (2D
+// where they are the halves of one kv buffer, D where they are tensors of
+// their own).  Per (image b, window widx) and head: the -sh roll
+// (window_token), S = scale q k^T + bias [+ mask], P = softmax(S), with DROP
+// P times the dropout mask (kept entries by inv_keep), and P v, written to
+// raw row widx N + i (faithful) or to the query's token row (corrected).  T
+// is the io type of q, k, v, bias and out (float, or bf16 for K7); the mask
+// is float32 and every sum runs in float32.  `vec`: q, k, v and out are
+// 16-byte aligned, so rows move in 16-byte pieces; otherwise element by
+// element (the same arithmetic).
+//
+// Windows of 16 and 64 tokens (the flagship's 4x4 and 8x8) on the tensor
+// cores: persistent CTAs of 8 warps walk steps of `wps` consecutive
+// windows; a step's q, k, v rows (the group's ch = 16 gh channels of each
+// token, 128 contiguous bytes at 2 heads in float32) land in a shared slot
+// by 16-byte cp.async while the previous step is computed (two buffers).  A
+// warp owns 16 query rows of one head of one window (attn_tile.cuh): S and
+// P v on mma.sync at 3xTF32 (one TF32 pass for bf16 values, exact in
+// TF32), the bias and mask read straight into the score registers (8-byte
+// loads, a quad per 32-byte sector), the softmax and the dropout in
+// registers, and each output row written in 16-byte pieces (a lane pair
+// swaps halves so that each lane holds 4 adjacent columns).  Slot (elements
+// of T): q, k [N][ch + 8], v [N][ch + 4] (float) or [N][ch + 8] (bf16).
+//
+// Windows of 4 tokens (2x2) on the CUDA cores: a thread per (window, head,
+// query row), its q row and the window's k and v rows read as 16-byte
+// pieces (the 4 threads of a window and head share them through L1), the
+// 4 scores, softmax, dropout and the 16 outputs in registers.  At least 2
+// CTAs an SM (up to 128 registers a thread): for the 2x2 and 4x4 windows
+// that ran 12 % and 4 % faster than ptxas's own choice (H100 SXM, 700 W).
+template <int N, bool DROP, typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+    window_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, int kvs,
+                           const T* __restrict__ bias, const float* __restrict__ mask, T* __restrict__ out, int B,
+                           int H, int W, int D, int g, int gh, int sh, float scale, int corrected,
+                           uint32_t seed, uint32_t thresh, float inv_keep, int vec) {
+  constexpr int WS = N == 4 ? 2 : N == 16 ? 4 : 8;
+  const int ch = gh * GCH, L = H * W;
+  const int nwc = W / WS, nw = (H / WS) * nwc;
+  if constexpr (N == 4) {
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= B * nw * gh * 4) return;
+    const int i = t & 3, hd = (t >> 2) % gh, u = t / (4 * gh);
+    const int b = u / nw, widx = u - b * nw;
+    const int64_t base = (int64_t)b * L;
+    const int col = g * ch + hd * GCH;
+    int tok[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) tok[j] = window_token_c<2>(widx, j, nwc, sh, H, W);
+    float qv[GCH], s[4];
+    load_row16(qv, q + (base + tok[i]) * D + col, vec);
+    const T* brow = bias + (hd * 4 + i) * 4;
+    const float* mrow = sh > 0 ? mask + ((int64_t)widx * 4 + i) * 4 : nullptr;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float kv[GCH];
+      load_row16(kv, k + (base + tok[j]) * kvs + col, vec);
+      float acc = 0.f;
+#pragma unroll
+      for (int d = 0; d < GCH; ++d) acc = fmaf(qv[d], kv[d], acc);
+      acc = acc * scale + ldg_one(brow + j);
+      if (mrow) acc += __ldg(mrow + j);
+      s[j] = acc;
+      mx = fmaxf(mx, acc);
+    }
+    float den = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[j] = __expf(s[j] - mx);
+      den += s[j];
+    }
+    const float inv = 1.0f / den;
+    const uint32_t rkey = DROP ? dropout_row_key(seed, b, g, hd, widx, i) : 0u;
+    float o[GCH];
+#pragma unroll
+    for (int d = 0; d < GCH; ++d) o[d] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float p = s[j] * inv;
+      if (DROP) p = (hash_step(rkey, j) & 0x7fffffffu) < thresh ? p * inv_keep : 0.f;
+      float vv[GCH];
+      load_row16(vv, v + (base + tok[j]) * kvs + col, vec);
+#pragma unroll
+      for (int d = 0; d < GCH; ++d) o[d] = fmaf(p, vv[d], o[d]);
+    }
+    store_row16(out + (base + (corrected ? tok[i] : widx * 4 + i)) * D + col, o, vec);
+  } else {
+    constexpr int MT = N / 16, NT = N / 8;
+    constexpr bool EXACT = sizeof(T) == 2;
+    extern __shared__ __align__(16) unsigned char fwd_smem[];
+    T* sm = reinterpret_cast<T*>(fwd_smem);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+    const int tasks = gh * MT, wps = fwd_windows_a_step(N, gh);
+    const int ldq = fwd_ldq(ch), ldv = fwd_ldv<T>(ch), slot = N * (2 * ldq + ldv);
+    const int units = B * nw, steps = (units + wps - 1) / wps;
+    const int per = vec ? ch * (int)sizeof(T) / 16 : ch;  // pieces of a row
+    const int each = vec ? 16 / (int)sizeof(T) : 1;       // elements of a piece
+    // a step's q, k, v rows into buffer buf: 16-byte pieces (cp.async) or
+    // elements; a thread takes (row, piece) pairs, the same piece of q, k, v
+    auto stage = [&](int step, int buf) {
+      T* dst0 = sm + (size_t)buf * wps * slot;
+      for (int e = threadIdx.x; e < wps * N * per; e += THREADS) {
+        const int row = e / per, c = (e - row * per) * each, l = row / N, j = row % N;
+        const int u = step * wps + l;
+        if (u >= units) continue;
+        const int b = u / nw, widx = u - b * nw;
+        const int64_t tok = (int64_t)b * L + window_token_c<WS>(widx, j, nwc, sh, H, W);
+        const T* qs = q + tok * D + g * ch + c;
+        const T* ks = k + tok * kvs + g * ch + c;
+        const T* vs = v + tok * kvs + g * ch + c;
+        T* dst = dst0 + l * slot + j * ldq + c;
+        T* vdst = dst0 + l * slot + 2 * N * ldq + j * ldv + c;
+        if (vec) {
+          cp_async16_bytes(dst, qs);
+          cp_async16_bytes(dst + N * ldq, ks);
+          cp_async16_bytes(vdst, vs);
+        } else {
+          dst[0] = qs[0];
+          dst[N * ldq] = ks[0];
+          vdst[0] = vs[0];
+        }
+      }
+      cp_async_commit();
+    };
+    int buf = 0;
+    if (blockIdx.x < steps) stage(blockIdx.x, 0);
+    for (int step = blockIdx.x; step < steps; step += gridDim.x, buf ^= 1) {
+      if (step + gridDim.x < steps) stage(step + gridDim.x, buf ^ 1);
+      cp_async_wait(step + gridDim.x < steps ? 1 : 0);
+      __syncthreads();  // this step's rows are in shared memory
+      const T* sb = sm + (size_t)buf * wps * slot;
+      for (int task = warp; task < wps * tasks; task += THREADS / 32) {
+        const int lw = task / tasks, hd = (task % tasks) / MT, mi = task % MT;
+        const int u = step * wps + lw;
+        if (u >= units) continue;
+        const int b = u / nw, widx = u - b * nw;
+        const T* Qs = sb + lw * slot;
+        float s[NT][4] = {};
+        qk_tile<NT, EXACT>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq, GCH);
+        const T* bh = bias + hd * N * N;
+        const float* mw = sh > 0 ? mask + (int64_t)widx * N * N : nullptr;
+        const int i0 = 16 * mi + g8;
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int off = (i0 + 8 * r) * N + 8 * jn + 2 * t4;
+            float2 add = ldg_pair(bh + off);
+            if (mw) {
+              const float2 mm = __ldg(reinterpret_cast<const float2*>(mw + off));
+              add.x += mm.x;
+              add.y += mm.y;
+            }
+            s[jn][2 * r] = s[jn][2 * r] * scale + add.x;
+            s[jn][2 * r + 1] = s[jn][2 * r + 1] * scale + add.y;
+          }
+        softmax_rows<true>(s);
+        if (DROP) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const uint32_t rkey = dropout_row_key(seed, b, g, hd, widx, i0 + 8 * r);
+#pragma unroll
+            for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int j = 8 * jn + 2 * t4 + e;
+                float& p = s[jn][2 * r + e];
+                p = (hash_step(rkey, j) & 0x7fffffffu) < thresh ? p * inv_keep : 0.f;
+              }
+          }
+        }
+        float o[2][4] = {};
+        pv_tile<NT, 2, EXACT>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = i0 + 8 * r;
+          const int row = corrected ? window_token_c<WS>(widx, i, nwc, sh, H, W) : widx * N + i;
+          T* orow = out + ((int64_t)b * L + row) * D + g * ch + hd * GCH;
+          // lane t4 holds columns 2 t4, 2 t4 + 1 of both 8-column tiles; after
+          // the swap an even lane holds columns 2 t4 .. 2 t4 + 3 of tile 0,
+          // an odd lane columns 2 t4 + 6 .. 2 t4 + 9 (tile 1)
+          const bool odd = t4 & 1;
+          const float sx = odd ? o[0][2 * r] : o[1][2 * r], sy = odd ? o[0][2 * r + 1] : o[1][2 * r + 1];
+          const float rx = __shfl_xor_sync(0xffffffffu, sx, 1), ry = __shfl_xor_sync(0xffffffffu, sy, 1);
+          const float4 val = odd ? make_float4(rx, ry, o[1][2 * r], o[1][2 * r + 1])
+                                 : make_float4(o[0][2 * r], o[0][2 * r + 1], rx, ry);
+          store4(orow + (odd ? 2 * t4 + 6 : 2 * t4), val, vec);
+        }
+      }
+      __syncthreads();  // every warp is done with this buffer before it is refilled
+    }
+  }
+}
+
+template <int N, bool DROP, typename T>
+cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const T* bias, const float* mask, T* out, int B,
+                        int H, int W, int D, int g, int gh, int ws, int sh, float scale, int corrected,
+                        uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t st) {
   const int nw = (H / ws) * (W / ws);
-  const size_t smem = (size_t)2 * wpb * N * gh * GCH * sizeof(float);
-  dim3 grid((nw + wpb - 1) / wpb, B);
-  cudaFuncSetAttribute(window_attn_kernel<N, DROP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  window_attn_kernel<N, DROP, T><<<grid, threads, smem, st>>>(q, k, v, kvs, bias, mask, out, H, W, D, g, gh, ws,
-                                                              sh, wpb, scale, corrected, seed, thresh, inv_keep);
-  return cudaGetLastError();
+  const int vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
+  auto kern = window_attn_fwd_kernel<N, DROP, T>;
+  if constexpr (N == 4) {
+    const int threads = B * nw * gh * 4;
+    kern<<<(threads + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+        q, k, v, kvs, bias, mask, out, B, H, W, D, g, gh, sh, scale, corrected, seed, thresh, inv_keep, vec);
+    return cudaGetLastError();
+  } else {
+    const int ch = gh * GCH, wps = fwd_windows_a_step(N, gh);
+    const size_t smem = (size_t)2 * wps * N * (2 * fwd_ldq(ch) + fwd_ldv<T>(ch)) * sizeof(T);
+    static GridCap cache;
+    int cap = 0;
+    const cudaError_t err = persistent_cap(cache, kern, THREADS, smem, &cap);
+    if (err != cudaSuccess) return err;
+    const int steps = (B * nw + wps - 1) / wps, grid = steps < cap ? steps : cap;
+    if (grid == 0) return cudaSuccess;
+    kern<<<grid, THREADS, smem, st>>>(q, k, v, kvs, bias, mask, out, B, H, W, D, g, gh, sh, scale, corrected,
+                                      seed, thresh, inv_keep, vec);
+    return cudaGetLastError();
+  }
 }
 
 // Launch the forward attention of every group; bias and mask are the
@@ -358,17 +565,6 @@ inline cudaError_t launch_attn_groups_any(const float* q, const float* k, const 
               : launch_attn_groups<false>(q, k, v, kvs, bias, mask, out, B, H, W, D, n_group, ws, shifts, gh, scale,
                                           corrected, seed, thresh, inv_keep, st);
 }
-
-// Persistent grids: one CTA per SM, or per tile where there are fewer.
-inline cudaError_t persistent_grid(int ntile, int* grid) {
-  int sms = 0;
-  const cudaError_t err = device_sms(&sms);
-  *grid = ntile < sms ? ntile : sms;
-  return err;
-}
-
-// 16-byte alignment of the rows that cp.async copies.
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <int D>
 cudaError_t launch_ln_proj_d(const float* xq, const float* xkv, const float* qs, const float* qb, const float* ks,

@@ -21,12 +21,14 @@ namespace {
 // ones add partials for the fixed-order sum to read.
 constexpr int TOKC = 512;
 
-// Attention backward of one channel group, a thread per row: the windows
-// of 4 tokens, more than 2 heads, or rows that are not 16-byte aligned
-// (window_attn_bwd_tc_kernel takes the rest).  Block (chunk, image) walks
-// `wchunk` windows, `wpb` at a time; thread (window, head, row).  q, dq and
-// dout rows have stride D; k, v, dk and dv rows stride kvs (as in
-// window_attn_kernel).  Shared:
+// Attention backward of one channel group's windows of 16 or 64 tokens, a
+// thread per row: kept for the shapes the tensor-core kernel
+// (window_attn_bwd_tc_kernel) does not take, more than 2 heads a group or
+// rows that are not 16-byte aligned; the windows of 4 tokens go to
+// window_attn_bwd4_kernel.  No flagship path launches it.  Block (chunk,
+// image) walks `wchunk` windows, `wpb` at a time; thread (window, head,
+// row).  q, dq and dout rows have stride D; k, v, dk and dv rows stride kvs
+// (as in window_attn_fwd_kernel).  Shared:
 // scaled q, k, v and dout of the wpb windows [wpb][N][ch] each; dS and P*M
 // [wpb][gh][N][N + 1] (padded rows); the block's dbias sum [gh][N][N].
 template <int N, bool DROP>
@@ -176,6 +178,184 @@ __global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float*
   }
   float* part = dbias_part + ((int64_t)b * gridDim.x + blockIdx.x) * nb;
   for (int e = threadIdx.x; e < nb; e += blockDim.x) part[e] = dbacc[e];
+}
+
+// Windows a block of window_attn_bwd4_kernel takes: 4 gh threads each, at
+// most 128 threads.
+__host__ __device__ inline int bwd4_windows(int gh) { return gh >= 32 ? 1 : 32 / gh; }
+
+// Attention backward of one group's windows of 4 tokens (2x2), any number
+// of heads.  Block (chunk, image) takes bwd4_windows(gh) consecutive
+// windows: their q, k, v rows (token order) and dout rows (faithful raw
+// rows) land in shared memory by 16-byte cp.async where `vec` (element by
+// element otherwise), [4][windows][4][ch + 4].  Thread (window, head, row r)
+// in the 4 lanes of a quad:
+//   row pass (query r): S = scale q k^T + bias [+ mask], P = softmax(S),
+//     M the dropout mask, dP = (dO v^T) M, PM = P M, dS = P (dP -
+//     rowsum(dP P)); dQ_r = scale dS_r K, written as 16-byte pieces;
+//   column pass (key r): dS and PM of the window's 4 rows by quad shuffles,
+//     dK_r = scale dS^T_r Q, dV_r = PM^T_r dO.
+// Rows of q, k, v, dout move as 16-byte pieces (4 lanes a row).  dbias: the
+// block's windows' dS summed in order into dbias_part [block][gh][4][4] (the
+// fixed-order sum_rows_kernel adds the blocks; no float atomics).  At
+// least 4 blocks an SM with dropout (registers up to 128 a thread: 4 %
+// faster than 3 on an H100 SXM at 700 W), 3 without (it spills at 128).
+template <bool DROP>
+__global__ void __launch_bounds__(128, DROP ? 4 : 3)
+    window_attn_bwd4_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                            int kvs, const float* __restrict__ dout, const float* __restrict__ bias,
+                            const float* __restrict__ mask, float* __restrict__ dq, float* __restrict__ dk,
+                            float* __restrict__ dv, float* __restrict__ dbias_part, int H, int W, int D, int g,
+                            int gh, int sh, float scale, uint32_t seed, uint32_t thresh, float inv_keep, int vec) {
+  extern __shared__ __align__(16) float sm[];
+  const int ch = gh * GCH, ld = ch + 4, L = H * W, nwc = W / 2, nw = (H / 2) * nwc, b = blockIdx.y;
+  const int wb = bwd4_windows(gh), w0 = blockIdx.x * wb, span = wb * 4 * ld;
+  const int64_t base = (int64_t)b * L;
+  const int per = vec ? ch / 4 : ch, each = vec ? 4 : 1;  // pieces of a row, elements of a piece
+  // a thread takes (row, piece) pairs, the same piece of q, k, v and dout
+  for (int e = threadIdx.x; e < wb * 4 * per; e += blockDim.x) {
+    const int row = e / per, c = (e - row * per) * each, l = row >> 2, j = row & 3, widx = w0 + l;
+    float* dst = sm + row * ld + c;
+    if (widx >= nw) {  // windows past the end compute on zeros
+      for (int m = 0; m < each; ++m) dst[m] = dst[span + m] = dst[2 * span + m] = dst[3 * span + m] = 0.f;
+      continue;
+    }
+    const int64_t tok = base + window_token_c<2>(widx, j, nwc, sh, H, W), raw = base + widx * 4 + j;
+    const float* qs = q + tok * D + g * ch + c;
+    const float* ks = k + tok * kvs + g * ch + c;
+    const float* vs = v + tok * kvs + g * ch + c;
+    const float* os = dout + raw * D + g * ch + c;
+    if (vec) {
+      cp_async16(dst, qs);
+      cp_async16(dst + span, ks);
+      cp_async16(dst + 2 * span, vs);
+      cp_async16(dst + 3 * span, os);
+    } else {
+      dst[0] = __ldg(qs);
+      dst[span] = __ldg(ks);
+      dst[2 * span] = __ldg(vs);
+      dst[3 * span] = __ldg(os);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait(0);
+  __syncthreads();
+  const int l = threadIdx.x / (4 * gh), hd = (threadIdx.x >> 2) % gh, r = threadIdx.x & 3;
+  const int widx = w0 + l;
+  const bool valid = widx < nw;
+  const int64_t tok_r = base + (valid ? window_token_c<2>(widx, r, nwc, sh, H, W) : 0);
+  const int quad = (threadIdx.x & 31) & ~3;  // the lanes of this window and head: quad .. quad + 3
+  const unsigned qmask = 0xfu << quad;
+  const float* Qw = sm + l * 4 * ld + hd * GCH;  // row j at + j ld
+  const float* Kw = Qw + span;
+  const float* Vw = Kw + span;
+  const float* Ow = Vw + span;
+  auto row16 = [&](const float* p, float (&x)[GCH]) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float4 t = *reinterpret_cast<const float4*>(p + 4 * c);
+      x[4 * c] = t.x, x[4 * c + 1] = t.y, x[4 * c + 2] = t.z, x[4 * c + 3] = t.w;
+    }
+  };
+  // row pass: query r
+  float qr[GCH], dor[GCH], s[4], dp[4];
+  row16(Qw + r * ld, qr);
+  row16(Ow + r * ld, dor);
+  const float* brow = bias + (hd * 4 + r) * 4;
+  const float* mrow = sh > 0 && valid ? mask + ((int64_t)widx * 4 + r) * 4 : nullptr;
+  float mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float kv[GCH], vv[GCH];
+    row16(Kw + j * ld, kv);
+    row16(Vw + j * ld, vv);
+    float acc = 0.f, dacc = 0.f;
+#pragma unroll
+    for (int d = 0; d < GCH; ++d) {
+      acc = fmaf(qr[d], kv[d], acc);
+      dacc = fmaf(dor[d], vv[d], dacc);
+    }
+    acc = acc * scale + __ldg(brow + j);
+    if (mrow) acc += __ldg(mrow + j);
+    s[j] = acc;
+    dp[j] = dacc;
+    mx = fmaxf(mx, acc);
+  }
+  float den = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s[j] = __expf(s[j] - mx);  // as the forward (window_attn_fwd_kernel)
+    den += s[j];
+  }
+  const float inv = 1.0f / den;
+  const uint32_t rkey = DROP ? dropout_row_key(seed, b, g, hd, widx, r) : 0u;
+  float pm[4], rowsum = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float p = s[j] * inv;
+    s[j] = p;
+    pm[j] = p;
+    if (DROP) {
+      const float m = (hash_step(rkey, j) & 0x7fffffffu) < thresh ? inv_keep : 0.f;
+      dp[j] *= m;
+      pm[j] = p * m;
+    }
+    rowsum = fmaf(dp[j], p, rowsum);
+  }
+  float ds[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) ds[j] = s[j] * (dp[j] - rowsum);
+  float acc[GCH];
+#pragma unroll
+  for (int d = 0; d < GCH; ++d) acc[d] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float kv[GCH];
+    row16(Kw + j * ld, kv);
+#pragma unroll
+    for (int d = 0; d < GCH; ++d) acc[d] = fmaf(ds[j], kv[d], acc[d]);
+  }
+#pragma unroll
+  for (int d = 0; d < GCH; ++d) acc[d] *= scale;
+  if (valid) store_row16(dq + tok_r * D + g * ch + hd * GCH, acc, vec);
+  // column pass: key r; round t brings row i = (r + t) & 3 of dS and PM
+  float dka[GCH], dva[GCH];
+#pragma unroll
+  for (int d = 0; d < GCH; ++d) dka[d] = dva[d] = 0.f;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int want = (r - t) & 3, i = (r + t) & 3;  // the column this lane sends; the row it takes
+    const float sd = want == 0 ? ds[0] : want == 1 ? ds[1] : want == 2 ? ds[2] : ds[3];
+    const float sp = want == 0 ? pm[0] : want == 1 ? pm[1] : want == 2 ? pm[2] : pm[3];
+    const float a = __shfl_sync(qmask, sd, quad + i), pmv = __shfl_sync(qmask, sp, quad + i);
+    float qi[GCH], oi[GCH];
+    row16(Qw + i * ld, qi);
+    row16(Ow + i * ld, oi);
+#pragma unroll
+    for (int d = 0; d < GCH; ++d) {
+      dka[d] = fmaf(a, qi[d], dka[d]);
+      dva[d] = fmaf(pmv, oi[d], dva[d]);
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < GCH; ++d) dka[d] *= scale;
+  if (valid) {
+    const int64_t off = tok_r * kvs + g * ch + hd * GCH;
+    store_row16(dk + off, dka, vec);
+    store_row16(dv + off, dva, vec);
+  }
+  // dbias: the windows' dS rows in order
+  __syncthreads();  // every thread is done with the staged rows
+  float* red = sm;  // [wb][gh][4][4]
+#pragma unroll
+  for (int j = 0; j < 4; ++j) red[((l * gh + hd) * 4 + r) * 4 + j] = valid ? ds[j] : 0.f;
+  __syncthreads();
+  float* part = dbias_part + ((int64_t)b * gridDim.x + blockIdx.x) * gh * 16;
+  for (int e = threadIdx.x; e < gh * 16; e += blockDim.x) {
+    float a = 0.f;
+    for (int w = 0; w < wb; ++w) a += red[w * gh * 16 + e];
+    part[e] = a;
+  }
 }
 
 // Attention backward of one group on the tensor cores, for windows of N =
@@ -563,32 +743,37 @@ __global__ void __launch_bounds__(THREADS, 2)
 }
 
 // out[e] = the sum over the rows r of part[r][e] in a fixed order: block
-// (32 columns x 8 row groups), thread (column, g) adds rows g, g + 8, ... in
-// turn, then the 8 group sums are added in order.
+// (32 columns x SUM_GROUPS row groups), thread (column, g) adds rows g, g +
+// SUM_GROUPS, ... in turn, then the group sums are added in order.  32 row
+// groups keep a tall, narrow partial (the 2x2 windows' dbias: 1024 rows of
+// 32 at B = 64) from resting on one block's few threads.
+constexpr int SUM_GROUPS = 32;
 __global__ void sum_rows_kernel(const float* __restrict__ part, float* __restrict__ out, int rows, int cols) {
-  __shared__ float red[8][33];
+  __shared__ float red[SUM_GROUPS][33];
   const int e = blockIdx.x * 32 + threadIdx.x, g = threadIdx.y;
   float s = 0.f;
   if (e < cols)
-    for (int r = g; r < rows; r += 8) s += part[(int64_t)r * cols + e];
+    for (int r = g; r < rows; r += SUM_GROUPS) s += part[(int64_t)r * cols + e];
   red[g][threadIdx.x] = s;
   __syncthreads();
   if (g == 0 && e < cols) {
     float t = 0.f;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) t += red[k][threadIdx.x];
+    for (int k = 0; k < SUM_GROUPS; ++k) t += red[k][threadIdx.x];
     out[e] = t;
   }
 }
 
 cudaError_t launch_sum_rows(const float* part, float* out, int rows, int cols, cudaStream_t st) {
-  sum_rows_kernel<<<(cols + 31) / 32, dim3(32, 8), 0, st>>>(part, out, rows, cols);
+  sum_rows_kernel<<<(cols + 31) / 32, dim3(32, SUM_GROUPS), 0, st>>>(part, out, rows, cols);
   return cudaGetLastError();
 }
 
-// Blocks per image of a group's attention backward: windows in batches of
-// wpb, 4 batches a block.
+// Blocks per image of a group's attention backward: for windows of 4
+// tokens bwd4_windows(gh) windows a block, else windows in batches of wpb,
+// 4 batches a block.
 inline int attn_bwd_chunks(int n, int gh, int nw) {
+  if (n == 4) return (nw + bwd4_windows(gh) - 1) / bwd4_windows(gh);
   const int wpb = (n * gh >= 128) ? 1 : 128 / (n * gh);
   return (nw + 4 * wpb - 1) / (4 * wpb);
 }
@@ -601,7 +786,20 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
   const int wpb = (N * gh >= 128) ? 1 : 128 / (N * gh);
   const int nw = (H / ws) * (W / ws);
   const int nchunk = attn_bwd_chunks(N, gh, nw);
-  if constexpr (N == 16 || N == 64) {
+  if constexpr (N == 4) {
+    const int vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) && aligned16(dq) &&
+                    aligned16(dk) && aligned16(dv);
+    const int wb = bwd4_windows(gh);
+    const size_t smem4 = (size_t)4 * wb * 4 * (gh * GCH + 4) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(window_attn_bwd4_kernel<DROP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem4);
+    if (err != cudaSuccess) return err;
+    window_attn_bwd4_kernel<DROP><<<dim3(nchunk, B), wb * gh * 4, smem4, st>>>(
+        q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, H, W, D, g, gh, sh, scale, seed, thresh, inv_keep,
+        vec);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    return launch_sum_rows(dbias_part, dbias, B * nchunk, gh * N * N, st);
+  } else {
     // the tensor-core kernel (wpb windows a step, as below) where its
     // cp.async rows are 16-byte aligned
     if ((gh == 1 || gh == 2) && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)) {
@@ -614,16 +812,18 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
       return launch_sum_rows(dbias_part, dbias, B * nchunk, gh * N * N, st);
     }
+    // more than 2 heads or unaligned rows: a thread per row
+    const int threads = wpb * gh * N;
+    const size_t smem =
+        (size_t)(4 * wpb * N * gh * GCH + 2 * wpb * gh * N * (N + 1) + gh * N * N) * sizeof(float);
+    cudaFuncSetAttribute(window_attn_bwd_kernel<N, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    window_attn_bwd_kernel<N, DROP><<<dim3(nchunk, B), threads, smem, st>>>(
+        q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, H, W, D, g, gh, ws, sh, wpb, 4 * wpb, scale, seed,
+        thresh, inv_keep);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return launch_sum_rows(dbias_part, dbias, B * nchunk, gh * N * N, st);
   }
-  const int threads = wpb * gh * N;
-  const size_t smem = (size_t)(4 * wpb * N * gh * GCH + 2 * wpb * gh * N * (N + 1) + gh * N * N) * sizeof(float);
-  cudaFuncSetAttribute(window_attn_bwd_kernel<N, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  window_attn_bwd_kernel<N, DROP><<<dim3(nchunk, B), threads, smem, st>>>(
-      q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, H, W, D, g, gh, ws, sh, wpb, 4 * wpb, scale, seed,
-      thresh, inv_keep);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_sum_rows(dbias_part, dbias, B * nchunk, gh * N * N, st);
 }
 
 // The attention backward of every group.  dbias_part holds, per group, B *

@@ -325,6 +325,38 @@ def test_window_attention_full_kernel_widths(dev, width):
                        0.9, "faithful")
 
 
+# K4's narrower widths (D = 64: 2 heads a group; D = 32: 1 head) and D = 96
+# in two groups of 3 heads (windows of 4 tokens on a block that is not a
+# whole number of warps; 8x8 windows with more warp tiles than warps)
+K4_WIDTHS = WIDTHS[1:] + [(96, (2, 8), 6, (1, 4))]
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("width", K4_WIDTHS, ids=lambda wd: f"D{wd[0]}g{len(wd[1])}")
+def test_window_attention_core_kernel_batches_and_widths(dev, batch, width):
+    """K4 forward and backward at B = 1 and 3, shifted, keep 0.9, against
+    autograd through its plain version."""
+    dim, windows, heads, shift = width
+    _, biases, static = train_core_inputs(dev, shift, batch, dim=dim, windows=windows, heads=heads)
+    gen = torch.Generator().manual_seed(11)
+    qkv = [torch.randn(batch, 1024, dim, generator=gen).to(dev).requires_grad_() for _ in range(3)]
+    check_core_on_card(WC, WC.window_attention_core, WC.window_attention_core_plain, qkv, biases, static, 0.9,
+                       "faithful")
+
+
+def test_window_attention_core_kernel_unaligned_rows(dev):
+    """K4 on q, k, v whose rows are not 16-byte aligned (views one float
+    into their storage): the kernels stage element by element, the
+    backward's 4x4 and 8x8 windows go to the thread-per-row kernel."""
+    _, biases, static = train_core_inputs(dev, (1, 2, 4))
+    gen = torch.Generator().manual_seed(13)
+    qkv = [torch.randn(2 * 1024 * 96 + 1, generator=gen).to(dev)[1:].view(2, 1024, 96).requires_grad_()
+           for _ in range(3)]
+    assert all(t.data_ptr() % 16 for t in qkv)
+    check_core_on_card(WC, WC.window_attention_core, WC.window_attention_core_plain, qkv, biases, static, 0.9,
+                       "faithful")
+
+
 def test_window_attention_kernels_rerun_bit_for_bit(dev):
     """K1's output, and K3's and K5's forward output and every gradient, are
     equal across two runs (fixed-order sums, no float atomics)."""
@@ -387,22 +419,52 @@ def test_kernels_without_backward_refuse_autograd(dev):
         gru_bidir(x, x, w, w, b, b)
 
 
-@pytest.mark.parametrize("wnc", [(10, 16, 8), (300, 4, 16), (96, 16, 16), (40, 64, 16), (7, 64, 64), (33, 9, 5)])
-@pytest.mark.parametrize("masked", [False, True])
-def test_window_tile_attention_kernel(dev, wnc, masked):
-    """K8 against its plain version: ragged block ends, every window size of
-    the flagship, the largest N and C it takes, and odd ones."""
-    w, n, c = wnc
+def tile_inputs(dev, w, n, c, masked):
+    """q, k, v (W, N, C), a bias and (masked) a mask of -100s on 30 % of the
+    entries, from a seed."""
     gen = torch.Generator().manual_seed(w + n)
     q, k, v = ((0.5 * torch.randn(w, n, c, generator=gen)).to(dev) for _ in range(3))
     bias = (0.1 * torch.randn(w, n, n, generator=gen)).to(dev)
     mask = torch.where(torch.rand(w, n, n, generator=gen) < 0.3, -100.0, 0.0).to(dev) if masked else None
+    return q, k, v, bias, mask
+
+
+# the tensor-core tiles' ragged edges: N one past a 16-row tile (17, 33) and
+# one short of the largest (63), padded to 32, 48 and 64 rows with padded
+# keys; C = 1 and 9 (element-by-element staging, channels padded to 8 and
+# 16) and 64 (16-byte pieces); 37 windows, so the last step is partial
+TILE_EDGES = [(37, n, c) for n in (17, 33, 63) for c in (1, 9, 64)]
+
+
+@pytest.mark.parametrize("wnc", [(10, 16, 8), (300, 4, 16), (96, 16, 16), (40, 64, 16), (7, 64, 64), (33, 9, 5)]
+                         + TILE_EDGES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_tile_attention_kernel(dev, wnc, masked):
+    """K8 against its plain version: ragged block ends, every window size of
+    the flagship, the largest N and C it takes, odd ones, and the edges of
+    its tensor-core tiles."""
+    q, k, v, bias, mask = tile_inputs(dev, *wnc, masked)
     before = WTA.window_tile_attention_counter.launches
     out = WTA.window_tile_attention(q, k, v, bias, mask)
     ref = WTA.window_tile_attention_plain(q, k, v, bias, mask)
     torch.cuda.synchronize()
     assert WTA.window_tile_attention_counter.launches == before + 1
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+def test_window_attention_core_and_tiles_rerun_bit_for_bit(dev):
+    """K4's forward output and every gradient (dropout on), and K8's output,
+    are equal across two runs (fixed-order sums, no float atomics)."""
+    _, biases, static = train_core_inputs(dev, (1, 2, 4), batch=3)
+    gen = torch.Generator().manual_seed(12)
+    qkv = [torch.randn(3, 1024, 96, generator=gen).to(dev).requires_grad_() for _ in range(3)]
+    cot = torch.randn(3, 1024, 96, generator=gen).to(dev)
+    (o1, g1), (o2, g2) = (run_train_core(WC.window_attention_core, qkv, biases, static, 123, 0.9, "faithful", cot)
+                          for _ in range(2))
+    assert torch.equal(o1, o2)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    args = tile_inputs(dev, 300, 64, 16, True)
+    assert torch.equal(WTA.window_tile_attention(*args), WTA.window_tile_attention(*args))
 
 
 @pytest.mark.parametrize("shift", [(0, 0, 0), (1, 2, 4)])

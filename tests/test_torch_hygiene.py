@@ -92,7 +92,7 @@ def test_kernel_sources_and_assets_ship():
         assert (kernels.CSRC / f"{name}.cu").is_file()
     for name in ("window_attention_train.cu", "window_attention_core.cu", "window_attention_full.cu",
                  "window_tile_attention.cu", "grouped_window_attention.cu", "mlp_convs.cu", "dropout_mask.cu",
-                 "window_common.cuh", "window_train_common.cuh", "tc_common.cuh"):
+                 "window_common.cuh", "window_train_common.cuh", "tc_common.cuh", "attn_tile.cuh"):
         assert (kernels.CSRC / name).is_file(), name
     assert (PORT / "assets" / "glyph_atlas_32x128.npz").is_file()
     pyproject = (ROOT / "pyproject.toml").read_text()
