@@ -9,10 +9,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      each kernel's registers and spills (nvcc -Xptxas -v), and for the
      products on the tensor cores (LN + projections, SKConv's two products
      and its backward's two token passes, the projection backward, the
-     weight gradient, the attention forward and backward of the 4x4 and 8x8
-     windows and the per-window tiles K8 of more than 8 tokens on mma.sync;
-     the Mlp conv pair's mix on wgmma) no spill and HMMA or HGMMA
-     instructions in their machine code (cuobjdump -sass);
+     weight gradient, the attention forward (every group in one launch) and
+     the backward of the 4x4 and 8x8 windows and the per-window tiles K8 of
+     more than 8 tokens on mma.sync; the Mlp conv pair's mix on wgmma) no
+     spill and HMMA or HGMMA instructions in their machine code (cuobjdump
+     -sass), and bf16 m16n8k16 products in the bf16 attention forward;
   2. the window-attention kernel against its plain PyTorch version on the
      card at B = 64 and the flagship geometry: both shift sets, both layouts;
      the device time of each of its sub-kernels (torch.profiler) beside the
@@ -39,8 +40,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      (loss, grad_norm, every gradient, the students' ids);
   7. K4 (the attention core on projected q, k, v) as phase 5 does K3, with
      F.scaled_dot_product_attention's forward and backward timed beside it
-     and the sub-kernel split of its forward and backward (each group's
-     launch beside its bound) and the host's time a call of its wrappers;
+     and the sub-kernel split of its forward and backward (each backward
+     group's launch beside its bound) and the host's time a call of its
+     wrappers;
      then the train path with train_core "attention", as phase 6;
   8. K5 (K3 with SKConv fused in, faithful layout) as phase 5 does K3, with
      the sub-kernel split of its forward and backward; then the train path
@@ -54,7 +56,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
  10. K7, the eval attention on projected q, k, v: its entry point at B = 64
      on both shift sets, float32 then bf16, launches counted, against the
      plain version (bf16 also against the float32 kernel); SDPA on the
-     partitioned windows beside it;
+     partitioned windows beside it; its device time and launches a call
+     (torch.profiler) and the host's time a call of its wrapper;
  11. K6, the faithful Mlp conv pair, at B = 64, hidden 384, s = 32, against
      the plain version; the cuDNN depthwise + GELU + 1x1 pair that the port's
      Mlp runs timed beside it (K6 must be faster); the rate of TF32 work its
@@ -62,7 +65,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
  12. K9, the dropout-mask dump: the masks of one seed at B = 64 (exactly the
      plain version's) and the port's debug_train_dropout tool at its own
      geometry on the card (K4's forward and q-gradient against the rebuild
-     from the dumped masks, within K3's tolerances), launches counted;
+     from the dumped masks, within K3's tolerances), launches counted; its
+     device time and launches a call and the host's time a call;
  13. one JSON line with every kernel's numbers, then the final JSON line.
 
 Times are CUDA-event times after warm-up, with the inputs resident in L2
@@ -97,9 +101,6 @@ TF32_FLOP_PER_S = 495e12  # dense, on the tensor cores
 TC_KERNELS = ("ln_proj_kernel", "skconv_proj_kernel", "skconv_out_kernel", "proj_ln_bwd_kernel", "wgrad_kernel",
               "window_attn_bwd_tc_kernel", "skconv_bwd_a_kernel", "skconv_bwd_b_kernel", "mlp_convs_kernel",
               "window_attn_fwd_kernel", "tile_attn_tc_kernel")
-# instantiations of those that run on the CUDA cores by design: the
-# attention forward's 2x2 windows (4 tokens)
-CUDA_CORE_FORMS = ("window_attn_fwd_kernel<4,",)
 B = 64
 K1_TOL = 1e-4  # max abs error: float32, other summation orders over <= 96-term sums
 K2_TOL = 1e-5  # max abs error of a tanh-bounded state after <= 64 float32 steps
@@ -240,17 +241,14 @@ def ln_proj_part(t, dim):
 
 
 def attn_fwd_parts(t, dim, win, io_bytes=4):
-    """{kernel: part} of the attention forward, one part per group's launch:
-    q, k, v read and out written for the group's channels; two N-long
-    passes (scores, P v) per token and channel, on the tensor cores for
-    windows of 16 and 64 tokens (3xTF32), on the CUDA cores for 4."""
+    """{kernel: part} of the attention forward, one launch for every group:
+    q, k, v read and out written; two N-long passes (scores, P v) per token
+    and channel, on the tensor cores for windows of 16 and 64 tokens
+    (3xTF32), on the CUDA cores for 4."""
     ch = dim // len(win)
-    parts = {}
-    for ws in win:
-        n, flops = ws * ws, 2 * 2 * t * ch * ws * ws
-        parts[f"window_attn_fwd_kernel<{n},"] = (io_bytes * 4 * t * ch, flops if n == 4 else 0.0,
-                                                 0.0 if n == 4 else flops)
-    return parts
+    flops = {ws: 2 * 2 * t * ch * ws * ws for ws in win}
+    return {"window_attn_fwd_kernel": (io_bytes * 4 * t * dim, sum(f for ws, f in flops.items() if ws == 2),
+                                       sum(f for ws, f in flops.items() if ws != 2))}
 
 
 def attn_bwd_parts(t, dim, win, h, w, gh=2):
@@ -289,7 +287,7 @@ def phase_setup():
     for name, report in kernels.ptxas_report.items():
         funcs = ptxas_functions(report)
         log(f"  ptxas {name} (registers / bytes spilled): " + ", ".join(f"{f} {r} / {sp}" for f, r, sp in funcs))
-        spilled = [f for f, _, sp in funcs if sp and base_name(f) in TC_KERNELS and not cuda_core_form(f)]
+        spilled = [f for f, _, sp in funcs if sp and base_name(f) in TC_KERNELS]
         if spilled:
             raise AssertionError(f"tensor-core kernels spill: {spilled}")
     check_hmma(kernels)
@@ -312,12 +310,6 @@ def base_name(func):
     return func.split("<")[0].split("::")[-1].strip()
 
 
-def cuda_core_form(func):
-    """Whether a kernel is an instantiation of a tensor-core kernel that runs
-    on the CUDA cores by design (CUDA_CORE_FORMS)."""
-    return func.replace(" ", "").startswith(tuple(f.replace(" ", "") for f in CUDA_CORE_FORMS))
-
-
 def ptxas_functions(report):
     """[(kernel, registers, spill bytes)] from nvcc -Xptxas -v output."""
     rows, cur = [], None
@@ -335,9 +327,10 @@ def ptxas_functions(report):
 
 def check_hmma(kernels):
     """Each tensor-core sub-kernel holds HMMA (mma.sync) or HGMMA (wgmma)
-    instructions (cuobjdump -sass)."""
+    instructions (cuobjdump -sass), and the bf16 attention forward (K7's)
+    bf16 m16n8k16 products (HMMA.16816.F32.BF16)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    found = {}
+    found, bf16 = {}, {}
     for name in ("window_attention", "window_attention_train", "window_attention_core", "window_attention_full",
                  "grouped_window_attention", "window_tile_attention", "gru_scan", "mlp_convs"):
         sass = subprocess.run([tool, "-sass", str(kernels._target(name))], capture_output=True, text=True,
@@ -345,18 +338,22 @@ def check_hmma(kernels):
         funcs = re.split(r"\n\s*Function : ", sass)[1:]
         names = demangle([f.split(None, 1)[0] for f in funcs])
         for func, body in zip(names, funcs):
-            if base_name(func) in TC_KERNELS + ("gru_large_kernel",) and not cuda_core_form(func):
+            if base_name(func) in TC_KERNELS + ("gru_large_kernel",):
                 found[f"{name}: {func}"] = (body.count("HMMA"), body.count("HGMMA"))
+                if "bfloat16" in func:
+                    bf16[func] = body.count("HMMA.16816.F32.BF16")
     by_lib = {}
     for func, (hmma, hgmma) in found.items():
         lib, name = func.split(": ", 1)
         by_lib.setdefault(lib, []).append(f"{name} {hmma}" + (f" (HGMMA {hgmma})" if hgmma else ""))
     for lib, rows in by_lib.items():
         log(f"  sass {lib}: HMMA instructions: {', '.join(rows)}")
+    log(f"  sass bf16 m16n8k16 products (HMMA.16816.F32.BF16): {bf16}")
     missing = [f for f, n in found.items() if sum(n) == 0]
     absent = [k for k in TC_KERNELS if not any(base_name(f.split(": ", 1)[1]) == k for f in found)]
-    if missing or absent:
-        raise AssertionError(f"no HMMA or HGMMA in {missing}; tensor-core kernels not found: {absent}")
+    if missing or absent or not bf16 or not all(bf16.values()):
+        raise AssertionError(f"no HMMA or HGMMA in {missing}; tensor-core kernels not found: {absent}; bf16 "
+                             f"m16n8k16 products: {bf16}")
 
 
 def phase_window_attention(dev):
@@ -1167,6 +1164,17 @@ def phase_k8(dev):
                             tot["plain_ms"], bound, tot["library_ms"])
 
 
+def device_and_host(fn):
+    """A standalone entry point's device time a launch and launches a call
+    by kernel (torch.profiler, which drops some events: fewer than 1 launch
+    a call recorded) and the host's time a call, as a log fragment; no
+    number of the kernels line comes from here."""
+    split = kernel_split(fn)
+    device = ", ".join(f"{name} {ms / n:.4f} ms a launch, {n:g} launches a call recorded"
+                       for name, (ms, n) in split.items()) or "not measured"
+    return f"device {device}; host {host_ms(fn):.4f} ms a call"
+
+
 def k7_cost(a, dtype, h, w):
     """Bytes and float32 operations of one K7 call at B: K4's forward (q, k,
     v and out, in the io type) plus the bias tables (io type) and shift
@@ -1250,7 +1258,7 @@ def phase_k7(dev):
             log(f"K7 {dtype} B={B} shift={tuple(a.shf)}: max_abs_err {err:.3e} (tol {tol:.3e}){extra} "
                 f"{'ok' if ok else 'FAIL'}; kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} (SDPA on "
                 f"the partitioned windows) bound_ms {b_ms:.4f} ({b_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
-                f"GFLOP)")
+                f"GFLOP); {device_and_host(lambda: grouped_window_attention(*args))}")
             if not ok:
                 raise AssertionError(f"K7 {dtype} disagrees with its plain version or the float32 kernel: {err}")
             worst = max(worst, err)
@@ -1354,7 +1362,8 @@ def phase_k9(dev):
         k_ms = cuda_ms(lambda: dropout_mask(seed, batch, keep, *geo, dev))
         p_ms = cuda_ms(lambda: dropout_mask_plain(seed, batch, keep, *geo, dev), iters=3)
         log(f"K9 B={batch}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; "
-            f"{nbytes / 1e6:.1f} MB written; the integer hash chain not counted)")
+            f"{nbytes / 1e6:.1f} MB written; the integer hash chain not counted); "
+            f"{device_and_host(lambda: dropout_mask(seed, batch, keep, *geo, dev))}")
         times[batch] = (k_ms, p_ms, {b_by: b_ms})
     # the entry times the B = 64 dump alone; the tool's B = 4 dump is only logged
     return standalone_entry("dropout_mask", err, launches["dropout_mask"], *times[B], None)

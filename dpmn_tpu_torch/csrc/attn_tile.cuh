@@ -2,23 +2,33 @@
 // forward (window_common.cuh window_attn_fwd_kernel: K1, K3, K4, K5, K7) and
 // the per-window attention tiles (window_tile_attention.cu, K8).
 //
-// A warp owns 16 query rows.  S = Q K^T and O = P V run on mma.sync
-// m16n8k8 with the 3xTF32 split of tc_common.cuh (hi*hi + hi*lo + lo*hi);
-// operands that are bf16 values (K7's bf16 io) are exact in TF32, so their
-// lo part is zero and its products are skipped (EXACT).  P never leaves the
-// registers: the accumulator of S holds, per lane (g8 = lane / 4, t4 = lane
-// % 4), columns 2 t4 and 2 t4 + 1 of rows g8 and g8 + 8 of each 8-key tile,
-// and the product with V reads it as its A fragment by ordering the keys of
-// each 8-key step as (0, 2, 4, 6, 1, 3, 5, 7): A's k-index t4 is key 2 t4,
-// k-index t4 + 4 is key 2 t4 + 1, and V's B fragment rows follow.  The
-// contraction of S is ordered the same way within each 8 channels, so a
-// lane reads its two adjacent channels of a q or k row as one 8-byte load.
+// A warp owns 16 query rows.  float32: S = Q K^T and O = P V run on mma.sync
+// m16n8k8 with the 3xTF32 split of tc_common.cuh (hi*hi + hi*lo + lo*hi).
+// P never leaves the registers: the accumulator of S holds, per lane (g8 =
+// lane / 4, t4 = lane % 4), columns 2 t4 and 2 t4 + 1 of rows g8 and g8 + 8
+// of each 8-key tile, and the product with V reads it as its A fragment by
+// ordering the keys of each 8-key step as (0, 2, 4, 6, 1, 3, 5, 7): A's
+// k-index t4 is key 2 t4, k-index t4 + 4 is key 2 t4 + 1, and V's B fragment
+// rows follow.  The contraction of S is ordered the same way within each 8
+// channels, so a lane reads its two adjacent channels of a q or k row as one
+// 8-byte load.
+//
+// bf16 (K7's bf16 io): mma.sync m16n8k16 on bf16 operands with float32
+// accumulation, fed by ldmatrix.  S over the head's 16 channels is one k16
+// step an 8-key tile (products of bf16 values are exact in float32).  The
+// S accumulators of 8-key tiles 2 kk and 2 kk + 1 are, element for element,
+// the A fragment of P V's k16 step kk, so P stays in registers unpermuted; P
+// is float32 after the softmax and goes in as hi = bf16(p) plus lo = bf16(p
+// - hi), two products into one accumulator (about 2^-16 of P is lost).
 //
 // Shared-memory strides that keep the fragment reads free of bank
-// conflicts (in elements of the staged type): q and k rows at a stride of 8
-// mod 16 (8-byte reads of rows g8 0-3 of a half warp land on 4 x 8 distinct
-// banks), v rows at 4 mod 8 for float (scalar reads of keys 2 t4 and
-// columns g8).  A staged row is 16-byte aligned for cp.async.
+// conflicts (in elements of the staged type): float32 q and k rows at a
+// stride of 8 mod 16 (8-byte reads of rows g8 0-3 of a half warp land on 4 x
+// 8 distinct banks), v rows at 4 mod 8 (scalar reads of keys 2 t4 and
+// columns g8); bf16 q, k and v rows at ch + 8 elements, an odd number of 16
+// bytes (40 elements, 80 bytes, at ch = 32), so the eight 16-byte rows of
+// every ldmatrix phase fall on disjoint bank groups.  A staged row is
+// 16-byte aligned for cp.async and ldmatrix.
 //
 // The build hash of every csrc/*.cu covers this header (ops/kernels.py).
 
@@ -39,75 +49,43 @@ __device__ __forceinline__ void cp_async16_bytes(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem) : "memory");
 }
 
-// Two adjacent elements as float (8 bytes of float, 4 of bf16), and one.
+// Two adjacent floats, and one.
 __device__ __forceinline__ float2 ld_pair(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ __forceinline__ float2 ld_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 __device__ __forceinline__ float ld_one(const float* p) { return *p; }
-__device__ __forceinline__ float ld_one(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
-// The 3xTF32 split of x, or (x, 0) where x is exact in TF32.
-template <bool EXACT>
-__device__ __forceinline__ void split_op(float x, uint32_t& hi, uint32_t& lo) {
-  if (EXACT) {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  } else {
-    split_tf32_fast(x, hi, lo);
-  }
-}
-
-// d += a . b, a split, b exact (EXACT) or split: 2 or 3 products.
-template <bool EXACT>
-__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
-                                          const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
-  if (EXACT) {
-    mma_tf32(d, al, bh[0], bh[1]);
-    mma_tf32(d, ah, bh[0], bh[1]);
-  } else {
-    mma_3xtf32(d, ah, al, bh, bl);
-  }
-}
 
 // s[j] += the warp's 16 query rows . keys 8 j + (0..7), j < nt, over kc
-// channels (a multiple of 8): row r of Q at Q[r * ldq], key n of K at
-// K[n * ldk], both in shared memory.  EXACT: Q and K hold bf16 values (one
-// product a step).
-template <int NT, bool EXACT, typename T>
-__device__ __forceinline__ void qk_tile(float (&s)[NT][4], const T* Q, int ldq, const T* K, int ldk, int kc,
+// channels (a multiple of 8) at 3xTF32: row r of Q at Q[r * ldq], key n of K
+// at K[n * ldk], both in shared memory.
+template <int NT>
+__device__ __forceinline__ void qk_tile(float (&s)[NT][4], const float* Q, int ldq, const float* K, int ldk, int kc,
                                         int nt = NT) {
   const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
   for (int k0 = 0; k0 < kc; k0 += 8) {
     const float2 x0 = ld_pair(Q + g8 * ldq + k0 + 2 * t4);
     const float2 x1 = ld_pair(Q + (g8 + 8) * ldq + k0 + 2 * t4);
     uint32_t ah[4], al[4];
-    split_op<EXACT>(x0.x, ah[0], al[0]);
-    split_op<EXACT>(x1.x, ah[1], al[1]);
-    split_op<EXACT>(x0.y, ah[2], al[2]);
-    split_op<EXACT>(x1.y, ah[3], al[3]);
+    split_tf32_fast(x0.x, ah[0], al[0]);
+    split_tf32_fast(x1.x, ah[1], al[1]);
+    split_tf32_fast(x0.y, ah[2], al[2]);
+    split_tf32_fast(x1.y, ah[3], al[3]);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       if (j < nt) {
         const float2 y = ld_pair(K + (8 * j + g8) * ldk + k0 + 2 * t4);
         uint32_t bh[2], bl[2];
-        split_op<EXACT>(y.x, bh[0], bl[0]);
-        split_op<EXACT>(y.y, bh[1], bl[1]);
-        if (EXACT)
-          mma_tf32(s[j], ah, bh[0], bh[1]);
-        else
-          mma_3xtf32(s[j], ah, al, bh, bl);
+        split_tf32_fast(y.x, bh[0], bl[0]);
+        split_tf32_fast(y.y, bh[1], bl[1]);
+        mma_3xtf32(s[j], ah, al, bh, bl);
       }
     }
   }
 }
 
-// o[c] += P . V for the warp's 16 rows and output columns 8 c + (0..7), c <
-// ct: p in the accumulator layout of qk_tile over NT x 8 keys (float32,
-// split), key n of V at V[n * ldv] in shared memory.  EXACT: V holds bf16
-// values.
-template <int NT, int CT, bool EXACT, typename T>
-__device__ __forceinline__ void pv_tile(float (&o)[CT][4], const float (&p)[NT][4], const T* V, int ldv,
+// o[c] += P . V at 3xTF32 for the warp's 16 rows and output columns 8 c +
+// (0..7), c < ct: p in the accumulator layout of qk_tile over NT x 8 keys
+// (float32, split), key n of V at V[n * ldv] in shared memory.
+template <int NT, int CT>
+__device__ __forceinline__ void pv_tile(float (&o)[CT][4], const float (&p)[NT][4], const float* V, int ldv,
                                         int ct = CT) {
   const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
 #pragma unroll
@@ -117,16 +95,94 @@ __device__ __forceinline__ void pv_tile(float (&o)[CT][4], const float (&p)[NT][
     split_tf32_fast(p[kb][2], ah[1], al[1]);  // (row g8 + 8, key 2 t4)
     split_tf32_fast(p[kb][1], ah[2], al[2]);  // (row g8, key 2 t4 + 1): k-index t4 + 4
     split_tf32_fast(p[kb][3], ah[3], al[3]);
-    const T* v0 = V + (8 * kb + 2 * t4) * ldv + g8;
+    const float* v0 = V + (8 * kb + 2 * t4) * ldv + g8;
 #pragma unroll
     for (int c = 0; c < CT; ++c) {
       if (c < ct) {
         uint32_t bh[2], bl[2];
-        split_op<EXACT>(ld_one(v0 + 8 * c), bh[0], bl[0]);
-        split_op<EXACT>(ld_one(v0 + ldv + 8 * c), bh[1], bl[1]);
-        mma_split<EXACT>(o[c], ah, al, bh, bl);
+        split_tf32_fast(ld_one(v0 + 8 * c), bh[0], bl[0]);
+        split_tf32_fast(ld_one(v0 + ldv + 8 * c), bh[1], bl[1]);
+        mma_3xtf32(o[c], ah, al, bh, bl);
       }
     }
+  }
+}
+
+// ldmatrix of four 8x8 bf16 matrices from shared memory (lane l gives the
+// address of row l % 8 of matrix l / 8), plain or transposed.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a . b on bf16 operands, float32 accumulation (m16n8k16; the fragment
+// coordinates of tc_common.cuh's m16n8k8 with each register holding two
+// adjacent k-indices: a0 (g8, 2 t4..+1), a1 (g8 + 8, ..), a2 (g8, 2 t4 +
+// 8..+9), a3 (g8 + 8, ..); b0 (k 2 t4..+1, n g8), b1 (k 2 t4 + 8..+9, n g8)).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x, y) = hi + lo as two bf16 pairs: hi rounded to nearest, lo the
+// remainder rounded (x in the low half).
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// s[j] += the warp's 16 query rows . keys 8 j + (0..7) over one head's 16
+// channels, bf16 in shared memory: row r of Q at Q[r * ldq], key n of K at
+// K[n * ldk] (ld* an odd number of 16-byte units).  NT even.
+template <int NT>
+__device__ __forceinline__ void qk_tile_bf16(float (&s)[NT][4], const __nv_bfloat16* Q, int ldq,
+                                             const __nv_bfloat16* K, int ldk) {
+  const int lane = threadIdx.x & 31, r8 = lane & 7, hi8 = (lane >> 3) & 1, quad = lane >> 4;
+  uint32_t a[4];  // rows 0-7 / 8-15 x channels 0-7 / 8-15
+  ldmatrix_x4(a, Q + (r8 + 8 * hi8) * ldq + 8 * quad);
+#pragma unroll
+  for (int j = 0; j < NT; j += 2) {
+    uint32_t b[4];  // keys 8 j .. + 7 x channels 0-7, 8-15, then keys 8 j + 8 .. + 15
+    ldmatrix_x4(b, K + (8 * j + r8 + 8 * quad) * ldk + 8 * hi8);
+    mma_bf16(s[j], a, b[0], b[1]);
+    mma_bf16(s[j + 1], a, b[2], b[3]);
+  }
+}
+
+// o[c] += P . V for the warp's 16 rows and one head's output columns 8 c +
+// (0..7), c < 2: p in qk_tile_bf16's accumulator layout over NT x 8 keys
+// (float32, split into bf16 hi + lo), key n of V at V[n * ldv] in shared
+// memory (bf16, read transposed).
+template <int NT>
+__device__ __forceinline__ void pv_tile_bf16(float (&o)[2][4], const float (&p)[NT][4], const __nv_bfloat16* V,
+                                             int ldv) {
+  const int lane = threadIdx.x & 31, r8 = lane & 7, hi8 = (lane >> 3) & 1, quad = lane >> 4;
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    uint32_t hi[4], lo[4];
+    split_bf16(p[2 * kk][0], p[2 * kk][1], hi[0], lo[0]);          // row g8, keys 2 t4, 2 t4 + 1
+    split_bf16(p[2 * kk][2], p[2 * kk][3], hi[1], lo[1]);          // row g8 + 8
+    split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], hi[2], lo[2]);  // row g8, keys 8 + 2 t4, ..
+    split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], hi[3], lo[3]);
+    uint32_t b[4];  // keys 0-7 / 8-15 of the step x columns 0-7, then 8-15
+    ldmatrix_x4_trans(b, V + (16 * kk + r8 + 8 * hi8) * ldv + 8 * quad);
+    mma_bf16(o[0], lo, b[0], b[1]);
+    mma_bf16(o[1], lo, b[2], b[3]);
+    mma_bf16(o[0], hi, b[0], b[1]);
+    mma_bf16(o[1], hi, b[2], b[3]);
   }
 }
 

@@ -19,7 +19,7 @@
 //       + bph.
 //
 // Five kernels behind one entry point: (a) ln_proj, (b) one window-attention
-// launch per group, (c) skconv_proj (feats and per-tile partial sums of the
+// launch for every group, (c) skconv_proj (feats and per-tile partial sums of the
 // GAP), skconv_gate (the fixed-order sum of the partials: no float atomics,
 // so reruns agree bit for bit) and skconv_out.  All of them live in
 // window_common.cuh, which the training kernels share.
@@ -36,16 +36,16 @@
 // 3xTF32 split (tc_common.cuh), which keeps float32 accuracy at three
 // tensor-core passes; (b) is window_common.cuh window_attn_fwd_kernel (the
 // 4x4 and 8x8 windows on the tensor cores, the 2x2 windows on the CUDA
-// cores).
-// Measured on an H100 SXM at 700 W (PERF.md): about 0.35 ms a call, of
+// cores, one work list).
+// Measured on an H100 SXM at 700 W (PERF.md): about 0.33 ms a call, of
 // which ln_proj 0.126 ms (its bytes alone take 0.038 ms; it runs 3 x 3.62
-// GFLOP on mma.sync), SKConv's products 0.12 ms and the attention 0.062 ms
-// (its three group launches).  The products are bound by the mma.sync rate
-// times the split's three passes (batching ln_proj's LN rows, which
-// shortened its latency, moved nothing), and each CTA serializes a tile's
-// load wait, LN, product and stores.  Keeping q/kv on chip between (a) and
-// (b), and wgmma for the products (which needs the split operands in shared
-// memory) are later work.
+// GFLOP on mma.sync), SKConv's products 0.12 ms and the attention 0.055 ms.
+// The products are bound by the mma.sync rate times the split's three
+// passes (batching ln_proj's LN rows, which shortened its latency, moved
+// nothing), and each CTA serializes a tile's load wait, LN, product and
+// stores.  Keeping q/kv on chip between (a) and (b), and wgmma for the
+// products (which needs the split operands in shared memory) are later
+// work.
 
 #include "window_common.cuh"
 

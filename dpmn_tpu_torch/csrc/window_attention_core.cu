@@ -18,9 +18,9 @@
 //            dS over images and windows.
 // The kernels are K3's, reading k and v, and writing dk and dv, as tensors
 // of their own (row stride D): the forward is window_common.cuh
-// window_attn_fwd_kernel (the 4x4 and 8x8 windows on the tensor cores, the
-// 2x2 windows a thread per query row with 16-byte rows), the backward
-// window_train_common.cuh window_attn_bwd_tc_kernel (4x4 and 8x8, tensor
+// window_attn_fwd_kernel (one launch: the 4x4 and 8x8 windows on the
+// tensor cores, the 2x2 windows a thread per query row with 16-byte rows),
+// the backward window_train_common.cuh window_attn_bwd_tc_kernel (4x4 and 8x8, tensor
 // cores) and window_attn_bwd4_kernel (2x2, a quad of lanes per window and
 // head over cp.async-staged rows).  dbias goes through per-block partials
 // and the fixed-order sum_rows_kernel: no float atomics, so reruns agree bit
@@ -31,9 +31,9 @@
 // D = 96, windows 2/4/8, 2 heads of 16 per group), each input read once and
 // each output written once: forward 100.7 MB (q, k, v, out) and 0.70 GFLOP
 // = 30 us at 3.35 TB/s; backward 176.2 MB (q, k, v, dout, dq, dk, dv) and
-// 1.76 GFLOP = 53 us.  Both are bound by bytes.  One launch per group reads
-// the group's channels of each token row (128 contiguous bytes of q, k and v
-// at 2 heads); its times, per group, stand in PERF.md.
+// 1.76 GFLOP = 53 us.  Both are bound by bytes.  A unit reads its group's
+// channels of each token row (128 contiguous bytes of q, k and v at 2
+// heads); the times stand in PERF.md (the backward's per group).
 
 #include "window_train_common.cuh"
 

@@ -3,8 +3,9 @@
 // window_attention_full.cu, grouped_window_attention.cu) and the
 // dropout-mask dump (dropout_mask.cu): the LayerNorm + Q/KV projection
 // kernel (persistent CTAs, the product on the tensor cores), the per-group
-// window-attention forward (float32 or bf16 io; the 4x4 and 8x8 windows on
-// the tensor cores through attn_tile.cuh), the counter-based hash
+// window-attention forward (float32 or bf16 io, every group in one launch;
+// the 4x4 and 8x8 windows on the tensor cores through attn_tile.cuh), the
+// counter-based hash
 // that draws the attention-dropout mask, and SKConv's three forward kernels
 // (the two products on the tensor cores).
 //
@@ -306,252 +307,340 @@ __host__ __device__ inline int fwd_ldq(int ch) { return ch + 8; }
 template <typename T>
 __host__ __device__ inline int fwd_ldv(int ch) { return ch + (sizeof(T) == 4 ? 4 : 8); }
 
-// The windowed attention forward of one channel group, the one routine of
-// K1, K3, K4, K5 and K7.  q rows have stride D; k and v rows stride kvs (2D
-// where they are the halves of one kv buffer, D where they are tensors of
-// their own).  Per (image b, window widx) and head: the -sh roll
-// (window_token), S = scale q k^T + bias [+ mask], P = softmax(S), with DROP
-// P times the dropout mask (kept entries by inv_keep), and P v, written to
-// raw row widx N + i (faithful) or to the query's token row (corrected).  T
-// is the io type of q, k, v, bias and out (float, or bf16 for K7); the mask
-// is float32 and every sum runs in float32.  `vec`: q, k, v and out are
-// 16-byte aligned, so rows move in 16-byte pieces; otherwise element by
-// element (the same arithmetic).
-//
-// Windows of 16 and 64 tokens (the flagship's 4x4 and 8x8) on the tensor
-// cores: persistent CTAs of 8 warps walk steps of `wps` consecutive
-// windows; a step's q, k, v rows (the group's ch = 16 gh channels of each
-// token, 128 contiguous bytes at 2 heads in float32) land in a shared slot
-// by 16-byte cp.async while the previous step is computed (two buffers).  A
-// warp owns 16 query rows of one head of one window (attn_tile.cuh): S and
-// P v on mma.sync at 3xTF32 (one TF32 pass for bf16 values, exact in
-// TF32), the bias and mask read straight into the score registers (8-byte
-// loads, a quad per 32-byte sector), the softmax and the dropout in
-// registers, and each output row written in 16-byte pieces (a lane pair
-// swaps halves so that each lane holds 4 adjacent columns).  Slot (elements
-// of T): q, k [N][ch + 8], v [N][ch + 4] (float) or [N][ch + 8] (bf16).
-//
-// Windows of 4 tokens (2x2) on the CUDA cores: a thread per (window, head,
-// query row), its q row and the window's k and v rows read as 16-byte
-// pieces (the 4 threads of a window and head share them through L1), the
-// 4 scores, softmax, dropout and the 16 outputs in registers.  At least 2
-// CTAs an SM (up to 128 registers a thread): for the 2x2 and 4x4 windows
-// that ran 12 % and 4 % faster than ptxas's own choice (H100 SXM, 700 W).
-template <int N, bool DROP, typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-    window_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, int kvs,
-                           const T* __restrict__ bias, const float* __restrict__ mask, T* __restrict__ out, int B,
-                           int H, int W, int D, int g, int gh, int sh, float scale, int corrected,
-                           uint32_t seed, uint32_t thresh, float inv_keep, int vec) {
-  constexpr int WS = N == 4 ? 2 : N == 16 ? 4 : 8;
-  const int ch = gh * GCH, L = H * W;
-  const int nwc = W / WS, nw = (H / WS) * nwc;
-  if constexpr (N == 4) {
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= B * nw * gh * 4) return;
-    const int i = t & 3, hd = (t >> 2) % gh, u = t / (4 * gh);
+// One channel group of an attention-forward launch: its window and shift,
+// its tables and the first of its units in the launch's work list.
+template <typename T>
+struct AttnGroup {
+  const T* bias;      // (gh, N, N)
+  const float* mask;  // (nW, N, N) where sh > 0
+  int g, ws, sh, unit0;
+};
+constexpr int MAX_ATTN_GROUPS = 6;  // D <= 96 in groups of 16 gh >= 16 channels
+
+// The arguments of one attention-forward launch (a __grid_constant__
+// kernel parameter).  grp holds the groups in work-list order: 8x8, then
+// 4x4, then 2x2 windows.
+template <typename T>
+struct AttnArgs {
+  const T* q;
+  const T* k;
+  const T* v;
+  T* out;
+  int kvs, B, H, W, D, gh, corrected, vec;
+  float scale, inv_keep;
+  uint32_t seed, thresh;
+  int n_group, n_units, buf_elems;
+  AttnGroup<T> grp[MAX_ATTN_GROUPS];
+};
+
+// A 2x2-window unit on the CUDA cores: a thread per (window, head, query
+// row), THREADS rows a unit; its q row and the window's k and v rows read as
+// 16-byte pieces (the 4 threads of a window and head share them through
+// L1), the 4 scores, softmax, dropout and the 16 outputs in registers.
+template <bool DROP, typename T>
+__device__ __forceinline__ void attn_unit4(const AttnArgs<T>& a, const AttnGroup<T>& gr, int unit) {
+  const int ch = a.gh * GCH, L = a.H * a.W;
+  const int nwc = a.W / 2, nw = (a.H / 2) * nwc;
+  const int t = unit * THREADS + threadIdx.x;
+  if (t >= a.B * nw * a.gh * 4) return;
+  const int i = t & 3, hd = (t >> 2) % a.gh, u = t / (4 * a.gh);
+  const int b = u / nw, widx = u - b * nw;
+  const int64_t base = (int64_t)b * L;
+  const int col = gr.g * ch + hd * GCH;
+  int tok[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) tok[j] = window_token_c<2>(widx, j, nwc, gr.sh, a.H, a.W);
+  float qv[GCH], s[4];
+  load_row16(qv, a.q + (base + tok[i]) * a.D + col, a.vec);
+  const T* brow = gr.bias + (hd * 4 + i) * 4;
+  const float* mrow = gr.sh > 0 ? gr.mask + ((int64_t)widx * 4 + i) * 4 : nullptr;
+  float mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float kv[GCH];
+    load_row16(kv, a.k + (base + tok[j]) * a.kvs + col, a.vec);
+    float acc = 0.f;
+#pragma unroll
+    for (int d = 0; d < GCH; ++d) acc = fmaf(qv[d], kv[d], acc);
+    acc = acc * a.scale + ldg_one(brow + j);
+    if (mrow) acc += __ldg(mrow + j);
+    s[j] = acc;
+    mx = fmaxf(mx, acc);
+  }
+  float den = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s[j] = __expf(s[j] - mx);
+    den += s[j];
+  }
+  const float inv = 1.0f / den;
+  const uint32_t rkey = DROP ? dropout_row_key(a.seed, b, gr.g, hd, widx, i) : 0u;
+  float o[GCH];
+#pragma unroll
+  for (int d = 0; d < GCH; ++d) o[d] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float p = s[j] * inv;
+    if (DROP) p = (hash_step(rkey, j) & 0x7fffffffu) < a.thresh ? p * a.inv_keep : 0.f;
+    float vv[GCH];
+    load_row16(vv, a.v + (base + tok[j]) * a.kvs + col, a.vec);
+#pragma unroll
+    for (int d = 0; d < GCH; ++d) o[d] = fmaf(p, vv[d], o[d]);
+  }
+  store_row16(a.out + (base + (a.corrected ? tok[i] : widx * 4 + i)) * a.D + col, o, a.vec);
+}
+
+// Stage step `step` of a 4x4 (N = 16) or 8x8 (N = 64) group, its wps
+// windows' q, k, v rows, into the shared slots at dst as one committed
+// cp.async group: 16-byte pieces (cp.async) where `vec`, else elements; a
+// thread takes (row, piece) pairs, the same piece of q, k, v.  Slot
+// (elements of T): q, k [N][ldq], v [N][ldv].
+template <int N, typename T>
+__device__ __forceinline__ void attn_stage(const AttnArgs<T>& a, const AttnGroup<T>& gr, int step, T* dst0) {
+  constexpr int WS = N == 16 ? 4 : 8;
+  const int ch = a.gh * GCH, L = a.H * a.W;
+  const int nwc = a.W / WS, nw = (a.H / WS) * nwc, units = a.B * nw;
+  const int wps = fwd_windows_a_step(N, a.gh), ldq = fwd_ldq(ch), ldv = fwd_ldv<T>(ch);
+  const int slot = N * (2 * ldq + ldv);
+  const int per = a.vec ? ch * (int)sizeof(T) / 16 : ch;  // pieces of a row
+  const int each = a.vec ? 16 / (int)sizeof(T) : 1;       // elements of a piece
+  for (int e = threadIdx.x; e < wps * N * per; e += THREADS) {
+    const int row = e / per, c = (e - row * per) * each, l = row / N, j = row % N;
+    const int u = step * wps + l;
+    if (u >= units) continue;
     const int b = u / nw, widx = u - b * nw;
-    const int64_t base = (int64_t)b * L;
-    const int col = g * ch + hd * GCH;
-    int tok[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) tok[j] = window_token_c<2>(widx, j, nwc, sh, H, W);
-    float qv[GCH], s[4];
-    load_row16(qv, q + (base + tok[i]) * D + col, vec);
-    const T* brow = bias + (hd * 4 + i) * 4;
-    const float* mrow = sh > 0 ? mask + ((int64_t)widx * 4 + i) * 4 : nullptr;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float kv[GCH];
-      load_row16(kv, k + (base + tok[j]) * kvs + col, vec);
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < GCH; ++d) acc = fmaf(qv[d], kv[d], acc);
-      acc = acc * scale + ldg_one(brow + j);
-      if (mrow) acc += __ldg(mrow + j);
-      s[j] = acc;
-      mx = fmaxf(mx, acc);
+    const int64_t tok = (int64_t)b * L + window_token_c<WS>(widx, j, nwc, gr.sh, a.H, a.W);
+    const T* qs = a.q + tok * a.D + gr.g * ch + c;
+    const T* ks = a.k + tok * a.kvs + gr.g * ch + c;
+    const T* vs = a.v + tok * a.kvs + gr.g * ch + c;
+    T* dst = dst0 + l * slot + j * ldq + c;
+    T* vdst = dst0 + l * slot + 2 * N * ldq + j * ldv + c;
+    if (a.vec) {
+      cp_async16_bytes(dst, qs);
+      cp_async16_bytes(dst + N * ldq, ks);
+      cp_async16_bytes(vdst, vs);
+    } else {
+      dst[0] = qs[0];
+      dst[N * ldq] = ks[0];
+      vdst[0] = vs[0];
     }
-    float den = 0.f;
+  }
+  cp_async_commit();
+}
+
+// A staged step of a 4x4 or 8x8 group on the tensor cores: a warp owns 16
+// query rows of one head of one window (attn_tile.cuh: 3xTF32 for float32,
+// bf16 m16n8k16 for bf16), the bias and mask read straight into the score
+// registers (8-byte loads, a quad per 32-byte sector), the softmax and the
+// dropout in registers, and each output row written in 16-byte pieces (a
+// lane pair swaps halves so that each lane holds 4 adjacent columns).
+template <int N, bool DROP, typename T>
+__device__ __forceinline__ void attn_step_tc(const AttnArgs<T>& a, const AttnGroup<T>& gr, int step, const T* sb) {
+  constexpr int WS = N == 16 ? 4 : 8, MT = N / 16, NT = N / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int ch = a.gh * GCH, L = a.H * a.W;
+  const int nwc = a.W / WS, nw = (a.H / WS) * nwc, units = a.B * nw;
+  const int tasks = a.gh * MT, wps = fwd_windows_a_step(N, a.gh);
+  const int ldq = fwd_ldq(ch), ldv = fwd_ldv<T>(ch), slot = N * (2 * ldq + ldv);
+  for (int task = warp; task < wps * tasks; task += THREADS / 32) {
+    const int lw = task / tasks, hd = (task % tasks) / MT, mi = task % MT;
+    const int u = step * wps + lw;
+    if (u >= units) continue;
+    const int b = u / nw, widx = u - b * nw;
+    const T* Qs = sb + lw * slot;
+    float s[NT][4] = {};
+    if constexpr (sizeof(T) == 2)
+      qk_tile_bf16<NT>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq);
+    else
+      qk_tile<NT>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq, GCH);
+    const T* bh = gr.bias + hd * N * N;
+    const float* mw = gr.sh > 0 ? gr.mask + (int64_t)widx * N * N : nullptr;
+    const int i0 = 16 * mi + g8;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s[j] = __expf(s[j] - mx);
-      den += s[j];
-    }
-    const float inv = 1.0f / den;
-    const uint32_t rkey = DROP ? dropout_row_key(seed, b, g, hd, widx, i) : 0u;
-    float o[GCH];
+    for (int jn = 0; jn < NT; ++jn)
 #pragma unroll
-    for (int d = 0; d < GCH; ++d) o[d] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float p = s[j] * inv;
-      if (DROP) p = (hash_step(rkey, j) & 0x7fffffffu) < thresh ? p * inv_keep : 0.f;
-      float vv[GCH];
-      load_row16(vv, v + (base + tok[j]) * kvs + col, vec);
-#pragma unroll
-      for (int d = 0; d < GCH; ++d) o[d] = fmaf(p, vv[d], o[d]);
-    }
-    store_row16(out + (base + (corrected ? tok[i] : widx * 4 + i)) * D + col, o, vec);
-  } else {
-    constexpr int MT = N / 16, NT = N / 8;
-    constexpr bool EXACT = sizeof(T) == 2;
-    extern __shared__ __align__(16) unsigned char fwd_smem[];
-    T* sm = reinterpret_cast<T*>(fwd_smem);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
-    const int tasks = gh * MT, wps = fwd_windows_a_step(N, gh);
-    const int ldq = fwd_ldq(ch), ldv = fwd_ldv<T>(ch), slot = N * (2 * ldq + ldv);
-    const int units = B * nw, steps = (units + wps - 1) / wps;
-    const int per = vec ? ch * (int)sizeof(T) / 16 : ch;  // pieces of a row
-    const int each = vec ? 16 / (int)sizeof(T) : 1;       // elements of a piece
-    // a step's q, k, v rows into buffer buf: 16-byte pieces (cp.async) or
-    // elements; a thread takes (row, piece) pairs, the same piece of q, k, v
-    auto stage = [&](int step, int buf) {
-      T* dst0 = sm + (size_t)buf * wps * slot;
-      for (int e = threadIdx.x; e < wps * N * per; e += THREADS) {
-        const int row = e / per, c = (e - row * per) * each, l = row / N, j = row % N;
-        const int u = step * wps + l;
-        if (u >= units) continue;
-        const int b = u / nw, widx = u - b * nw;
-        const int64_t tok = (int64_t)b * L + window_token_c<WS>(widx, j, nwc, sh, H, W);
-        const T* qs = q + tok * D + g * ch + c;
-        const T* ks = k + tok * kvs + g * ch + c;
-        const T* vs = v + tok * kvs + g * ch + c;
-        T* dst = dst0 + l * slot + j * ldq + c;
-        T* vdst = dst0 + l * slot + 2 * N * ldq + j * ldv + c;
-        if (vec) {
-          cp_async16_bytes(dst, qs);
-          cp_async16_bytes(dst + N * ldq, ks);
-          cp_async16_bytes(vdst, vs);
-        } else {
-          dst[0] = qs[0];
-          dst[N * ldq] = ks[0];
-          vdst[0] = vs[0];
+      for (int r = 0; r < 2; ++r) {
+        const int off = (i0 + 8 * r) * N + 8 * jn + 2 * t4;
+        float2 add = ldg_pair(bh + off);
+        if (mw) {
+          const float2 mm = __ldg(reinterpret_cast<const float2*>(mw + off));
+          add.x += mm.x;
+          add.y += mm.y;
         }
+        s[jn][2 * r] = s[jn][2 * r] * a.scale + add.x;
+        s[jn][2 * r + 1] = s[jn][2 * r + 1] * a.scale + add.y;
       }
-      cp_async_commit();
-    };
-    int buf = 0;
-    if (blockIdx.x < steps) stage(blockIdx.x, 0);
-    for (int step = blockIdx.x; step < steps; step += gridDim.x, buf ^= 1) {
-      if (step + gridDim.x < steps) stage(step + gridDim.x, buf ^ 1);
-      cp_async_wait(step + gridDim.x < steps ? 1 : 0);
-      __syncthreads();  // this step's rows are in shared memory
-      const T* sb = sm + (size_t)buf * wps * slot;
-      for (int task = warp; task < wps * tasks; task += THREADS / 32) {
-        const int lw = task / tasks, hd = (task % tasks) / MT, mi = task % MT;
-        const int u = step * wps + lw;
-        if (u >= units) continue;
-        const int b = u / nw, widx = u - b * nw;
-        const T* Qs = sb + lw * slot;
-        float s[NT][4] = {};
-        qk_tile<NT, EXACT>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq, GCH);
-        const T* bh = bias + hd * N * N;
-        const float* mw = sh > 0 ? mask + (int64_t)widx * N * N : nullptr;
-        const int i0 = 16 * mi + g8;
+    softmax_rows<true>(s);
+    if (DROP) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t rkey = dropout_row_key(a.seed, b, gr.g, hd, widx, i0 + 8 * r);
 #pragma unroll
         for (int jn = 0; jn < NT; ++jn)
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int off = (i0 + 8 * r) * N + 8 * jn + 2 * t4;
-            float2 add = ldg_pair(bh + off);
-            if (mw) {
-              const float2 mm = __ldg(reinterpret_cast<const float2*>(mw + off));
-              add.x += mm.x;
-              add.y += mm.y;
-            }
-            s[jn][2 * r] = s[jn][2 * r] * scale + add.x;
-            s[jn][2 * r + 1] = s[jn][2 * r + 1] * scale + add.y;
+          for (int e = 0; e < 2; ++e) {
+            const int j = 8 * jn + 2 * t4 + e;
+            float& p = s[jn][2 * r + e];
+            p = (hash_step(rkey, j) & 0x7fffffffu) < a.thresh ? p * a.inv_keep : 0.f;
           }
-        softmax_rows<true>(s);
-        if (DROP) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const uint32_t rkey = dropout_row_key(seed, b, g, hd, widx, i0 + 8 * r);
-#pragma unroll
-            for (int jn = 0; jn < NT; ++jn)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int j = 8 * jn + 2 * t4 + e;
-                float& p = s[jn][2 * r + e];
-                p = (hash_step(rkey, j) & 0x7fffffffu) < thresh ? p * inv_keep : 0.f;
-              }
-          }
-        }
-        float o[2][4] = {};
-        pv_tile<NT, 2, EXACT>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int i = i0 + 8 * r;
-          const int row = corrected ? window_token_c<WS>(widx, i, nwc, sh, H, W) : widx * N + i;
-          T* orow = out + ((int64_t)b * L + row) * D + g * ch + hd * GCH;
-          // lane t4 holds columns 2 t4, 2 t4 + 1 of both 8-column tiles; after
-          // the swap an even lane holds columns 2 t4 .. 2 t4 + 3 of tile 0,
-          // an odd lane columns 2 t4 + 6 .. 2 t4 + 9 (tile 1)
-          const bool odd = t4 & 1;
-          const float sx = odd ? o[0][2 * r] : o[1][2 * r], sy = odd ? o[0][2 * r + 1] : o[1][2 * r + 1];
-          const float rx = __shfl_xor_sync(0xffffffffu, sx, 1), ry = __shfl_xor_sync(0xffffffffu, sy, 1);
-          const float4 val = odd ? make_float4(rx, ry, o[1][2 * r], o[1][2 * r + 1])
-                                 : make_float4(o[0][2 * r], o[0][2 * r + 1], rx, ry);
-          store4(orow + (odd ? 2 * t4 + 6 : 2 * t4), val, vec);
-        }
       }
-      __syncthreads();  // every warp is done with this buffer before it is refilled
+    }
+    float o[2][4] = {};
+    if constexpr (sizeof(T) == 2)
+      pv_tile_bf16<NT>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);
+    else
+      pv_tile<NT, 2>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + 8 * r;
+      const int row = a.corrected ? window_token_c<WS>(widx, i, nwc, gr.sh, a.H, a.W) : widx * N + i;
+      T* orow = a.out + ((int64_t)b * L + row) * a.D + gr.g * ch + hd * GCH;
+      // lane t4 holds columns 2 t4, 2 t4 + 1 of both 8-column tiles; after
+      // the swap an even lane holds columns 2 t4 .. 2 t4 + 3 of tile 0, an
+      // odd lane columns 2 t4 + 6 .. 2 t4 + 9 (tile 1)
+      const bool odd = t4 & 1;
+      const float sx = odd ? o[0][2 * r] : o[1][2 * r], sy = odd ? o[0][2 * r + 1] : o[1][2 * r + 1];
+      const float rx = __shfl_xor_sync(0xffffffffu, sx, 1), ry = __shfl_xor_sync(0xffffffffu, sy, 1);
+      const float4 val = odd ? make_float4(rx, ry, o[1][2 * r], o[1][2 * r + 1])
+                             : make_float4(o[0][2 * r], o[0][2 * r + 1], rx, ry);
+      store4(orow + (odd ? 2 * t4 + 6 : 2 * t4), val, a.vec);
     }
   }
 }
 
-template <int N, bool DROP, typename T>
-cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const T* bias, const float* mask, T* out, int B,
-                        int H, int W, int D, int g, int gh, int ws, int sh, float scale, int corrected,
-                        uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t st) {
-  const int nw = (H / ws) * (W / ws);
-  const int vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
-  auto kern = window_attn_fwd_kernel<N, DROP, T>;
-  if constexpr (N == 4) {
-    const int threads = B * nw * gh * 4;
-    kern<<<(threads + THREADS - 1) / THREADS, THREADS, 0, st>>>(
-        q, k, v, kvs, bias, mask, out, B, H, W, D, g, gh, sh, scale, corrected, seed, thresh, inv_keep, vec);
-    return cudaGetLastError();
-  } else {
-    const int ch = gh * GCH, wps = fwd_windows_a_step(N, gh);
-    const size_t smem = (size_t)2 * wps * N * (2 * fwd_ldq(ch) + fwd_ldv<T>(ch)) * sizeof(T);
-    static GridCap cache;
-    int cap = 0;
-    const cudaError_t err = persistent_cap(cache, kern, THREADS, smem, &cap);
-    if (err != cudaSuccess) return err;
-    const int steps = (B * nw + wps - 1) / wps, grid = steps < cap ? steps : cap;
-    if (grid == 0) return cudaSuccess;
-    kern<<<grid, THREADS, smem, st>>>(q, k, v, kvs, bias, mask, out, B, H, W, D, g, gh, sh, scale, corrected,
-                                      seed, thresh, inv_keep, vec);
-    return cudaGetLastError();
+template <typename T>
+__device__ __forceinline__ void attn_stage_any(const AttnArgs<T>& a, const AttnGroup<T>& gr, int unit, T* dst) {
+  if (gr.ws == 8)
+    attn_stage<64>(a, gr, unit - gr.unit0, dst);
+  else
+    attn_stage<16>(a, gr, unit - gr.unit0, dst);
+}
+
+// The windowed attention forward of every channel group in one launch, the
+// one routine of K1, K3, K4, K5 and K7.  q rows have stride D; k and v rows
+// stride kvs (2D where they are the halves of one kv buffer, D where they
+// are tensors of their own).  Per (image b, window widx) and head of group
+// g: the -sh roll (window_token), S = scale q k^T + bias [+ mask], P =
+// softmax(S), with DROP P times the dropout mask (kept entries by
+// inv_keep), and P v, written to raw row widx N + i (faithful) or to the
+// query's token row (corrected).  T is the io type of q, k, v, bias and out
+// (float, or bf16 for K7); the mask is float32 and every sum runs in
+// float32.  `vec`: q, k, v and out are 16-byte aligned, so rows move in
+// 16-byte pieces; otherwise element by element (the same arithmetic).
+//
+// Persistent CTAs of 8 warps walk one work list of units, blockIdx.x, +
+// gridDim.x, ...: first the steps of the 8x8 groups, then of the 4x4 groups
+// (a step is `wps` consecutive windows whose q, k, v rows, the group's ch =
+// 16 gh channels of each token, land in a shared slot by cp.async while the
+// previous step is computed, two buffers of buf_elems), then the 2x2 units
+// on the CUDA cores, which need no shared memory and fill the tails.  The
+// dispatch is per unit, so the groups share one launch and one tail.  At
+// least 2 CTAs an SM in float32 (up to 128 registers a thread), 3 in bf16
+// (up to 80, no spill; faster than 2 on an H100 SXM, where 4 spill:
+// tools/attention_groups.py `ctas2`).
+template <bool DROP, typename T>
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
+    window_attn_fwd_kernel(const __grid_constant__ AttnArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  T* sm = reinterpret_cast<T*>(fwd_smem);
+  int s = 0, buf = 0;  // the group of the CTA's current unit; the buffer its step sits in
+  auto group_of = [&](int u) {
+    int t = s;
+    while (t + 1 < a.n_group && u >= a.grp[t + 1].unit0) ++t;
+    return t;
+  };
+  if (blockIdx.x < a.n_units) {
+    s = group_of(blockIdx.x);
+    if (a.grp[s].ws != 2) attn_stage_any(a, a.grp[s], blockIdx.x, sm);
+  }
+  for (int u = blockIdx.x; u < a.n_units; u += gridDim.x) {
+    const AttnGroup<T>& gr = a.grp[s];
+    const int next = u + gridDim.x;
+    const int sn = next < a.n_units ? group_of(next) : s;
+    if (gr.ws == 2) {  // the rest of this CTA's units are 2x2 units too
+      attn_unit4<DROP>(a, gr, u - gr.unit0);
+    } else {
+      const bool ahead = next < a.n_units && a.grp[sn].ws != 2;
+      if (ahead) attn_stage_any(a, a.grp[sn], next, sm + (buf ^ 1) * a.buf_elems);
+      cp_async_wait(ahead ? 1 : 0);
+      __syncthreads();  // this step's rows are in shared memory
+      if (gr.ws == 8)
+        attn_step_tc<64, DROP>(a, gr, u - gr.unit0, sm + buf * a.buf_elems);
+      else
+        attn_step_tc<16, DROP>(a, gr, u - gr.unit0, sm + buf * a.buf_elems);
+      __syncthreads();  // every warp is done with this buffer before it is refilled
+      buf ^= 1;
+    }
+    s = sn;
   }
 }
 
-// Launch the forward attention of every group; bias and mask are the
-// per-group tables concatenated (masks of shifted groups only).
-template <bool DROP, typename T = float>
-cudaError_t launch_attn_groups(const T* q, const T* k, const T* v, int kvs, const T* bias,
-                               const float* mask, T* out, int B, int H, int W, int D, int n_group,
-                               const int* ws, const int* shifts, int gh, float scale, int corrected, uint32_t seed,
-                               uint32_t thresh, float inv_keep, cudaStream_t st) {
+// Launch the forward attention of every group, one launch: biases[g] and
+// masks[g] are group g's tables (masks[g] read only where shifts[g] > 0).
+// Windows of 2, 4 or 8 dividing H and W, at most MAX_ATTN_GROUPS groups.
+template <bool DROP, typename T>
+cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const T* const* biases,
+                        const float* const* masks, T* out, int B, int H, int W, int D, int n_group, const int* ws,
+                        const int* shifts, int gh, float scale, int corrected, uint32_t seed, uint32_t thresh,
+                        float inv_keep, cudaStream_t st) {
+  if (n_group < 1 || n_group > MAX_ATTN_GROUPS) return cudaErrorInvalidValue;
+  AttnArgs<T> a;
+  a.q = q, a.k = k, a.v = v, a.out = out;
+  a.kvs = kvs, a.B = B, a.H = H, a.W = W, a.D = D, a.gh = gh, a.corrected = corrected;
+  a.vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
+  a.scale = scale, a.inv_keep = inv_keep, a.seed = seed, a.thresh = thresh;
+  const int ch = gh * GCH;
+  int n = 0, units = 0, buf_elems = 0;
+  const int order[3] = {8, 4, 2};
+  for (const int want : order)
+    for (int g = 0; g < n_group; ++g) {
+      if (ws[g] != want) continue;
+      if (H % want || W % want) return cudaErrorInvalidValue;
+      const int nw = (H / want) * (W / want), nn = want * want;
+      a.grp[n++] = AttnGroup<T>{biases[g], shifts[g] > 0 ? masks[g] : nullptr, g, want, shifts[g], units};
+      if (want == 2) {
+        units += (B * nw * gh * 4 + THREADS - 1) / THREADS;
+      } else {
+        const int wps = fwd_windows_a_step(nn, gh), slot = wps * nn * (2 * fwd_ldq(ch) + fwd_ldv<T>(ch));
+        units += (B * nw + wps - 1) / wps;
+        buf_elems = buf_elems > slot ? buf_elems : slot;
+      }
+    }
+  if (n != n_group) return cudaErrorInvalidValue;  // a window other than 2, 4 or 8
+  a.n_group = n, a.n_units = units, a.buf_elems = buf_elems;
+  const size_t smem = (size_t)2 * buf_elems * sizeof(T);
+  auto kern = window_attn_fwd_kernel<DROP, T>;
+  static GridCap cache;
+  int cap = 0;
+  const cudaError_t err = persistent_cap(cache, kern, THREADS, smem, &cap);
+  if (err != cudaSuccess) return err;
+  const int grid = units < cap ? units : cap;
+  if (grid == 0) return cudaSuccess;
+  kern<<<grid, THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// launch_attn on the per-group tables concatenated (masks of shifted groups
+// only).
+template <bool DROP>
+cudaError_t launch_attn_groups(const float* q, const float* k, const float* v, int kvs, const float* bias,
+                               const float* mask, float* out, int B, int H, int W, int D, int n_group, const int* ws,
+                               const int* shifts, int gh, float scale, int corrected, uint32_t seed, uint32_t thresh,
+                               float inv_keep, cudaStream_t st) {
+  if (n_group < 1 || n_group > MAX_ATTN_GROUPS) return cudaErrorInvalidValue;
+  const float* biases[MAX_ATTN_GROUPS];
+  const float* masks[MAX_ATTN_GROUPS];
   size_t boff = 0, moff = 0;
   for (int g = 0; g < n_group; ++g) {
-    const int n = ws[g] * ws[g];
-    const float* mg = shifts[g] > 0 ? mask + moff : nullptr;
-    cudaError_t err;
-    switch (ws[g]) {
-      case 2: err = launch_attn<4, DROP, T>(q, k, v, kvs, bias + boff, mg, out, B, H, W, D, g, gh, ws[g], shifts[g], scale, corrected, seed, thresh, inv_keep, st); break;
-      case 4: err = launch_attn<16, DROP, T>(q, k, v, kvs, bias + boff, mg, out, B, H, W, D, g, gh, ws[g], shifts[g], scale, corrected, seed, thresh, inv_keep, st); break;
-      case 8: err = launch_attn<64, DROP, T>(q, k, v, kvs, bias + boff, mg, out, B, H, W, D, g, gh, ws[g], shifts[g], scale, corrected, seed, thresh, inv_keep, st); break;
-      default: err = cudaErrorInvalidValue;
-    }
-    if (err != cudaSuccess) return err;
-    boff += (size_t)gh * n * n;
-    if (shifts[g] > 0) moff += (size_t)(H / ws[g]) * (W / ws[g]) * n * n;
+    if (ws[g] != 2 && ws[g] != 4 && ws[g] != 8) return cudaErrorInvalidValue;
+    const size_t nn = (size_t)ws[g] * ws[g];
+    biases[g] = bias + boff;
+    masks[g] = shifts[g] > 0 ? mask + moff : nullptr;
+    boff += gh * nn * nn;
+    if (shifts[g] > 0) moff += (size_t)(H / ws[g]) * (W / ws[g]) * nn * nn;
   }
-  return cudaSuccess;
+  return launch_attn<DROP>(q, k, v, kvs, biases, masks, out, B, H, W, D, n_group, ws, shifts, gh, scale, corrected,
+                           seed, thresh, inv_keep, st);
 }
 
 // launch_attn_groups with the dropout flag chosen at run time.

@@ -102,7 +102,7 @@ __global__ void __launch_bounds__(TPB, 2)
       if (w < n_win) {
         const float* Qs = sm + (buf * WPS + lw) * slot;
         float s[NT][4] = {};
-        qk_tile<NT, false>(s, Qs + 16 * mi * ldk, ldk, Qs + NP * ldk, ldk, lay.cp);
+        qk_tile<NT>(s, Qs + 16 * mi * ldk, ldk, Qs + NP * ldk, ldk, lay.cp);
         const int i0 = 16 * mi + g8;
 #pragma unroll
         for (int jn = 0; jn < NT; ++jn)
@@ -131,7 +131,7 @@ __global__ void __launch_bounds__(TPB, 2)
           }
         softmax_rows<false>(s);
         float o[8][4] = {};
-        pv_tile<NT, 8, false>(o, s, Qs + 2 * NP * ldk, ldv, lay.cp / 8);
+        pv_tile<NT, 8>(o, s, Qs + 2 * NP * ldk, ldv, lay.cp / 8);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int i = i0 + 8 * r;

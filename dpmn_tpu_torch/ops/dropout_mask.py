@@ -12,7 +12,8 @@ exactly those draws for a seed, so a dumped mask is the mask a core applied.
 The masks are per window, (B, heads, nW, N, N) for each group, not packed
 into the TPU's (HW/128, 128, 128) tiles: the port's cores never pack
 (ops/window_attention_core.py).  `dropout_mask` launches
-csrc/dropout_mask.cu on the card and runs the plain version
+csrc/dropout_mask.cu once a call on the card (every group's mask a view of
+one allocation, the kernel given their addresses) and runs the plain version
 `dropout_mask_plain` (`dropout_bits` + `keep_multiplier`) on the CPU.  No
 JAX function computes these masks on the CPU: the TPU kernel draws from the
 TPU's hardware PRNG, which has no interpret mode.
@@ -32,6 +33,11 @@ from .window_attention_train import _M32, dropout_bits, keep_multiplier, keep_th
 
 dropout_mask_counter = kernels.LaunchCounter()
 
+MAX_GROUPS = 8  # the groups one launch takes (csrc/dropout_mask.cu MASK_GROUPS)
+_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_uint32] * 2
+             + [ctypes.c_float, ctypes.c_void_p])
+_launches: dict = {}
+
 
 def _geometry(keep: float, window_sizes: Sequence[int], hw_shape):
     if not 0.0 < keep <= 1.0:
@@ -41,6 +47,26 @@ def _geometry(keep: float, window_sizes: Sequence[int], hw_shape):
         if ws < 1 or h % ws or w % ws:
             raise ValueError(f"dropout_mask: window {ws} on a {h}x{w} grid")
     return [((h // ws) * (w // ws), ws * ws) for ws in window_sizes]
+
+
+def _launch_geometry(batch: int, keep: float, window_sizes, gnum_heads: int, hw_shape):
+    """(the float32 elements of one allocation for every group's mask, per
+    group its (shape, stride, offset) in it at a 16-byte aligned offset,
+    the windows as a C int array, the keep threshold, 1/keep as float32):
+    checked once per geometry (raises on one the kernel does not take),
+    then kept."""
+    key = (batch, keep, window_sizes, gnum_heads, hw_shape)
+    if key not in _launches:
+        shapes = _geometry(keep, window_sizes, hw_shape)
+        if not 0 < len(shapes) <= MAX_GROUPS:
+            raise ValueError(f"dropout_mask kernel: {len(shapes)} groups, it takes 1 to {MAX_GROUPS}")
+        views, total = [], 0
+        for nw, n in shapes:
+            views.append(((batch, gnum_heads, nw, n, n), (gnum_heads * nw * n * n, nw * n * n, n * n, n, 1), total))
+            total += -(-batch * gnum_heads * nw * n * n // 4) * 4
+        _launches[key] = (total, views, (ctypes.c_int * len(shapes))(*window_sizes), keep_threshold(keep),
+                          float(np.float32(1.0 / keep)))
+    return _launches[key]
 
 
 def dropout_mask_plain(seed: int, batch: int, keep: float, window_sizes: Sequence[int], gnum_heads: int, hw_shape,
@@ -62,18 +88,14 @@ def dropout_mask(seed: int, batch: int, keep: float, window_sizes: Sequence[int]
     dev = resolve_device(device)
     if dev.type == "cpu":
         return dropout_mask_plain(seed, batch, keep, window_sizes, gnum_heads, hw_shape, dev)
-    shapes = _geometry(keep, window_sizes, hw_shape)
-    sizes = [batch * gnum_heads * nw * n * n for nw, n in shapes]
-    flat = torch.empty(sum(sizes), device=dev, dtype=torch.float32)
+    total, views, ws_arr, thresh, inv_keep = _launch_geometry(batch, keep, tuple(window_sizes), gnum_heads,
+                                                               tuple(hw_shape))
     h, w = hw_shape
-    n_group = len(window_sizes)
-    fn = kernels.library("dropout_mask").dropout_mask_forward
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_uint32] * 2
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(kernels.ptr(flat), batch, h, w, n_group, (ctypes.c_int * n_group)(*window_sizes), gnum_heads,
-             ctypes.c_uint32(seed & _M32), ctypes.c_uint32(keep_threshold(keep)), ctypes.c_float(np.float32(1.0 / keep)),
-             kernels.stream_ptr(dev))
+    flat = torch.empty(total, device=dev)  # one allocation: less host time than one a group
+    outs = [flat.as_strided(*view) for view in views]
+    fn = kernels.bind("dropout_mask", "dropout_mask_forward", _ARGTYPES)
+    err = fn((ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs]), batch, h, w, len(outs), ws_arr,
+             gnum_heads, seed & _M32, thresh, inv_keep, kernels.stream_ptr(dev))
     kernels.check_launch(err, "dropout_mask_forward")
     dropout_mask_counter.launches += 1
-    return [t.view(batch, gnum_heads, nw, n, n) for t, (nw, n) in zip(flat.split(sizes), shapes)]
+    return outs

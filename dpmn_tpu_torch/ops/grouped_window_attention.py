@@ -11,9 +11,11 @@ Two io types: float32, and bf16 — q, k, v and the per-group biases in bf16,
 the shift masks in float32, every sum in float32 and the result rounded
 once to bf16, as the TPU kernel does.  `grouped_window_attention` launches
 csrc/grouped_window_attention.cu (the forward attention kernel of K4 at keep
-1, templated on the io type) for CUDA tensors and runs the plain version
-`grouped_window_attention_plain` for CPU tensors.  The kernel has no
-backward.
+1, templated on the io type; bf16 on bf16 tensor-core products) once a call
+for CUDA tensors and runs the plain version `grouped_window_attention_plain`
+for CPU tensors.  The kernel has no backward.  The wrapper hands the
+kernel the per-group tables as arrays of pointers (nothing is
+concatenated) and checks a static geometry once (`_geometry`).
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ from .window_attention_train import window_attention_core_plain
 grouped_window_attention_counter = kernels.LaunchCounter()
 
 IO_TYPES = (torch.float32, torch.bfloat16)
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_geometries: dict = {}
 
 
 def grouped_window_attention_plain(q, k, v, biases: Sequence[torch.Tensor], masks: Sequence[Optional[torch.Tensor]],
@@ -44,6 +49,29 @@ def grouped_window_attention_plain(q, k, v, biases: Sequence[torch.Tensor], mask
     out = window_attention_core_plain(qf, kf, vf, [bb.float() for bb in biases], masks, 0, 1.0, window_sizes,
                                       shifts, gnum_heads, scale, (h, w))
     return out.reshape(b, h, w, dim).to(q.dtype)
+
+
+def _geometry(window_sizes, shifts, gnum_heads, scale, h, w, dim):
+    """(groups, windows and shifts as C int arrays, per group the bias table's
+    shape and the mask table's or None): checked once per geometry (raises
+    on one the kernel does not take), then kept."""
+    key = (window_sizes, shifts, gnum_heads, h, w, dim)
+    if key not in _geometries:
+        st = WT.make_static((), 0, 1.0, window_sizes, shifts, gnum_heads, scale, (h, w))
+        WT.check_geometry("grouped_window_attention", st, h * w, dim)
+        n = len(st.window_sizes)
+        if len(st.shifts) != n:
+            raise ValueError(f"grouped_window_attention: {n} windows and {len(st.shifts)} shifts")
+        tables = [((st.gnum_heads, ws * ws, ws * ws), ((h // ws) * (w // ws), ws * ws, ws * ws) if sh > 0 else None)
+                  for ws, sh in zip(st.window_sizes, st.shifts)]
+        _geometries[key] = (n, (ctypes.c_int * n)(*st.window_sizes), (ctypes.c_int * n)(*st.shifts), tables)
+    return _geometries[key]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """A table the kernel reads in 8-byte pairs: itself, or a copy where it
+    is not 8-byte aligned (a view into a larger tensor)."""
+    return t if t.data_ptr() % 8 == 0 else t.clone()
 
 
 def grouped_window_attention(q, k, v, biases: Sequence[torch.Tensor], masks: Sequence[Optional[torch.Tensor]],
@@ -64,19 +92,26 @@ def grouped_window_attention(q, k, v, biases: Sequence[torch.Tensor], masks: Seq
     dtype, dev = q.dtype, q.device
     if dtype not in IO_TYPES:
         raise ValueError(f"grouped_window_attention kernel: io type {dtype}, it takes float32 or bfloat16")
-    st = WT.make_static(masks, 0, 1.0, window_sizes, shifts, gnum_heads, scale, (h, w))
-    WT.check_geometry("grouped_window_attention", st, h * w, dim)
+    n, ws_arr, sh_arr, tables = _geometry(tuple(window_sizes), tuple(shifts), gnum_heads, scale, h, w, dim)
     for name, t in (("q", q), ("k", k), ("v", v)):
         kernels.check_cuda_tensor(name, t, (b, h, w, dim), dev, dtype)
+    if len(biases) != n or len(masks) != n:
+        raise ValueError(f"grouped_window_attention: {n} groups, {len(biases)} biases and {len(masks)} masks")
+    bias_ptrs, mask_ptrs = (ctypes.c_void_p * n)(), (ctypes.c_void_p * n)()
+    held = []  # the tables the kernel reads, copies included, alive until it is launched
+    for i, (bias, mask, (bias_shape, mask_shape)) in enumerate(zip(biases, masks, tables)):
+        kernels.check_cuda_tensor(f"bias {i}", bias, bias_shape, dev, dtype)
+        held.append(_aligned(bias))
+        bias_ptrs[i] = held[-1].data_ptr()
+        if mask_shape is not None:
+            kernels.check_cuda_tensor(f"mask {i}", mask, mask_shape, dev)
+            held.append(_aligned(mask))
+            mask_ptrs[i] = held[-1].data_ptr()
     kernels.refuse_autograd("grouped_window_attention", (q, k, v, *biases))
-    bias, mask, ws_arr, sh_arr = WT.pack_tables(st, biases, dev, dtype)
     out = torch.empty(b, h, w, dim, device=dev, dtype=dtype)
-    fn = kernels.library("grouped_window_attention").grouped_window_attention_forward
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(*[kernels.ptr(t) for t in (q, k, v, bias, mask, out)], b, h, w, dim, len(st.window_sizes), ws_arr,
-             sh_arr, st.gnum_heads, st.scale, int(dtype == torch.bfloat16), kernels.stream_ptr(dev))
+    fn = kernels.bind("grouped_window_attention", "grouped_window_attention_forward", _ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptrs, mask_ptrs, out.data_ptr(), b, h, w, dim, n,
+             ws_arr, sh_arr, gnum_heads, scale, int(dtype == torch.bfloat16), kernels.stream_ptr(dev))
     kernels.check_launch(err, "grouped_window_attention_forward")
     grouped_window_attention_counter.launches += 1
     return out

@@ -80,9 +80,8 @@ def _launch(xps, w_hhs, b_hhs, reverse: bool) -> torch.Tensor:
     out = torch.empty(n, t_len, ndir * hdim, device=dev, dtype=torch.float32)
     # the cooperative regime's ping-pong h, [2][ndir][H][SEQ_CHUNK]
     hbuf = None if hdim == 32 else torch.empty(2 * ndir * hdim * SEQ_CHUNK, device=dev, dtype=torch.float32)
-    fn = kernels.library("gru_scan").gru_scan_forward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels.bind("gru_scan", "gru_scan_forward",
+                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
     second = 1 if ndir == 2 else 0
     err = fn(kernels.ptr(xps[0]), kernels.ptr(xps[second]), kernels.ptr(w_hhs[0]), kernels.ptr(w_hhs[second]),
              kernels.ptr(b_hhs[0]), kernels.ptr(b_hhs[second]), kernels.ptr(out),

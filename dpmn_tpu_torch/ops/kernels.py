@@ -6,7 +6,8 @@ the source and every `csrc/*.cuh` header, so an edited source or header is
 rebuilt), then loaded with ctypes.  All
 sources are compiled in parallel, one nvcc process each.  Nothing here runs
 when a module is imported: the build happens at the first launch, or when
-`build_all()` is called.
+`build_all()` is called.  A wrapper reaches a C entry point through `bind`,
+which sets its argument and result types once, when it is first asked for.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict = {}
+_entries: dict = {}
 ptxas_report: dict = {}  # kernel source -> nvcc's -Xptxas -v output of its last build
 
 
@@ -94,6 +96,18 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def bind(name: str, fn: str, argtypes, restype=ctypes.c_int):
+    """The C entry point `fn` of `csrc/<name>.cu` with its argtypes and
+    restype set, once: the first call loads the library (building it if
+    needed) and binds the function, later calls return it from a cache."""
+    key = (name, fn)
+    if key not in _entries:
+        f = getattr(library(name), fn)
+        f.argtypes, f.restype = list(argtypes), restype
+        _entries[key] = f
+    return _entries[key]
+
+
 def refuse_autograd(what: str, tensors) -> None:
     """Raise when autograd would need a gradient through a kernel that has no
     backward: grad mode is on and one of `tensors` requires grad.  Without
@@ -115,14 +129,22 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream_ptr(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_ptr(device: torch.device) -> int:
+    """The raw handle of the current CUDA stream of `device` (the call
+    torch's own compiler stack uses; torch.cuda.current_stream builds a
+    Stream object a call)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, shape=None, device=None, dtype=torch.float32,
                       contiguous: bool = True) -> None:
     """Raise unless `t` is a CUDA tensor of `dtype` (float32 by default) and
-    `shape`, contiguous unless `contiguous` is False."""
+    `shape`, contiguous unless `contiguous` is False (the conditions tested
+    once on the way through, each again with its message on failure)."""
+    if (t.is_cuda and t.dtype == dtype and (shape is None or t.shape == shape)
+            and (not contiguous or t.is_contiguous()) and (device is None or t.device == device)):
+        return
     if t.device.type != "cuda" or (device is not None and t.device != device):
         raise ValueError(f"{name}: expected a tensor on {device or 'cuda'}, got {t.device}")
     if t.dtype != dtype:

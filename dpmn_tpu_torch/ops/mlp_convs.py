@@ -68,9 +68,7 @@ def mlp_convs(x: torch.Tensor, dw_weight: torch.Tensor, dw_bias: torch.Tensor, p
     kernels.check_cuda_tensor("pw_bias", pw_bias, (hidden,), dev)
     kernels.refuse_autograd("mlp_convs", (x, dw_weight, dw_bias, pw_weight, pw_bias))
     out = torch.empty(b, hw, hidden, device=dev, dtype=torch.float32)
-    fn = kernels.library("mlp_convs").mlp_convs_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels.bind("mlp_convs", "mlp_convs_forward", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     err = fn(*[kernels.ptr(t) for t in (x, dw_weight, dw_bias, pw_weight, pw_bias, out)], b, s, hidden,
              kernels.stream_ptr(dev))
     kernels.check_launch(err, "mlp_convs_forward")

@@ -186,11 +186,9 @@ def window_attention_block(xq, xkv, weights: dict, biases, masks, window_sizes, 
     null = ctypes.c_void_p(None)
     ln_ptrs = [kernels.ptr(ln[k]) for k in _LN] if ln is not None else [null] * 4
 
-    lib = kernels.library("window_attention")
-    fn = lib.window_attention_block_forward
-    fn.argtypes = ([ctypes.c_void_p] * 27 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = kernels.bind("window_attention", "window_attention_block_forward",
+                      [ctypes.c_void_p] * 27 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     wp = [kernels.ptr(weights[k]) for k in _WEIGHTS]
     err = fn(kernels.ptr(xq), kernels.ptr(xkv), *ln_ptrs, *wp[:4], kernels.ptr(bias), kernels.ptr(mask),
              *wp[4:], kernels.ptr(qbuf), kernels.ptr(kvbuf), kernels.ptr(attn), kernels.ptr(feats),

@@ -23,7 +23,6 @@ per-group biases and masks, as its K3 does.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Sequence
 
 import torch
@@ -54,10 +53,7 @@ def _forward_cuda(st: WT._Static, primals, biases):
     b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device
     out = torch.empty(b, h * w, dim, device=dev)
-    fn = kernels.library(_NAME).window_attention_core_forward
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_float]
-                   + [ctypes.c_uint32] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = kernels.bind(_NAME, "window_attention_core_forward", WT.core_argtypes(6))
     err = fn(*[kernels.ptr(t) for t in (*primals, bias, mask, out)], b, h, w, dim, len(st.window_sizes), ws_arr,
              sh_arr, st.gnum_heads, float(st.scale), *WT.drop_args(st), kernels.stream_ptr(dev))
     kernels.check_launch(err, "window_attention_core_forward")
@@ -70,15 +66,11 @@ def _backward_cuda(st: WT._Static, primals, biases, dout: torch.Tensor, kept=())
     b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device
     kernels.check_cuda_tensor("dout", dout, (b, h * w, dim), dev)
-    lib = kernels.library(_NAME)
-    dbias_part = torch.empty(WT.scratch_floats(lib.window_attention_core_backward_scratch, b, h, w,
+    dbias_part = torch.empty(WT.scratch_floats(_NAME, "window_attention_core_backward_scratch", b, h, w,
                                                len(st.window_sizes), ws_arr, st.gnum_heads), device=dev)
     dq, dk, dv = (torch.empty(b, h * w, dim, device=dev) for _ in range(3))
     dbias = torch.empty(bias.numel(), device=dev)
-    fn = lib.window_attention_core_backward
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_float]
-                   + [ctypes.c_uint32] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = kernels.bind(_NAME, "window_attention_core_backward", WT.core_argtypes(11))
     err = fn(*[kernels.ptr(t) for t in (*primals, bias, mask, dout, dbias_part, dq, dk, dv, dbias)], b, h, w, dim,
              len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, float(st.scale), *WT.drop_args(st),
              kernels.stream_ptr(dev))

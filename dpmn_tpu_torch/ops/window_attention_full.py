@@ -68,23 +68,24 @@ def kept_shapes(b: int, l: int, dim: int):
     return (b, l, dim), (b * l // 64, dim), (b, dim)
 
 
+def _argtypes(n_ptrs):
+    """The argtypes of K5's forward and backward entry points: n_ptrs
+    pointers, then the geometry, dz, scale and the dropout arguments."""
+    return ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_uint32] * 2
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
 def _forward_cuda(st: WT._Static, primals, biases):
     """(out, kept): SKConv's output and what the backward takes besides the
     inputs (`kept_shapes`)."""
     b, h, w, dim, dz, wt, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device
-    lib = kernels.library(_NAME)
-    size = lib.window_attention_full_forward_scratch
-    size.argtypes = [ctypes.c_int] * 4
-    size.restype = ctypes.c_size_t
+    size = kernels.bind(_NAME, "window_attention_full_forward_scratch", [ctypes.c_int] * 4, ctypes.c_size_t)
     scratch = torch.empty(size(b, h, w, dim), device=dev)
     out = torch.empty(b, h * w, dim, device=dev)
     kept = tuple(torch.empty(shape, device=dev) for shape in kept_shapes(b, h * w, dim))
-    fn = lib.window_attention_full_forward
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_uint32] * 2
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = kernels.bind(_NAME, "window_attention_full_forward", _argtypes(10))
     err = fn(kernels.ptr(primals[0]), kernels.ptr(primals[1]), wt, kernels.ptr(bias), kernels.ptr(mask),
              kernels.ptr(scratch), kernels.ptr(out), *[kernels.ptr(t) for t in kept], b, h, w, dim,
              len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, dz, float(st.scale), *WT.drop_args(st),
@@ -102,20 +103,14 @@ def _backward_cuda(st: WT._Static, primals, biases, dout: torch.Tensor, kept):
     kernels.check_cuda_tensor("dout", dout, (b, h * w, dim), dev)
     for name, t, shape in zip(("tok", "partial", "gate"), kept, kept_shapes(b, h * w, dim)):
         kernels.check_cuda_tensor(name, t, shape, dev)
-    lib = kernels.library(_NAME)
-    size = lib.window_attention_full_backward_scratch
-    size.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 2
-    size.restype = ctypes.c_size_t
+    size = kernels.bind(_NAME, "window_attention_full_backward_scratch",
+                        [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 2, ctypes.c_size_t)
     scratch = torch.empty(size(b, h, w, dim, len(st.window_sizes), ws_arr, st.gnum_heads, dz), device=dev)
     dxq, dxkv = torch.empty(b, h * w, dim, device=dev), torch.empty(b, h * w, dim, device=dev)
     weights = primals[2:]
     gw = torch.empty(sum(t.numel() for t in weights), device=dev)
     dbias = torch.empty(bias.numel(), device=dev)
-    fn = lib.window_attention_full_backward
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_uint32] * 2
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = kernels.bind(_NAME, "window_attention_full_backward", _argtypes(14))
     err = fn(kernels.ptr(primals[0]), kernels.ptr(primals[1]), wt, kernels.ptr(bias), kernels.ptr(mask),
              *[kernels.ptr(t) for t in (dout, *kept, scratch, dxq, dxkv, gw, dbias)], b, h, w, dim,
              len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, dz, float(st.scale), *WT.drop_args(st),

@@ -265,12 +265,18 @@ def _prepare(st: _Static, primals, biases):
     return (b, *st.hw_shape, dim, *pack_tables(st, biases, dev))
 
 
-def scratch_floats(fn, b, h, w, n_group, ws_arr, gnum_heads) -> int:
+def scratch_floats(name, fn, b, h, w, n_group, ws_arr, gnum_heads) -> int:
     """The floats of an attention backward's dbias_part scratch, from the C
-    function `fn` of its library (attn_bwd_part_floats)."""
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_size_t
-    return fn(b, h, w, n_group, ws_arr, gnum_heads)
+    function `fn` of the library `name` (attn_bwd_part_floats)."""
+    size = kernels.bind(name, fn, [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int], ctypes.c_size_t)
+    return size(b, h, w, n_group, ws_arr, gnum_heads)
+
+
+def core_argtypes(n_ptrs):
+    """The argtypes of K3's and K4's forward and backward entry points:
+    n_ptrs pointers, then the geometry, scale and the dropout arguments."""
+    return ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_float]
+            + [ctypes.c_uint32] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def drop_args(st: _Static):
@@ -288,10 +294,7 @@ def _forward_cuda(st: _Static, primals, biases):
     qbuf = torch.empty(b, l, dim, device=dev)
     kvbuf = torch.empty(b, l, 2 * dim, device=dev)
     out = torch.empty(b, l, dim, device=dev)
-    fn = kernels.library("window_attention_train").window_attention_train_forward
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_float]
-                   + [ctypes.c_uint32] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = kernels.bind("window_attention_train", "window_attention_train_forward", core_argtypes(15))
     ptrs = [kernels.ptr(t) for t in (*primals, bias, mask, qbuf, kvbuf, out)]
     err = fn(*ptrs, b, h, w, dim, len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, float(st.scale),
              *drop_args(st), kernels.stream_ptr(dev))
@@ -310,9 +313,8 @@ def _backward_cuda(st: _Static, primals, biases, dout: torch.Tensor, kept=()):
     def scratch(*shape):
         return torch.empty(*shape, device=dev)
 
-    lib = kernels.library("window_attention_train")
-    n_part = scratch_floats(lib.window_attention_train_backward_scratch, b, h, w, len(st.window_sizes), ws_arr,
-                            st.gnum_heads)
+    n_part = scratch_floats("window_attention_train", "window_attention_train_backward_scratch", b, h, w,
+                            len(st.window_sizes), ws_arr, st.gnum_heads)
     n_chunk = -(-ntok // 512)
     bufs = [scratch(b, l, dim), scratch(b, l, 2 * dim), scratch(b, l, dim), scratch(b, l, 2 * dim),
             scratch(n_part), scratch(n_chunk, dim * dim + dim), scratch(n_chunk, 2 * dim * dim + 2 * dim),
@@ -321,10 +323,7 @@ def _backward_cuda(st: _Static, primals, biases, dout: torch.Tensor, kept=()):
     gq, gkv = scratch(dim * dim + dim), scratch(2 * dim * dim + 2 * dim)
     gln_q, gln_kv = scratch(2 * dim), scratch(2 * dim)
     dbias = scratch(bias.numel())
-    fn = lib.window_attention_train_backward
-    fn.argtypes = ([ctypes.c_void_p] * 29 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_float]
-                   + [ctypes.c_uint32] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = kernels.bind("window_attention_train", "window_attention_train_backward", core_argtypes(29))
     ptrs = [kernels.ptr(t) for t in (*primals, bias, mask, dout, *bufs, dxq, dxkv, gq, gkv, gln_q, gln_kv, dbias)]
     err = fn(*ptrs, b, h, w, dim, len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, float(st.scale),
              *drop_args(st), kernels.stream_ptr(dev))

@@ -63,9 +63,8 @@ def window_tile_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bia
         kernels.check_cuda_tensor("mask", mask, (w, n, n), dev)
     kernels.refuse_autograd("window_tile_attention", (q, k, v, bias, mask))
     out = torch.empty(w, n, c, device=dev, dtype=torch.float32)
-    fn = kernels.library("window_tile_attention").window_tile_attention_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels.bind("window_tile_attention", "window_tile_attention_forward",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     mask_ptr = kernels.ptr(mask) if mask is not None else ctypes.c_void_p(None)
     err = fn(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(bias), mask_ptr, kernels.ptr(out), w, n, c,
              kernels.stream_ptr(dev))

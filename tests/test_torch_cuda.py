@@ -490,6 +490,88 @@ def test_grouped_window_attention_kernel(dev, shift, dtype):
     assert err <= (1e-4 if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item())
 
 
+def device_kernels(fn, attempts=5):
+    """The names of the kernels one call of fn launches (torch.profiler),
+    after a warm-up call.  A profile that recorded no kernel is taken again:
+    CUPTI drops every event of some later profiles of a process."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+# K7's widths: K1's and K4's (2 heads a group at D = 96 and 64, 1 at D = 32)
+# and D = 96 in two groups of 3 heads
+K7_WIDTHS = WIDTHS + [(96, (2, 8), 6, (1, 4))]
+
+
+def k7_inputs(dev, batch, width, dtype, unaligned=False, seed=5):
+    """q, k, v (B, 16, 64, D) in the io type, one element into their storage
+    when `unaligned`, and the rest of grouped_window_attention's arguments."""
+    dim, windows, heads, shift = width
+    gen = torch.Generator().manual_seed(seed)
+    wa = WindowAttention(dim, list(windows), list(shift), heads, (16, 64))
+    with torch.no_grad():
+        for i in range(len(windows)):
+            getattr(wa, f"relative_position_bias_table_{i}").normal_(0, 0.1, generator=gen)
+    wa = wa.to(dev)
+    size = batch * 16 * 64 * dim
+    qkv = [(0.5 * torch.randn(size + 1, generator=gen)).to(dev, dtype) for _ in range(3)]
+    q, k, v = ((t[1:] if unaligned else t[:-1]).view(batch, 16, 64, dim) for t in qkv)
+    return q, k, v, ([b.detach().to(dtype) for b in wa.biases()], wa.masks(), wa.win, wa.shf, wa.gnum_heads,
+                     wa.scale)
+
+
+def check_k7(q, k, v, args):
+    """K7 against its plain version in its io type (float32 to 1e-4, bf16 to
+    one bf16 rounding of the largest value), one counted launch."""
+    before = GW.grouped_window_attention_counter.launches
+    out = GW.grouped_window_attention(q, k, v, *args)
+    ref = GW.grouped_window_attention_plain(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert GW.grouped_window_attention_counter.launches == before + 1
+    assert out.dtype == q.dtype and torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= (1e-4 if q.dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item())
+
+
+@pytest.mark.parametrize("batch", [1, 3, 5])
+@pytest.mark.parametrize("width", K7_WIDTHS, ids=lambda wd: f"D{wd[0]}g{len(wd[1])}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_window_attention_kernel_batches_and_widths(dev, batch, width, dtype):
+    check_k7(*k7_inputs(dev, batch, width, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_window_attention_kernel_unaligned_rows(dev, dtype):
+    """q, k, v whose rows are not 16-byte aligned: staged element by element
+    into the same shared layout (ldmatrix still reads it in bf16); bias and
+    mask tables one element into their storage, which the wrapper copies."""
+    q, k, v, args = k7_inputs(dev, 3, K7_WIDTHS[0], dtype, unaligned=True)
+    assert all(t.data_ptr() % 16 for t in (q, k, v))
+    shifted = lambda ts: [torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape) for t in ts]
+    biases, masks = shifted(args[0]), shifted(args[1])
+    assert all(t.data_ptr() % 8 for t in biases + masks)
+    check_k7(q, k, v, (biases, masks, *args[2:]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_window_attention_kernel_one_launch_reruns_bit_for_bit(dev, dtype):
+    """One kernel launch a call for all three groups; two runs agree exactly."""
+    q, k, v, args = k7_inputs(dev, 5, K7_WIDTHS[0], dtype)
+    names = device_kernels(lambda: GW.grouped_window_attention(q, k, v, *args))
+    assert len(names) == 1 and "window_attn_fwd_kernel" in names[0], names
+    assert torch.equal(GW.grouped_window_attention(q, k, v, *args), GW.grouped_window_attention(q, k, v, *args))
+
+
 def mlp_inputs(dev, b, s, hidden):
     gen = torch.Generator().manual_seed(s)
     x = torch.randn(b, s * s, hidden, generator=gen).to(dev)
@@ -543,6 +625,28 @@ def test_dropout_mask_kernel(dev, keep):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     r = debug_train_dropout.check(dev, batch=2)
     assert r["fwd_max_abs"] <= 1e-4 and r["grad_max_abs"] <= 1e-4 * r["grad_scale"] + 1e-5
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("keep", [0.5, 0.9, 1.0])
+@pytest.mark.parametrize("windows,hw", [((2, 4, 8), (16, 64)), ((2, 4), (8, 16)), ((2, 3, 4), (12, 24))],
+                         ids=["flagship", "8x16", "any-window"])
+def test_dropout_mask_kernel_batches_and_grids(dev, batch, keep, windows, hw):
+    """K9 draws exactly the plain version's masks, one counted launch a call
+    (3x3 windows: a lane an element, the next group's mask at a 16-byte
+    aligned offset of the one allocation)."""
+    before = DM.dropout_mask_counter.launches
+    got = DM.dropout_mask(7, batch, keep, windows, 2, hw, dev)
+    torch.cuda.synchronize()
+    assert DM.dropout_mask_counter.launches == before + 1
+    want = DM.dropout_mask_plain(7, batch, keep, windows, 2, hw, dev)
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_dropout_mask_kernel_one_launch(dev):
+    """One kernel launch a call for every group."""
+    names = device_kernels(lambda: DM.dropout_mask(7, 3, 0.9, (2, 4, 8), 2, (16, 64), dev))
+    assert len(names) == 1 and "dropout_mask_kernel" in names[0], names
 
 
 def test_new_kernels_reject_what_they_do_not_take(dev):

@@ -1,7 +1,8 @@
 """The kernel build and launch helpers of dpmn_tpu_torch.ops.kernels, on the
 CPU: the build key covers every header a source may include, kernels
-without a backward refuse autograd, and the launch-side tensor check refuses
-a tensor that is not on the card."""
+without a backward refuse autograd, the launch-side tensor check refuses
+a tensor that is not on the card, and the attention-forward ablations of
+tools/attention_groups.py still find their text in the sources."""
 
 import pytest
 import torch
@@ -51,3 +52,13 @@ def test_check_cuda_tensor_refuses_other_devices():
     for dtype in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match="expected a tensor on cuda"):
             kernels.check_cuda_tensor("x", torch.zeros(2, dtype=dtype), (2,), dtype=dtype)
+
+
+def test_attention_ablations_find_their_source_text():
+    """Each variant of tools/attention_groups.py takes out text that occurs
+    exactly once in the current kernel sources."""
+    from dpmn_tpu_torch.tools import attention_groups
+
+    for variant, edits in attention_groups.ABLATIONS.items():
+        for name, text, _ in edits:
+            assert (kernels.CSRC / name).read_text().count(text) == 1, (variant, name)
