@@ -28,6 +28,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
      random weights — launch counts of each kernel over one forward, output
      shape and finiteness, images/s; then the same weights on 2 images on the
      CPU (plain versions) against the card;
+  4b. the serving modes of the eval forward on the same system: K1 on bf16
+     io against its plain version at B = 64 (both shift sets, both layouts;
+     its 12 calls' time and sub-kernel split beside their bounds); then
+     sr_forward(glyph_from_psn=True), sr_forward with bf16 students and
+     sr_forward_bf16 in both glyph modes, each with exact launch counts over
+     one forward, images/s and peak memory; the share of the students' ids
+     that bf16 keeps, bf16 SR against float32 SR (mean abs < 0.05), PSNR /
+     SSIM and the CRNN judge's word agreement between them, and the card
+     against the CPU on 2 images for glyph_from_psn=True;
   5. the training window-attention kernel K3, forward and backward, against
      autograd through its plain version at B = 64 and the flagship geometry:
      both shift sets, both layouts, dropout off and at keep 0.9 from one seed;
@@ -96,9 +105,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12  # dense, on the tensor cores
-# the sub-kernels whose products run on the tensor cores (3xTF32): mma.sync
-# (HMMA in their machine code), K6's on wgmma (HGMMA)
-TC_KERNELS = ("ln_proj_kernel", "skconv_proj_kernel", "skconv_out_kernel", "proj_ln_bwd_kernel", "wgrad_kernel",
+BF16_FLOP_PER_S = 989e12  # dense, on the tensor cores
+# the sub-kernels whose products run on the tensor cores (3xTF32, or bf16
+# for K1's bf16 LN + projection): mma.sync (HMMA in their machine code),
+# K6's on wgmma (HGMMA)
+TC_KERNELS = ("ln_proj_kernel", "ln_proj_bf16_kernel", "skconv_proj_kernel", "skconv_out_kernel", "proj_ln_bwd_kernel", "wgrad_kernel",
               "window_attn_bwd_tc_kernel", "skconv_bwd_a_kernel", "skconv_bwd_b_kernel", "mlp_convs_kernel",
               "window_attn_fwd_kernel", "tile_attn_tc_kernel")
 B = 64
@@ -109,6 +120,8 @@ K3_GRAD_RTOL, K3_GRAD_ATOL = 1e-4, 1e-5  # per gradient: max abs <= rtol * max|r
 # K4 and K5 are held as K3: forward max abs K3_TOL, each gradient as above
 K6_TOL = 1e-4  # max abs error: float32 sums of 9 and 384 terms in other orders
 K7_TOL = 1e-4  # float32 max abs error, as K1; bf16: one bf16 rounding of max|out| (2^-7 of it)
+BF16_ROUNDING = 2.0**-7  # K1 and K7 on bf16 io: max abs <= this x max|out| (tests/test_torch_window_attention_bf16.py)
+SERVE_MEAN_TOL = 0.05  # bf16 SR against float32 SR, mean abs (tests/test_prefetch_bf16.py)
 K7_BF16_RTOL, K7_BF16_ATOL = 0.1, 0.15  # bf16 against the float32 kernel (tests/test_pallas_window.py)
 K8_TOL = 1e-5  # max abs error: float32 sums of <= 64 terms in other orders
 
@@ -145,12 +158,13 @@ def host_ms(fn, iters=100, warmup=3):
     return ms
 
 
-def bound_ms(nbytes, flops, tc_flops=0.0):
+def bound_ms(nbytes, flops, tc_flops=0.0, bf16_flops=0.0):
     """The larger of the bytes at 3.35 TB/s and the operations: float32 on
     the CUDA cores at 67 TFLOP/s, plus tc_flops run as 3xTF32 on the tensor
-    cores (3 x tc_flops at 495 TFLOP/s)."""
+    cores (3 x tc_flops at 495 TFLOP/s), plus bf16_flops on bf16 operands at
+    989 TFLOP/s."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3 + 3 * tc_flops / TF32_FLOP_PER_S * 1e3
+    t_ops = (flops / FP32_FLOP_PER_S + 3 * tc_flops / TF32_FLOP_PER_S + bf16_flops / BF16_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -199,7 +213,8 @@ def log_split(tag, split, parts, library=None):
     """Each sub-kernel's device time (ms and launches per path, and ms a
     launch, which stays right where the profiler drops some of a run's
     events) beside the bound of its part; parts: {kernel name: (bytes,
-    float32 operations on CUDA cores, operations on tensor cores)} per path,
+    float32 operations on CUDA cores, operations on tensor cores[, bf16
+    operations on tensor cores])} per path,
     keyed by a kernel's name without template arguments, or by its name up
     to a comma of its template arguments (one instantiation's part, e.g.
     one window size's).  `library`: (kernel name, ms, what) logged beside
@@ -212,11 +227,11 @@ def log_split(tag, split, parts, library=None):
         key = next((k for k in parts if k.endswith(",") and name.replace(" ", "").startswith(k)),
                    base if base in parts else None)
         if key:
-            nbytes, flops, tc = parts[key]
-            b_ms, b_by = bound_ms(nbytes, flops, tc)
-            kind = "3xTF32 on tensor cores" if tc else "float32 on CUDA cores"
+            nbytes, flops, tc, bf = (*parts[key], 0.0)[:4]
+            b_ms, b_by = bound_ms(nbytes, flops, tc, bf)
+            kind = "bf16 on tensor cores" if bf else "3xTF32 on tensor cores" if tc else "float32 on CUDA cores"
             line += (f"; part {key} (all its launches): bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, "
-                     f"{(flops + tc) / 1e9:.2f} GFLOP, {kind})")
+                     f"{(flops + tc + bf) / 1e9:.2f} GFLOP, {kind})")
         if library and base == library[0]:
             line += f"; library {library[1]:.4f} ms ({library[2]})"
         log(line)
@@ -328,7 +343,8 @@ def ptxas_functions(report):
 def check_hmma(kernels):
     """Each tensor-core sub-kernel holds HMMA (mma.sync) or HGMMA (wgmma)
     instructions (cuobjdump -sass), and the bf16 attention forward (K7's)
-    bf16 m16n8k16 products (HMMA.16816.F32.BF16)."""
+    and K1's bf16 LN + projection (one an embedding width: 32, 64, 96) bf16
+    m16n8k16 products (HMMA.16816.F32.BF16)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     found, bf16 = {}, {}
     for name in ("window_attention", "window_attention_train", "window_attention_core", "window_attention_full",
@@ -340,7 +356,8 @@ def check_hmma(kernels):
         for func, body in zip(names, funcs):
             if base_name(func) in TC_KERNELS + ("gru_large_kernel",):
                 found[f"{name}: {func}"] = (body.count("HMMA"), body.count("HGMMA"))
-                if "bfloat16" in func:
+                if base_name(func) == "ln_proj_bf16_kernel" or (base_name(func) == "window_attn_fwd_kernel"
+                                                                and "bfloat16" in func):
                     bf16[func] = body.count("HMMA.16816.F32.BF16")
     by_lib = {}
     for func, (hmma, hgmma) in found.items():
@@ -351,7 +368,7 @@ def check_hmma(kernels):
     log(f"  sass bf16 m16n8k16 products (HMMA.16816.F32.BF16): {bf16}")
     missing = [f for f, n in found.items() if sum(n) == 0]
     absent = [k for k in TC_KERNELS if not any(base_name(f.split(": ", 1)[1]) == k for f in found)]
-    if missing or absent or not bf16 or not all(bf16.values()):
+    if missing or absent or len(bf16) < 4 or not all(bf16.values()):
         raise AssertionError(f"no HMMA or HGMMA in {missing}; tensor-core kernels not found: {absent}; bf16 "
                              f"m16n8k16 products: {bf16}")
 
@@ -568,7 +585,9 @@ def check_counts(tag, launches, **expected):
 
 
 def phase_path(dev, card):
-    """The flagship sr_forward at B = 64; returns the launch counts of one forward."""
+    """The flagship sr_forward at B = 64; returns the launch counts of one
+    forward, the system on the card, the same system on the CPU, the batches
+    and the counted forward's SR (of batches[1])."""
     from dpmn_tpu_torch.config import TrainCfg, flagship_args
     from dpmn_tpu_torch.system import DPMNSystem
 
@@ -591,6 +610,7 @@ def phase_path(dev, card):
         raise AssertionError(f"main path launch counts {launches}")
     if tuple(out.shape) != (B, 32, 128, 3) or not torch.isfinite(out).all():
         raise AssertionError(f"bad output: shape {tuple(out.shape)}, finite {torch.isfinite(out).all().item()}")
+    sr32 = out
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -626,7 +646,176 @@ def phase_path(dev, card):
         f"(tol max 1e-4)")
     if not (psn_err <= 1e-4 and ids_agree == 1.0 and d.max().item() <= 1e-4 and torch.isfinite(sr_g).all()):
         raise AssertionError("card and CPU disagree on the main path")
-    return launches
+    return launches, system, cpu, batches, sr32
+
+
+def bf16_block_args(kw):
+    """`window_attention_block` keyword arguments with the weights, the LN
+    parameters and the relative biases in bf16 (the masks stay float32)."""
+    bf = lambda d: None if d is None else {k: t.bfloat16() for k, t in d.items()}
+    return dict(kw, weights=bf(kw["weights"]), ln=bf(kw["ln"]), biases=[b.bfloat16() for b in kw["biases"]])
+
+
+def phase_window_attention_bf16(dev):
+    """K1 on bf16 io against its plain version at B = 64 (both shift sets,
+    both layouts) at one bf16 rounding of max|out|; its times and bound per
+    forward (6 unshifted + 6 shifted faithful calls) and its sub-kernel
+    split.  Returns its kernels-line entry (launches filled in by the
+    serving phase)."""
+    from dpmn_tpu_torch.models.pgrm import SwinTransformerBlock
+    from dpmn_tpu_torch.ops.window_attention import window_attention_block, window_attention_block_plain
+    from dpmn_tpu_torch.system import init_weights
+
+    h, w, dim = 16, 64, 96
+    gen = torch.Generator().manual_seed(1)
+    xq = torch.randn(B, h * w, dim, generator=gen).to(dev).bfloat16()
+    xkv = torch.randn(B, h * w, dim, generator=gen).to(dev).bfloat16()
+    worst, times, kws = 0.0, {}, {}
+    for shift in ((0, 0, 0), (1, 2, 4)):
+        for faithful in (True, False):
+            blk = SwinTransformerBlock(dim, (h, w), 6, [2, 4, 8], list(shift), faithful=faithful)
+            init_weights(blk, seed=2)
+            with torch.no_grad():
+                for ln in (blk.norm1_q, blk.norm1_kv):
+                    ln.weight.add_(0.1 * torch.randn(dim, generator=gen))
+                    ln.bias.add_(0.1 * torch.randn(dim, generator=gen))
+                for i in range(3):
+                    getattr(blk.attn, f"relative_position_bias_table_{i}").normal_(0, 0.02, generator=gen)
+            kw = bf16_block_args(blk.to(dev).attn.block_args(blk.ln_params()))
+            with torch.no_grad():
+                out = window_attention_block(xq, xkv, **kw)
+                ref = window_attention_block_plain(xq, xkv, **kw)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = BF16_ROUNDING * ref.float().abs().max().item()
+                ok = out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all().item() and err <= tol
+                log(f"K1 bf16 shift={shift} layout={kw['layout']}: max_abs_err {err:.3e} (tol {tol:.3e}: 2^-7 "
+                    f"max|out|); equal values {(out == ref).float().mean().item():.4f} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"bf16 window_attention kernel disagrees with its plain version: {err}")
+                worst = max(worst, err)
+                if faithful:
+                    kws[shift] = kw
+                    times[shift] = (cuda_ms(lambda: window_attention_block(xq, xkv, **kw)),
+                                    cuda_ms(lambda: window_attention_block_plain(xq, xkv, **kw), iters=5))
+    l, n_sum, ch, t = h * w, 4 + 16 + 64, dim // 3, B * h * w
+    split = {}
+    with torch.no_grad():
+        for kw in kws.values():
+            add_split(split, kernel_split(lambda: window_attention_block(xq, xkv, **kw)), 6)
+    parts = {"ln_proj_bf16_kernel": (2 * (2 * t * dim + 3 * dim * dim + 3 * dim) + 4 * 3 * t * dim, 0.0, 0.0,
+                                     2 * t * dim * 3 * dim),
+             **attn_fwd_parts(t, dim, (2, 4, 8)),
+             "skconv_proj_kernel": (4 * (2 * t * dim + t // 64 * dim) + 2 * dim * dim, 0.0, 2 * t * dim * dim),
+             "skconv_gate_kernel": (4 * t // 64 * dim, 0.0, 0.0),
+             "skconv_out_kernel": (4 * 2 * t * dim + 2 * (2 * t * dim + dim * ch), 2 * t * dim, 2 * t * ch * dim)}
+    log_split("K1 bf16", split, {k: tuple(12 * v for v in p) for k, p in parts.items()})
+    proj = B * 2 * l * dim * 3 * dim  # on bf16 operands
+    flops = B * (4 * l * ch * n_sum + 2 * l * dim * dim + 2 * l * ch * dim)  # float32
+    nbytes = 3 * B * l * dim * 2
+    b_ms, b_by = bound_ms(nbytes, flops, 0.0, proj)
+    for shift, (k_ms, p_ms) in times.items():
+        log(f"K1 bf16 B={B} shift={shift}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; "
+            f"{nbytes / 1e6:.1f} MB, {proj / 1e9:.2f} GFLOP bf16 + {flops / 1e9:.2f} GFLOP float32)")
+    per_fwd = lambda i: 6 * (times[(0, 0, 0)][i] + times[(1, 2, 4)][i])
+    return {"name": "window_attention_block_bf16", "route": "cuda",
+            "source": "dpmn_tpu_torch/csrc/window_attention.cu",
+            "replaces": "dpmn_tpu/ops/pallas_window.py:500", "max_abs_err": worst,
+            "ms": per_fwd(0), "plain_ms": per_fwd(1), "bound_ms": 12 * b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def glyph_ids(system, fn):
+    """fn()'s result and the ids of every glyph render it made."""
+    ids = []
+    hook = system.glyph.register_forward_hook(lambda m, inp, out: ids.append(inp[0].cpu()))
+    try:
+        out = fn()
+    finally:
+        hook.remove()
+    return out, ids
+
+
+def phase_serving(dev, card, system, cpu, batches, sr32):
+    """The serving modes of the eval forward on phase 4's system (sr32: its
+    float32 SR of batches[1]); returns the launch counts of one
+    sr_forward_bf16 (the bf16 K1's entry)."""
+    from dpmn_tpu_torch.evaluator import CRNNEvaluator
+    from dpmn_tpu_torch.models.visionlan import parse_visionlan_input
+    from dpmn_tpu_torch.utils.metrics import psnr, ssim
+
+    def with_students16(fn):
+        def run(x):
+            system.student_dtype = "bfloat16"
+            try:
+                return fn(x)
+            finally:
+                system.student_dtype = None
+        return run
+
+    modes = {"sr_forward glyph_from_psn": lambda x: system.sr_forward(x, glyph_from_psn=True),
+             "sr_forward bf16 students": with_students16(lambda x: system.sr_forward(x)),
+             "sr_forward_bf16": lambda x: system.sr_forward_bf16(x),
+             "sr_forward_bf16 glyph_from_psn": lambda x: system.sr_forward_bf16(x, glyph_from_psn=True)}
+    outs, bf16_launches = {"sr_forward": sr32}, None
+    for name, fn in modes.items():
+        fn(batches[0])  # warm-up: makes the mode's bf16 copy or stacked students
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn(batches[1])
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check_counts(f"serving {name}", launches, window_attention_block=12, gru_bidir=11)
+        if out.dtype != torch.float32 or tuple(out.shape) != (B, 32, 128, 3) or not torch.isfinite(out).all():
+            raise AssertionError(f"serving {name}: bad output {out.dtype} {tuple(out.shape)}")
+        if name == "sr_forward_bf16":
+            bf16_launches = launches
+        outs[name] = out
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for x in batches[2:]:
+            fn(x)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / len(batches[2:])
+        log(f"serving {name} B={B}: {dt * 1e3:.2f} ms/batch, {B / dt:.1f} images/s on {card}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the students' ids that bf16 keeps, on the PSN output of a batch
+    with torch.no_grad():
+        x = system._nchw(batches[1])
+        img = system._psn_forward(x)
+        vl = parse_visionlan_input(img[:, :3])
+        students16 = system.student_bf16.get().students
+        keep = [(s32(vl)[0].argmax(-1) == s16(vl.bfloat16())[0].argmax(-1)).float().mean().item()
+                for s32, s16 in zip(system.students, students16)]
+    log(f"serving: bf16 students keep {', '.join(f'{k:.4f}' for k in keep)} of the float32 ids (each student, "
+        f"B={B} x 25 positions)")
+
+    judge = CRNNEvaluator(device=dev, seed=5)
+    for glyph_mode, (a, b) in (("", ("sr_forward", "sr_forward_bf16")),
+                               (" glyph_from_psn", ("sr_forward glyph_from_psn", "sr_forward_bf16 glyph_from_psn"))):
+        sr32, sr16 = outs[a], outs[b]
+        d = (sr16 - sr32).abs()
+        words32, words16 = judge.predict(sr32), judge.predict(sr16)
+        agree = float(np.mean([u == v for u, v in zip(words32, words16)]))
+        ok = d.mean().item() < SERVE_MEAN_TOL
+        log(f"serving: bf16 SR against float32 SR{glyph_mode}: mean_abs {d.mean().item():.4e} (tol "
+            f"{SERVE_MEAN_TOL}) max_abs {d.max().item():.4e}; PSNR {psnr(sr16, sr32).item():.3f} dB, SSIM "
+            f"{ssim(sr16, sr32).item():.5f}; CRNN judge words agree {agree:.4f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"bf16 serving drifts from float32{glyph_mode}: {d.mean().item()}")
+
+    # glyph_from_psn in float32: the card against the CPU on 2 images
+    x2 = batches[1][:2]
+    sr_c, ids_c = glyph_ids(cpu, lambda: cpu.sr_forward(x2, glyph_from_psn=True))
+    sr_g, ids_g = glyph_ids(system, lambda: system.sr_forward(x2, glyph_from_psn=True).cpu())
+    d = (sr_c - sr_g).abs().max().item()
+    same = len(ids_c) == len(ids_g) == 1 and torch.equal(ids_c[0], ids_g[0])
+    log(f"serving: glyph_from_psn card vs CPU on 2 images: ids of the one render of {system.b1} x 2 words equal "
+        f"{same}; SR max_abs_err {d:.3e} (tol 1e-4)")
+    if not (same and d <= 1e-4):
+        raise AssertionError("card and CPU disagree on glyph_from_psn")
+    return bf16_launches
 
 
 def k3_cost(batch, hw_shape, dim, window_sizes):
@@ -1377,10 +1566,14 @@ def main():
     card = phase_setup()
     k1 = phase_window_attention(dev)
     k2 = phase_gru(dev)
-    launches = phase_path(dev, card)
+    launches, system, cpu, batches, sr32 = phase_path(dev, card)
     # K2 counts the launches of both its entry points (the path goes through gru_bidir alone)
     k1["launches"], k2["launches"] = launches["window_attention_block"], launches["gru_bidir"] + launches["gru_scan"]
-    entries = [k1, k2]
+    k1_bf16 = phase_window_attention_bf16(dev)
+    k1_bf16["launches"] = phase_serving(dev, card, system, cpu, batches, sr32)["window_attention_block"]
+    del system, cpu
+    torch.cuda.empty_cache()
+    entries = [k1, k1_bf16, k2]
     for phase_kernel, core, name, timed in ((phase_k3, "block", "window_attention_train", 4),
                                             (phase_k4, "attention", "window_attention_core", 3),
                                             (phase_k5, "full", "window_attention_full", 3)):

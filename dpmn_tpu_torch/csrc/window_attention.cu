@@ -18,6 +18,15 @@
 //       fc2(gelu(fc1(s))); out = xkv + feats + (sum_g gate_g * attn_g) Wph^T
 //       + bph.
 //
+// bf16 io (window_attention_block_forward_bf16, the bf16 serving forward's
+// PGRMs): xq, xkv, the LN parameters, the weights and out are bf16 and read
+// or written as such, with the rounding points of the JAX kernel on bf16
+// inputs (pallas_window.py:191-202, :291, :340-369, :486-505): the LN in
+// float32 rounded to bf16, the projections on bf16 m16n8k16 with float32
+// accumulation (ln_proj_bf16_kernel: one pass, exact for bf16 operands), q
+// and kv float32, so (b) runs unchanged, SKConv in float32 on bf16-valued
+// weights, and the residual sum rounded once to bf16.
+//
 // Five kernels behind one entry point: (a) ln_proj, (b) one window-attention
 // launch for every group, (c) skconv_proj (feats and per-tile partial sums of the
 // GAP), skconv_gate (the fixed-order sum of the partials: no float atomics,
@@ -52,21 +61,24 @@
 // Shapes: xq, xkv, out (B, L, D) with L = H*W; q_w (D, D); kv_w (2D, D);
 // proj_w (D, D); fc1_w (dz, D); fc2_w (n_group*ch, dz); ph_w (D, ch) — torch
 // Linear layouts.  bias: per group (gh, N_g, N_g), concatenated; mask: per
-// shifted group (nW_g, N_g, N_g), concatenated.  ln_* may be null (then no LN
-// and no residual).  Scratch the caller allocates: qbuf (B, L, D), kvbuf
-// (B, L, 2D), attn and feats (B, L, D), partial (B, L/64, D), gate
-// (B, n_group, ch).  ws and shifts are host arrays of n_group ints.  Needs
-// L % 64 == 0, D % 32 == 0 with D <= 96, windows of 2, 4 or 8 dividing H and
-// W, and a head dim (ch / gh) of GCH = 16; the Python wrapper checks these.  Returns
-// cudaGetLastError() after the last launch (or the first failing one).
-extern "C" int window_attention_block_forward(
-    const float* xq, const float* xkv, const float* ln_qs, const float* ln_qb, const float* ln_ks,
-    const float* ln_kb, const float* q_w, const float* q_b, const float* kv_w, const float* kv_b,
-    const float* bias, const float* mask, const float* proj_w, const float* proj_b, const float* fc1_w,
-    const float* fc1_b, const float* fc2_w, const float* fc2_b, const float* ph_w, const float* ph_b,
-    float* qbuf, float* kvbuf, float* attn, float* feats, float* partial, float* gate, float* out, int B,
-    int H, int W, int D, int n_group, const int* ws, const int* shifts, int gh, int dz, float scale,
-    int corrected, void* stream) {
+// shifted group (nW_g, N_g, N_g), concatenated; both float32.  ln_* may be
+// null (then no LN and no residual).  Scratch the caller allocates, float32:
+// qbuf (B, L, D), kvbuf (B, L, 2D), attn and feats (B, L, D), partial
+// (B, L/64, D), gate (B, n_group, ch).  ws and shifts are host arrays of
+// n_group ints.  Needs L % 64 == 0, D % 32 == 0 with D <= 96, windows of 2,
+// 4 or 8 dividing H and W, and a head dim (ch / gh) of GCH = 16; the Python
+// wrapper checks these.  T is the io type of xq, xkv, the LN parameters, the
+// weights and out: float, or bf16 (the LN result rounded to bf16 and the
+// projections on bf16 tensor cores; q, kv, the attention and SKConv's sums in
+// float32; out rounded once).  Returns cudaGetLastError() after the last
+// launch (or the first failing one).
+template <typename T>
+int block_forward(const T* xq, const T* xkv, const T* ln_qs, const T* ln_qb, const T* ln_ks, const T* ln_kb,
+                  const T* q_w, const T* q_b, const T* kv_w, const T* kv_b, const float* bias, const float* mask,
+                  const T* proj_w, const T* proj_b, const T* fc1_w, const T* fc1_b, const T* fc2_w, const T* fc2_b,
+                  const T* ph_w, const T* ph_b, float* qbuf, float* kvbuf, float* attn, float* feats,
+                  float* partial, float* gate, T* out, int B, int H, int W, int D, int n_group, const int* ws,
+                  const int* shifts, int gh, int dz, float scale, int corrected, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int L = H * W, ntok = B * L, ch = D / n_group;
   const int do_ln = ln_qs != nullptr;
@@ -78,7 +90,36 @@ extern "C" int window_attention_block_forward(
   err = launch_attn_groups<false>(qbuf, kvbuf, kvbuf + D, 2 * D, bias, mask, attn, B, H, W, D, n_group, ws, shifts,
                                   gh, scale, corrected, 0u, 0u, 1.f, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_skconv(attn, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, xkv, feats, partial, gate, out, B,
-                      L, D, n_group, dz, do_ln, st);
+  err = launch_skconv_t<T>(attn, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, xkv, feats, partial, gate,
+                           out, B, L, D, n_group, dz, do_ln, st);
   return static_cast<int>(err);
+}
+
+extern "C" int window_attention_block_forward(
+    const float* xq, const float* xkv, const float* ln_qs, const float* ln_qb, const float* ln_ks,
+    const float* ln_kb, const float* q_w, const float* q_b, const float* kv_w, const float* kv_b,
+    const float* bias, const float* mask, const float* proj_w, const float* proj_b, const float* fc1_w,
+    const float* fc1_b, const float* fc2_w, const float* fc2_b, const float* ph_w, const float* ph_b,
+    float* qbuf, float* kvbuf, float* attn, float* feats, float* partial, float* gate, float* out, int B,
+    int H, int W, int D, int n_group, const int* ws, const int* shifts, int gh, int dz, float scale,
+    int corrected, void* stream) {
+  return block_forward(xq, xkv, ln_qs, ln_qb, ln_ks, ln_kb, q_w, q_b, kv_w, kv_b, bias, mask, proj_w, proj_b, fc1_w,
+                       fc1_b, fc2_w, fc2_b, ph_w, ph_b, qbuf, kvbuf, attn, feats, partial, gate, out, B, H, W, D,
+                       n_group, ws, shifts, gh, dz, scale, corrected, stream);
+}
+
+// The same block on bf16 io (xq, xkv, the LN parameters, the weights and
+// out); the same arguments otherwise.
+extern "C" int window_attention_block_forward_bf16(
+    const __nv_bfloat16* xq, const __nv_bfloat16* xkv, const __nv_bfloat16* ln_qs, const __nv_bfloat16* ln_qb,
+    const __nv_bfloat16* ln_ks, const __nv_bfloat16* ln_kb, const __nv_bfloat16* q_w, const __nv_bfloat16* q_b,
+    const __nv_bfloat16* kv_w, const __nv_bfloat16* kv_b, const float* bias, const float* mask,
+    const __nv_bfloat16* proj_w, const __nv_bfloat16* proj_b, const __nv_bfloat16* fc1_w,
+    const __nv_bfloat16* fc1_b, const __nv_bfloat16* fc2_w, const __nv_bfloat16* fc2_b, const __nv_bfloat16* ph_w,
+    const __nv_bfloat16* ph_b, float* qbuf, float* kvbuf, float* attn, float* feats, float* partial, float* gate,
+    __nv_bfloat16* out, int B, int H, int W, int D, int n_group, const int* ws, const int* shifts, int gh, int dz,
+    float scale, int corrected, void* stream) {
+  return block_forward(xq, xkv, ln_qs, ln_qb, ln_ks, ln_kb, q_w, q_b, kv_w, kv_b, bias, mask, proj_w, proj_b, fc1_w,
+                       fc1_b, fc2_w, fc2_b, ph_w, ph_b, qbuf, kvbuf, attn, feats, partial, gate, out, B, H, W, D,
+                       n_group, ws, shifts, gh, dz, scale, corrected, stream);
 }

@@ -2,12 +2,14 @@
 // window_attention_train.cu, window_attention_core.cu,
 // window_attention_full.cu, grouped_window_attention.cu) and the
 // dropout-mask dump (dropout_mask.cu): the LayerNorm + Q/KV projection
-// kernel (persistent CTAs, the product on the tensor cores), the per-group
+// kernel (persistent CTAs, the product on the tensor cores; a bf16-io form
+// on bf16 m16n8k16 for K1's bf16 serving path), the per-group
 // window-attention forward (float32 or bf16 io, every group in one launch;
 // the 4x4 and 8x8 windows on the tensor cores through attn_tile.cuh), the
 // counter-based hash
 // that draws the attention-dropout mask, and SKConv's three forward kernels
-// (the two products on the tensor cores).
+// (the two products on the tensor cores; weights, residual and output
+// float32 or bf16).
 //
 // The build hash of every csrc/*.cu covers this header (ops/kernels.py).
 
@@ -84,6 +86,21 @@ __device__ __forceinline__ void store_row16(T* p, const float (&x)[16], int vec)
   for (int c = 0; c < 4; ++c) store4(p + 4 * c, make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2], x[4 * c + 3]), vec);
 }
 
+// A value of the io type as float32 and back (round to nearest even), and
+// two adjacent values (4- or 8-byte aligned) read and written as a pair.
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f(float& d, float x) { d = x; }
+__device__ __forceinline__ void from_f(__nv_bfloat16& d, float x) { d = __float2bfloat16_rn(x); }
+__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void st2(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+}
+
 
 constexpr int TOK = 64;      // tokens per tile of the token-tile kernels
 constexpr int THREADS = 256;  // 8 warps
@@ -91,10 +108,12 @@ constexpr int GCH = 16;       // the head dim the path gives (32 channels per gr
 constexpr int LNP_WARPS = 12;  // ln_proj: warps 0-3 own the q columns, 4-11 the kv columns
 constexpr int LNP_THREADS = 32 * LNP_WARPS;
 
-// Stage a weight W (rows x k, row-major in global memory) into shared
-// memory as [rows][ld] (ld = k + 4: conflict-free B fragments of mma_tile).
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ w, int rows, int k, int ld) {
-  for (int idx = threadIdx.x; idx < rows * k; idx += blockDim.x) dst[(idx / k) * ld + idx % k] = __ldg(w + idx);
+// Stage a weight W (rows x k, row-major in global memory, float32 or bf16)
+// into shared memory as float32 [rows][ld] (ld = k + 4: conflict-free B
+// fragments of mma_tile); a bf16 value widens exactly.
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ w, int rows, int k, int ld) {
+  for (int idx = threadIdx.x; idx < rows * k; idx += blockDim.x) dst[(idx / k) * ld + idx % k] = ldg_one(w + idx);
 }
 
 // The tile of TOK tokens starting at token t0 of a (ntok, c) row-major
@@ -125,10 +144,12 @@ __device__ __forceinline__ void warp_sums(float (&v)[R]) {
 // warp (lane holds channels lane + 32 m): float32 statistics, var = E[x^2]
 // - mean^2 clamped at 0, eps 1e-6, then * s + b (s[m], b[m] the lane's
 // channels), the formula of the JAX package's fused path
-// (dpmn_tpu/ops/pallas_window.py:191-202).  The R rows' reductions run side
-// by side; each row's sums keep the order of one row alone.
-template <int R>
-__device__ __forceinline__ void ln_rows_inplace(float* tile, int ld, int r0, int step, int nrows, int c,
+// (dpmn_tpu/ops/pallas_window.py:191-202), stored in the tile's type (a
+// bf16 tile holds the result rounded to bf16, as the JAX kernel casts it
+// back to its io dtype).  The R rows' reductions run side by side; each
+// row's sums keep the order of one row alone.
+template <int R, typename T>
+__device__ __forceinline__ void ln_rows_inplace(T* tile, int ld, int r0, int step, int nrows, int c,
                                                 const float (&s)[3], const float (&b)[3]) {
   const int lane = threadIdx.x & 31;
   float v[R][3], sum[R], sq[R];
@@ -139,7 +160,7 @@ __device__ __forceinline__ void ln_rows_inplace(float* tile, int ld, int r0, int
 #pragma unroll
     for (int m = 0; m < 3; ++m) {
       const int k = lane + 32 * m;
-      v[r][m] = row < nrows && k < c ? tile[row * ld + k] : 0.f;
+      v[r][m] = row < nrows && k < c ? to_f(tile[row * ld + k]) : 0.f;
       sum[r] += v[r][m];
       sq[r] += v[r][m] * v[r][m];
     }
@@ -155,7 +176,7 @@ __device__ __forceinline__ void ln_rows_inplace(float* tile, int ld, int r0, int
 #pragma unroll
     for (int m = 0; m < 3; ++m) {
       const int k = lane + 32 * m;
-      if (row < nrows && k < c) tile[row * ld + k] = (v[r][m] - mean) * rstd * s[m] + b[m];
+      if (row < nrows && k < c) from_f(tile[row * ld + k], (v[r][m] - mean) * rstd * s[m] + b[m]);
     }
   }
 }
@@ -226,6 +247,151 @@ __global__ void __launch_bounds__(LNP_THREADS, 1)
     float acc[4][NT][4];
     zero_acc(acc);
     mma_tile<false, false, 4, NT>(acc, xt + (is_q ? 0 : TOK * S), S, 0, w, S, n0, D);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t t = (int64_t)tile * TOK + 16 * i + g8 + 8 * h;
+        if (t >= ntok) continue;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int o = n0 + 8 * j + 2 * t4;
+          const float2 val = make_float2(acc[i][j][2 * h] + bias[j][0], acc[i][j][2 * h + 1] + bias[j][1]);
+          if (is_q)
+            *reinterpret_cast<float2*>(qout + t * D + o) = val;
+          else
+            *reinterpret_cast<float2*>(kvout + t * 2 * D + o - D) = val;
+        }
+      }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+}
+
+// bf16 io pieces of the LN + projection kernel: 16 bytes by cp.async (zero
+// bytes where not `valid`), the tile of TOK bf16 tokens into shared memory
+// [TOK][ld] (c % 8 == 0, rows 16-byte aligned), a bf16 weight's rows into
+// shared memory [rows][ld] as they are (k % 8 == 0, w 16-byte aligned), and
+// ldmatrix of two 8x8 bf16 matrices (lanes 0-15 give the row addresses).
+__device__ __forceinline__ void cp_async16_zfill_bytes(void* smem, const void* gmem, bool valid) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld, const __nv_bfloat16* __restrict__ x,
+                                          int64_t t0, int ntok, int c, int64_t row_stride) {
+  const int c8 = c / 8;
+  for (int e = threadIdx.x; e < TOK * c8; e += blockDim.x) {
+    const int r = e / c8, k = (e % c8) * 8;
+    const bool valid = t0 + r < ntok;
+    cp_async16_zfill_bytes(dst + r * ld + k, valid ? x + (t0 + r) * row_stride + k : x, valid);
+  }
+}
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ w, int rows, int k,
+                                           int ld) {
+  const int k8 = k / 8;
+  for (int e = threadIdx.x; e < rows * k8; e += blockDim.x) {
+    const int r = e / k8, c = (e % k8) * 8;
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = __ldg(reinterpret_cast<const uint4*>(w + (int64_t)r * k + c));
+  }
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+
+// ln_proj_kernel for bf16 io (the JAX kernel on bf16 inputs,
+// dpmn_tpu/ops/pallas_window.py:191-202, :291): the LN in float32 and its
+// result rounded to bf16 in place, then q = xq_n Wq^T + bq and kv = xkv_n
+// Wkv^T + bkv on bf16 m16n8k16 mma.sync with float32 accumulation (one
+// pass: products of bf16 values are exact in float32), the bf16 biases
+// added in float32; q and kv are written float32 for the attention.  The
+// same persistent CTAs, two-stage cp.async tiles and warp layout as
+// ln_proj_kernel; the operands reach the tensor cores by ldmatrix, weight
+// and token rows at D + 8 elements (an odd number of 16 bytes: the eight
+// rows of every ldmatrix phase fall on disjoint bank groups).  Shared: w
+// [3D][D + 8], xs [2 stages][2 streams][TOK][D + 8], all bf16.
+template <int D>
+__global__ void __launch_bounds__(LNP_THREADS, 1)
+    ln_proj_bf16_kernel(const __nv_bfloat16* __restrict__ xq, const __nv_bfloat16* __restrict__ xkv,
+                        const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __restrict__ qb,
+                        const __nv_bfloat16* __restrict__ ks, const __nv_bfloat16* __restrict__ kb,
+                        const __nv_bfloat16* __restrict__ qw, const __nv_bfloat16* __restrict__ qbias,
+                        const __nv_bfloat16* __restrict__ kvw, const __nv_bfloat16* __restrict__ kvbias,
+                        float* __restrict__ qout, float* __restrict__ kvout, int ntok, int do_ln) {
+  constexpr int S = D + 8, NT = D / 32;
+  extern __shared__ __align__(16) unsigned char lnp_smem[];
+  __nv_bfloat16* w = reinterpret_cast<__nv_bfloat16*>(lnp_smem);
+  __nv_bfloat16* xs = w + 3 * D * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int r8 = lane & 7, hi8 = (lane >> 3) & 1, quad = lane >> 4;
+  const int ntile = (ntok + TOK - 1) / TOK;
+  auto load = [&](int tile, int stage) {
+    __nv_bfloat16* dst = xs + stage * 2 * TOK * S;
+    load_tile(dst, S, xq, (int64_t)tile * TOK, ntok, D, D);
+    load_tile(dst + TOK * S, S, xkv, (int64_t)tile * TOK, ntok, D, D);
+    cp_async_commit();
+  };
+  if (blockIdx.x < ntile) load(blockIdx.x, 0);
+  stage_rows(w, qw, D, D, S);
+  stage_rows(w + D * S, kvw, 2 * D, D, S);
+  float lsq[3], lbq[3], lsk[3], lbk[3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const int k = lane + 32 * m;
+    const bool on = do_ln && k < D;
+    lsq[m] = on ? to_f(qs[k]) : 0.f;
+    lbq[m] = on ? to_f(qb[k]) : 0.f;
+    lsk[m] = on ? to_f(ks[k]) : 0.f;
+    lbk[m] = on ? to_f(kb[k]) : 0.f;
+  }
+  const bool is_q = warp < 4;
+  const int n0 = warp * NT * 8;  // the warp's first column of the 3D outputs
+  float bias[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int o = n0 + 8 * j + 2 * t4 + e;
+      bias[j][e] = to_f(is_q ? qbias[o] : kvbias[o - D]);
+    }
+  int stage = 0;
+  for (int tile = blockIdx.x; tile < ntile; tile += gridDim.x, stage ^= 1) {
+    const int next = tile + gridDim.x;
+    if (next < ntile) load(next, stage ^ 1);
+    cp_async_wait(next < ntile ? 1 : 0);
+    __syncthreads();  // this tile's rows (and, the first time, w) are in shared memory
+    __nv_bfloat16* xt = xs + stage * 2 * TOK * S;
+    if (do_ln) {  // rows warp, warp + 12, ... of each stream
+      ln_rows_inplace<(TOK + LNP_WARPS - 1) / LNP_WARPS>(xt, S, warp, LNP_WARPS, TOK, D, lsq, lbq);
+      ln_rows_inplace<(TOK + LNP_WARPS - 1) / LNP_WARPS>(xt + TOK * S, S, warp, LNP_WARPS, TOK, D, lsk, lbk);
+      __syncthreads();
+    }
+    const __nv_bfloat16* A = xt + (is_q ? 0 : TOK * S);
+    float acc[4][NT][4];
+    zero_acc(acc);
+#pragma unroll
+    for (int k0 = 0; k0 < D; k0 += 16) {
+      uint32_t bf[NT][2];  // the n8 tiles' B fragments: weight rows n0 + 8 j .., columns k0 .. k0 + 15
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        if (j + 1 < NT) {
+          uint32_t r[4];
+          ldmatrix_x4(r, w + (n0 + 8 * j + r8 + 8 * quad) * S + k0 + 8 * hi8);
+          bf[j][0] = r[0], bf[j][1] = r[1], bf[j + 1][0] = r[2], bf[j + 1][1] = r[3];
+        } else {
+          uint32_t r[2];
+          ldmatrix_x2(r, w + (n0 + 8 * j + r8) * S + k0 + 8 * hi8);
+          bf[j][0] = r[0], bf[j][1] = r[1];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t a[4];  // token rows 16 i .. + 15 x columns k0 .. k0 + 15
+        ldmatrix_x4(a, A + (16 * i + r8 + 8 * hi8) * S + k0 + 8 * quad);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a, bf[j][0], bf[j][1]);
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -684,6 +850,39 @@ inline cudaError_t launch_ln_proj(const float* xq, const float* xkv, const float
   }
 }
 
+template <int D>
+cudaError_t launch_ln_proj_bf16_d(const __nv_bfloat16* xq, const __nv_bfloat16* xkv, const __nv_bfloat16* qs,
+                                  const __nv_bfloat16* qb, const __nv_bfloat16* ks, const __nv_bfloat16* kb,
+                                  const __nv_bfloat16* q_w, const __nv_bfloat16* q_b, const __nv_bfloat16* kv_w,
+                                  const __nv_bfloat16* kv_b, float* qbuf, float* kvbuf, int ntok, int do_ln,
+                                  cudaStream_t st) {
+  const size_t smem = (size_t)(3 * D + 4 * TOK) * (D + 8) * sizeof(__nv_bfloat16);
+  cudaError_t err =
+      cudaFuncSetAttribute(ln_proj_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int grid = 0;
+  if (err != cudaSuccess || (err = persistent_grid((ntok + TOK - 1) / TOK, &grid)) != cudaSuccess) return err;
+  if (grid == 0) return cudaSuccess;
+  ln_proj_bf16_kernel<D><<<grid, LNP_THREADS, smem, st>>>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf,
+                                                          kvbuf, ntok, do_ln);
+  return cudaGetLastError();
+}
+
+// launch_ln_proj for bf16 io: q and kv come out float32.  D in {32, 64,
+// 96}; xq, xkv, q_w and kv_w 16-byte aligned.
+inline cudaError_t launch_ln_proj(const __nv_bfloat16* xq, const __nv_bfloat16* xkv, const __nv_bfloat16* qs,
+                                  const __nv_bfloat16* qb, const __nv_bfloat16* ks, const __nv_bfloat16* kb,
+                                  const __nv_bfloat16* q_w, const __nv_bfloat16* q_b, const __nv_bfloat16* kv_w,
+                                  const __nv_bfloat16* kv_b, float* qbuf, float* kvbuf, int ntok, int D, int do_ln,
+                                  cudaStream_t st) {
+  if (!aligned16(xq) || !aligned16(xkv) || !aligned16(q_w) || !aligned16(kv_w)) return cudaErrorMisalignedAddress;
+  switch (D) {
+    case 32: return launch_ln_proj_bf16_d<32>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
+    case 64: return launch_ln_proj_bf16_d<64>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
+    case 96: return launch_ln_proj_bf16_d<96>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // ---------------------------------------------------------------- SKConv
 // (reference model/pgrm.py:62-96; exact erf GELU)
 
@@ -704,14 +903,15 @@ struct TileWarp {
 };
 
 // (c1) feats = attn Wp^T + bp, and per-tile sums of gelu(feats), on
-// persistent CTAs: Wp staged once, attn tiles by cp.async (two stages), the
-// product on the tensor cores (mma_tile, 3xTF32).  A tile's sum is fixed in
+// persistent CTAs: Wp staged once (T = bf16: widened to float32), attn
+// tiles by cp.async (two stages), the product on the tensor cores
+// (mma_tile, 3xTF32).  A tile's sum is fixed in
 // order: each thread's 4 rows, a shuffle tree over the 8 row groups of a
 // warp, then the two m-groups.  Shared: w [D][D + 4], xs [2][TOK][D + 4],
 // red [2][D].
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-    skconv_proj_kernel(const float* __restrict__ attn, const float* __restrict__ pw, const float* __restrict__ pb,
+    skconv_proj_kernel(const float* __restrict__ attn, const T* __restrict__ pw, const T* __restrict__ pb,
                        float* __restrict__ feats, float* __restrict__ partial, int ntile) {
   constexpr int S = D + 4, NT = D / 32;
   extern __shared__ __align__(16) float sm[];
@@ -729,7 +929,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) bias[j][e] = pb[tw.n0 + 8 * j + 2 * tw.t4 + e];
+    for (int e = 0; e < 2; ++e) bias[j][e] = to_f(pb[tw.n0 + 8 * j + 2 * tw.t4 + e]);
   int stage = 0;
   for (int tile = blockIdx.x; tile < ntile; tile += gridDim.x, stage ^= 1) {
     const int next = tile + gridDim.x;
@@ -774,11 +974,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 // SKConv's gate of image b, computed by the whole block: s = the GAP from
 // the per-tile partial sums (a fixed-order sum), u = fc1 s + b1, z = gelu(u),
 // a = fc2 z + b2, then the softmax over the groups of a, in place (so a
-// holds the gate w).  Shared: s [D], u [dz], z [dz], a [n_group * ch].
-__device__ void skconv_gate_block(const float* __restrict__ partial, const float* __restrict__ f1w,
-                                  const float* __restrict__ f1b, const float* __restrict__ f2w,
-                                  const float* __restrict__ f2b, float* s, float* u, float* z, float* a, int b,
-                                  int L, int D, int dz, int n_group, int ch) {
+// holds the gate w); weights of type T (float32 or bf16), sums in float32.
+// Shared: s [D], u [dz], z [dz], a [n_group * ch].
+template <typename T>
+__device__ void skconv_gate_block(const float* __restrict__ partial, const T* __restrict__ f1w,
+                                  const T* __restrict__ f1b, const T* __restrict__ f2w, const T* __restrict__ f2b,
+                                  float* s, float* u, float* z, float* a, int b, int L, int D, int dz, int n_group,
+                                  int ch) {
   const int ntile = L / TOK;
   for (int o = threadIdx.x; o < D; o += blockDim.x) {
     float acc = 0.f;
@@ -787,15 +989,15 @@ __device__ void skconv_gate_block(const float* __restrict__ partial, const float
   }
   __syncthreads();
   for (int k = threadIdx.x; k < dz; k += blockDim.x) {
-    float acc = f1b[k];
-    for (int o = 0; o < D; ++o) acc = fmaf(s[o], f1w[k * D + o], acc);
+    float acc = to_f(f1b[k]);
+    for (int o = 0; o < D; ++o) acc = fmaf(s[o], to_f(f1w[k * D + o]), acc);
     u[k] = acc;
     z[k] = gelu_erf(acc);
   }
   __syncthreads();
   for (int m = threadIdx.x; m < n_group * ch; m += blockDim.x) {
-    float acc = f2b[m];
-    for (int k = 0; k < dz; ++k) acc = fmaf(z[k], f2w[m * dz + k], acc);
+    float acc = to_f(f2b[m]);
+    for (int k = 0; k < dz; ++k) acc = fmaf(z[k], to_f(f2w[m * dz + k]), acc);
     a[m] = acc;
   }
   __syncthreads();
@@ -810,10 +1012,10 @@ __device__ void skconv_gate_block(const float* __restrict__ partial, const float
 }
 
 // (c2) one block per image: the gate, gate (B, n_group, ch).
-__global__ void skconv_gate_kernel(const float* __restrict__ partial, const float* __restrict__ f1w,
-                                   const float* __restrict__ f1b, const float* __restrict__ f2w,
-                                   const float* __restrict__ f2b, float* __restrict__ gate,
-                                   int L, int D, int dz, int n_group, int ch) {
+template <typename T>
+__global__ void skconv_gate_kernel(const float* __restrict__ partial, const T* __restrict__ f1w,
+                                   const T* __restrict__ f1b, const T* __restrict__ f2w, const T* __restrict__ f2b,
+                                   float* __restrict__ gate, int L, int D, int dz, int n_group, int ch) {
   extern __shared__ float sm[];
   float* s = sm;
   float* u = s + D;
@@ -827,13 +1029,14 @@ __global__ void skconv_gate_kernel(const float* __restrict__ partial, const floa
 // (c3) out = [xkv +] feats + (sum_g gate_g * attn_g) Wph^T + bph, on
 // persistent CTAs: Wph staged once, attn tiles by cp.async (two stages),
 // the gated sum fv of each tile into shared memory, its product with Wph on
-// the tensor cores (mma_tile over K = ch).  A tile lies in one image (L %
-// TOK == 0).  Shared: w [D][ch + 4], xs [2][TOK][D + 4], fv [TOK][ch + 4].
-template <int D>
+// the tensor cores (mma_tile over K = ch).  T is the type of Wph, bph, xkv
+// and out: for bf16 the sum runs in float32 and is rounded once on store.
+// A tile lies in one image (L % TOK == 0).  Shared: w [D][ch + 4], xs [2][TOK][D + 4], fv [TOK][ch + 4].
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     skconv_out_kernel(const float* __restrict__ attn, const float* __restrict__ feats, const float* __restrict__ gate,
-                      const float* __restrict__ phw, const float* __restrict__ phb, const float* __restrict__ xkv,
-                      float* __restrict__ out, int L, int n_group, int ch, int ntile, int residual) {
+                      const T* __restrict__ phw, const T* __restrict__ phb, const T* __restrict__ xkv,
+                      T* __restrict__ out, int L, int n_group, int ch, int ntile, int residual) {
   constexpr int S = D + 4, NT = D / 32;
   const int SC = ch + 4;
   extern __shared__ __align__(16) float sm[];
@@ -851,7 +1054,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) bias[j][e] = phb[tw.n0 + 8 * j + 2 * tw.t4 + e];
+    for (int e = 0; e < 2; ++e) bias[j][e] = to_f(phb[tw.n0 + 8 * j + 2 * tw.t4 + e]);
   int stage = 0;
   for (int tile = blockIdx.x; tile < ntile; tile += gridDim.x, stage ^= 1) {
     const int next = tile + gridDim.x;
@@ -884,51 +1087,52 @@ __global__ void __launch_bounds__(THREADS, 1)
           const float2 f = *reinterpret_cast<const float2*>(feats + off);
           float2 sk = make_float2(f.x + (acc[i][j][2 * h] + bias[j][0]), f.y + (acc[i][j][2 * h + 1] + bias[j][1]));
           if (residual) {
-            const float2 r = *reinterpret_cast<const float2*>(xkv + off);
+            const float2 r = ld2(xkv + off);
             sk = make_float2(r.x + sk.x, r.y + sk.y);
           }
-          *reinterpret_cast<float2*>(out + off) = sk;
+          st2(out + off, sk);
         }
       }
   }
 }
 
-template <int D>
-cudaError_t launch_skconv_d(const float* attn, const float* proj_w, const float* proj_b, const float* fc1_w,
-                            const float* fc1_b, const float* fc2_w, const float* fc2_b, const float* ph_w,
-                            const float* ph_b, const float* xkv, float* feats, float* partial, float* gate,
-                            float* out, int B, int L, int n_group, int dz, int residual, cudaStream_t st) {
+template <int D, typename T>
+cudaError_t launch_skconv_d(const float* attn, const T* proj_w, const T* proj_b, const T* fc1_w, const T* fc1_b,
+                            const T* fc2_w, const T* fc2_b, const T* ph_w, const T* ph_b, const T* xkv,
+                            float* feats, float* partial, float* gate, T* out, int B, int L, int n_group, int dz,
+                            int residual, cudaStream_t st) {
   const int ntile = B * L / TOK, ch = D / n_group;
   int grid = 0;
   cudaError_t err = persistent_grid(ntile, &grid);
   if (err != cudaSuccess || grid == 0) return err;
   const size_t smem_c1 = (size_t)(D * (D + 4) + 2 * TOK * (D + 4) + 2 * D) * sizeof(float);
-  if ((err = cudaFuncSetAttribute(skconv_proj_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if ((err = cudaFuncSetAttribute(skconv_proj_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_c1)) != cudaSuccess)
     return err;
-  skconv_proj_kernel<D><<<grid, THREADS, smem_c1, st>>>(attn, proj_w, proj_b, feats, partial, ntile);
+  skconv_proj_kernel<D, T><<<grid, THREADS, smem_c1, st>>>(attn, proj_w, proj_b, feats, partial, ntile);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t smem_c2 = (size_t)(D + 2 * dz + n_group * ch) * sizeof(float);
-  skconv_gate_kernel<<<B, 128, smem_c2, st>>>(partial, fc1_w, fc1_b, fc2_w, fc2_b, gate, L, D, dz, n_group, ch);
+  skconv_gate_kernel<T><<<B, 128, smem_c2, st>>>(partial, fc1_w, fc1_b, fc2_w, fc2_b, gate, L, D, dz, n_group, ch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t smem_c3 = (size_t)(D * (ch + 4) + 2 * TOK * (D + 4) + TOK * (ch + 4)) * sizeof(float);
-  if ((err = cudaFuncSetAttribute(skconv_out_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if ((err = cudaFuncSetAttribute(skconv_out_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_c3)) != cudaSuccess)
     return err;
-  skconv_out_kernel<D><<<grid, THREADS, smem_c3, st>>>(attn, feats, gate, ph_w, ph_b, xkv, out, L, n_group, ch, ntile,
-                                                       residual);
+  skconv_out_kernel<D, T><<<grid, THREADS, smem_c3, st>>>(attn, feats, gate, ph_w, ph_b, xkv, out, L, n_group, ch,
+                                                          ntile, residual);
   return cudaGetLastError();
 }
 
 // SKConv after the attention: (c1) feats and the GAP partials, (c2) the
-// gate, (c3) out = [xkv +] feats + proj_head(sum_g gate_g * attn_g).
+// gate, (c3) out = [xkv +] feats + proj_head(sum_g gate_g * attn_g).  The
+// tokens attn are float32; T is the type of the weights, xkv and out.
 // Scratch: feats (B, L, D), partial (B, L/64, D), gate (B, n_group, ch).
 // D in {32, 64, 96}, L % 64 == 0, ch = D / n_group a multiple of 8.
-inline cudaError_t launch_skconv(const float* attn, const float* proj_w, const float* proj_b, const float* fc1_w,
-                                 const float* fc1_b, const float* fc2_w, const float* fc2_b, const float* ph_w,
-                                 const float* ph_b, const float* xkv, float* feats, float* partial, float* gate,
-                                 float* out, int B, int L, int D, int n_group, int dz, int residual,
-                                 cudaStream_t st) {
+template <typename T>
+cudaError_t launch_skconv_t(const float* attn, const T* proj_w, const T* proj_b, const T* fc1_w, const T* fc1_b,
+                            const T* fc2_w, const T* fc2_b, const T* ph_w, const T* ph_b, const T* xkv,
+                            float* feats, float* partial, float* gate, T* out, int B, int L, int D, int n_group,
+                            int dz, int residual, cudaStream_t st) {
   if (!aligned16(attn) || (D / n_group) % 8 != 0) return cudaErrorInvalidValue;
   switch (D) {
     case 32: return launch_skconv_d<32>(attn, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, xkv, feats, partial, gate, out, B, L, n_group, dz, residual, st);
@@ -936,6 +1140,17 @@ inline cudaError_t launch_skconv(const float* attn, const float* proj_w, const f
     case 96: return launch_skconv_d<96>(attn, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, xkv, feats, partial, gate, out, B, L, n_group, dz, residual, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// launch_skconv_t on float32 weights, xkv (may be null when residual is 0)
+// and out.
+inline cudaError_t launch_skconv(const float* attn, const float* proj_w, const float* proj_b, const float* fc1_w,
+                                 const float* fc1_b, const float* fc2_w, const float* fc2_b, const float* ph_w,
+                                 const float* ph_b, const float* xkv, float* feats, float* partial, float* gate,
+                                 float* out, int B, int L, int D, int n_group, int dz, int residual,
+                                 cudaStream_t st) {
+  return launch_skconv_t<float>(attn, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, xkv, feats, partial,
+                                gate, out, B, L, D, n_group, dz, residual, st);
 }
 
 }  // namespace

@@ -127,7 +127,8 @@ class TPInterpreter(nn.Module):
         b, c, h, w = image_feature.shape
         x_im = image_feature.permute(0, 2, 3, 1).reshape(b, h * w, c)
         x = self.activation(self.fc_in(tp_input[:, :, 0].transpose(1, 2)))  # (B, L, d)
-        pos = self.pe[None, : x.shape[1]].expand(b, -1, -1)
+        # the float32 table cast to the activations' dtype (tatt.py:168-171)
+        pos = self.pe[None, : x.shape[1]].to(x.dtype).expand(b, -1, -1)
         hs, weights = self.transformer(x, x_im, pos)
         text_prior = hs.mean(0)  # (B, HW, d)
         return text_prior.reshape(b, h, w, -1).permute(0, 3, 1, 2), weights

@@ -105,7 +105,7 @@ class TransformerEncoderVL(nn.Module):
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x):
-        x = x + self.pe[None, : x.shape[1]]
+        x = x + self.pe[None, : x.shape[1]].to(x.dtype)  # cast first, as visionlan.py:126-132
         for layer in self.layers:
             x = layer(x)
         return self.norm(x)

@@ -135,10 +135,17 @@ class BiGRU(nn.Module):
     def forward(self, x: torch.Tensor, steps: int = None) -> torch.Tensor:
         """With `steps`, x is (N, 1, I): the same input at each of `steps`
         time steps, projected once and broadcast with a time stride of 0 (the
-        faithful gru_encoding)."""
+        faithful gru_encoding).
+
+        In bf16 (the serving copy) the input projection runs in bf16 and the
+        recurrence is a float32 island: the projections, w_hh and b_hh are
+        cast up, the float32 scan runs as it does in float32 (the JAX
+        package's Pallas scan has no bf16 form; its float32 carry is what the
+        TPU kernel computes), and the output is cast back down."""
+        scan = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
         xps = []
         for sfx in ("l0", "l0_reverse"):
-            xp = torch.matmul(x, getattr(self, f"weight_ih_{sfx}").T) + getattr(self, f"bias_ih_{sfx}")
+            xp = (torch.matmul(x, getattr(self, f"weight_ih_{sfx}").T) + getattr(self, f"bias_ih_{sfx}")).to(scan)
             xps.append(xp if steps is None else xp.expand(-1, steps, -1))
-        return gru_bidir(*xps, self.weight_hh_l0, self.weight_hh_l0_reverse, self.bias_hh_l0,
-                         self.bias_hh_l0_reverse)
+        hh = (self.weight_hh_l0, self.weight_hh_l0_reverse, self.bias_hh_l0, self.bias_hh_l0_reverse)
+        return gru_bidir(*xps, *(t.to(scan) for t in hh)).to(x.dtype)

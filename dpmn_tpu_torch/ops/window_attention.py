@@ -17,7 +17,14 @@ tensors; both compute, from tokens xq, xkv (B, L = H*W, D):
 Weights are a dict of torch-layout tensors: q_w (D, D), q_b, kv_w (2D, D),
 kv_b, proj_w (D, D), proj_b, fc1_w (d, D), fc1_b, fc2_w (G*ch, d), fc2_b,
 ph_w (D, ch), ph_b; `ln` holds qs, qb, ks, kb.  `biases` is per group
-(heads, N, N) and `masks` per group (nW, N, N) or None.
+(heads, N, N) and `masks` per group (nW, N, N) float32, or None.
+
+The io dtype is float32 or bf16: xq, xkv, the weights, `ln`, the biases and
+the output share it.  bf16 io computes what the JAX kernel computes on bf16
+inputs (pallas_window.py:191-202, :291, :340-369, :486-505): the LN in
+float32 rounded back to bf16, the projections of bf16 operands summed in
+float32, q / kv, the attention, softmax and SKConv in float32 against the
+bf16-valued weights and biases, and the residual sum rounded once to bf16.
 """
 
 from __future__ import annotations
@@ -78,16 +85,23 @@ def window_attention_block_plain(xq, xkv, weights: dict, biases: Sequence[torch.
                                  masks: Sequence[Optional[torch.Tensor]], window_sizes: Sequence[int],
                                  shifts: Sequence[int], gnum_heads: int, scale: float, hw_shape,
                                  ln: Optional[dict] = None, layout: str = "faithful") -> torch.Tensor:
-    """Plain PyTorch version of the block; returns (B, L, D)."""
+    """Plain PyTorch version of the block; returns (B, L, D) in the io dtype.
+    bf16 io runs every sum in float32 and rounds the LN result and the
+    output to bf16, as the kernels do; float32 (or float64) io runs in its
+    own dtype."""
+    io = xq.dtype
+    acc = torch.float32 if io == torch.bfloat16 else io
     b, l, dim = xq.shape
     h, w = hw_shape
     n_group = len(window_sizes)
     channel = dim // n_group
     gch = channel // gnum_heads
-    shortcut = xkv
+    weights = {k: t.to(acc) for k, t in weights.items()}
+    biases = [t.to(acc) for t in biases]
+    shortcut, xq, xkv = xkv.to(acc), xq.to(acc), xkv.to(acc)
     if ln is not None:
-        xq = layer_norm(xq, ln["qs"], ln["qb"])
-        xkv = layer_norm(xkv, ln["ks"], ln["kb"])
+        xq = layer_norm(xq, ln["qs"].to(acc), ln["qb"].to(acc)).to(io).to(acc)
+        xkv = layer_norm(xkv, ln["ks"].to(acc), ln["kb"].to(acc)).to(io).to(acc)
     q = (xq @ weights["q_w"].T + weights["q_b"]).reshape(b, h, w, dim)
     kv = (xkv @ weights["kv_w"].T + weights["kv_b"]).reshape(b, h, w, 2 * dim)
     k_all, v_all = kv[..., :dim], kv[..., dim:]
@@ -108,7 +122,7 @@ def window_attention_block_plain(xq, xkv, weights: dict, biases: Sequence[torch.
         attn = (qh * scale) @ kh.transpose(-1, -2) + biases[i][None]
         if sh > 0:
             nw = masks[i].shape[0]
-            attn = (attn.reshape(bw // nw, nw, gnum_heads, n, n) + masks[i][None, :, None]).reshape(
+            attn = (attn.reshape(bw // nw, nw, gnum_heads, n, n) + masks[i].to(acc)[None, :, None]).reshape(
                 bw, gnum_heads, n, n)
         attn = torch.softmax(attn, dim=-1)
         out = (attn @ vh).permute(0, 2, 1, 3).reshape(bw, n, channel)
@@ -121,7 +135,7 @@ def window_attention_block_plain(xq, xkv, weights: dict, biases: Sequence[torch.
         groups.append(xg)
     tokens = torch.cat(groups, dim=-1).reshape(b, l, dim)
     out = skconv(tokens, *(weights[k] for k in _WEIGHTS[4:]), n_group)
-    return shortcut + out if ln is not None else out
+    return (shortcut + out if ln is not None else out).to(io)
 
 
 def window_attention_block(xq, xkv, weights: dict, biases, masks, window_sizes, shifts,
@@ -149,18 +163,23 @@ def window_attention_block(xq, xkv, weights: dict, biases, masks, window_sizes, 
     for ws in window_sizes:
         if ws not in (2, 4, 8) or h % ws or w % ws:
             raise ValueError(f"window_attention kernel: window {ws} on a {h}x{w} grid")
-    dev = xq.device
-    kernels.check_cuda_tensor("xq", xq, (b, l, dim), dev)
-    kernels.check_cuda_tensor("xkv", xkv, (b, l, dim), dev)
+    dev, io = xq.device, xq.dtype
+    if io not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"window_attention kernel: io dtype {io}, the kernel takes float32 or bfloat16")
+    kernels.check_cuda_tensor("xq", xq, (b, l, dim), dev, io)
+    kernels.check_cuda_tensor("xkv", xkv, (b, l, dim), dev, io)
     shapes = {"q_w": (dim, dim), "q_b": (dim,), "kv_w": (2 * dim, dim), "kv_b": (2 * dim,),
               "proj_w": (dim, dim), "proj_b": (dim,), "fc1_w": (dz, dim), "fc1_b": (dz,),
               "fc2_w": (dim, dz), "fc2_b": (dim,), "ph_w": (dim, channel), "ph_b": (dim,)}
     for k in _WEIGHTS:
-        kernels.check_cuda_tensor(k, weights[k], shapes[k], dev)
+        kernels.check_cuda_tensor(k, weights[k], shapes[k], dev, io)
     if ln is not None:
         for k in _LN:
-            kernels.check_cuda_tensor(k, ln[k], (dim,), dev)
-    bias = torch.cat([bb.reshape(-1) for bb in biases]).contiguous()
+            kernels.check_cuda_tensor(k, ln[k], (dim,), dev, io)
+    for i, bb in enumerate(biases):
+        kernels.check_cuda_tensor(f"bias {i}", bb, device=dev, dtype=io, contiguous=False)
+    # the kernel reads the bias tables in float32: bf16 widens exactly
+    bias = torch.cat([bb.reshape(-1) for bb in biases]).float().contiguous()
     shifted = [m.reshape(-1) for m, sh in zip(masks, shifts) if sh > 0]
     mask = torch.cat(shifted).contiguous() if shifted else bias.new_zeros(1)
     for i, (ws, sh) in enumerate(zip(window_sizes, shifts)):
@@ -180,13 +199,14 @@ def window_attention_block(xq, xkv, weights: dict, biases, masks, window_sizes, 
     qbuf, kvbuf = scratch(b, l, dim), scratch(b, l, 2 * dim)
     attn, feats = scratch(b, l, dim), scratch(b, l, dim)
     partial, gate = scratch(b, l // 64, dim), scratch(b, n_group, channel)
-    out = scratch(b, l, dim)
+    out = torch.empty(b, l, dim, device=dev, dtype=io)
     ws_arr = (ctypes.c_int * n_group)(*window_sizes)
     sh_arr = (ctypes.c_int * n_group)(*shifts)
     null = ctypes.c_void_p(None)
     ln_ptrs = [kernels.ptr(ln[k]) for k in _LN] if ln is not None else [null] * 4
 
-    fn = kernels.bind("window_attention", "window_attention_block_forward",
+    entry = "window_attention_block_forward" + ("_bf16" if io == torch.bfloat16 else "")
+    fn = kernels.bind("window_attention", entry,
                       [ctypes.c_void_p] * 27 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     wp = [kernels.ptr(weights[k]) for k in _WEIGHTS]
@@ -195,6 +215,6 @@ def window_attention_block(xq, xkv, weights: dict, biases, masks, window_sizes, 
              kernels.ptr(partial), kernels.ptr(gate), kernels.ptr(out),
              b, h, w, dim, n_group, ws_arr, sh_arr, gnum_heads, dz, float(scale),
              int(layout == "corrected"), kernels.stream_ptr(dev))
-    kernels.check_launch(err, "window_attention_block_forward")
+    kernels.check_launch(err, entry)
     window_attention_counter.launches += 1
     return out

@@ -1,6 +1,7 @@
 """Where the time of the flagship sr_forward, or of its train step, goes on the card.
 
     python -m dpmn_tpu_torch.profile_path [--batch 64] [--train [--train-core {block,attention,full}]]
+    python -m dpmn_tpu_torch.profile_path [--bf16] [--glyph-from-psn] [--student-dtype bfloat16]
 
 Builds the flagship DPMNSystem with seeded random weights, warms it up, then
 (1) times each stage of one real sr_forward (the CRNN text prior, the TATT
@@ -10,6 +11,11 @@ torch.profiler and prints the device time of every op and kernel and the
 device's busy share of the forward's wall time, and (3) prints the same
 forward's wall time without the profiler.  Prints the card's name and power
 limit first.
+
+The serving modes: --bf16 profiles sr_forward_bf16 (the forward on the bf16
+copy of the state; its stage modules are the copy's), --glyph-from-psn the
+test() path (the students as one vmapped call, timed as one stage), and
+--student-dtype bfloat16 the students on their bf16 copy.
 
 With --train the same for one real train_step (fp32, the flagship's dropout
 0.1, synthetic HR/LR): the forward stages as above plus each distill, then
@@ -35,26 +41,33 @@ from .models.pgrm import TRAIN_CORES, resolve_train_core
 from .system import DPMNSystem
 
 
-def stage_modules(system: DPMNSystem):
-    """(label, module) for every stage of sr_forward that is a module call."""
-    stages = [("CRNN text prior", system.crnn_psn), ("TATT PSN", system.psn)]
-    stages += [(f"VisionLAN student {k}", s) for k, s in enumerate(system.students)]
+def stage_modules(system: DPMNSystem, nets=None):
+    """(label, module) for every stage of sr_forward that is a module call;
+    `nets` holds the modules the forward runs (the system, or its bf16
+    copy).  The vmapped students, where a forward has run them, are one
+    stage."""
+    nets = nets or system
+    students = system._students(nets)
+    stages = [("CRNN text prior", nets.crnn_psn), ("TATT PSN", nets.psn)]
+    stages += [(f"VisionLAN student {k}", s) for k, s in enumerate(students)]
+    if students in system._stacks:
+        stages.append(("VisionLAN students, vmapped", system._stacks[students].base))
     stages.append(("glyph render", system.glyph))
     stages += [(f"PGRM {i} ({'graphic' if p.graphic_mode else 'semantic'})", p)
-               for i, p in enumerate(system.pgrms)]
-    stages += [(f"distill {i}", d) for i, d in enumerate(system.distills)]
-    stages.append(("CMM", system.cmm))
+               for i, p in enumerate(nets.pgrms)]
+    stages += [(f"distill {i}", d) for i, d in enumerate(nets.distills)]
+    stages.append(("CMM", nets.cmm))
     return stages
 
 
-def hooked_stage_times(system: DPMNSystem, run):
+def hooked_stage_times(system: DPMNSystem, run, nets=None):
     """`run()` (one sr_forward or one train step) with a CUDA event recorded
     before and after each call of a stage module.  Returns [(label, calls,
     device ms)] in first-call order and run's device ms from the first to the
     last event; the rest (input copy, to_mask, argmax and EOS compaction, the
     α-blend, the losses) is the gap."""
     open_calls, spans, handles = [], [], []
-    for label, mod in stage_modules(system):
+    for label, mod in stage_modules(system, nets):
         def pre(mod, args, label=label):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
@@ -106,22 +119,36 @@ def main(argv=None):
     p.add_argument("--train", action="store_true", help="profile one train_step instead of one sr_forward")
     p.add_argument("--train-core", choices=TRAIN_CORES, default=None,
                    help="the PGRMs' training attention core (default: from DPMN_TPU_FUSE_QKV / DPMN_TPU_FUSE_SKCONV)")
+    p.add_argument("--bf16", action="store_true", help="profile sr_forward_bf16 (the bf16 serving forward)")
+    p.add_argument("--glyph-from-psn", action="store_true",
+                   help="every student reads the PSN output, as one vmapped call (the test() path)")
+    p.add_argument("--student-dtype", choices=["bfloat16"], default=None, help="run the students in bf16")
     a = p.parse_args(argv)
+    if a.train and (a.bf16 or a.glyph_from_psn or a.student_dtype):
+        p.error("the serving modes are eval forwards: no --train with them")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    system = DPMNSystem(TrainCfg(batch_size=a.batch), flagship_args(), seed=0, train_core=a.train_core)
+    system = DPMNSystem(TrainCfg(batch_size=a.batch), flagship_args(), seed=0, train_core=a.train_core,
+                        student_dtype=a.student_dtype)
     rng = np.random.RandomState(0)
     hr = rng.rand(a.batch, 32, 128, 4).astype(np.float32)
     lr = rng.rand(a.batch, 16, 64, 4).astype(np.float32)
-    what = f"train_step (train_core {resolve_train_core(a.train_core)})" if a.train else "sr_forward"
     seeds = iter(range(10**6))
-    run = (lambda: system.train_step(hr, lr, next(seeds))) if a.train else (lambda: system.sr_forward(lr))
+    if a.train:
+        what = f"train_step (train_core {resolve_train_core(a.train_core)})"
+        run = lambda: system.train_step(hr, lr, next(seeds))
+    else:
+        forward = system.sr_forward_bf16 if a.bf16 else system.sr_forward
+        what = (f"{forward.__name__}" + (" glyph_from_psn" if a.glyph_from_psn else "")
+                + (f" students {a.student_dtype}" if a.student_dtype else ""))
+        run = lambda: forward(lr, glyph_from_psn=a.glyph_from_psn)
     for _ in range(2):
         run()
     marks = []
     rows, total = hooked_stage_times(
-        system, (lambda: train_step_phases(system, hr, lr, next(seeds), marks)) if a.train else run)
+        system, (lambda: train_step_phases(system, hr, lr, next(seeds), marks)) if a.train else run,
+        system.state_bf16.get() if a.bf16 else None)
     print(f"stages of one {what} at B={a.batch} (CUDA events from forward hooks):")
     for label, calls, ms in rows:
         print(f"  {label:26s} x{calls}  {ms:9.3f} ms  {100 * ms / total:5.1f} %")

@@ -16,6 +16,24 @@ and ._train_step_impl (:502-507) with the device glyph atlas
 The losses and the distill cascade reach only the train step.  With
 `sr_share` both branches run model_list[0], a reference quirk.
 
+Serving modes of the eval forward (system.py:96, :281-313, :583-625):
+  * `sr_forward(lr, glyph_from_psn=True)`: the reference test() quirk
+    (super_resolution.py:648): every student reads the PSN output, so the b1
+    students run as one vmapped call over their stacked parameters and the
+    b1 priors come out of one glyph render of b1 * B rows;
+  * `student_dtype="bfloat16"`: the students, and only they, run on a bf16
+    copy of their parameters and a bf16 input; their argmax ids feed the
+    prior as before;
+  * `sr_forward_bf16(lr, glyph_from_psn=False)`: the forward on a bf16 copy
+    of the parameters and BatchNorm statistics of the PSN, CRNN, students,
+    PGRMs, distills and CMM, on bf16 input, the output returned float32.
+    The glyph atlas tables stay float32; the prior is cast to the cascade's
+    dtype, as the JAX package's glyphs.astype(dtype) does (system.py:345).
+Each bf16 copy is made at its first use and made again when a float32
+parameter or statistic it copies has changed since (a tensor's `_version`,
+which `train_step`'s updates and `from_jax`'s copies move): the counterpart
+of the JAX package's new-state rule.
+
 `train_step` (system.py:452-500) runs the frozen PSN, CRNN and students
 under no_grad in eval mode (their priors carry no gradient, :279, :345,
 :401) and the PGRMs, distills and CMM in train mode; the loss is the sum of
@@ -38,6 +56,10 @@ Entry points keep the JAX package's NHWC contract: (B, h, w, 4) LR in,
 
 from __future__ import annotations
 
+import copy
+import weakref
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 import torch.nn as nn
@@ -56,10 +78,77 @@ from .ops.dropout import TrainRng
 from .ops.mask_prior import to_mask
 
 
+def _state_stamp(modules) -> tuple:
+    """What identifies the values of the modules' parameters and buffers: each
+    tensor's identity and version counter (in-place updates move it)."""
+    return tuple((id(t), t._version) for m in modules for t in (*m.parameters(), *m.buffers()))
+
+
+def bf16_copy(module: nn.Module) -> nn.Module:
+    """A copy of `module` whose parameters (without grad) and persistent
+    floating-point buffers (the BatchNorm statistics) are bf16; the derived
+    non-persistent buffers (positional codes, shift masks, index tables)
+    are shared, as they are."""
+    memo = {}
+    for mod in module.modules():
+        for p in mod.parameters(recurse=False):
+            memo[id(p)] = nn.Parameter(p.detach().to(torch.bfloat16), requires_grad=False)
+        for name, buf in mod.named_buffers(recurse=False):
+            derived = name in mod._non_persistent_buffers_set or not buf.is_floating_point()
+            memo[id(buf)] = buf if derived else buf.to(torch.bfloat16)
+    return copy.deepcopy(module, memo)
+
+
+class Bf16Copy:
+    """A bf16 copy (`bf16_copy`) of named modules, made at the first `get`
+    and made again when a parameter or buffer of theirs has changed since;
+    `get` returns the copies as attributes of a namespace (no nn.Module, so
+    they are no submodules of the system); `made` counts the copies made."""
+
+    def __init__(self, **modules):
+        self.sources = modules
+        self.stamp, self.nets, self.made = None, None, 0
+
+    def get(self) -> SimpleNamespace:
+        stamp = _state_stamp(self.sources.values())
+        if stamp != self.stamp:
+            self.nets = None  # free the old copy first
+            self.nets = SimpleNamespace(**{k: bf16_copy(m) for k, m in self.sources.items()})
+            self.stamp, self.made = stamp, self.made + 1
+        return self.nets
+
+
+class StackedStudents:
+    """The students as one vmapped call over their stacked parameters and
+    buffers (torch.func.stack_module_state), stacked again when one of them
+    has changed: (B, 3, 64, 256) → logits (b1, B, 25, C), lengths (b1, B)."""
+
+    def __init__(self, students: nn.ModuleList):
+        self.students = students
+        self.base = copy.deepcopy(students[0]).to("meta")
+        self.stamp, self.state = None, None
+
+    def __call__(self, x: torch.Tensor):
+        stamp = _state_stamp(self.students)
+        if stamp != self.stamp:
+            self.state = None
+            self.state = torch.func.stack_module_state(list(self.students))
+            self.stamp = stamp
+
+        def one(params, buffers):
+            return torch.func.functional_call(self.base, (params, buffers), (x,))
+
+        return torch.func.vmap(one)(*self.state)
+
+
 class DPMNSystem(nn.Module):
-    def __init__(self, cfg: TrainCfg, args: Args, device=None, seed: int = 0, train_core: str = None):
+    def __init__(self, cfg: TrainCfg, args: Args, device=None, seed: int = 0, train_core: str = None,
+                 student_dtype: str = None):
         super().__init__()
         device = resolve_device(device)
+        if student_dtype not in (None, "bfloat16"):
+            raise ValueError(f"student_dtype {student_dtype!r}: None or 'bfloat16'")
+        self.student_dtype = student_dtype
         a = self.args = args
         self.cfg = cfg
         if a.arch != "tatt":
@@ -108,6 +197,11 @@ class DPMNSystem(nn.Module):
         if cfg.optimizer not in ("Adam", "AdamW"):
             raise ValueError(f"optimizer {cfg.optimizer!r}")
         self.optimizer = None  # made at the first update: eval never needs it
+        # the serving modes' bf16 copies and the stacked students, made at first use
+        self.student_bf16 = Bf16Copy(students=self.students)
+        self.state_bf16 = Bf16Copy(psn=self.psn, crnn_psn=self.crnn_psn, students=self.students, pgrms=self.pgrms,
+                                   cmm=self.cmm, distills=self.distills)
+        self._stacks = weakref.WeakKeyDictionary()  # students ModuleList -> StackedStudents
 
     def trainable_modules(self) -> dict:
         """The top-level trainable modules by their dpmn_tpu names; each is
@@ -120,16 +214,42 @@ class DPMNSystem(nn.Module):
 
     # ------------------------------------------------------------- internals
 
-    def _psn_forward(self, images_lr):
+    def _psn_forward(self, images_lr, nets=None):
         """Frozen CRNN text prior → TATT PSN (super_resolution.py:156-169)."""
-        logits = self.crnn_psn(parse_crnn_input(images_lr[:, :3]))  # (T, B, 37)
+        nets = nets or self
+        logits = nets.crnn_psn(parse_crnn_input(images_lr[:, :3]))  # (T, B, 37)
         emb = torch.softmax(logits, dim=-1).permute(1, 2, 0)[:, :, None, :]  # (B, 37, 1, T)
-        return self.psn(images_lr, emb)[0]
+        return nets.psn(images_lr, emb)[0]
 
-    def _glyph_prior(self, k: int, cascade):
-        """Student k reads the cascade image; the atlas renders its word."""
-        logits, lengths = self.students[k](parse_visionlan_input(cascade[:, :3]))
-        return self._prior_from_preds(logits.argmax(-1), lengths)
+    def _students(self, nets):
+        """The students a forward runs: their bf16 copy under student_dtype
+        (system.py:281-287; a bf16 state's students are bf16 already)."""
+        if nets is self and self.student_dtype is not None:
+            return self.student_bf16.get().students
+        return nets.students
+
+    def _student_input(self, students, images):
+        return parse_visionlan_input(images[:, :3]).to(students[0].w_vrm.weight.dtype)
+
+    def _glyph_prior(self, k: int, cascade, nets=None):
+        """Student k reads the cascade image; the atlas renders its word,
+        cast to the cascade's dtype."""
+        students = self._students(nets or self)
+        logits, lengths = students[k](self._student_input(students, cascade))
+        return self._prior_from_preds(logits.argmax(-1), lengths).to(cascade.dtype)
+
+    def _glyph_priors_shared(self, images, nets=None):
+        """All b1 glyph priors from one image, the test() quirk
+        (system.py:289-313): the students run as one vmapped call over their
+        stacked parameters, and the b1 * B words go through one render.
+        Returns a list of b1 (B, 2, H, W) priors."""
+        students = self._students(nets or self)
+        if students not in self._stacks:
+            self._stacks[students] = StackedStudents(students)
+        logits, lengths = self._stacks[students](self._student_input(students, images))
+        b = images.shape[0]
+        priors = self._prior_from_preds(logits.argmax(-1).reshape(self.b1 * b, -1), lengths.reshape(-1))
+        return list(priors.to(images.dtype).split(b))
 
     def _prior_from_preds(self, preds, lengths):
         pos = torch.arange(preds.shape[1], device=preds.device)[None, :]
@@ -139,13 +259,14 @@ class DPMNSystem(nn.Module):
         ids = torch.gather(ids, 1, order)
         return self.glyph(ids, (ids > 0).sum(dim=1))
 
-    def _pgrm(self, idx):
-        return self.pgrms[0 if self.args.sr_share else idx]
-
-    def _cascade(self, images_lr_psn, images_hr=None, rng: TrainRng = None):
+    def _cascade(self, images_lr_psn, images_hr=None, rng: TrainRng = None, nets=None, glyph_from_psn=False):
         """The two branches and CMM → (sr, loss).  With `images_hr` (the
         train step) the loss sums the per-PGRM and CMM image losses and the
-        distill cascade (system.py:383-436); without, it is None."""
+        distill cascade (system.py:383-436); without, it is None.  `nets`
+        holds the modules to run (the system itself by default);
+        `glyph_from_psn` gives every student the PSN output (system.py:386-391)."""
+        nets = nets or self
+        pgrm = lambda idx: nets.pgrms[0 if self.args.sr_share else idx]
         losses = []
 
         def image_term(sr):
@@ -153,18 +274,21 @@ class DPMNSystem(nn.Module):
                 losses.append(image_loss(sr, images_hr[:, :3], self.args.gradient) * 100.0)
 
         cascade, b1_list = images_lr_psn, []
+        if glyph_from_psn:
+            with torch.no_grad():
+                shared = self._glyph_priors_shared(images_lr_psn, nets)
         for k in range(self.b1):
             with torch.no_grad():
-                prior = self._glyph_prior(k, cascade)
-            sr = self._pgrm(k)(prior, cascade[:, :3], b1_list[:k], rng)
+                prior = shared[k] if glyph_from_psn else self._glyph_prior(k, cascade, nets)
+            sr = pgrm(k)(prior, cascade[:, :3], b1_list[:k], rng)
             b1_list.append(sr)
             cascade = sr
             image_term(sr)
         cascade, b2_list = images_lr_psn, []
         for k in range(self.b1, self.b1 + self.b2):
             with torch.no_grad():
-                prior = to_mask(cascade)
-            sr = self._pgrm(k)(prior, cascade[:, :3], b2_list[: (k - self.b2)], rng)
+                prior = to_mask(cascade).to(cascade.dtype)
+            sr = pgrm(k)(prior, cascade[:, :3], b2_list[: (k - self.b2)], rng)
             b2_list.append(sr)
             cascade = sr
             image_term(sr)
@@ -177,28 +301,40 @@ class DPMNSystem(nn.Module):
             for k in range(self.b2 - 1, 0, -1):
                 loss, feat = self.distills[k + self.b1 - 2](feat, b2_list[k - 1])
                 losses.append(loss * 100.0)
-        sr = self.cmm(b1_list[-1], b2_list[-1])
+        sr = nets.cmm(b1_list[-1], b2_list[-1])
         image_term(sr)
         if images_hr is None:
             return sr, None
         return sr, sum(losses[1:], losses[0]) / (self.b1 + self.b2 + 1)
 
-    def _nchw(self, images) -> torch.Tensor:
-        """NHWC images → NCHW on the device, in the dtype of the parameters
-        (float32 unless the caller converted the system)."""
+    def _nchw(self, images, nets=None) -> torch.Tensor:
+        """NHWC images → NCHW on the device, in the dtype of the PSN's
+        parameters in `nets` (float32 unless the caller converted the
+        system, bf16 for the bf16 copy)."""
         x = images if torch.is_tensor(images) else torch.from_numpy(np.asarray(images))
-        return x.to(self.device, self.psn.conv_in.weight.dtype).permute(0, 3, 1, 2).contiguous()
+        return x.to(self.device, (nets or self).psn.conv_in.weight.dtype).permute(0, 3, 1, 2).contiguous()
 
-    # ------------------------------------------------------------ entry point
-
-    @torch.no_grad()
-    def sr_forward(self, images_lr) -> torch.Tensor:
-        """(B, h, w, 4) NHWC LR images (numpy or tensor) → (B, 2h, 2w, 3) NHWC SR."""
-        images_lr_psn = self._psn_forward(self._nchw(images_lr))
-        sr, _ = self._cascade(images_lr_psn)
+    def _forward(self, images_lr, nets, glyph_from_psn: bool) -> torch.Tensor:
+        """The eval forward (system.py:583-594) on `nets`, NHWC in and out."""
+        images_lr_psn = self._psn_forward(self._nchw(images_lr, nets), nets)
+        sr, _ = self._cascade(images_lr_psn, nets=nets, glyph_from_psn=glyph_from_psn)
         alpha = self.args.alpha
         out = alpha * sr + (1 - alpha) * images_lr_psn[:, :3]
         return out.permute(0, 2, 3, 1).contiguous()
+
+    # ------------------------------------------------------------ entry points
+
+    @torch.no_grad()
+    def sr_forward(self, images_lr, glyph_from_psn: bool = False) -> torch.Tensor:
+        """(B, h, w, 4) NHWC LR images (numpy or tensor) → (B, 2h, 2w, 3) NHWC SR.
+        `glyph_from_psn`: every student reads the PSN output (the test() path)."""
+        return self._forward(images_lr, self, glyph_from_psn)
+
+    @torch.no_grad()
+    def sr_forward_bf16(self, images_lr, glyph_from_psn: bool = False) -> torch.Tensor:
+        """The bf16 serving forward (system.py:597-625): sr_forward on the bf16
+        copy of the state and bf16 input; the SR comes back float32."""
+        return self._forward(images_lr, self.state_bf16.get(), glyph_from_psn).float()
 
     def train_step(self, images_hr, images_lr, seed: int = 0) -> dict:
         """One joint train step on (B, 2h, 2w, 4) HR and (B, h, w, 4) LR NHWC

@@ -371,6 +371,50 @@ def test_window_attention_kernels_rerun_bit_for_bit(dev):
         assert all(torch.equal(a, b) for a, b in zip(g1, g2))
 
 
+def bf16_block_args(kw):
+    """`window_attention_block` keyword arguments with the weights, the LN
+    parameters and the relative biases in bf16 (the masks stay float32)."""
+    bf = lambda d: None if d is None else {k: t.bfloat16() for k, t in d.items()}
+    return dict(kw, weights=bf(kw["weights"]), ln=bf(kw["ln"]), biases=[b.bfloat16() for b in kw["biases"]])
+
+
+@pytest.mark.parametrize("batch", [1, 3, 9])
+@pytest.mark.parametrize("width", WIDTHS, ids=lambda wd: f"D{wd[0]}")
+@pytest.mark.parametrize("shift", ["unshifted", "shifted"])
+@pytest.mark.parametrize("faithful", [True, False])
+@pytest.mark.parametrize("with_ln", [True, False])
+def test_window_attention_kernel_bf16(dev, batch, width, shift, faithful, with_ln):
+    """K1 on bf16 io against its plain version on the same bf16 inputs, one
+    launch, bf16 out: max abs <= 2^-7 max|out|, one bf16 rounding of the
+    largest value (tests/test_torch_window_attention_bf16.py)."""
+    dim, windows, heads, shifts = width
+    shifts = shifts if shift == "shifted" else (0,) * len(windows)
+    xq, xkv, kw = k1_inputs(dev, batch, dim, windows, heads, shifts, faithful, with_ln)
+    xq, xkv, kw = xq.bfloat16(), xkv.bfloat16(), bf16_block_args(kw)
+    before = window_attention_counter.launches
+    with torch.no_grad():
+        out = window_attention_block(xq, xkv, **kw)
+        ref = window_attention_block_plain(xq, xkv, **kw)
+    torch.cuda.synchronize()
+    assert window_attention_counter.launches == before + 1
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2.0**-7 * ref.float().abs().max().item(), err
+
+
+def test_window_attention_kernel_bf16_reruns_bit_for_bit_and_refuses_mixed_dtypes(dev):
+    xq, xkv, kw = k1_inputs(dev, 9)
+    xq16, xkv16, kw16 = xq.bfloat16(), xkv.bfloat16(), bf16_block_args(kw)
+    with torch.no_grad():
+        assert torch.equal(window_attention_block(xq16, xkv16, **kw16), window_attention_block(xq16, xkv16, **kw16))
+        with pytest.raises(ValueError):  # bf16 tokens with float32 weights: no cast, no fallback
+            window_attention_block(xq16, xkv16, **kw)
+        with pytest.raises(ValueError):
+            window_attention_block(xq, xkv, **kw16)
+        with pytest.raises(ValueError):
+            window_attention_block(xq.half(), xkv.half(), **kw)
+
+
 def test_window_kernels_reject_other_widths(dev):
     """D = 128 (beyond the kernels' 96) raises in K1 and K3."""
     xq, xkv, kw = k1_inputs(dev, 1, 128, (2, 4, 8, 4), 8, (0, 0, 0, 0))
