@@ -37,6 +37,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
      that bf16 keeps, bf16 SR against float32 SR (mean abs < 0.05), PSNR /
      SSIM and the CRNN judge's word agreement between them, and the card
      against the CPU on 2 images for glyph_from_psn=True;
+  4c. the judges on the same system: one B = 64 batch of SR through the
+     test-mode forward sr_forward(glyph_from_psn=True) (the path that
+     test() and every validation pass of dpmn_tpu/train.py take), then each of ASTER,
+     MORAN and CRNN (seeded random weights) reads it: its words, images/s
+     over timed calls after warm-up (CUDA events) and peak memory; the
+     device's busy share of one ASTER predict (torch.profiler; recorded,
+     not gated); each judge on the card against the same judge on the CPU
+     on 2 images (words equal, ASTER's beam ids equal); no kernel of the
+     port launched by any judge;
   5. the training window-attention kernel K3, forward and backward, against
      autograd through its plain version at B = 64 and the flagship geometry:
      both shift sets, both layouts, dropout off and at keep 0.9 from one seed;
@@ -124,6 +133,8 @@ BF16_ROUNDING = 2.0**-7  # K1 and K7 on bf16 io: max abs <= this x max|out| (tes
 SERVE_MEAN_TOL = 0.05  # bf16 SR against float32 SR, mean abs (tests/test_prefetch_bf16.py)
 K7_BF16_RTOL, K7_BF16_ATOL = 0.1, 0.15  # bf16 against the float32 kernel (tests/test_pallas_window.py)
 K8_TOL = 1e-5  # max abs error: float32 sums of <= 64 terms in other orders
+JUDGE_RTOL = 1e-4  # the judges' features / logits, card vs CPU: max abs <= this x max|ref| (cuDNN's
+# float32 convolution and RNN algorithms against the CPU's, through up to 31 layers)
 
 
 def log(msg):
@@ -816,6 +827,106 @@ def phase_serving(dev, card, system, cpu, batches, sr32):
     if not (same and d <= 1e-4):
         raise AssertionError("card and CPU disagree on glyph_from_psn")
     return bf16_launches
+
+
+def busy_share(fn, attempts=3):
+    """The device's busy time in one fn() under torch.profiler (the union of
+    its device events' intervals, `profile_path.device_busy_ms`), with the
+    run's wall time, the device events' count and their device time by
+    name; after one profiled warm-up run (the first run under the profiler
+    loses device events).  None where the profile recorded no device event
+    in `attempts` tries."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from dpmn_tpu_torch.profile_path import device_busy_ms, device_events
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                prof.step()
+        events = device_events(prof)
+        if not events:
+            log("  torch.profiler recorded no device time; profiling again")
+            continue
+        by_name = {}
+        for e in events:
+            ms, n = by_name.get(e.name[:60], (0.0, 0))
+            by_name[e.name[:60]] = (ms + e.device_time / 1e3, n + 1)
+        return device_busy_ms(events), wall, len(events), by_name
+    return None
+
+
+@torch.no_grad()
+def judge_values(kind, judge, images):
+    """A judge's last float values before its words, on NHWC images: ASTER's
+    encoder features (after the STN, TPS and the BiLSTM), MORAN's logits of
+    both directions, CRNN's logits."""
+    from dpmn_tpu_torch.models.aster import parse_aster_input
+    from dpmn_tpu_torch.models.crnn import parse_crnn_input
+    from dpmn_tpu_torch.models.moran import parse_moran_input
+
+    x = images.permute(0, 3, 1, 2)
+    m = judge.model
+    if kind == "aster":
+        return m.encoder(m.rectify(parse_aster_input(x))[0])
+    if kind == "moran":
+        return torch.cat(m(parse_moran_input(x)), dim=1)
+    return m(parse_crnn_input(x))
+
+
+def phase_judges(dev, card, system, batches):
+    """The three judges on phase 4's system, reading the test-mode SR of one
+    B = 64 batch; raises unless each judge reads the same words on the card
+    as on the CPU (2 images) and no kernel of the port was launched."""
+    from dpmn_tpu_torch.evaluator import build_evaluator
+
+    sr = system.sr_forward(batches[1], glyph_from_psn=True)
+    torch.cuda.synchronize()
+    if tuple(sr.shape) != (B, 32, 128, 3) or not torch.isfinite(sr).all():
+        raise AssertionError(f"judges: bad SR {tuple(sr.shape)}")
+    reset_counts()
+    for kind, seed in (("aster", 11), ("moran", 12), ("crnn", 13)):
+        judge = build_evaluator(kind, device=dev, seed=seed)
+        words = judge.predict(sr)
+        if len(words) != B:
+            raise AssertionError(f"judges: {kind} read {len(words)} words of {B} images")
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: judge.predict(sr), iters=5, warmup=2)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"judges: {kind} B={B}: {ms:.2f} ms/batch, {B / ms * 1e3:.1f} images/s on {card}; peak memory "
+            f"{peak / 2**30:.3f} GiB, {(peak - resident) / 2**30:.3f} GiB above the {resident / 2**30:.3f} GiB "
+            f"resident (the system, the judges); {len(set(words))} distinct words, e.g. {words[:2]}")
+        if kind == "aster":
+            share = busy_share(lambda: judge.predict(sr))
+            if share is None:
+                log("judges: aster busy share not measured (torch.profiler recorded no device time)")
+            else:
+                busy, wall, n, by_name = share
+                log(f"judges: aster one predict under torch.profiler: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+                    f"({100 * busy / wall:.1f} % busy, {n} device events)")
+                for name, (t, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+                    log(f"judges: aster device time {t:.3f} ms in {cnt} x {name}")
+        cpu = build_evaluator(kind, device="cpu", seed=seed)
+        x2 = sr[:2]
+        same = judge.predict(x2) == cpu.predict(x2.cpu())
+        if kind == "aster":
+            same = same and bool((judge.predict_ids(x2) == cpu.predict_ids(x2.cpu())).all())
+        ref = judge_values(kind, cpu, x2.cpu())
+        err = (judge_values(kind, judge, x2).cpu() - ref).abs().max().item()
+        tol = JUDGE_RTOL * ref.abs().max().item()
+        log(f"judges: {kind} card vs CPU on 2 images: words{' and beam ids' if kind == 'aster' else ''} equal "
+            f"{same}; {'features' if kind == 'aster' else 'logits'} max_abs_err {err:.3e} (tol {tol:.3e})")
+        if not (same and err <= tol):
+            raise AssertionError(f"card and CPU disagree on the {kind} judge")
+    check_counts("judges", read_counts())
 
 
 def k3_cost(batch, hw_shape, dim, window_sizes):
@@ -1571,6 +1682,7 @@ def main():
     k1["launches"], k2["launches"] = launches["window_attention_block"], launches["gru_bidir"] + launches["gru_scan"]
     k1_bf16 = phase_window_attention_bf16(dev)
     k1_bf16["launches"] = phase_serving(dev, card, system, cpu, batches, sr32)["window_attention_block"]
+    phase_judges(dev, card, system, batches)
     del system, cpu
     torch.cuda.empty_cache()
     entries = [k1, k1_bf16, k2]

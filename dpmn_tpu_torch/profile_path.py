@@ -41,6 +41,25 @@ from .models.pgrm import TRAIN_CORES, resolve_train_core
 from .system import DPMNSystem
 
 
+def device_events(prof) -> list:
+    """The device events (kernels, copies) of a torch.profiler run, without
+    the annotations the profiler lays on the device timeline (ProfilerStep#,
+    which spans a whole step): they are no device work."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep") and not getattr(e, "is_user_annotation", False)]
+
+
+def device_busy_ms(events) -> float:
+    """The device's busy time over `events`: the union of their intervals, so
+    that events that overlap or that the profiler lists twice count once
+    (a sum of their device times over-counts)."""
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy / 1e3
+
+
 def stage_modules(system: DPMNSystem, nets=None):
     """(label, module) for every stage of sr_forward that is a module call;
     `nets` holds the modules the forward runs (the system, or its bf16
@@ -168,10 +187,11 @@ def main(argv=None):
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time for e in events) / 1e3 if events else 0.0
-    print(f"profiled {what}: wall {wall:.3f} ms, device kernel time {busy:.3f} ms "
-          f"({100 * busy / wall:.1f} % busy), {len(events)} device events")
+    events = device_events(prof)
+    busy = device_busy_ms(events)
+    print(f"profiled {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms (the union of the device events' "
+          f"intervals; their device times sum to {sum(e.device_time for e in events) / 1e3:.3f} ms), "
+          f"{100 * busy / wall:.1f} % busy, {len(events)} device events")
     print(prof.key_averages().table(sort_by="device_time_total", row_limit=-1, max_name_column_width=60))
     torch.cuda.synchronize()
     t0 = time.perf_counter()

@@ -400,9 +400,13 @@ def init_weights(model: nn.Module, seed: int) -> None:
     the same weights on any device: Linear / Conv / ConvTranspose / RNN / MHA
     projection weights and biases uniform in ±1/sqrt(fan_in) (RNNs: hidden
     size); norms at identity; PReLU slopes 0.25; the relative-position tables
-    normal(0, 0.02); embeddings and the InfoTransformer's init_factor
-    normal(0, 1); the PGRM residual weights at 1.  Raises on a parameter no
-    rule covers, so none is left uninitialized."""
+    normal(0, 0.02); embeddings (MORAN's bare char_embeddings too) and the
+    InfoTransformer's init_factor normal(0, 1); the PGRM residual weights at
+    1; an STN head's stn_fc2 as the reference initializes it (weight 0, bias
+    the margin-0.01 control points), so its TPS warp starts near the
+    identity.  Raises on a parameter no rule covers, so none is left
+    uninitialized."""
+    from .models.stn import init_ctrl_points
     from .models.tatt import InfoTransformer
     from .ops.attention import MultiHeadAttention
     from .ops.gru import BiGRU
@@ -415,19 +419,25 @@ def init_weights(model: nn.Module, seed: int) -> None:
 
     for mname, mod in model.named_modules():
         for pname, p in mod.named_parameters(recurse=False):
-            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            if mname.endswith("stn_fc2"):
+                value = (torch.zeros(p.shape) if pname == "weight"
+                         else torch.from_numpy(init_ctrl_points(p.shape[0] // 2).reshape(-1)))
+            elif isinstance(mod, (nn.Linear, nn.Conv2d)):
                 value = uniform(p, mod.weight[0].numel())
             elif isinstance(mod, nn.ConvTranspose2d):
                 value = uniform(p, mod.weight.shape[0] * mod.weight[0, 0].numel())
-            elif isinstance(mod, (nn.LSTM, BiGRU)):
+            elif isinstance(mod, (nn.LSTM, nn.GRU, BiGRU)):
                 value = uniform(p, mod.weight_hh_l0.shape[1])
+            elif isinstance(mod, nn.GRUCell):
+                value = uniform(p, mod.hidden_size)
             elif isinstance(mod, MultiHeadAttention):
                 value = uniform(p, mod.embed_dim) if pname == "in_proj_weight" else torch.zeros(p.shape)
-            elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
+            elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d, nn.BatchNorm2d)):
                 value = torch.ones(p.shape) if pname == "weight" else torch.zeros(p.shape)
             elif isinstance(mod, nn.PReLU):
                 value = torch.full(p.shape, 0.25)
-            elif isinstance(mod, nn.Embedding) or (isinstance(mod, InfoTransformer) and pname == "init_factor"):
+            elif (isinstance(mod, nn.Embedding) or pname == "char_embeddings"
+                  or (isinstance(mod, InfoTransformer) and pname == "init_factor")):
                 value = torch.randn(p.shape, generator=gen)
             elif pname.startswith("relative_position_bias_table"):
                 value = torch.randn(p.shape, generator=gen) * 0.02

@@ -9,9 +9,13 @@ numpy arrays — and copies every leaf into the port's DPMNSystem:
   * BatchNorm scale/bias → weight/bias, batch_stats mean/var → running stats;
   * LayerNorm scale/bias → weight/bias;
   * BiGRU / BiLSTM gate blocks w_ih_fw (I, G*H) → weight_ih_l0 (G*H, I) and
-    *_bw → *_l0_reverse (gate order kept: [r; z; n] and [i; f; g; o]);
+    *_bw → *_l0_reverse (gate order kept: [r; z; n] and [i; f; g; o]); ASTER's
+    lstm0 / lstm1 → the l0 / l1 layers of one two-layer nn.LSTM; the flat
+    gru_w_ih … of the attention decoders → nn.GRU / nn.GRUCell;
   * the PGRM residual weights (1, H, W, 3) → (1, 3, H, W).
-It raises on a leaf of the JAX state that no port tensor takes, on a port
+`module_from_jax` also takes the judges (ASTER's RecognizerBuilder and its
+AttentionRecognitionHead, MORAN, STNHead).  It raises on a leaf of the JAX
+state that no port tensor takes, on a port
 parameter or buffer that no leaf fills, and on any shape mismatch.  The
 distill modules come over with the rest; the optimizer state is not read.
 """
@@ -84,8 +88,10 @@ class _Copier:
         self.raw(bn.running_mean, f"{s}/mean")
         self.raw(bn.running_var, f"{s}/var")
 
-    def rnn(self, mod, path: str):
-        for tag, sfx in (("fw", "l0"), ("bw", "l0_reverse")):
+    def rnn(self, mod, path: str, layer: int = 0):
+        """One bidirectional layer of an LSTM / GRU (layer `layer` of a
+        stacked nn.LSTM)."""
+        for tag, sfx in (("fw", f"l{layer}"), ("bw", f"l{layer}_reverse")):
             self.raw(getattr(mod, f"weight_ih_{sfx}"), f"{path}/w_ih_{tag}", lambda v: v.T)
             self.raw(getattr(mod, f"weight_hh_{sfx}"), f"{path}/w_hh_{tag}", lambda v: v.T)
             self.raw(getattr(mod, f"bias_ih_{sfx}"), f"{path}/b_ih_{tag}")
@@ -146,6 +152,92 @@ def _crnn(c: _Copier, crnn, p, s):
     for j, blk in enumerate((crnn.rnn1, crnn.rnn2)):
         c.rnn(blk.rnn, f"{p}/BidirectionalLSTM_{j}/BiLSTM_0")
         c.dense(blk.embedding, f"{p}/BidirectionalLSTM_{j}/Dense_0")
+
+
+def _stn_head(c: _Copier, stn, p, s):
+    for j in range(6):
+        block = stn.stn_convnet[2 * j]
+        c.conv(block[0], f"{p}/ConvBNReLU_{j}/Conv_0")
+        c.bn(block[1], f"{p}/ConvBNReLU_{j}/BatchNorm_0", f"{s}/ConvBNReLU_{j}/BatchNorm_0")
+    c.dense(stn.stn_fc1[0], f"{p}/Dense_0")
+    c.bn(stn.stn_fc1[1], f"{p}/BatchNorm_0", f"{s}/BatchNorm_0")
+    c.dense(stn.stn_fc2, f"{p}/Dense_1")
+
+
+def _attention_head(c: _Copier, head, p):
+    """The flat params of dpmn_tpu's AttentionRecognitionHead."""
+    d = head.decoder
+    for port, name in ((d.attention_unit.sEmbed, "s_embed"), (d.attention_unit.xEmbed, "x_embed"),
+                       (d.attention_unit.wEmbed, "w_embed"), (d.fc, "fc")):
+        c.raw(port.weight, f"{p}/{name}_kernel", lambda v: v.T)
+        c.raw(port.bias, f"{p}/{name}_bias")
+    c.raw(d.tgt_embedding.weight, f"{p}/tgt_embedding")
+    _gru_cell(c, d.gru, "_l0", p)
+
+
+def _gru_cell(c: _Copier, gru, sfx, p):
+    """gru_w_ih (I, 3H) … gru_b_hh → weight_ih{sfx} (3H, I) …"""
+    for w in ("ih", "hh"):
+        c.raw(getattr(gru, f"weight_{w}{sfx}"), f"{p}/gru_w_{w}", lambda v: v.T)
+        c.raw(getattr(gru, f"bias_{w}{sfx}"), f"{p}/gru_b_{w}")
+
+
+def _aster(c: _Copier, m, p, s):
+    _stn_head(c, m.stn_head, f"{p}/stn_head", f"{s}/stn_head")
+    enc, pe, se = m.encoder, f"{p}/encoder", f"{s}/encoder"
+    c.conv(enc.layer0[0], f"{pe}/Conv_0")
+    c.bn(enc.layer0[1], f"{pe}/BatchNorm_0", f"{se}/BatchNorm_0")
+    blocks = [blk for i in range(1, 6) for blk in getattr(enc, f"layer{i}")]
+    for i, blk in enumerate(blocks):  # flax names the blocks in creation order
+        q, r = f"{pe}/AsterBlock_{i}", f"{se}/AsterBlock_{i}"
+        c.conv(blk.conv1, f"{q}/Conv_0")
+        c.bn(blk.bn1, f"{q}/BatchNorm_0", f"{r}/BatchNorm_0")
+        c.conv(blk.conv2, f"{q}/Conv_1")
+        c.bn(blk.bn2, f"{q}/BatchNorm_1", f"{r}/BatchNorm_1")
+        if blk.downsample is not None:
+            c.conv(blk.downsample[0], f"{q}/Conv_2")
+            c.bn(blk.downsample[1], f"{q}/BatchNorm_2", f"{r}/BatchNorm_2")
+    for layer in (0, 1):
+        c.rnn(enc.rnn, f"{pe}/lstm{layer}", layer)
+    _attention_head(c, m.decoder, f"{p}/decoder")
+
+
+def _moran(c: _Copier, m, p, s):
+    morn = m.MORN.cnn
+    for i, (ci, bi) in enumerate(((1, 2), (5, 6), (9, 10), (12, 13), (15, 16)), start=1):
+        c.conv(morn[ci], f"{p}/MORN/conv{i}")
+        c.bn(morn[bi], f"{p}/MORN/bn{i}", f"{s}/MORN/bn{i}")
+    asrn, pa, sa = m.ASRN, f"{p}/ASRN", f"{s}/ASRN"
+    pr, sr = f"{pa}/ResNetMoran_0", f"{sa}/ResNetMoran_0"
+    c.conv(asrn.cnn.block0[0], f"{pr}/Conv_0")
+    c.bn(asrn.cnn.block0[1], f"{pr}/BatchNorm_0", f"{sr}/BatchNorm_0")
+    blocks = [blk for i in range(1, 6) for blk in getattr(asrn.cnn, f"block{i}")]
+    for i, blk in enumerate(blocks):
+        q, r = f"{pr}/ResidualBlockMoran_{i}", f"{sr}/ResidualBlockMoran_{i}"
+        # flax creation order: in a strided block the shortcut's BN comes
+        # first (BatchNorm_0), then conv1's and conv2's
+        bns = [blk.conv1[1], blk.conv2[1]]
+        if blk.downsample is not None:
+            c.conv(blk.downsample[0], f"{q}/down_conv")
+            bns.insert(0, blk.downsample[1])
+        c.conv(blk.conv1[0], f"{q}/Conv_0")
+        c.conv(blk.conv2[0], f"{q}/Conv_1")
+        for j, bn in enumerate(bns):
+            c.bn(bn, f"{q}/BatchNorm_{j}", f"{r}/BatchNorm_{j}")
+    for i, blk in enumerate(asrn.rnn):
+        c.rnn(blk.rnn, f"{pa}/rnn{i}")
+        c.dense(blk.embedding, f"{pa}/rnn{i}_embed")
+    for tag in ("attentionL2R", "attentionR2L"):
+        att, q = getattr(asrn, tag), f"{pa}/{tag}"
+        cell = att.attention_cell
+        c.raw(cell.i2h.weight, f"{q}/i2h_kernel", lambda v: v.T)
+        c.raw(cell.h2h.weight, f"{q}/h2h_kernel", lambda v: v.T)
+        c.raw(cell.h2h.bias, f"{q}/h2h_bias")
+        c.raw(cell.score.weight, f"{q}/score_kernel", lambda v: v.T)
+        _gru_cell(c, cell.rnn, "", q)
+        c.raw(att.generator.weight, f"{q}/generator_kernel", lambda v: v.T)
+        c.raw(att.generator.bias, f"{q}/generator_bias")
+        c.raw(att.char_embeddings, f"{q}/char_embeddings")
 
 
 def _student(c: _Copier, vl, p, s):
@@ -283,10 +375,13 @@ def module_from_jax(module: nn.Module, variables: dict) -> None:
     """Copy one flax module's variables ({"params": ..., "batch_stats": ...},
     numpy leaves) into the port module of the same model, in place; raises
     like `from_jax`."""
+    from .models.aster import AttentionRecognitionHead, RecognizerBuilder
     from .models.cmm import CMM
     from .models.crnn import CRNN
     from .models.distill import DistillModule
+    from .models.moran import MORAN
     from .models.pgrm import PGRM, Mlp, SwinTransformerBlock, WindowAttention
+    from .models.stn import STNHead
     from .models.tatt import TSRN_TL_TRANS
     from .models.visionlan import VisionLAN
     from .ops.gru import BiGRU
@@ -306,6 +401,10 @@ def module_from_jax(module: nn.Module, variables: dict) -> None:
         VisionLAN: lambda: _student(c, module, p, s),
         BiGRU: lambda: c.rnn(module, p),
         DistillModule: lambda: _distill(c, module, p, s),
+        RecognizerBuilder: lambda: _aster(c, module, p, s),
+        AttentionRecognitionHead: lambda: _attention_head(c, module, p),
+        MORAN: lambda: _moran(c, module, p, s),
+        STNHead: lambda: _stn_head(c, module, p, s),
     }
     if type(module) not in table:
         raise TypeError(f"module_from_jax: no mapping for {type(module).__name__}")
@@ -316,5 +415,6 @@ def module_from_jax(module: nn.Module, variables: dict) -> None:
 def _derived_buffer(name: str) -> bool:
     """Buffers the port derives from the geometry, not from weights."""
     last = name.rsplit(".", 1)[-1]
-    return last in ("num_batches_tracked", "pe", "table", "sel", "cell_of_s", "off_of_s") or last.startswith(
+    return last in ("num_batches_tracked", "pe", "table", "sel", "cell_of_s", "off_of_s", "inverse_kernel",
+                    "target_coordinate_repr", "target_control_points") or last.startswith(
         ("rel_index_", "shift_mask_"))

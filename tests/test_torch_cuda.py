@@ -716,3 +716,21 @@ def test_new_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):  # float32 q with bf16 biases
         GW.grouped_window_attention(qf, qf, qf, [b.detach().bfloat16() for b in wa.biases()], wa.masks(), wa.win,
                                     wa.shf, wa.gnum_heads, wa.scale)
+
+
+@pytest.mark.parametrize("kind", ["aster", "moran", "crnn"])
+def test_judge_on_the_card_matches_the_cpu(dev, kind):
+    """Each judge on the card against the same seeded judge on the CPU on 2
+    images: the words equal (ASTER: its beam ids too); none of the port's
+    kernels is launched."""
+    from dpmn_tpu_torch.evaluator import build_evaluator
+
+    images = torch.rand(2, 16, 64, 3, generator=torch.Generator().manual_seed(3))
+    images = torch.nn.functional.interpolate(images.permute(0, 3, 1, 2), (32, 128), mode="bicubic")
+    images = images.clamp(0, 1).permute(0, 2, 3, 1).contiguous()
+    card, cpu = build_evaluator(kind, device=dev, seed=4), build_evaluator(kind, device="cpu", seed=4)
+    before = (window_attention_counter.launches, gru_bidir_counter.launches, gru_scan_counter.launches)
+    assert card.predict(images.to(dev)) == cpu.predict(images)
+    if kind == "aster":
+        assert (card.predict_ids(images) == cpu.predict_ids(images)).all()
+    assert (window_attention_counter.launches, gru_bidir_counter.launches, gru_scan_counter.launches) == before

@@ -82,3 +82,21 @@ def nchw(x: np.ndarray) -> torch.Tensor:
 
 def nhwc(x: torch.Tensor) -> np.ndarray:
     return x.detach().permute(0, 2, 3, 1).numpy()
+
+
+def aster_variables(seed: int):
+    """Random variables of dpmn_tpu's full-width ASTER, with its STN started
+    as the reference starts it: the control points on the margin-0.01
+    rectangle (stn_fc2's bias), moved by a small random kernel, so that the
+    TPS warp is a real near-identity warp instead of a collapse to one
+    corner."""
+    import jax.numpy as jnp
+
+    from dpmn_tpu.models.aster import RecognizerBuilder
+    from dpmn_tpu.models.stn import init_ctrl_points
+
+    variables = init_variables(RecognizerBuilder(), seed, jnp.zeros((1, 32, 100, 3)), train=False)
+    fc2 = variables["params"]["stn_head"]["Dense_1"]
+    fc2["bias"] = init_ctrl_points(20).reshape(-1)
+    fc2["kernel"] = 0.1 * fc2["kernel"]
+    return variables
