@@ -85,7 +85,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
      geometry on the card (K4's forward and q-gradient against the rebuild
      from the dumped masks, within K3's tolerances), launches counted; its
      device time and launches a call and the host's time a call;
- 13. one JSON line with every kernel's numbers, then the final JSON line.
+ 13. the driver (dpmn_tpu_torch.train.Trainer) end to end at the flagship
+     geometry, B = 64, on an LMDB of the committed JPEG fixture's records
+     (tests/fixtures/textzoom_jpeg.npz, 4 times over): the native LMDB reader
+     against the Python one on every key and each record's decode against
+     the fixture's digests of PIL's; Trainer.train over 8 steps with thread
+     workers, one validation (ASTER, 2 batches) and one save, with exact
+     launch counts of one loop step (K2 11, K3 12 + 12) and one validation
+     batch (K1 12, K2 11), the loop's ms/step beside phase 6's bare step and
+     its device busy share (torch.profiler); a fresh Trainer resumed from
+     checkpoint.pt (its next two losses within 1e-5 of the writer's); one
+     accum_train_step at batch 256 in 4 microbatches (ms, peak memory) and
+     accumulation over 2 microbatches of 2 on the card against the CPU as in
+     phase 6; test() over 4 batches with 0, 1 and 4 workers (images/s,
+     against phase 4b's glyph_from_psn + phase 4c's ASTER); the CLI's --test
+     in a subprocess that cannot import cv2, yaml or JAX;
+ 14. one JSON line with every kernel's numbers, then the final JSON line.
 
 Times are CUDA-event times after warm-up, with the inputs resident in L2
 where they fit.  `ms`, `plain_ms`, `library_ms` and `bound_ms` in the kernels
@@ -101,12 +116,14 @@ over 495 TFLOP/s.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -135,6 +152,7 @@ K7_BF16_RTOL, K7_BF16_ATOL = 0.1, 0.15  # bf16 against the float32 kernel (tests
 K8_TOL = 1e-5  # max abs error: float32 sums of <= 64 terms in other orders
 JUDGE_RTOL = 1e-4  # the judges' features / logits, card vs CPU: max abs <= this x max|ref| (cuDNN's
 # float32 convolution and RNN algorithms against the CPU's, through up to 31 layers)
+MEASURED = {}  # ms (and GiB) of earlier phases that the driver phase sets its own beside
 
 
 def log(msg):
@@ -790,6 +808,7 @@ def phase_serving(dev, card, system, cpu, batches, sr32):
         dt = (time.perf_counter() - t0) / len(batches[2:])
         log(f"serving {name} B={B}: {dt * 1e3:.2f} ms/batch, {B / dt:.1f} images/s on {card}; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        MEASURED[f"serving {name}"] = dt * 1e3
 
     # the students' ids that bf16 keeps, on the PSN output of a batch
     with torch.no_grad():
@@ -901,6 +920,7 @@ def phase_judges(dev, card, system, batches):
         torch.cuda.reset_peak_memory_stats()
         ms = cuda_ms(lambda: judge.predict(sr), iters=5, warmup=2)
         peak = torch.cuda.max_memory_allocated()
+        MEASURED[f"judge {kind}"] = ms
         log(f"judges: {kind} B={B}: {ms:.2f} ms/batch, {B / ms * 1e3:.1f} images/s on {card}; peak memory "
             f"{peak / 2**30:.3f} GiB, {(peak - resident) / 2**30:.3f} GiB above the {resident / 2**30:.3f} GiB "
             f"resident (the system, the judges); {len(set(words))} distinct words, e.g. {words[:2]}")
@@ -1097,6 +1117,44 @@ TRAIN_LAUNCHES = {
 }
 
 
+ZERO_RATES = dict(drop_rate="0,", attn_drop_rate="0,", drop_path_rate="0,")
+
+
+def hold_train_card_vs_cpu(tag, systems, dev, run, n_ids):
+    """The same weights at rates 0 on the card and on the CPU: run(system)
+    gives (loss, the gradients in trainable_parameters() order); raises
+    unless they agree and the students' ids (n_ids glyph renders) are
+    equal.  Float32 gradients at B = 2 are determined only to a few % of a
+    leaf: the CMM's 1x4 bottleneck sees 8 values per channel, and a
+    leaky-ReLU input within rounding of 0 changes slope there, which moves
+    every gradient upstream (tests/test_torch_train.py); the biases ahead of
+    a BatchNorm have a gradient of 0 up to rounding.  So each leaf is held in
+    norm, within 5 % of its own norm plus 1e-4 of the whole gradient's, all
+    of them together within 1e-3, and loss and grad_norm tightly."""
+    res = {}
+    for d, s in systems.items():
+        ids = []
+        hook = s.glyph.register_forward_hook(lambda mod, inp, out: ids.append(inp[0].cpu()))
+        loss, grads = run(s)
+        hook.remove()
+        norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads)).item()
+        res[d] = (loss.item(), norm, [g.cpu() for g in grads], ids)
+    (lg, ng, gg, ig), (lc, nc, gc, ic) = res[dev], res["cpu"]
+    ids_ok = len(ig) == len(ic) == n_ids and all(torch.equal(a, b) for a, b in zip(ig, ic))
+    names = [n for n, p in systems["cpu"].named_parameters()
+             if any(p is q for q in systems["cpu"].trainable_parameters())]
+    worst, worst_name = max((((a - b).norm() / (5e-2 * b.norm() + 1e-4 * nc)).item(), n)
+                            for n, a, b in zip(names, gg, gc))
+    total = (torch.sqrt(sum(((a - b).double() ** 2).sum() for a, b in zip(gg, gc))) / nc).item()
+    l_rel, n_rel = abs(lg - lc) / abs(lc), abs(ng - nc) / nc
+    log(f"{tag}: card vs CPU on 2 images at rates 0: loss {lg:.6f} vs {lc:.6f} (rel {l_rel:.2e}, tol 1e-5); grad_norm "
+        f"{ng:.4f} vs {nc:.4f} (rel {n_rel:.2e}, tol 1e-4); gradients: worst leaf {worst_name} at {worst:.3f} of its "
+        f"tolerance (|diff| <= 5e-2 |ref| + 1e-4 grad_norm, in norm), all together {total:.2e} of their norm (tol "
+        f"1e-3); students' ids equal {ids_ok}")
+    if not (l_rel <= 1e-5 and n_rel <= 1e-4 and worst <= 1.0 and total <= 1e-3 and ids_ok):
+        raise AssertionError(f"{tag}: card and CPU disagree on the train path")
+
+
 def phase_train(dev, card, train_core, timed):
     """The flagship train_step at B = 64 with `train_core`: a warm-up step,
     one step whose launches are counted, `timed` timed steps; then card
@@ -1133,42 +1191,14 @@ def phase_train(dev, card, train_core, timed):
     log(f"{tag}: flagship train_step B={B} fp32 dropout 0.1: {dt * 1e3:.2f} ms/step, {B / dt:.1f} images/s on {card}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last loss {m['loss'].item():.4f} "
         f"grad_norm {m['grad_norm'].item():.4f}")
+    MEASURED[tag] = (dt * 1e3, torch.cuda.max_memory_allocated() / 2**30)
     del system
 
-    # card against the CPU on 2 images, rates 0, the same weights.  Float32
-    # gradients at B = 2 are determined only to a few % of a leaf: the CMM's
-    # 1x4 bottleneck sees 8 values per channel, and a leaky-ReLU input within
-    # rounding of 0 changes slope there, which moves every gradient upstream
-    # (tests/test_torch_train.py); the biases ahead of a BatchNorm have a
-    # gradient of 0 up to rounding.  So each leaf is held in norm, within 5 %
-    # of its own norm plus 1e-4 of the whole gradient's, all of them together
-    # within 1e-3, and loss and grad_norm tightly.
-    zero = dict(drop_rate="0,", attn_drop_rate="0,", drop_path_rate="0,")
-    systems = {d: DPMNSystem(TrainCfg(batch_size=2), flagship_args(**zero), device=d, seed=0, train_core=train_core)
-               for d in (dev, "cpu")}
+    # card against the CPU on 2 images, rates 0, the same weights
+    systems = {d: DPMNSystem(TrainCfg(batch_size=2), flagship_args(**ZERO_RATES), device=d, seed=0,
+                             train_core=train_core) for d in (dev, "cpu")}
     hr, lr = batches[1][0][:2], batches[1][1][:2]
-    res = {}
-    for d, s in systems.items():
-        ids = []
-        hook = s.glyph.register_forward_hook(lambda mod, inp, out: ids.append(inp[0].cpu()))
-        loss, grads = s._micro_grads(hr, lr, 0)
-        hook.remove()
-        norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads)).item()
-        res[d] = (loss.item(), norm, [g.cpu() for g in grads], ids)
-    (lg, ng, gg, ig), (lc, nc, gc, ic) = res[dev], res["cpu"]
-    ids_ok = len(ig) == len(ic) == 3 and all(torch.equal(a, b) for a, b in zip(ig, ic))
-    names = [n for n, p in systems["cpu"].named_parameters()
-             if any(p is q for q in systems["cpu"].trainable_parameters())]
-    worst, worst_name = max((((a - b).norm() / (5e-2 * b.norm() + 1e-4 * nc)).item(), n)
-                            for n, a, b in zip(names, gg, gc))
-    total = (torch.sqrt(sum(((a - b).double() ** 2).sum() for a, b in zip(gg, gc))) / nc).item()
-    l_rel, n_rel = abs(lg - lc) / abs(lc), abs(ng - nc) / nc
-    log(f"{tag}: card vs CPU on 2 images at rates 0: loss {lg:.6f} vs {lc:.6f} (rel {l_rel:.2e}, tol 1e-5); grad_norm "
-        f"{ng:.4f} vs {nc:.4f} (rel {n_rel:.2e}, tol 1e-4); gradients: worst leaf {worst_name} at {worst:.3f} of its "
-        f"tolerance (|diff| <= 5e-2 |ref| + 1e-4 grad_norm, in norm), all together {total:.2e} of their norm (tol "
-        f"1e-3); students' ids equal {ids_ok}")
-    if not (l_rel <= 1e-5 and n_rel <= 1e-4 and worst <= 1.0 and total <= 1e-3 and ids_ok):
-        raise AssertionError(f"{tag}: card and CPU disagree on the train path")
+    hold_train_card_vs_cpu(tag, systems, dev, lambda s: s._micro_grads(hr, lr, 0), n_ids=3)
     return launches
 
 
@@ -1669,6 +1699,255 @@ def phase_k9(dev):
     return standalone_entry("dropout_mask", err, launches["dropout_mask"], *times[B], None)
 
 
+ROOT = Path(__file__).resolve().parent
+RUN_DIR = ROOT / "chip_smoke_run"  # git-ignored; made and removed by the driver phase
+FIXTURE = ROOT / "tests" / "fixtures" / "textzoom_jpeg.npz"
+LOOP_STEPS = 8  # steps of the driver's train loop; validation and the checkpoint after the last
+WORKERS = 4
+
+
+def _sha256(img) -> str:
+    return hashlib.sha256(np.asarray(img, np.uint8).tobytes()).hexdigest()
+
+
+def driver_lmdb():
+    """The committed JPEG fixture's 128 records, 4 times over (512, 8
+    batches of 64), as a TextZoom LMDB; raises unless the native reader
+    serves it, equal to the pure-Python reader on every key, and each
+    record's decode equals the fixture's digest of PIL's decode on the host
+    that made it."""
+    from dpmn_tpu_torch.data.datasets import TextZoomLMDB
+    from dpmn_tpu_torch.data.lmdb_reader import LMDBReader
+    from dpmn_tpu_torch.data.lmdb_writer import fixture_samples, write_textzoom_lmdb
+
+    samples, digests = fixture_samples(str(FIXTURE), copies=4)
+    path = RUN_DIR / "easy"
+    write_textzoom_lmdb(str(path), samples)
+    ds = TextZoomLMDB(str(path))
+    py = LMDBReader(str(path))
+    keys = [b"num-samples"] + [b"%s-%09d" % (t, i) for i in range(1, len(samples) + 1)
+                               for t in (b"image_hr", b"image_lr", b"label")]
+    same = all(ds.reader.get(k) == py.get(k) is not None for k in keys)
+    t0 = time.perf_counter()
+    decoded = [(_sha256(ds[i][0]), _sha256(ds[i][1])) for i in range(128)]
+    dt = time.perf_counter() - t0
+    match = sum(d == ref for d, ref in zip(decoded, digests))
+    log(f"driver: LMDB of {len(samples)} records ({(path / 'data.mdb').stat().st_size / 1e6:.2f} MB); reader "
+        f"{ds.reader_kind}, equal to the Python reader on all {len(keys)} keys {same}; decodes of the 128 distinct "
+        f"records equal to the fixture's PIL digests {match}/128 ({dt * 1e3 / 128:.3f} ms a record: 2 JPEG decodes "
+        f"and 2 YUV copies)")
+    if ds.reader_kind != "native" or not same or match != 128:
+        raise AssertionError("driver: the LMDB reader or the decoder disagrees with the fixture")
+    return path
+
+
+class StepProbe:
+    """Wraps a system's train_step (or accum_train_step): counts the kernel
+    launches of step `count_at`, stamps the wall clock (after a device sync)
+    at the ends of steps `first` and `last`, and steps a profiler if given."""
+
+    def __init__(self, system, name, count_at=None, first=None, last=None, prof=None):
+        self.system, self.name, self.fn = system, name, getattr(system, name)
+        self.count_at, self.first, self.last, self.prof = count_at, first, last, prof
+        self.n, self.launches, self.stamps = 0, None, {}
+        setattr(system, name, self)
+
+    def __call__(self, *a, **kw):
+        self.n += 1
+        if self.n == self.count_at:
+            torch.cuda.synchronize()
+            reset_counts()
+        out = self.fn(*a, **kw)
+        if self.n in (self.count_at, self.first, self.last):
+            torch.cuda.synchronize()
+            self.stamps[self.n] = time.perf_counter()
+        if self.n == self.count_at:
+            self.launches = read_counts()
+        if self.prof is not None:
+            self.prof.step()
+        return out
+
+    def ms(self):
+        return (self.stamps[self.last] - self.stamps[self.first]) * 1e3 / (self.last - self.first)
+
+    def remove(self):
+        delattr(self.system, self.name)
+
+
+def phase_driver(dev, card):
+    """The driver end to end on the card: Trainer.train on the fixture LMDB
+    at the flagship geometry, B = 64, with thread workers, one validation
+    with the ASTER judge and one save; the resume from its checkpoint; an
+    accumulated step at batch 256; test() with and without workers; the
+    CLI's --test in a subprocess that cannot import cv2, yaml or JAX.
+    Returns the launch counts of one loop step and one validation batch."""
+    import csv
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from dpmn_tpu_torch.checkpoint import load_checkpoint, resolve_native_checkpoint
+    from dpmn_tpu_torch.config import TrainCfg, flagship_args
+    from dpmn_tpu_torch.profile_path import device_busy_ms, device_events
+    from dpmn_tpu_torch.system import DPMNSystem
+    from dpmn_tpu_torch.train import Trainer
+
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    RUN_DIR.mkdir()
+    lmdb = driver_lmdb()
+    ckpt = RUN_DIR / "ckpt"
+
+    def make_cfg(**kw):
+        return TrainCfg(**{**dict(batch_size=B, epochs=100, workers=WORKERS, ckpt_dir=str(ckpt),
+                                  displayInterval=LOOP_STEPS, valInterval=LOOP_STEPS, saveInterval=LOOP_STEPS,
+                                  train_data_dir=[str(lmdb)], val_data_dir=[str(lmdb)]), **kw})
+
+    # the train loop: launches of step 2 and of the first validation batch,
+    # ms/step over steps 3-8 (the host's data plane and the prefetch included)
+    t0 = time.perf_counter()
+    trainer = Trainer(make_cfg(), flagship_args(rec="aster"))
+    log(f"driver: Trainer (flagship, B={B}, {WORKERS} workers, ASTER judge) built in {time.perf_counter() - t0:.1f} s")
+    loop = StepProbe(trainer.system, "train_step", count_at=2, first=2, last=LOOP_STEPS)
+    val = StepProbe(trainer.system, "sr_forward", count_at=1)
+    t0 = time.perf_counter()
+    trainer.train(max_iters=LOOP_STEPS, max_batches_eval=2)
+    wall = time.perf_counter() - t0
+    loop.remove()
+    val.remove()
+    check_counts("driver: one loop step", loop.launches, **{k: v for k, v in TRAIN_LAUNCHES["block"].items() if v})
+    check_counts("driver: one validation batch", val.launches, window_attention_block=12, gru_bidir=11)
+    bare, _ = MEASURED["train[block]"]
+    log(f"driver: Trainer.train {LOOP_STEPS} steps + validation (2 batches) + save: {wall:.2f} s; the loop "
+        f"{loop.ms():.2f} ms/step ({B / loop.ms() * 1e3:.1f} images/s) against the bare train_step's {bare:.2f} "
+        f"(phase 6, {100 * (loop.ms() / bare - 1):+.1f} %) on {card}")
+    with open(ckpt / "log.csv") as f:
+        rows = list(csv.reader(f))
+    files = sorted(p.name for p in ckpt.iterdir())
+    log(f"driver: log.csv {rows}; files {files}")
+    if rows[0] != ["epoch", "dataset", "accuracy", "psnr_avg", "ssim_avg", "best", "best_sum"] or \
+            rows[1][:2] != ["0", "easy"] or not all(np.isfinite(float(v)) for v in rows[1][2:5]) or \
+            "checkpoint.pt" not in files or trainer.system.step != LOOP_STEPS:
+        raise AssertionError("driver: the train loop's log or checkpoint is wrong")
+
+    # resume: a fresh Trainer from checkpoint.pt takes the next two steps as
+    # the run that wrote it does (the second also reads the optimizer state)
+    rng = np.random.RandomState(5)
+    nxt = [(rng.rand(B, 32, 128, 4).astype(np.float32), rng.rand(B, 16, 64, 4).astype(np.float32)) for _ in range(2)]
+    other = Trainer(make_cfg(resume=str(ckpt)), flagship_args(rec="aster"))
+    path = resolve_native_checkpoint(other.cfg.resume)
+    _, info = load_checkpoint(path, other.system)
+    losses = [[t.system.train_step(hr, lr, seed=100 + i)["loss"].item() for i, (hr, lr) in enumerate(nxt)]
+              for t in (trainer, other)]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(*losses))
+    log(f"driver: resumed from {path.removeprefix(str(ROOT) + '/')} (iters {info['iters']}): next two losses "
+        f"{losses[1]} against the writer's {losses[0]} (max rel {rel:.2e}, tol 1e-5)")
+    if rel > 1e-5:
+        raise AssertionError("driver: the resumed run's losses differ")
+    del other
+    torch.cuda.empty_cache()
+
+    # the loop's device busy share over two steps under torch.profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=2, warmup=1, active=2, repeat=1)) as prof:
+        step = StepProbe(trainer.system, "train_step", first=3, last=5, prof=prof)
+        trainer.train(max_iters=5)
+        step.remove()
+    events = device_events(prof)
+    if events:
+        busy, span = device_busy_ms(events), step.ms() * 2
+        log(f"driver: the loop under torch.profiler, steps 4-5: {step.ms():.2f} ms/step, device busy {busy:.2f} of "
+            f"{span:.2f} ms ({100 * busy / span:.1f} %, {len(events)} device events)")
+    else:
+        log("driver: the loop's busy share not measured (torch.profiler recorded no device time)")
+    share = busy_share(lambda: trainer.system.train_step(*nxt[0], seed=9))
+    if share is not None:
+        busy, wall_ms, n, _ = share
+        log(f"driver: the bare train_step under torch.profiler: {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+            f"({100 * busy / wall_ms:.1f} %, {n} device events)")
+
+    # gradient accumulation: batch 256 in 4 microbatches of 64
+    hr = np.concatenate([rng.rand(B, 32, 128, 4).astype(np.float32) for _ in range(4)])
+    lr = np.concatenate([rng.rand(B, 16, 64, 4).astype(np.float32) for _ in range(4)])
+    trainer.system.accum_train_step(hr, lr, 7, accum_steps=4)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = trainer.system.accum_train_step(hr, lr, 8, accum_steps=4)
+    loss = m["loss"].item()
+    dt = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _, bare_peak = MEASURED["train[block]"]
+    log(f"driver: accum_train_step batch {4 * B} in 4 microbatches: {dt:.2f} ms ({4 * B / dt * 1e3:.1f} images/s, "
+        f"{dt / bare:.2f} x the B={B} step), loss {loss:.4f}, peak memory {peak:.2f} GiB (B={B} step "
+        f"{bare_peak:.2f}) on {card}")
+    if not np.isfinite(loss):
+        raise AssertionError("driver: the accumulated step's loss is not finite")
+    systems = {d: DPMNSystem(TrainCfg(batch_size=2), flagship_args(**ZERO_RATES), device=d, seed=0)
+               for d in (dev, "cpu")}
+
+    def accumulated(s):
+        got = {}
+        apply = s._apply_update
+        s._apply_update = lambda g, loss: got.update(grads=[x.clone() for x in g], loss=loss) or apply(g, loss)
+        s.accum_train_step(hr[:4], lr[:4], 0, accum_steps=2)
+        del s._apply_update
+        return got["loss"], got["grads"]
+
+    hold_train_card_vs_cpu("driver: accum_train_step, 2 microbatches of 2", systems, dev, accumulated,
+                           n_ids=2 * systems["cpu"].b1)
+    del systems
+
+    # test(): the fixture LMDB at B = 64, 4 batches, the ASTER judge, with
+    # the loader's workers and without
+    trainer.args.test_data_dir = str(lmdb)
+    for workers in (0, 1, WORKERS):
+        trainer.cfg.workers = workers
+        r = trainer.test(trainer.system, max_batches=4)
+        ips = 1.0 / r["duration"]
+        bare_test = MEASURED["serving sr_forward glyph_from_psn"] + MEASURED["judge aster"]
+        log(f"driver: test() {workers} workers: {ips:.1f} images/s, duration {r['duration'] * 1e3:.3f} ms an image "
+            f"(256 images); phase 4b's glyph_from_psn + phase 4c's ASTER {bare_test:.2f} ms a batch "
+            f"({B / bare_test * 1e3:.1f} images/s): the data plane and the host's share "
+            f"{r['duration'] * B * 1e3 - bare_test:+.2f} ms a batch on {card}; result {r}")
+    with open(ckpt / "test_result.csv") as f:
+        rows = list(csv.reader(f))
+    log(f"driver: test_result.csv {rows}")
+    if rows[0] != ["recognizer", "subset", "accuracy", "psnr", "ssim"] or len(rows) != 4 or rows[1][:2] != \
+            ["aster", "easy"]:
+        raise AssertionError("driver: test_result.csv is wrong")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the CLI's --test on the card, in a process that cannot import cv2, yaml or JAX
+    config = RUN_DIR / "test.yaml"
+    config.write_text(f"TRAIN:\n  batch_size: {B}\n  workers: {WORKERS}\n  ckpt_dir: '{ckpt}'\n  VAL:\n"
+                      "    rec_pretrained: ''\n    moran_pretrained: ''\n    crnn_pretrained: ''\n"
+                      "    visionlan_pretrained: ''\n")
+    fa = flagship_args()
+    flags = ["--test", "--test_data_dir", str(lmdb), "--resume", str(ckpt), "--config", str(config), "--arch", "tatt",
+             "--mask", "--gradient"] + [x for k in ("stu_iter_b1", "stu_iter_b2", "patch_size", "embed_dim",
+                                                    "window_size", "depths", "num_heads", "mlp_ratio")
+                                        for x in (f"--{k}", str(getattr(fa, k)))]
+    code = ("import importlib.abc, runpy, sys\n"
+            "class Block(importlib.abc.MetaPathFinder):\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('cv2', 'yaml', 'jax', 'dpmn_tpu'):\n"
+            "            raise ImportError('blocked: ' + name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            f"sys.argv = ['dpmn_tpu_torch.cli'] + {flags!r}\n"
+            "runpy.run_module('dpmn_tpu_torch.cli', run_name='__main__')\n")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    with open(ckpt / "test_result.csv") as f:
+        rows = list(csv.reader(f))
+    log(f"driver: CLI --test (cv2, yaml, JAX blocked): exit {r.returncode} in {time.perf_counter() - t0:.1f} s; "
+        f"its output {r.stdout.strip().splitlines()[-1:]}; test_result.csv rows {len(rows)}")
+    if r.returncode != 0 or len(rows) != 5 or rows[4][:2] != ["aster", "easy"]:
+        log(r.stderr[-3000:])
+        raise AssertionError("driver: the CLI's --test failed")
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    return loop.launches, val.launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the machine with the card", file=sys.stderr)
@@ -1697,6 +1976,7 @@ def main():
     entries += phase_k7(dev)
     entries.append(phase_k6(dev))
     entries.append(phase_k9(dev))
+    phase_driver(dev, card)
     log(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

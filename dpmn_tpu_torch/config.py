@@ -1,17 +1,21 @@
-"""Configuration dataclasses and the PGRM hyper-parameter parser.
+"""Configuration: the YAML file and the CLI with the reference's flag surface.
 
-Counterpart of dpmn_tpu/config.py for the eval path and the train step: the
-fields they read, without the YAML loader and the CLI, which this port does
-not carry yet (the Trainer's and the data's fields come with the slices
-that read them).  The PGRM hyper-parameter strings are comma
-lists parsed with eval() semantics, window sizes grouped by `window_num` per
+Counterpart of dpmn_tpu/config.py: every field of TrainCfg and Args, the
+YAML loader and the argument parser (reference main.py:36-71 and
+config/super_resolution.yaml), plus one flag of the port's own, `--device`
+(the card unless "cpu" is asked for).  The YAML file is read by a small
+reader of the subset the repository's configs use (`read_yaml`), so the
+port needs no PyYAML.  The PGRM hyper-parameter strings are comma lists
+parsed with eval() semantics, window sizes grouped by `window_num` per
 layer and num_heads grouped by depth (reference interfaces/base.py:64-82).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+import argparse
+import re
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 
 def _eval_list(s: str) -> list:
@@ -21,28 +25,52 @@ def _eval_list(s: str) -> list:
 
 @dataclass
 class TrainCfg:
-    """The fields of dpmn_tpu's TrainCfg that the eval path and the train
-    step read."""
-
+    train_data_dir: List[str] = field(default_factory=list)
     batch_size: int = 1024
     width: int = 128
     height: int = 32
-    down_sample_scale: int = 2
+    epochs: int = 42000
+    ngpu: int = 1
+    workers: int = 16
+    resume: str = ""
+    ckpt_dir: str = "./ckpt"
+    voc_type: str = "all"
+    saveInterval: int = 20
+    displayInterval: int = 20
     lr: float = 0.001
     optimizer: str = "Adam"  # "Adam" | "AdamW"
     beta1: float = 0.5
+    manualSeed: int = 2
+    max_len: int = 100
+    down_sample_scale: int = 2
+    val_data_dir: List[str] = field(default_factory=list)
+    n_vis: int = 10
+    vis_dir: str = "./vis"
+    valInterval: int = 80
+    rec_pretrained: str = ""
+    moran_pretrained: str = ""
+    crnn_pretrained: str = ""
+    visionlan_pretrained: str = ""
 
 
 @dataclass
 class Args:
-    """The fields of the reference CLI (main.py:36-68) that the eval path and
-    the train step read, plus dpmn_tpu's `faithful`."""
+    """The 31 reference CLI flags (main.py:36-68), dpmn_tpu's extras and the
+    port's `device`."""
 
     arch: str = "tsrn"
+    test: bool = False
+    # relative to the working directory (dpmn_tpu's default is an absolute path)
+    test_data_dir: str = "data/TextZoom/test/easy"
+    batch_size: Optional[int] = None
+    resume: Optional[str] = None
+    vis_dir: Optional[str] = None
+    rec: str = "aster"
     mask: bool = False
     gradient: bool = False
     hd_u: int = 32
     srb: int = 5
+    STN: bool = False
     patch_size: str = "4,"
     embed_dim: str = "96,"
     window_size: str = "2,"
@@ -52,13 +80,25 @@ class Args:
     drop_rate: str = "0,"
     attn_drop_rate: str = "0,"
     drop_path_rate: str = "0.1,"
+    rotate_train: float = 0.0
+    rotate_test: float = 0.0
     stu_iter_b1: int = 1
     stu_iter_b2: int = 1
+    tpg: str = "visionlan"
+    rec_path: Optional[str] = None
     font_path: Optional[str] = None
     sr_share: bool = False
     alpha: float = 0.5
     window_num: int = 3
+    # dpmn_tpu's extras (not in the reference surface)
+    synthetic_data: bool = False
     faithful: bool = True  # reproduce the reference's layout quirks
+    data_parallel: int = 0
+    debug_nans: bool = False  # torch.autograd anomaly detection
+    # microbatches per optimizer step (batch_size is the global batch)
+    grad_accum: int = 1
+    # the port's own: the device entry points run on (None: the card)
+    device: Optional[str] = None
 
 
 @dataclass
@@ -126,3 +166,222 @@ def flagship_args(**overrides) -> Args:
     )
     base.update(overrides)
     return Args(**base)
+
+
+# ------------------------------------------------------------------ YAML
+
+_BOOLS = {**dict.fromkeys(("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"), True),
+          **dict.fromkeys(("no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF"), False)}
+_NULLS = ("", "~", "null", "Null", "NULL")
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)")
+_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*\.[0-9_]*|\.[0-9_]+)(?:[eE][-+][0-9]+)?")
+# plain scalars PyYAML would read as something this reader does not: other
+# int bases, sexagesimal numbers, inf / nan, timestamps, merge keys
+_OTHER = re.compile(r"[-+]?0[0-7_]+|[-+]?0[bx].*|.*:[0-5]?[0-9]|[-+]?\.(?:inf|Inf|INF|nan|NaN|NAN)|"
+                    r"\d{4}-\d\d?-\d\d?.*|<<")
+
+
+class YamlSubsetError(ValueError):
+    """The file uses YAML this reader does not handle."""
+
+
+def _strip_comment(line: str) -> str:
+    """The line without a trailing `# comment` (a '#' at the start or after
+    whitespace, outside quotes)."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def _scalar(text: str):
+    """One scalar as yaml.safe_load resolves it (YAML 1.1 core types)."""
+    t = text.strip()
+    if t[:1] == "'":
+        if len(t) < 2 or t[-1] != "'":
+            raise YamlSubsetError(f"unterminated quoted scalar {t!r}")
+        body = t[1:-1]
+        if re.search(r"(?<!')'(?!')", body.replace("''", "")):
+            raise YamlSubsetError(f"bad single-quoted scalar {t!r}")
+        return body.replace("''", "'")
+    if t[:1] == '"':
+        if len(t) < 2 or t[-1] != '"':
+            raise YamlSubsetError(f"unterminated quoted scalar {t!r}")
+        body = t[1:-1]
+        if "\\" in body or '"' in body:
+            raise YamlSubsetError(f"escapes in double-quoted scalars are not supported: {t!r}")
+        return body
+    if t[:1] in tuple("[]{}&*!|>%@`") or t == "-" or t.startswith("- "):
+        raise YamlSubsetError(f"unsupported YAML value {t!r}")
+    if t in _NULLS:
+        return None
+    if t in _BOOLS:
+        return _BOOLS[t]
+    if _INT.fullmatch(t):
+        return int(t.replace("_", ""))
+    if _FLOAT.fullmatch(t):
+        return float(t.replace("_", ""))
+    if _OTHER.fullmatch(t) or ": " in t or t.endswith(":"):
+        raise YamlSubsetError(f"unsupported YAML value {t!r}")
+    return t
+
+
+def _split_flow(body: str) -> list:
+    """The items of a flow list's body: commas outside quotes split it."""
+    items, cur, quote = [], "", None
+    for ch in body:
+        if quote:
+            cur += ch
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+            cur += ch
+        elif ch == ",":
+            items.append(cur)
+            cur = ""
+        elif ch in "[]{}":
+            raise YamlSubsetError("nested flow collections are not supported")
+        else:
+            cur += ch
+    if quote:
+        raise YamlSubsetError("unterminated quoted scalar in a flow list")
+    items.append(cur)
+    if items and not items[-1].strip():  # a trailing comma, or an empty list
+        items.pop()
+    if any(not it.strip() for it in items):
+        raise YamlSubsetError("empty entry in a flow list")
+    return [_scalar(it) for it in items]
+
+
+def read_yaml(text: str):
+    """Parse the YAML subset the repository's configs use: block mappings
+    nested by indentation, plain / single-quoted / double-quoted scalars
+    (without escapes), flow lists of scalars that may run over several
+    lines, and comments.  Anything else raises YamlSubsetError."""
+    lines = []
+    for n, raw in enumerate(text.splitlines(), 1):
+        if "\t" in raw[: len(raw) - len(raw.lstrip())]:
+            raise YamlSubsetError(f"line {n}: tab indentation")
+        body = _strip_comment(raw)
+        if not body.strip():
+            continue
+        if body.strip() in ("---", "...") or body.lstrip().startswith("%"):
+            raise YamlSubsetError(f"line {n}: documents and directives are not supported")
+        lines.append((n, len(body) - len(body.lstrip()), body.strip()))
+    if not lines:
+        return None
+    pos = 0
+
+    def mapping(indent: int) -> dict:
+        nonlocal pos
+        out = {}
+        while pos < len(lines):
+            n, ind, body = lines[pos]
+            if ind < indent:
+                break
+            if ind > indent:
+                raise YamlSubsetError(f"line {n}: unexpected indentation")
+            m = re.fullmatch(r"([A-Za-z_][\w.-]*)\s*:(?:\s+(.*))?|([A-Za-z_][\w.-]*):", body)
+            if not m:
+                raise YamlSubsetError(f"line {n}: not a 'key: value' line: {body!r}")
+            key, value = m.group(1) or m.group(3), (m.group(2) or "").strip()
+            if key in out:
+                raise YamlSubsetError(f"line {n}: duplicate key {key!r}")
+            pos += 1
+            if value.startswith("["):
+                text_ = value
+                while text_.count("[") > text_.count("]") and pos < len(lines):
+                    text_ += " " + lines[pos][2]
+                    pos += 1
+                if not text_.endswith("]") or text_.count("[") != 1 or text_.count("]") != 1:
+                    raise YamlSubsetError(f"line {n}: malformed flow list")
+                out[key] = _split_flow(text_[1:-1])
+            elif value:
+                out[key] = _scalar(value)
+            elif pos < len(lines) and lines[pos][1] > indent:
+                out[key] = mapping(lines[pos][1])
+            else:
+                out[key] = None
+        return out
+
+    result = mapping(lines[0][1])
+    if pos != len(lines):
+        raise YamlSubsetError(f"line {lines[pos][0]}: unexpected dedent")
+    return result
+
+
+def load_train_cfg(path: str = None) -> TrainCfg:
+    cfg = TrainCfg()
+    if path:
+        with open(path) as f:
+            raw = read_yaml(f.read()) or {}
+        tr = raw.get("TRAIN", {}) or {}
+        val = tr.pop("VAL", {}) or {}
+        for k, v in {**tr, **val}.items():
+            if hasattr(cfg, k) and v is not None:
+                setattr(cfg, k, v)
+    return cfg
+
+
+# ------------------------------------------------------------------- CLI
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="dpmn_tpu_torch")
+    p.add_argument("--arch", default="tsrn", choices=["tsrn", "tbsrn", "tg", "tpgsr", "tatt"])
+    p.add_argument("--test", action="store_true", default=False)
+    p.add_argument("--test_data_dir", type=str, default=Args.test_data_dir)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--resume", type=str, default=None)
+    p.add_argument("--vis_dir", type=str, default=None)
+    p.add_argument("--rec", default="aster", choices=["aster", "moran", "crnn"])
+    p.add_argument("--mask", action="store_true", default=False)
+    p.add_argument("--gradient", action="store_true", default=False)
+    p.add_argument("--hd_u", type=int, default=32)
+    p.add_argument("--srb", type=int, default=5)
+    p.add_argument("--STN", action="store_true", default=False)
+    p.add_argument("--patch_size", type=str, default="4,")
+    p.add_argument("--embed_dim", type=str, default="96,")
+    p.add_argument("--window_size", type=str, default="2,")
+    p.add_argument("--depths", type=str, default="1,")
+    p.add_argument("--num_heads", type=str, default="6,")
+    p.add_argument("--mlp_ratio", type=str, default="4,")
+    p.add_argument("--drop_rate", type=str, default="0,")
+    p.add_argument("--attn_drop_rate", type=str, default="0,")
+    p.add_argument("--drop_path_rate", type=str, default="0.1,")
+    p.add_argument("--rotate_train", type=float, default=0.0)
+    p.add_argument("--rotate_test", type=float, default=0.0)
+    p.add_argument("--stu_iter_b1", type=int, default=1)
+    p.add_argument("--stu_iter_b2", type=int, default=1)
+    p.add_argument("--tpg", default="visionlan", type=str, choices=["aster", "moran", "crnn", "visionlan"])
+    p.add_argument("--rec_path", type=str, default=None)
+    p.add_argument("--font_path", type=str, default=None)
+    p.add_argument("--sr_share", action="store_true", default=False)
+    p.add_argument("--alpha", type=float, default=0.5)
+    p.add_argument("--window_num", type=int, default=3)
+    p.add_argument("--config", type=str, default="config/super_resolution.yaml")
+    p.add_argument("--synthetic_data", action="store_true", default=False)
+    p.add_argument("--corrected", action="store_true", default=False, help="disable faithful quirks")
+    p.add_argument("--data_parallel", type=int, default=0)
+    p.add_argument("--debug_nans", action="store_true", default=False)
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="microbatches per optimizer step (batch_size is global)")
+    p.add_argument("--device", type=str, default=None,
+                   help="the device to run on: the card unless 'cpu' is asked for")
+    return p
+
+
+def args_from_namespace(ns) -> Args:
+    a = Args()
+    for k in vars(a):
+        if hasattr(ns, k):
+            setattr(a, k, getattr(ns, k))
+    if getattr(ns, "corrected", False):
+        a.faithful = False
+    return a

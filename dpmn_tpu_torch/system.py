@@ -43,6 +43,9 @@ norm, then a clip at 0.25 per top-level module (pgrm_i, cmm, distill_i;
 per_module_clip, :65-83), then Adam (or AdamW with weight decay 0.01) with
 betas (beta1, 0.999) and eps 1e-8.  A parameter that autograd leaves without
 a gradient (the unused weight_list_i) gets a zero one, as optax sees it.
+`accum_train_step(hr, lr, seed, accum_steps)` is the gradient-accumulation
+step (system.py:509-567): sequential microbatches, averaged losses and
+gradients, one update; `step` counts the updates.
 
 `train_core` picks the PGRMs' training attention core: "block" (kernel K3,
 the default), "attention" (K4) or "full" (K5); None reads the JAX package's
@@ -197,6 +200,7 @@ class DPMNSystem(nn.Module):
         if cfg.optimizer not in ("Adam", "AdamW"):
             raise ValueError(f"optimizer {cfg.optimizer!r}")
         self.optimizer = None  # made at the first update: eval never needs it
+        self.step = 0  # optimizer updates applied, as the JAX state's "step"
         # the serving modes' bf16 copies and the stacked students, made at first use
         self.student_bf16 = Bf16Copy(students=self.students)
         self.state_bf16 = Bf16Copy(psn=self.psn, crnn_psn=self.crnn_psn, students=self.students, pgrms=self.pgrms,
@@ -345,6 +349,35 @@ class DPMNSystem(nn.Module):
         loss, grads = self._micro_grads(images_hr, images_lr, seed)
         return self._apply_update(grads, loss)
 
+    def accum_train_step(self, images_hr, images_lr, seed: int = 0, accum_steps: int = 1) -> dict:
+        """One optimizer step over `accum_steps` sequential microbatches
+        (system.py:509-567): the batch is split in order, each microbatch's
+        loss and gradients come from `_micro_grads` (so the BatchNorm
+        statistics advance microbatch by microbatch), the losses and
+        gradients are averaged, and one update is applied, with the
+        per-module clip on the averaged gradients.  Microbatch i's dropout
+        is seeded with `seed * accum_steps + i`.  `accum_steps=1` is
+        `train_step`."""
+        if accum_steps == 1:
+            return self.train_step(images_hr, images_lr, seed)
+        b = images_hr.shape[0]
+        mb = b // accum_steps
+        if mb * accum_steps != b:
+            raise ValueError(f"batch {b} not divisible by accum_steps {accum_steps}")
+        loss_sum, grad_sum = None, None
+        for i in range(accum_steps):
+            rows = slice(i * mb, (i + 1) * mb)
+            loss, grads = self._micro_grads(images_hr[rows], images_lr[rows], seed * accum_steps + i)
+            if grad_sum is None:
+                loss_sum, grad_sum = loss, grads
+            else:
+                loss_sum = loss_sum + loss
+                torch._foreach_add_(grad_sum, grads)
+            del grads  # freed before the next microbatch's forward
+        inv = 1.0 / accum_steps
+        torch._foreach_mul_(grad_sum, inv)
+        return self._apply_update(grad_sum, loss_sum * inv)
+
     def _micro_grads(self, images_hr, images_lr, seed: int):
         """The loss and the gradient of every trainable parameter (in
         `trainable_parameters()` order, zeros where autograd gives none);
@@ -385,14 +418,19 @@ class DPMNSystem(nn.Module):
             for p, g in zip(ps, grads[i:i + len(ps)]):
                 p.grad = g * scale
             i += len(ps)
+        self.make_optimizer().step()
+        self.optimizer.zero_grad(set_to_none=True)
+        self.step += 1
+        return {"loss": loss, "grad_norm": grad_norm}
+
+    def make_optimizer(self) -> torch.optim.Optimizer:
+        """The optimizer, made at its first use (eval never needs it)."""
         if self.optimizer is None:
             adam = dict(lr=self.cfg.lr, betas=(self.cfg.beta1, 0.999), eps=1e-8)
             params = self.trainable_parameters()
             self.optimizer = (torch.optim.AdamW(params, weight_decay=0.01, **adam) if self.cfg.optimizer == "AdamW"
                               else torch.optim.Adam(params, **adam))
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
-        return {"loss": loss, "grad_norm": grad_norm}
+        return self.optimizer
 
 
 def init_weights(model: nn.Module, seed: int) -> None:

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card.
 
 Marked `cuda`: each test skips where torch sees no card.  On the machine with
-the card (which has no JAX, so the repository's conftest is skipped):
+the card (the port runs no JAX there, so the repository's conftest is skipped):
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -734,3 +734,31 @@ def test_judge_on_the_card_matches_the_cpu(dev, kind):
     if kind == "aster":
         assert (card.predict_ids(images) == cpu.predict_ids(images)).all()
     assert (window_attention_counter.launches, gru_bidir_counter.launches, gru_scan_counter.launches) == before
+
+
+def test_prefetch_to_the_card(dev):
+    """The prefetch's pinned copies on its side stream: every batch arrives on
+    the card equal to its host arrays while the consumer's stream works on
+    the previous one and frees it; entries without a shape pass through; an
+    exception in the producer is raised in the consumer."""
+    import numpy as np
+
+    from dpmn_tpu_torch.data.prefetch import prefetch_to_device
+
+    rng = np.random.RandomState(0)
+    batches = [(rng.rand(64, 32, 128, 4).astype(np.float32), None, ["w", str(i)]) for i in range(8)]
+    got = []
+    for i, (x, none, words) in enumerate(prefetch_to_device(iter(batches), size=2, device=dev)):
+        assert x.device.type == "cuda" and none is None and words == ["w", str(i)]
+        y = torch.empty_like(x).copy_(x) * 2.0  # consumer-stream work that allocates and frees
+        got.append(y.double().sum().item() / 2.0)
+        del x, y
+    np.testing.assert_allclose(got, [b[0].astype(np.float64).sum() for b in batches], rtol=1e-9)
+
+    def failing():
+        yield batches[0]
+        raise OSError("disk gone")
+
+    with pytest.raises(OSError, match="disk gone"):
+        for _ in prefetch_to_device(failing(), size=2, device=dev):
+            pass

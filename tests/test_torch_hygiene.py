@@ -1,7 +1,7 @@
 """The port stands alone: it imports nothing of JAX, of dpmn_tpu or of the
-repository's tools/, nor the host libraries the machine with the card lacks;
-its entry points refuse to fall back to the CPU; nothing builds a kernel at
-import."""
+repository's tools/, nor cv2, yaml or pygame (it has its own YUV conversion
+and YAML reader; PIL decodes and resizes, as in dpmn_tpu); its entry points
+refuse to fall back to the CPU; nothing builds a kernel at import."""
 
 import ast
 import pkgutil
@@ -16,7 +16,7 @@ import dpmn_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "dpmn_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dpmn_tpu", "tools", "yaml", "cv2", "PIL", "pygame")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dpmn_tpu", "tools", "yaml", "cv2", "pygame")
 
 
 def _port_modules():
@@ -92,8 +92,10 @@ def test_kernel_sources_and_assets_ship():
         assert (kernels.CSRC / f"{name}.cu").is_file()
     for name in ("window_attention_train.cu", "window_attention_core.cu", "window_attention_full.cu",
                  "window_tile_attention.cu", "grouped_window_attention.cu", "mlp_convs.cu", "dropout_mask.cu",
-                 "window_common.cuh", "window_train_common.cuh", "tc_common.cuh", "attn_tile.cuh"):
+                 "window_common.cuh", "window_train_common.cuh", "tc_common.cuh", "attn_tile.cuh",
+                 "lmdb_reader.cpp"):
         assert (kernels.CSRC / name).is_file(), name
     assert (PORT / "assets" / "glyph_atlas_32x128.npz").is_file()
     pyproject = (ROOT / "pyproject.toml").read_text()
     assert "csrc/*.cu" in pyproject and "csrc/*.cuh" in pyproject and "assets/*.npz" in pyproject
+    assert "csrc/*.cpp" in pyproject
