@@ -100,7 +100,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
      phase 6; test() over 4 batches with 0, 1 and 4 workers (images/s,
      against phase 4b's glyph_from_psn + phase 4c's ASTER); the CLI's --test
      in a subprocess that cannot import cv2, yaml or JAX;
- 14. one JSON line with every kernel's numbers, then the final JSON line.
+ 14. the other PSNs and the reference's checkpoints: the flagship with
+     --arch tsrn, tpgsr and tbsrn (mask on) and tsrn on unmasked 3-channel
+     LR at B = 64 — exact launches of one forward (K1 12; K2 10, 10, 0,
+     10), ms and images/s over 4 timed batches, the PSN stage's ms (CUDA
+     events), peak memory, and the card against the CPU on 2 images (SR
+     within 1e-4, glyph ids equal); `tg` builds TSRN; then a seeded
+     flagship written as the reference's .pth files (the inverse of the key
+     maps, dead keys included) under the git-ignored chip_smoke_run/, read
+     back by load_driver_weights(testing=True) bit for bit with the same
+     forward (within 1e-6: the card's forward is not bitwise
+     reproducible), and the CLI's --test --resume DIR --rec_path DIR on
+     them with cv2, yaml and JAX blocked;
+ 15. one JSON line with every kernel's numbers, then the final JSON line.
 
 Times are CUDA-event times after warm-up, with the inputs resident in L2
 where they fit.  `ms`, `plain_ms`, `library_ms` and `bound_ms` in the kernels
@@ -1700,7 +1712,7 @@ def phase_k9(dev):
 
 
 ROOT = Path(__file__).resolve().parent
-RUN_DIR = ROOT / "chip_smoke_run"  # git-ignored; made and removed by the driver phase
+RUN_DIR = ROOT / "chip_smoke_run"  # git-ignored; made and removed by phases 13 and 14
 FIXTURE = ROOT / "tests" / "fixtures" / "textzoom_jpeg.npz"
 LOOP_STEPS = 8  # steps of the driver's train loop; validation and the checkpoint after the last
 WORKERS = 4
@@ -1739,6 +1751,30 @@ def driver_lmdb():
     if ds.reader_kind != "native" or not same or match != 128:
         raise AssertionError("driver: the LMDB reader or the decoder disagrees with the fixture")
     return path
+
+
+def blocked_cli(flags, timeout=300):
+    """`python -m dpmn_tpu_torch.cli FLAGS` in a subprocess that cannot
+    import cv2, yaml, JAX or dpmn_tpu."""
+    code = ("import importlib.abc, runpy, sys\n"
+            "class Block(importlib.abc.MetaPathFinder):\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('cv2', 'yaml', 'jax', 'dpmn_tpu'):\n"
+            "            raise ImportError('blocked: ' + name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            f"sys.argv = ['dpmn_tpu_torch.cli'] + {flags!r}\n"
+            "runpy.run_module('dpmn_tpu_torch.cli', run_name='__main__')\n")
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+
+
+def flagship_flags(**overrides):
+    """The CLI flags of flagship_args(**overrides)'s PSN and cascade."""
+    from dpmn_tpu_torch.config import flagship_args
+
+    fa = flagship_args(**overrides)
+    return (["--arch", fa.arch] + (["--mask"] if fa.mask else []) + ["--gradient"]
+            + [x for k in ("stu_iter_b1", "stu_iter_b2", "patch_size", "embed_dim", "window_size", "depths",
+                           "num_heads", "mlp_ratio") for x in (f"--{k}", str(getattr(fa, k)))])
 
 
 class StepProbe:
@@ -1922,21 +1958,9 @@ def phase_driver(dev, card):
     config.write_text(f"TRAIN:\n  batch_size: {B}\n  workers: {WORKERS}\n  ckpt_dir: '{ckpt}'\n  VAL:\n"
                       "    rec_pretrained: ''\n    moran_pretrained: ''\n    crnn_pretrained: ''\n"
                       "    visionlan_pretrained: ''\n")
-    fa = flagship_args()
-    flags = ["--test", "--test_data_dir", str(lmdb), "--resume", str(ckpt), "--config", str(config), "--arch", "tatt",
-             "--mask", "--gradient"] + [x for k in ("stu_iter_b1", "stu_iter_b2", "patch_size", "embed_dim",
-                                                    "window_size", "depths", "num_heads", "mlp_ratio")
-                                        for x in (f"--{k}", str(getattr(fa, k)))]
-    code = ("import importlib.abc, runpy, sys\n"
-            "class Block(importlib.abc.MetaPathFinder):\n"
-            "    def find_spec(self, name, path=None, target=None):\n"
-            "        if name.split('.')[0] in ('cv2', 'yaml', 'jax', 'dpmn_tpu'):\n"
-            "            raise ImportError('blocked: ' + name)\n"
-            "sys.meta_path.insert(0, Block())\n"
-            f"sys.argv = ['dpmn_tpu_torch.cli'] + {flags!r}\n"
-            "runpy.run_module('dpmn_tpu_torch.cli', run_name='__main__')\n")
+    flags = ["--test", "--test_data_dir", str(lmdb), "--resume", str(ckpt), "--config", str(config)] + flagship_flags()
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    r = blocked_cli(flags)
     with open(ckpt / "test_result.csv") as f:
         rows = list(csv.reader(f))
     log(f"driver: CLI --test (cv2, yaml, JAX blocked): exit {r.returncode} in {time.perf_counter() - t0:.1f} s; "
@@ -1946,6 +1970,157 @@ def phase_driver(dev, card):
         raise AssertionError("driver: the CLI's --test failed")
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     return loop.launches, val.launches
+
+
+# phase 14: the other PSNs, each (arch, mask, K2 launches a forward): TSRN
+# and TSRN_TL sweep 5 SRBs x 2 directions, TBSRN's GRUs are never called
+PSN_CASES = (("tsrn", True, 10), ("tpgsr", True, 10), ("tbsrn", True, 0), ("tsrn", False, 10))
+# the loaded system's forward against its source's: the same weights bit
+# for bit, but the card's forward moves by ~3e-8 between runs
+REF_SR_TOL = 1e-6
+
+
+def phase_psns(dev, card):
+    """Phase 14a: the flagship with each other PSN at B = 64 (seeded weights,
+    uniform random LR): exact launches of one forward, ms and images/s over 4
+    timed batches, the PSN stage from CUDA events (profile_path's hooks),
+    peak memory; then the card against the CPU on 2 images (SR within 1e-4,
+    the glyph ids equal), as phase 4."""
+    from dpmn_tpu_torch.config import TrainCfg, flagship_args
+    from dpmn_tpu_torch.models.tsrn import TSRN
+    from dpmn_tpu_torch.profile_path import hooked_stage_times
+    from dpmn_tpu_torch.system import DPMNSystem
+
+    tg = DPMNSystem(TrainCfg(batch_size=2), flagship_args(arch="tg"), device="cpu", seed=0)
+    log(f"psns: --arch tg builds {type(tg.psn).__name__}")
+    if type(tg.psn) is not TSRN:
+        raise AssertionError("psns: --arch tg must build TSRN")
+    del tg
+    rng = np.random.RandomState(14)
+    for arch, mask, gru in PSN_CASES:
+        tag = f"psns: {arch}" + ("" if mask else " unmasked")
+        args = flagship_args(arch=arch, mask=mask)
+        system = DPMNSystem(TrainCfg(batch_size=B), args, device=dev, seed=0)
+        batches = [rng.rand(B, 16, 64, 4 if mask else 3).astype(np.float32) for _ in range(6)]
+        system.sr_forward(batches[0])  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        out = system.sr_forward(batches[1])
+        torch.cuda.synchronize()
+        check_counts(f"{tag}, one forward", read_counts(), window_attention_block=12, gru_bidir=gru)
+        if tuple(out.shape) != (B, 32, 128, 3) or not torch.isfinite(out).all():
+            raise AssertionError(f"{tag}: bad output, shape {tuple(out.shape)}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for x in batches[2:]:
+            system.sr_forward(x)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / len(batches[2:])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rows, total = hooked_stage_times(system, lambda: system.sr_forward(batches[2]))
+        psn_ms = sum(ms for label, _, ms in rows if label.endswith(" PSN"))
+        crnn_ms = sum(ms for label, _, ms in rows if label == "CRNN text prior")
+        MEASURED[f"psn {arch} {mask}"] = dt * 1e3
+        log(f"{tag}: sr_forward B={B}: {dt * 1e3:.2f} ms/batch, {B / dt:.1f} images/s; PSN stage {psn_ms:.2f} ms"
+            + (f" + CRNN text prior {crnn_ms:.2f} ms" if crnn_ms else "") + f" of a {total:.2f} ms forward "
+            f"(CUDA events); peak memory {peak:.2f} GiB on {card}")
+
+        cpu = DPMNSystem(TrainCfg(batch_size=2), args, device="cpu", seed=0)
+        x2 = batches[1][:2]
+        with torch.no_grad():
+            xg = torch.from_numpy(x2).permute(0, 3, 1, 2).contiguous()
+            psn_err = (cpu._psn_forward(xg) - system._psn_forward(xg.to(dev)).cpu()).abs().max().item()
+        sr_c, ids_c = glyph_ids(cpu, lambda: cpu.sr_forward(x2))
+        sr_g, ids_g = glyph_ids(system, lambda: system.sr_forward(x2).cpu())
+        err = (sr_c - sr_g).abs().max().item()
+        same_ids = len(ids_c) == len(ids_g) == 3 and all(torch.equal(a, b) for a, b in zip(ids_c, ids_g))
+        log(f"{tag}: card vs CPU on 2 images: PSN max_abs_err {psn_err:.3e}, SR max_abs_err {err:.3e} (tol 1e-4), "
+            f"the students' glyph ids equal {same_ids}")
+        if not (psn_err <= 1e-4 and err <= 1e-4 and same_ids):
+            raise AssertionError(f"{tag}: card and CPU disagree")
+        del system, cpu
+        torch.cuda.empty_cache()
+
+
+def phase_reference_checkpoints(dev, card):
+    """Phase 14b: the reference's checkpoint files on the card.  A seeded
+    flagship system is written in the reference's layout (the inverse of the
+    port's key maps, with the dead families) under chip_smoke_run/, read into
+    a system of another seed with load_driver_weights(testing=True) (every
+    tensor equal bit for bit, the distills aside, which no file holds, and
+    the forward within REF_SR_TOL of the source's), then `--test --resume
+    DIR --rec_path DIR` through the CLI with cv2, yaml and JAX blocked."""
+    import csv
+
+    from dpmn_tpu_torch.config import TrainCfg, flagship_args
+    from dpmn_tpu_torch.convert import _reference_state_dict
+    from dpmn_tpu_torch.data.lmdb_writer import fixture_samples, write_textzoom_lmdb
+    from dpmn_tpu_torch.system import DPMNSystem
+    from dpmn_tpu_torch.weights import load_driver_weights
+
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    ref = RUN_DIR / "reference"
+    ref.mkdir(parents=True)
+    src = DPMNSystem(TrainCfg(batch_size=B), flagship_args(), device=dev, seed=3)
+    t0 = time.perf_counter()
+    bookkeeping = {"info": {"iters": np.int64(1200), "acc": np.float64(0.5)}, "param_num": 1}
+    torch.save({"state_dict_G": _reference_state_dict(src.psn), **bookkeeping}, ref / "model_tatt.pth")
+    torch.save(_reference_state_dict(src.crnn_psn), ref / "recognizer_best_crnn.pth")
+    for k, student in enumerate(src.students):
+        torch.save(_reference_state_dict(student), ref / f"recognizer_best_{k}.pth")
+    for i, pgrm in enumerate(src.pgrms):
+        torch.save({"state_dict_G": _reference_state_dict(pgrm), **bookkeeping}, ref / f"model_best_{i}.pth")
+    torch.save(_reference_state_dict(src.cmm), ref / "model_best_cmm.pth")
+    written = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in ref.iterdir()) / 1e6
+
+    dst = DPMNSystem(TrainCfg(batch_size=B), flagship_args(resume=str(ref), rec_path=str(ref)), device=dev, seed=4)
+    t0 = time.perf_counter()
+    load_driver_weights(dst, TrainCfg(batch_size=B), dst.args, testing=True)
+    torch.cuda.synchronize()
+    loaded = time.perf_counter() - t0
+    want, got = src.state_dict(), dst.state_dict()
+    names = [k for k in want if not k.startswith("distills.") and not k.endswith("num_batches_tracked")]
+    differ = [k for k in names if not torch.equal(want[k], got[k])]
+    x = np.random.RandomState(15).rand(B, 16, 64, 4).astype(np.float32)
+    sr = src.sr_forward(x)
+    rerun = (src.sr_forward(x) - sr).abs().max().item()
+    sr_err = (dst.sr_forward(x) - sr).abs().max().item()
+    log(f"reference: {len(list(ref.iterdir()))} files, {size:.1f} MB written in {written:.1f} s, read by "
+        f"load_driver_weights(testing=True) in {loaded:.1f} s on {card}; tensors not equal bit for bit "
+        f"{len(differ)} of {len(names)} {differ[:3]}; sr_forward max_abs_err against the source {sr_err:.3e}, "
+        f"the source's own rerun {rerun:.3e} (tol {REF_SR_TOL:g}: the forward is not bitwise reproducible)")
+    if differ or sr_err > REF_SR_TOL:
+        raise AssertionError("reference: the loaded system is not the source")
+    del src, dst
+    torch.cuda.empty_cache()
+
+    samples, _ = fixture_samples(str(FIXTURE))
+    write_textzoom_lmdb(str(RUN_DIR / "easy"), samples)
+    ckpt = RUN_DIR / "ckpt"
+    config = RUN_DIR / "test.yaml"
+    config.write_text(f"TRAIN:\n  batch_size: {B}\n  workers: 0\n  ckpt_dir: '{ckpt}'\n  VAL:\n"
+                      "    crnn_pretrained: ''\n    visionlan_pretrained: ''\n")
+    flags = ["--test", "--test_data_dir", str(RUN_DIR / "easy"), "--resume", str(ref), "--rec_path", str(ref),
+             "--rec", "crnn", "--config", str(config)] + flagship_flags()
+    t0 = time.perf_counter()
+    r = blocked_cli(flags)
+    said = [line for line in r.stdout.splitlines() if line.startswith("[weights]")]
+    log(f"reference: CLI --test --resume DIR --rec_path DIR (cv2, yaml, JAX blocked): exit {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; {said}; its output {r.stdout.strip().splitlines()[-1:]}")
+    rows = []
+    if (ckpt / "test_result.csv").exists():
+        with open(ckpt / "test_result.csv") as f:
+            rows = list(csv.reader(f))
+    want_said = [f"[weights] PSN (tatt) loaded from {ref / 'model_tatt.pth'}",
+                 f"[weights] crnn_psn loaded from {ref / 'recognizer_best_crnn.pth'}"]
+    want_said += [f"[weights] student_{k} (visionlan) loaded from {ref / f'recognizer_best_{k}.pth'}" for k in range(3)]
+    want_said += [f"[weights] pgrm_{i} loaded from {ref / f'model_best_{i}.pth'}" for i in range(6)]
+    want_said += [f"[weights] cmm loaded from {ref / 'model_best_cmm.pth'}"]
+    if r.returncode != 0 or said != want_said or len(rows) != 2 or rows[1][:2] != ["crnn", "easy"]:
+        log(r.stderr[-3000:])
+        raise AssertionError("reference: the CLI's --test on the reference files failed")
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
 
 
 def main():
@@ -1977,6 +2152,8 @@ def main():
     entries.append(phase_k6(dev))
     entries.append(phase_k9(dev))
     phase_driver(dev, card)
+    phase_psns(dev, card)
+    phase_reference_checkpoints(dev, card)
     log(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,9 @@ def _eval_list(s: str) -> list:
     return list(v) if isinstance(v, (tuple, list)) else [v]
 
 
+ARCHS = ["tsrn", "tbsrn", "tg", "tpgsr", "tatt"]  # the PSNs --arch names (main.py:37)
+
+
 @dataclass
 class TrainCfg:
     train_data_dir: List[str] = field(default_factory=list)
@@ -334,7 +337,7 @@ def load_train_cfg(path: str = None) -> TrainCfg:
 
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="dpmn_tpu_torch")
-    p.add_argument("--arch", default="tsrn", choices=["tsrn", "tbsrn", "tg", "tpgsr", "tatt"])
+    p.add_argument("--arch", default="tsrn", choices=ARCHS)
     p.add_argument("--test", action="store_true", default=False)
     p.add_argument("--test_data_dir", type=str, default=Args.test_data_dir)
     p.add_argument("--batch_size", type=int, default=None)

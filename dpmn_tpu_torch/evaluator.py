@@ -12,13 +12,13 @@ checkpoint (`pretrained=`), read strictly: a missing or an extra key raises.
 
 from __future__ import annotations
 
-import re
 import string
 
 import numpy as np
 import torch
 
 from . import resolve_device
+from .convert import crnn_port_key, load_reference_state_dict
 from .models.aster import RecognizerBuilder, parse_aster_input
 from .models.crnn import CRNN, parse_crnn_input
 from .models.moran import MORAN, parse_moran_input
@@ -31,27 +31,6 @@ _TPS_BUFFERS = ("tps.inverse_kernel", "tps.padding_matrix", "tps.target_coordina
                 "tps.target_control_points")
 
 
-def load_reference_state_dict(path: str) -> dict:
-    """The tensors of a reference checkpoint: under a "state_dict" key (ASTER's
-    .pth.tar) or at the top (MORAN, CRNN), DataParallel "module." prefixes
-    removed (reference interfaces/base.py:375-439)."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(obj, dict) and "state_dict" in obj:
-        obj = obj["state_dict"]
-    return {k.removeprefix("module."): v for k, v in obj.items()}
-
-
-def _crnn_port_key(key: str) -> str:
-    """The reference CRNN's names (model/crnn/crnn.py: cnn.conv{i},
-    cnn.batchnorm{2,4,6}, rnn.{0,1}) → the port's (convs.{i}, bns.{i},
-    rnn{1,2}); any other key is kept, so a strict load refuses it."""
-    for pattern, repl in ((r"cnn\.conv(\d)\.", r"convs.\1."), (r"cnn\.batchnorm(\d)\.", r"bns.\1.")):
-        if re.match(pattern, key):
-            return re.sub(pattern, repl, key, count=1)
-    m = re.match(r"rnn\.([01])\.", key)
-    return f"rnn{int(m.group(1)) + 1}.{key[m.end():]}" if m else key
-
-
 def load_pretrained(kind: str, model: torch.nn.Module, path: str) -> None:
     """Read the reference checkpoint at `path` into the judge `model` of
     `kind`, strictly."""
@@ -59,7 +38,7 @@ def load_pretrained(kind: str, model: torch.nn.Module, path: str) -> None:
     if kind == "aster":
         sd = {k: v for k, v in sd.items() if k not in _TPS_BUFFERS}
     elif kind == "crnn":
-        sd = {_crnn_port_key(k): v for k, v in sd.items()}
+        sd = {crnn_port_key(k): v for k, v in sd.items()}
     model.load_state_dict(sd, strict=True)
 
 

@@ -22,8 +22,8 @@ import torch.nn.functional as F
 
 from ..ops.attention import MultiHeadAttention
 from ..ops.gru import BiGRU
-from ..ops.torch_compat import LN_EPS, mish
-from .tsrn import RecurrentResidualBlockTL
+from ..ops.torch_compat import LN_EPS
+from .tsrn import PSN, RecurrentResidualBlock
 
 
 def positional_encoding_1d(d_model: int, max_len: int = 5000) -> np.ndarray:
@@ -134,33 +134,23 @@ class TPInterpreter(nn.Module):
         return text_prior.reshape(b, h, w, -1).permute(0, 3, 1, 2), weights
 
 
-class TSRN_TL_TRANS(nn.Module):
+class TSRN_TL_TRANS(PSN):
     """The --arch tatt PSN (tatt.py:575-691), eval."""
 
     def __init__(self, scale_factor=2, width=128, height=32, srb_nums=5, mask=True, hidden_units=32,
                  text_emb=37, out_text_channels=64, faithful=True):
         super().__init__()
-        in_planes = 4 if mask else 3
-        ch = 2 * hidden_units
-        self.conv_in = nn.Conv2d(in_planes, ch, 9, padding=4)
-        self.prelu = nn.PReLU()
+        ch = self._stem(mask, hidden_units)
         self.infoGen = TPInterpreter(text_emb, out_text_channels, (height // scale_factor, width // scale_factor),
                                      faithful)
-        self.srbs = nn.ModuleList([RecurrentResidualBlockTL(ch, out_text_channels) for _ in range(srb_nums)])
-        self.conv_mid = nn.Conv2d(ch, ch, 3, padding=1)
-        self.bn_mid = nn.BatchNorm2d(ch)
-        self.upsample = nn.ModuleList(
-            [nn.Conv2d(ch, ch * 4, 3, padding=1) for _ in range(int(math.log2(scale_factor)))])
-        self.conv_out = nn.Conv2d(ch, in_planes, 9, padding=4)
+        self.srbs = nn.ModuleList([RecurrentResidualBlock(ch, out_text_channels) for _ in range(srb_nums)])
+        self._trunk(ch, scale_factor)
 
     def forward(self, x, text_emb):
         """x (B, 4, h, w) LR image, text_emb (B, 37, 1, L) → (tanh SR (B, 4, 2h, 2w), weights)."""
-        b1 = self.prelu(self.conv_in(x))
+        b1 = self._head(x)
         tp_map, weights = self.infoGen(b1, text_emb)
         feat = b1
         for srb in self.srbs:
             feat = srb(feat, tp_map)
-        out = b1 + self.bn_mid(self.conv_mid(feat))
-        for conv in self.upsample:
-            out = mish(F.pixel_shuffle(conv(out), 2))
-        return torch.tanh(self.conv_out(out)), weights
+        return self._tail(b1, feat), weights

@@ -22,8 +22,9 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
-    def forward(self, query, key, value):
-        """(B, Lq, E), (B, Lk, E), (B, Lk, E) → (out (B, Lq, E), weights (B, Lq, Lk))."""
+    def forward(self, query, key, value, need_weights: bool = True):
+        """(B, Lq, E), (B, Lk, E), (B, Lk, E) → (out (B, Lq, E), weights (B, Lq, Lk)),
+        the head-averaged weights None without `need_weights`."""
         e, h = self.embed_dim, self.num_heads
         dk = e // h
         w, b = self.in_proj_weight, self.in_proj_bias
@@ -38,4 +39,4 @@ class MultiHeadAttention(nn.Module):
         scores = (qh @ kh.transpose(-1, -2)) / math.sqrt(dk)
         attn = torch.softmax(scores, dim=-1)
         out = (attn @ vh).transpose(1, 2).reshape(query.shape[0], -1, e)
-        return self.out_proj(out), attn.mean(dim=1)
+        return self.out_proj(out), attn.mean(dim=1) if need_weights else None

@@ -2,10 +2,12 @@
 
     python -m dpmn_tpu_torch.profile_path [--batch 64] [--train [--train-core {block,attention,full}]]
     python -m dpmn_tpu_torch.profile_path [--bf16] [--glyph-from-psn] [--student-dtype bfloat16]
+    python -m dpmn_tpu_torch.profile_path --arch {tsrn,tg,tpgsr,tbsrn,tatt}
 
-Builds the flagship DPMNSystem with seeded random weights, warms it up, then
-(1) times each stage of one real sr_forward (the CRNN text prior, the TATT
-PSN, each student, each glyph render, each PGRM, CMM) with CUDA events that
+Builds the flagship DPMNSystem (with --arch, the same with that PSN) with
+seeded random weights, warms it up, then (1) times each stage of one real
+sr_forward (the CRNN text prior of TPGSR and TATT, the PSN, each
+student, each glyph render, each PGRM, CMM) with CUDA events that
 forward hooks on those modules record, (2) records one forward with
 torch.profiler and prints the device time of every op and kernel and the
 device's busy share of the forward's wall time, and (3) prints the same
@@ -36,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-from .config import TrainCfg, flagship_args
+from .config import ARCHS, TrainCfg, flagship_args
 from .models.pgrm import TRAIN_CORES, resolve_train_core
 from .system import DPMNSystem
 
@@ -67,7 +69,8 @@ def stage_modules(system: DPMNSystem, nets=None):
     stage."""
     nets = nets or system
     students = system._students(nets)
-    stages = [("CRNN text prior", nets.crnn_psn), ("TATT PSN", nets.psn)]
+    stages = [("CRNN text prior", nets.crnn_psn)] if nets.crnn_psn is not None else []
+    stages.append((f"{system.args.arch.upper()} PSN", nets.psn))
     stages += [(f"VisionLAN student {k}", s) for k, s in enumerate(students)]
     if students in system._stacks:
         stages.append(("VisionLAN students, vmapped", system._stacks[students].base))
@@ -135,6 +138,7 @@ def train_step_phases(system: DPMNSystem, hr, lr, seed: int, marks: list):
 def main(argv=None):
     p = argparse.ArgumentParser(description="per-stage and per-kernel time of the flagship sr_forward or train step")
     p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--arch", choices=ARCHS, default="tatt", help="the frozen PSN (the flagship's: tatt)")
     p.add_argument("--train", action="store_true", help="profile one train_step instead of one sr_forward")
     p.add_argument("--train-core", choices=TRAIN_CORES, default=None,
                    help="the PGRMs' training attention core (default: from DPMN_TPU_FUSE_QKV / DPMN_TPU_FUSE_SKCONV)")
@@ -148,7 +152,7 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    system = DPMNSystem(TrainCfg(batch_size=a.batch), flagship_args(), seed=0, train_core=a.train_core,
+    system = DPMNSystem(TrainCfg(batch_size=a.batch), flagship_args(arch=a.arch), seed=0, train_core=a.train_core,
                         student_dtype=a.student_dtype)
     rng = np.random.RandomState(0)
     hr = rng.rand(a.batch, 32, 128, 4).astype(np.float32)

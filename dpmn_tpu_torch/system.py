@@ -4,8 +4,10 @@ and the joint train step.
 Counterpart of dpmn_tpu/system.py::DPMNSystem._sr_forward_impl (:583-594)
 and ._train_step_impl (:502-507) with the device glyph atlas
 (glyph_mode='atlas').  Per batch:
-  1. the frozen CRNN reads the LR image; its softmaxed frames are the text
-     prior of the frozen TATT PSN (system.py:264-279);
+  1. the frozen PSN of `arch` (system.py:154-177, :264-279): TSRN for
+     `tsrn` and `tg`, TBSRN for `tbsrn` on the LR image alone; TSRN_TL for
+     `tpgsr` and TATT for `tatt` also read the frozen CRNN's softmaxed frames
+     of the LR image as their text prior;
   2. branch 1: before each of the b1 graphic PGRMs a VisionLAN student reads
      the cascade image and the device glyph atlas renders its prior
      (system.py:314-345); residuals are cascade_list[:k];
@@ -52,8 +54,9 @@ the default), "attention" (K4) or "full" (K5); None reads the JAX package's
 DPMN_TPU_FUSE_QKV / DPMN_TPU_FUSE_SKCONV (models/pgrm.py
 `resolve_train_core`).  Eval always runs K1.
 
-Entry points keep the JAX package's NHWC contract: (B, h, w, 4) LR in,
-(B, 2h, 2w, 3) SR out; (B, 2h, 2w, 4) HR for training.  Modules run NCHW on
+Entry points keep the JAX package's NHWC contract: (B, h, w, C) LR in,
+(B, 2h, 2w, 3) SR out; (B, 2h, 2w, C) HR for training, with C = 4 under
+`mask` (RGB and the mask channel) and 3 without.  Modules run NCHW on
 `device`: the card unless the caller passes device="cpu".
 """
 
@@ -76,6 +79,8 @@ from .models.crnn import CRNN, parse_crnn_input
 from .models.distill import DistillModule
 from .models.pgrm import PGRM
 from .models.tatt import TSRN_TL_TRANS
+from .models.tbsrn import TBSRN
+from .models.tsrn import TSRN, TSRN_TL
 from .models.visionlan import VisionLAN, parse_visionlan_input
 from .ops.dropout import TrainRng
 from .ops.mask_prior import to_mask
@@ -106,17 +111,18 @@ class Bf16Copy:
     """A bf16 copy (`bf16_copy`) of named modules, made at the first `get`
     and made again when a parameter or buffer of theirs has changed since;
     `get` returns the copies as attributes of a namespace (no nn.Module, so
-    they are no submodules of the system); `made` counts the copies made."""
+    they are no submodules of the system), None where the module is None;
+    `made` counts the copies made."""
 
     def __init__(self, **modules):
         self.sources = modules
         self.stamp, self.nets, self.made = None, None, 0
 
     def get(self) -> SimpleNamespace:
-        stamp = _state_stamp(self.sources.values())
+        stamp = _state_stamp(m for m in self.sources.values() if m is not None)
         if stamp != self.stamp:
             self.nets = None  # free the old copy first
-            self.nets = SimpleNamespace(**{k: bf16_copy(m) for k, m in self.sources.items()})
+            self.nets = SimpleNamespace(**{k: None if m is None else bf16_copy(m) for k, m in self.sources.items()})
             self.stamp, self.made = stamp, self.made + 1
         return self.nets
 
@@ -154,10 +160,6 @@ class DPMNSystem(nn.Module):
         self.student_dtype = student_dtype
         a = self.args = args
         self.cfg = cfg
-        if a.arch != "tatt":
-            raise NotImplementedError(f"arch {a.arch!r}: this port carries the TATT PSN only")
-        if not a.mask:
-            raise NotImplementedError("the TATT PSN of this port takes 4-channel (masked) LR input")
         if a.font_path is not None:
             raise NotImplementedError("the glyph atlas is committed for the default font only")
         hp = parse_pgrm_hparams(a)
@@ -187,10 +189,23 @@ class DPMNSystem(nn.Module):
             pgrms += [make_pgrm(k, False) for k in range(self.b1, self.b1 + self.b2)]
         self.pgrms = nn.ModuleList(pgrms)
         self.cmm = CMM()
-        self.psn = TSRN_TL_TRANS(scale_factor=cfg.down_sample_scale, width=cfg.width, height=cfg.height,
-                                 srb_nums=a.srb, mask=a.mask, hidden_units=a.hd_u,
-                                 out_text_channels=2 * a.hd_u, faithful=a.faithful)
-        self.crnn_psn = CRNN()
+        # the frozen PSN by arch (system.py:154-177); the STN is left out, as
+        # every PSN applies it in training only
+        psn_kw = dict(scale_factor=cfg.down_sample_scale, width=cfg.width, height=cfg.height, srb_nums=a.srb,
+                      mask=a.mask, hidden_units=a.hd_u)
+        if a.arch in ("tsrn", "tg"):
+            self.psn = TSRN(**psn_kw)
+        elif a.arch == "tbsrn":
+            self.psn = TBSRN(**psn_kw)
+        elif a.arch == "tpgsr":
+            self.psn = TSRN_TL(**psn_kw)
+        elif a.arch == "tatt":
+            # the TPInterpreter's d_model is the SRB channel count (tatt.py:590)
+            self.psn = TSRN_TL_TRANS(**psn_kw, out_text_channels=2 * a.hd_u, faithful=a.faithful)
+        else:
+            raise ValueError(a.arch)
+        self.needs_text_prior = a.arch in ("tpgsr", "tatt")
+        self.crnn_psn = CRNN() if self.needs_text_prior else None
         self.students = nn.ModuleList([VisionLAN() for _ in range(self.b1)])
         self.glyph = DeviceGlyph(self.hr_shape)
         self.distills = nn.ModuleList([DistillModule() for _ in range(max(self.b1 + self.b2 - 2, 0))])
@@ -219,11 +234,15 @@ class DPMNSystem(nn.Module):
     # ------------------------------------------------------------- internals
 
     def _psn_forward(self, images_lr, nets=None):
-        """Frozen CRNN text prior → TATT PSN (super_resolution.py:156-169)."""
+        """The frozen PSN (super_resolution.py:156-169): TPGSR and TATT read
+        the frozen CRNN's text prior, the others the LR image alone."""
         nets = nets or self
+        if not self.needs_text_prior:
+            return nets.psn(images_lr)
         logits = nets.crnn_psn(parse_crnn_input(images_lr[:, :3]))  # (T, B, 37)
         emb = torch.softmax(logits, dim=-1).permute(1, 2, 0)[:, :, None, :]  # (B, 37, 1, T)
-        return nets.psn(images_lr, emb)[0]
+        out = nets.psn(images_lr, emb)
+        return out[0] if self.args.arch == "tatt" else out
 
     def _students(self, nets):
         """The students a forward runs: their bf16 copy under student_dtype
@@ -330,7 +349,7 @@ class DPMNSystem(nn.Module):
 
     @torch.no_grad()
     def sr_forward(self, images_lr, glyph_from_psn: bool = False) -> torch.Tensor:
-        """(B, h, w, 4) NHWC LR images (numpy or tensor) → (B, 2h, 2w, 3) NHWC SR.
+        """(B, h, w, C) NHWC LR images (numpy or tensor) → (B, 2h, 2w, 3) NHWC SR.
         `glyph_from_psn`: every student reads the PSN output (the test() path)."""
         return self._forward(images_lr, self, glyph_from_psn)
 
@@ -341,7 +360,7 @@ class DPMNSystem(nn.Module):
         return self._forward(images_lr, self.state_bf16.get(), glyph_from_psn).float()
 
     def train_step(self, images_hr, images_lr, seed: int = 0) -> dict:
-        """One joint train step on (B, 2h, 2w, 4) HR and (B, h, w, 4) LR NHWC
+        """One joint train step on (B, 2h, 2w, C) HR and (B, h, w, C) LR NHWC
         images (numpy or tensors); `seed` seeds the step's dropout.  Updates
         the trainable parameters, the BatchNorm statistics and the optimizer
         state in place; returns {"loss", "grad_norm"} as 0-d tensors on the
@@ -437,7 +456,7 @@ def init_weights(model: nn.Module, seed: int) -> None:
     """Seeded random weights from a CPU torch.Generator, so the same seed gives
     the same weights on any device: Linear / Conv / ConvTranspose / RNN / MHA
     projection weights and biases uniform in ±1/sqrt(fan_in) (RNNs: hidden
-    size); norms at identity; PReLU slopes 0.25; the relative-position tables
+    size); norms (TBSRN's a_2 / b_2 too) at identity; PReLU slopes 0.25; the relative-position tables
     normal(0, 0.02); embeddings (MORAN's bare char_embeddings too) and the
     InfoTransformer's init_factor normal(0, 1); the PGRM residual weights at
     1; an STN head's stn_fc2 as the reference initializes it (weight 0, bias
@@ -446,6 +465,7 @@ def init_weights(model: nn.Module, seed: int) -> None:
     uninitialized."""
     from .models.stn import init_ctrl_points
     from .models.tatt import InfoTransformer
+    from .models.tbsrn import TorchRefLayerNorm
     from .ops.attention import MultiHeadAttention
     from .ops.gru import BiGRU
 
@@ -470,8 +490,8 @@ def init_weights(model: nn.Module, seed: int) -> None:
                 value = uniform(p, mod.hidden_size)
             elif isinstance(mod, MultiHeadAttention):
                 value = uniform(p, mod.embed_dim) if pname == "in_proj_weight" else torch.zeros(p.shape)
-            elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d, nn.BatchNorm2d)):
-                value = torch.ones(p.shape) if pname == "weight" else torch.zeros(p.shape)
+            elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d, nn.BatchNorm2d, TorchRefLayerNorm)):
+                value = torch.ones(p.shape) if pname in ("weight", "a_2") else torch.zeros(p.shape)
             elif isinstance(mod, nn.PReLU):
                 value = torch.full(p.shape, 0.25)
             elif (isinstance(mod, nn.Embedding) or pname == "char_embeddings"

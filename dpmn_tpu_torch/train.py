@@ -42,51 +42,12 @@ from .system import DPMNSystem
 from .utils import metrics as M
 from .utils.labels import str_filt
 from .utils.seed import draw_seed, set_seed
+from .weights import load_driver_weights
 
-# the reference's torch files; ".pt" is this package's own checkpoint
-REFERENCE_SUFFIXES = (".pth", ".pth.tar", ".tar")
-PTH_ITEM = "ROADMAP queue 1, item 6a (the reference's .pth files in the driver)"
-
-
-def _say(msg: str) -> None:
-    print(f"[weights] {msg}", flush=True)
-
-
-def _refuse_pth(what: str, path: str):
-    raise NotImplementedError(f"{what} from {path}: not ported yet, {PTH_ITEM}")
-
-
-def check_driver_weights(system: DPMNSystem, cfg: TrainCfg, args: Args, testing: bool = False) -> None:
-    """Walk the reference artifacts that dpmn_tpu's `load_driver_weights`
-    (weights.py:102) reads: one that exists raises NotImplementedError
-    (reading them is not ported); a missing optional one is skipped with the
-    JAX package's message."""
-    resume = args.resume or cfg.resume or ""
-    resume_dir = resume if os.path.isdir(resume) else ""
-    if resume_dir:
-        cand = os.path.join(resume_dir, f"model_{args.arch}.pth")
-        if os.path.exists(cand):
-            _refuse_pth(f"the PSN ({args.arch})", cand)
-        cand = os.path.join(resume_dir, "recognizer_best_crnn.pth")
-        if os.path.exists(cand):
-            _refuse_pth("crnn_psn", cand)
-        _say(f"crnn_psn artifact missing ({cand}); keeping random init")
-    elif resume.endswith(REFERENCE_SUFFIXES) and os.path.isfile(resume):
-        _refuse_pth("the PSN" if not testing else "every PGRM", resume)
-    if args.rec_path:
-        _refuse_pth(f"the students ({args.tpg})", args.rec_path)
-    elif cfg.visionlan_pretrained and os.path.exists(cfg.visionlan_pretrained):
-        _refuse_pth("the students", cfg.visionlan_pretrained)
-    if testing and resume_dir:
-        for i in range(len(system.pgrms)):
-            cand = os.path.join(resume_dir, f"model_best_{i}.pth")
-            if os.path.exists(cand):
-                _refuse_pth(f"pgrm_{i}", cand)
-            _say(f"PGRM artifact missing ({cand}); keeping current weights")
-        cand = os.path.join(resume_dir, "model_best_cmm.pth")
-        if os.path.exists(cand):
-            _refuse_pth("cmm", cand)
-        _say(f"cmm artifact missing ({cand}); keeping current weights")
+def _refuse_msgpack(resume: str) -> None:
+    if resume and resume.endswith(".msgpack"):
+        raise NotImplementedError(f"--resume {resume}: reading dpmn_tpu's .msgpack checkpoints is not ported yet: "
+                                  "ROADMAP queue 1, item 6e")
 
 
 class Trainer:
@@ -202,7 +163,11 @@ class Trainer:
 
         train_loader = self.get_train_loader()
         val_loaders = self.get_val_loaders()
-        check_driver_weights(self.system, cfg, self.args, testing=False)
+        _refuse_msgpack(self.args.resume or cfg.resume)
+        # pretrained reference artifacts named by the config: the frozen PSN
+        # from the resume directory, crnn_psn, the students (base.py:163-197,
+        # 452-471; super_resolution.py:93-111)
+        load_driver_weights(self.system, cfg, self.args, testing=False)
         # auto-resume from this package's full-state checkpoint (base.py:43)
         resume_path = resolve_native_checkpoint(self.args.resume or cfg.resume, testing=False)
         if resume_path:
@@ -265,16 +230,20 @@ class Trainer:
         """The test-time weights (super_resolution.py:515-586): this
         package's full-state checkpoint named by --resume (the Trainer's own
         best / rolling files, which hold every frozen net) when there is
-        one; the reference's .pth files are checked as dpmn_tpu's
-        `load_driver_weights` reads them (`check_driver_weights`)."""
+        one, with the reference's train-time artifacts (the students from
+        --rec_path, the PSN) on top of it; else the reference's files
+        (model_best_{i}.pth, model_best_cmm.pth, model_{arch}.pth in the
+        resume directory, the students from --rec_path) through
+        `load_driver_weights`."""
         resume = self.args.resume or self.cfg.resume or ""
+        _refuse_msgpack(resume)
         native = resolve_native_checkpoint(resume, testing=True)
         if native:
             _, info = load_checkpoint(native, self.system)
             print(f"[weights] test state restored from {native} (iters={info.get('iters', '?')})", flush=True)
-            check_driver_weights(self.system, self.cfg, self.args, testing=False)
+            load_driver_weights(self.system, self.cfg, self.args, testing=False)
         else:
-            check_driver_weights(self.system, self.cfg, self.args, testing=True)
+            load_driver_weights(self.system, self.cfg, self.args, testing=True)
         return self.system
 
     def test(self, system: DPMNSystem = None, max_batches: int = None) -> dict:

@@ -1,4 +1,5 @@
-"""Carry a dpmn_tpu state into the port's modules.
+"""Weights into the port's modules: a dpmn_tpu state, and the reference's
+torch checkpoints that the driver reads.
 
 `from_jax(state, system)` takes the JAX package's state — the `params`,
 `batch_stats` and `frozen` trees of DPMNSystem.init_state, as nested dicts of
@@ -18,13 +19,37 @@ AttentionRecognitionHead, MORAN, STNHead).  It raises on a leaf of the JAX
 state that no port tensor takes, on a port
 parameter or buffer that no leaf fills, and on any shape mismatch.  The
 distill modules come over with the rest; the optimizer state is not read.
+
+`load_driver_weights(system, cfg, args, testing)` is the counterpart of
+dpmn_tpu/weights.py:102-220: every pretrained torch artifact the config names
+goes into a fresh system, through the strict key maps of convert.py, with the
+JAX package's branches, soft skips and messages:
+  * the PSN from model_{arch}.pth in a --resume directory, or from a .pth
+    file --resume at train time (base.py:163-197); at test time that file
+    goes into every PGRM instead (PARITY.md "Known parity deviations");
+  * crnn_psn from recognizer_best_crnn.pth in the --resume directory
+    (super_resolution.py:93-97,550-554), when the PSN reads a text prior;
+  * the students from --rec_path recognizer_best_{k}.pth, or, without
+    --rec_path, all of them from cfg.visionlan_pretrained (base.py:452-471);
+  * at test time, model_best_{i}.pth for each PGRM and model_best_cmm.pth
+    (super_resolution.py:556-586).
+A missing optional file is skipped with a message.  A .pt --resume is the
+port's own checkpoint (checkpoint.py), not a reference file.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.nn as nn
+
+from .config import ARCHS
+from .convert import KeyMap, convert_state_dict, key_map, load_into, load_reference_state_dict
+
+# the reference's torch files; ".pt" is this package's own checkpoint
+REFERENCE_SUFFIXES = (".pth", ".pth.tar", ".tar")
 
 
 class _Leaves:
@@ -104,9 +129,62 @@ def _mha(c: _Copier, m, path):
     c.dense(m.out_proj, f"{path}/out_proj")
 
 
-def _psn(c: _Copier, psn, p, s):
+def _skeleton(c: _Copier, psn, p, s, srb, srb_name: str, up_blocks: bool):
+    """The skeleton every JAX PSN shares: Conv_0, PReLU_0, the SRBs
+    `{srb_name}_{i}` (copied by `srb`), Conv_1, BatchNorm_0, the upsample
+    convs (UpsampleBlock_{j}/Conv_0 in TSRN and TSRN_TL, Conv_{2+j} inline in
+    TBSRN and TATT) and the last conv."""
     c.conv(psn.conv_in, f"{p}/Conv_0")
     c.raw(psn.prelu.weight, f"{p}/PReLU_0/a")
+    for i, blk in enumerate(psn.srbs):
+        srb(c, blk, f"{p}/{srb_name}_{i}", f"{s}/{srb_name}_{i}")
+    c.conv(psn.conv_mid, f"{p}/Conv_1")
+    c.bn(psn.bn_mid, f"{p}/BatchNorm_0", f"{s}/BatchNorm_0")
+    for i, conv in enumerate(psn.upsample):
+        c.conv(conv, f"{p}/UpsampleBlock_{i}/Conv_0" if up_blocks else f"{p}/Conv_{2 + i}")
+    c.conv(psn.conv_out, f"{p}/Conv_{2 if up_blocks else 2 + len(psn.upsample)}")
+
+
+def _gru_srb(c: _Copier, srb, q, r):
+    c.conv(srb.conv1, f"{q}/Conv_0")
+    c.conv(srb.conv2, f"{q}/Conv_1")
+    c.bn(srb.bn1, f"{q}/BatchNorm_0", f"{r}/BatchNorm_0")
+    c.bn(srb.bn2, f"{q}/BatchNorm_1", f"{r}/BatchNorm_1")
+    for j, gb in enumerate((srb.gru1, srb.gru2)):
+        c.conv(gb.conv1, f"{q}/GruBlock_{j}/Conv_0")
+        c.rnn(gb.gru, f"{q}/GruBlock_{j}/BiGRU_0")
+
+
+def _tbsrn_srb(c: _Copier, srb, q, r):
+    c.conv(srb.conv1, f"{q}/Conv_0")
+    c.conv(srb.conv2, f"{q}/Conv_1")
+    c.bn(srb.bn1, f"{q}/BatchNorm_0", f"{r}/BatchNorm_0")
+    c.bn(srb.bn2, f"{q}/BatchNorm_1", f"{r}/BatchNorm_1")
+    fe, f = srb.feature_enhancer, f"{q}/FeatureEnhancer_0"
+    _mha(c, fe.multihead, f"{f}/MultiHeadAttention_0")
+    for j, norm in enumerate((fe.mul_layernorm1, fe.mul_layernorm3)):
+        c.raw(norm.a_2, f"{f}/TorchRefLayerNorm_{j}/a_2")
+        c.raw(norm.b_2, f"{f}/TorchRefLayerNorm_{j}/b_2")
+    for j, lin in enumerate((fe.w_1, fe.w_2, fe.linear)):
+        c.dense(lin, f"{f}/Dense_{j}")
+
+
+def _tsrn(c: _Copier, psn, p, s):
+    _skeleton(c, psn, p, s, _gru_srb, "RecurrentResidualBlock", True)
+
+
+def _tsrn_tl(c: _Copier, psn, p, s):
+    for j in range(4):
+        c.conv(getattr(psn.infoGen, f"tconv{j + 1}"), f"{p}/InfoGen_0/ConvTranspose2dTorch_{j}")
+        c.bn(getattr(psn.infoGen, f"bn{j + 1}"), f"{p}/InfoGen_0/BatchNorm_{j}", f"{s}/InfoGen_0/BatchNorm_{j}")
+    _skeleton(c, psn, p, s, _gru_srb, "RecurrentResidualBlockTL", True)
+
+
+def _tbsrn(c: _Copier, psn, p, s):
+    _skeleton(c, psn, p, s, _tbsrn_srb, "TBSRNBlock", False)
+
+
+def _tatt(c: _Copier, psn, p, s):
     ig = f"{p}/infoGen"
     c.dense(psn.infoGen.fc_in, f"{ig}/fc_in")
     c.raw(psn.infoGen.activation.weight, f"{ig}/PReLU_0/a")
@@ -128,20 +206,16 @@ def _psn(c: _Copier, psn, p, s):
         for name in ("norm2", "norm3"):
             c.ln(getattr(layer, name), f"{d}/{name}")
     c.ln(tr.decoder_norm, f"{t}/decoder_norm")
-    for i, srb in enumerate(psn.srbs):
-        q, r = f"{p}/RecurrentResidualBlockTL_{i}", f"{s}/RecurrentResidualBlockTL_{i}"
-        c.conv(srb.conv1, f"{q}/Conv_0")
-        c.conv(srb.conv2, f"{q}/Conv_1")
-        c.bn(srb.bn1, f"{q}/BatchNorm_0", f"{r}/BatchNorm_0")
-        c.bn(srb.bn2, f"{q}/BatchNorm_1", f"{r}/BatchNorm_1")
-        for j, gb in enumerate((srb.gru1, srb.gru2)):
-            c.conv(gb.conv1, f"{q}/GruBlock_{j}/Conv_0")
-            c.rnn(gb.gru, f"{q}/GruBlock_{j}/BiGRU_0")
-    c.conv(psn.conv_mid, f"{p}/Conv_1")
-    c.bn(psn.bn_mid, f"{p}/BatchNorm_0", f"{s}/BatchNorm_0")
-    for i, conv in enumerate(psn.upsample):
-        c.conv(conv, f"{p}/Conv_{2 + i}")
-    c.conv(psn.conv_out, f"{p}/Conv_{2 + len(psn.upsample)}")
+    _skeleton(c, psn, p, s, _gru_srb, "RecurrentResidualBlockTL", False)
+
+
+def _psn(c: _Copier, psn, p, s):
+    """Any of the four PSNs, by its type."""
+    from .models.tatt import TSRN_TL_TRANS
+    from .models.tbsrn import TBSRN
+    from .models.tsrn import TSRN, TSRN_TL
+
+    {TSRN: _tsrn, TSRN_TL: _tsrn_tl, TBSRN: _tbsrn, TSRN_TL_TRANS: _tatt}[type(psn)](c, psn, p, s)
 
 
 def _crnn(c: _Copier, crnn, p, s):
@@ -365,7 +439,8 @@ def from_jax(state: dict, system) -> None:
     for i, d in enumerate(system.distills):
         _distill(c, d, f"params/distill_{i}", f"batch_stats/distill_{i}")
     _psn(c, system.psn, "frozen/psn/params", "frozen/psn/batch_stats")
-    _crnn(c, system.crnn_psn, "frozen/crnn_psn/params", "frozen/crnn_psn/batch_stats")
+    if system.crnn_psn is not None:
+        _crnn(c, system.crnn_psn, "frozen/crnn_psn/params", "frozen/crnn_psn/batch_stats")
     for k, st in enumerate(system.students):
         _student(c, st, f"frozen/student_{k}/params", f"frozen/student_{k}/batch_stats")
     _check_all(leaves, c, system)
@@ -383,6 +458,8 @@ def module_from_jax(module: nn.Module, variables: dict) -> None:
     from .models.pgrm import PGRM, Mlp, SwinTransformerBlock, WindowAttention
     from .models.stn import STNHead
     from .models.tatt import TSRN_TL_TRANS
+    from .models.tbsrn import TBSRN
+    from .models.tsrn import TSRN, TSRN_TL
     from .models.visionlan import VisionLAN
     from .ops.gru import BiGRU
 
@@ -396,6 +473,9 @@ def module_from_jax(module: nn.Module, variables: dict) -> None:
         WindowAttention: lambda: _window_attention(c, module, p),
         Mlp: lambda: _mlp(c, module, p),
         CMM: lambda: _cmm(c, module, p, s),
+        TSRN: lambda: _psn(c, module, p, s),
+        TSRN_TL: lambda: _psn(c, module, p, s),
+        TBSRN: lambda: _psn(c, module, p, s),
         TSRN_TL_TRANS: lambda: _psn(c, module, p, s),
         CRNN: lambda: _crnn(c, module, p, s),
         VisionLAN: lambda: _student(c, module, p, s),
@@ -418,3 +498,129 @@ def _derived_buffer(name: str) -> bool:
     return last in ("num_batches_tracked", "pe", "table", "sel", "cell_of_s", "off_of_s", "inverse_kernel",
                     "target_coordinate_repr", "target_control_points") or last.startswith(
         ("rel_index_", "shift_mask_"))
+
+
+# ------------------------------------------------- reference checkpoints
+
+
+def _say(msg: str) -> None:
+    print(f"[weights] {msg}", flush=True)
+
+
+def convert_psn_state_dict(arch: str, sd: dict, psn: nn.Module, source: str = "checkpoint") -> dict:
+    """A PSN's reference state dict as the port's tensors for `psn`, the PSN
+    that `arch` builds (dpmn_tpu/weights.py:50-63; the key map follows the
+    module).  The STN's keys are dead: the frozen PSN runs in eval for good."""
+    if arch not in ARCHS:
+        raise ValueError(f"no PSN converter for arch={arch!r}")
+    return convert_state_dict(psn, sd, source)
+
+
+def convert_student_state_dict(tpg: str, sd: dict, student: nn.Module, source: str = "checkpoint") -> dict:
+    """A student TPG's reference state dict as the port's tensors for the
+    eval-path VisionLAN `student` (dpmn_tpu/weights.py:66-82): the glyph
+    branch reads VisionLAN outputs, so VisionLAN is the only TPG it runs."""
+    if tpg == "visionlan":
+        return convert_state_dict(student, sd, source)
+    raise ValueError(
+        f"tpg={tpg!r}: the DPMN cascade's glyph branch requires visionlan "
+        "students (reference super_resolution.py:177-193 hardcodes the "
+        "VisionLAN parse/convert flow)"
+    )
+
+
+def _student_path(rec_path: str, k: int, tpg: str) -> str:
+    """recognizer_best_{k}.pth / .pth.tar (super_resolution.py:528-535)."""
+    base = os.path.join(rec_path, f"recognizer_best_{k}")
+    return base + (".pth.tar" if tpg == "aster" else ".pth")
+
+
+def _load_pgrm(pgrm: nn.Module, sd: dict, source: str, shared: bool = False) -> None:
+    """A PGRM's reference file into `pgrm`.  `shared`: the one file of a
+    test-time file resume, read into every PGRM as dpmn_tpu's convert_pgrm
+    reads it (convert_zoo.py:262-299): a semantic PGRM passes over the
+    file's prior_fusion, and the prior_fusion and residual weights
+    weight_list_{k} that the file lacks keep their values."""
+    kmap = key_map(pgrm)
+    if shared:
+        optional = ("weight_list_", "prior_fusion.")
+        slots = {rk: s for rk, s in kmap.slots.items() if rk in sd or not rk.startswith(optional)}
+        kmap = KeyMap(slots, kmap.dead + (() if pgrm.graphic_mode else (r"prior_fusion\..*",)), kmap.derived)
+    load_into(pgrm, convert_state_dict(pgrm, sd, source, kmap))
+
+
+def load_driver_weights(system, cfg, args, testing: bool = False) -> None:
+    """Fill a fresh DPMNSystem, in place, with every pretrained reference
+    artifact the config names (dpmn_tpu/weights.py:102-220).
+
+    Train time (testing=False): the PSN from the resume directory or file,
+    crnn_psn, the students.  Test time (testing=True): also the PGRMs and
+    CMM from model_best_*.  A missing optional artifact is skipped with a
+    message (the reference crashes instead)."""
+    resume = args.resume or cfg.resume or ""
+    resume_dir = resume if os.path.isdir(resume) else ""
+    is_file = resume.endswith(REFERENCE_SUFFIXES) and os.path.isfile(resume)
+
+    # ---- the frozen PSN (base.py:163-197: model_{arch}.pth in the resume
+    # directory, or the resume file itself at train time)
+    psn_path = ""
+    if resume_dir:
+        cand = os.path.join(resume_dir, f"model_{args.arch}.pth")
+        if os.path.exists(cand):
+            psn_path = cand
+    elif is_file and not testing:
+        # the reference would also load a test-time file resume (a PGRM's
+        # state_dict_G) into the PSN (base.py:163-197); like dpmn_tpu, the
+        # port loads it into the PGRMs only
+        psn_path = resume
+    if psn_path:
+        sd = load_reference_state_dict(psn_path)
+        load_into(system.psn, convert_psn_state_dict(args.arch, sd, system.psn, psn_path))
+        _say(f"PSN ({args.arch}) loaded from {psn_path}")
+
+    # ---- crnn_psn, the text-prior recognizer (super_resolution.py:93-97,550-554)
+    if system.crnn_psn is not None and resume_dir:
+        cand = os.path.join(resume_dir, "recognizer_best_crnn.pth")
+        if os.path.exists(cand):
+            load_into(system.crnn_psn, convert_state_dict(system.crnn_psn, load_reference_state_dict(cand), cand))
+            _say(f"crnn_psn loaded from {cand}")
+        else:
+            _say(f"crnn_psn artifact missing ({cand}); keeping random init")
+
+    # ---- the student TPGs (super_resolution.py:100-111,528-543 from
+    # rec_path; base.py:452-471: every student from the pretrained LA model)
+    if args.rec_path:
+        for k, student in enumerate(system.students):
+            path = _student_path(args.rec_path, k, args.tpg)
+            sd = load_reference_state_dict(path)
+            load_into(student, convert_student_state_dict(args.tpg, sd, student, path))
+            _say(f"student_{k} ({args.tpg}) loaded from {path}")
+    elif cfg.visionlan_pretrained and os.path.exists(cfg.visionlan_pretrained):
+        sd = load_reference_state_dict(cfg.visionlan_pretrained)
+        for student in system.students:
+            load_into(student, convert_student_state_dict("visionlan", sd, student, cfg.visionlan_pretrained))
+        _say(f"all {system.b1} students initialized from {cfg.visionlan_pretrained}")
+
+    # ---- the test-time SR weights (super_resolution.py:556-586, base.py:163-197)
+    if testing and resume:
+        if resume_dir:
+            for i, pgrm in enumerate(system.pgrms):
+                cand = os.path.join(resume_dir, f"model_best_{i}.pth")
+                if not os.path.exists(cand):
+                    _say(f"PGRM artifact missing ({cand}); keeping current weights")
+                    continue
+                _load_pgrm(pgrm, load_reference_state_dict(cand), cand)
+                _say(f"pgrm_{i} loaded from {cand}")
+            cand = os.path.join(resume_dir, "model_best_cmm.pth")
+            if os.path.exists(cand):
+                load_into(system.cmm, convert_state_dict(system.cmm, load_reference_state_dict(cand), cand))
+                _say(f"cmm loaded from {cand}")
+            else:
+                _say(f"cmm artifact missing ({cand}); keeping current weights")
+        elif is_file:
+            # a file resume at test time: the reference loads the same
+            # state_dict_G into every PGRM (base.py:180-181,196-197)
+            sd = load_reference_state_dict(resume)
+            for pgrm in system.pgrms:
+                _load_pgrm(pgrm, sd, resume, shared=True)
+            _say(f"all PGRMs loaded from {resume}")

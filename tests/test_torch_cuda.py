@@ -762,3 +762,68 @@ def test_prefetch_to_the_card(dev):
     with pytest.raises(OSError, match="disk gone"):
         for _ in prefetch_to_device(failing(), size=2, device=dev):
             pass
+
+
+@pytest.mark.parametrize("mask", [True, False], ids=["mask", "rgb"])
+@pytest.mark.parametrize("arch", ["tsrn", "tpgsr", "tbsrn"])
+def test_psn_on_the_card_matches_the_cpu(dev, arch, mask):
+    """TSRN, TSRN_TL and TBSRN (srb 2, hd_u 32, B = 3) on the card against
+    the same seeded module on the CPU, max abs 1e-4; two K2 launches an SRB
+    for the GRU PSNs, none for TBSRN."""
+    from dpmn_tpu_torch.models.tbsrn import TBSRN
+    from dpmn_tpu_torch.models.tsrn import TSRN, TSRN_TL
+
+    cls = {"tsrn": TSRN, "tpgsr": TSRN_TL, "tbsrn": TBSRN}[arch]
+    cpu = cls(srb_nums=2, mask=mask, hidden_units=32).eval()
+    init_weights(cpu, seed=5)
+    card = cls(srb_nums=2, mask=mask, hidden_units=32).eval()
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(dev)
+    gen = torch.Generator().manual_seed(6)
+    x = torch.rand(3, 4 if mask else 3, 16, 64, generator=gen)
+    prior = (torch.softmax(torch.randn(3, 37, 1, 26, generator=gen), dim=1),) if arch == "tpgsr" else ()
+    before = gru_bidir_counter.launches
+    with torch.no_grad():
+        out = card(x.to(dev), *(p.to(dev) for p in prior)).cpu()
+        ref = cpu(x, *prior)
+    assert gru_bidir_counter.launches - before == (0 if arch == "tbsrn" else 4)
+    assert out.shape == (3, 4 if mask else 3, 32, 128)
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("kind", ["tatt", "tbsrn", "pgrm", "visionlan", "cmm"])
+def test_reference_checkpoint_round_trip_on_the_card(dev, kind):
+    """A module written in the reference's layout (convert._reference_state_dict,
+    dead keys included) and read into a module on the card: every tensor
+    equal to the source's, and the forward within 1e-4 of the source's on
+    the CPU."""
+    from dpmn_tpu_torch import convert
+    from dpmn_tpu_torch.models.cmm import CMM
+    from dpmn_tpu_torch.models.pgrm import PGRM
+    from dpmn_tpu_torch.models.tatt import TSRN_TL_TRANS
+    from dpmn_tpu_torch.models.tbsrn import TBSRN
+    from dpmn_tpu_torch.models.visionlan import VisionLAN
+
+    make = {"tatt": lambda: TSRN_TL_TRANS(srb_nums=1), "tbsrn": lambda: TBSRN(srb_nums=1, mask=True),
+            "pgrm": lambda: PGRM(embed_dim=96, patch_size=2, window_size=(2, 4, 8), graphic_mode=True),
+            "visionlan": VisionLAN, "cmm": CMM}[kind]
+    src, card = make().eval(), make().eval()
+    init_weights(src, seed=7)
+    init_weights(card, seed=8)
+    card = card.to(dev)
+    convert.load_reference(card, convert._reference_state_dict(src), kind)
+    mine = card.state_dict()
+    for k, v in src.state_dict().items():
+        assert k.endswith("num_batches_tracked") or torch.equal(v, mine[k].cpu()), k
+    gen = torch.Generator().manual_seed(9)
+    inputs = {"tatt": lambda: (torch.rand(2, 4, 16, 64, generator=gen),
+                               torch.softmax(torch.randn(2, 37, 1, 26, generator=gen), dim=1)),
+              "tbsrn": lambda: (torch.rand(2, 4, 16, 64, generator=gen),),
+              "pgrm": lambda: (torch.rand(2, 2, 32, 128, generator=gen), torch.rand(2, 3, 32, 128, generator=gen)),
+              "visionlan": lambda: (torch.rand(2, 3, 64, 256, generator=gen),),
+              "cmm": lambda: (torch.rand(2, 3, 32, 128, generator=gen),
+                              torch.rand(2, 3, 32, 128, generator=gen))}[kind]()
+    with torch.no_grad():
+        ref, out = src(*inputs), card(*(t.to(dev) for t in inputs))
+    ref, out = (ref[0], out[0]) if isinstance(ref, tuple) else (ref, out)
+    assert (out.cpu() - ref).abs().max().item() <= 1e-4
