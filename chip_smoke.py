@@ -13,7 +13,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the backward of the 4x4 and 8x8 windows and the per-window tiles K8 of
      more than 8 tokens on mma.sync; the Mlp conv pair's mix on wgmma) no
      spill and HMMA or HGMMA instructions in their machine code (cuobjdump
-     -sass), and bf16 m16n8k16 products in the bf16 attention forward;
+     -sass), and bf16 m16n8k16 products in the bf16 attention forwards (K7's, and
+     K3's on bf16 io with a float32 bias);
   2. the window-attention kernel against its plain PyTorch version on the
      card at B = 64 and the flagship geometry: both shift sets, both layouts;
      the device time of each of its sub-kernels (torch.profiler) beside the
@@ -65,6 +66,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
   8. K5 (K3 with SKConv fused in, faithful layout) as phase 5 does K3, with
      the sub-kernel split of its forward and backward; then the train path
      with train_core "full", as phase 6;
+  8b. K3 on bf16 io (the bf16 AMP step's core) forward and backward against
+     autograd through its plain version at B = 64 and the flagship geometry:
+     both shift sets, faithful layout, dropout off and at keep 0.9; the
+     output within 2^-7 of max|out|, each gradient within 2^-6 of its
+     largest value, the dtypes (bf16, dbias float32); its times a call
+     beside the float32 kernel on the same values; then the train path
+     under train_dtype="bfloat16" as phase 6, with exact launches (bf16 K3
+     12 + 12, float32 K3 0, K2 11), the state float32 after the steps, the
+     loss finite and falling over 5 steps on one repeated batch, and the
+     card against the CPU on 2 images (hold_amp_card_vs_cpu);
   9. K8, the per-window attention tiles: its entry point once at each of the
      flagship's three folded window shapes at B = 64 (with a shift mask) and
      at the JAX test's (10, 16, 8), launches counted, against the plain
@@ -119,7 +130,8 @@ where they fit.  `ms`, `plain_ms`, `library_ms` and `bound_ms` in the kernels
 line are per call of the path that launches the kernel: K1 and K2 per
 flagship forward (the sum over their launches in one sr_forward at B = 64),
 K3, K4 and K5 per flagship train step on their path (12 forward and 12
-backward launches); the standalone kernels K6-K9 per run of their phase's
+backward launches; K3's bf16 entry points per bf16 AMP step, bounded by
+bf16 bytes and every product on bf16 operands at 989 TFLOP/s); the standalone kernels K6-K9 per run of their phase's
 path (the launches it counts).  Bounds use the published H100 SXM peaks:
 3.35 TB/s and 67 TFLOP/s float32 on the CUDA cores; a sub-kernel's bound
 counts a product it runs on the tensor cores as 3xTF32 at 3 x its operations
@@ -159,6 +171,9 @@ K3_GRAD_RTOL, K3_GRAD_ATOL = 1e-4, 1e-5  # per gradient: max abs <= rtol * max|r
 K6_TOL = 1e-4  # max abs error: float32 sums of 9 and 384 terms in other orders
 K7_TOL = 1e-4  # float32 max abs error, as K1; bf16: one bf16 rounding of max|out| (2^-7 of it)
 BF16_ROUNDING = 2.0**-7  # K1 and K7 on bf16 io: max abs <= this x max|out| (tests/test_torch_window_attention_bf16.py)
+# K3 on bf16 io (tests/test_torch_window_attention_train_bf16.py): the output as BF16_ROUNDING, each gradient
+# within this x its largest value (a flipped rounding of dq / dkv moves a row of a weight gradient by one step)
+K3_BF16_GRAD = 2.0**-6
 SERVE_MEAN_TOL = 0.05  # bf16 SR against float32 SR, mean abs (tests/test_prefetch_bf16.py)
 K7_BF16_RTOL, K7_BF16_ATOL = 0.1, 0.15  # bf16 against the float32 kernel (tests/test_pallas_window.py)
 K8_TOL = 1e-5  # max abs error: float32 sums of <= 64 terms in other orders
@@ -593,6 +608,8 @@ def counters():
             "gru_bidir": gru_bidir_counter,
             "window_attention_train_forward": wt.forward_counter,
             "window_attention_train_backward": wt.backward_counter,
+            "window_attention_train_forward_bf16": wt.forward_bf16_counter,
+            "window_attention_train_backward_bf16": wt.backward_bf16_counter,
             "window_attention_core_forward": wc.forward_counter,
             "window_attention_core_backward": wc.backward_counter,
             "window_attention_full_forward": wf.forward_counter,
@@ -1111,6 +1128,94 @@ def phase_k3(dev):
                           worst_fwd, worst_grad, library=False)
 
 
+def phase_k3_bf16(dev):
+    """K3 on bf16 io (the bf16 AMP step's core) forward and backward against
+    autograd through its plain version at B = 64, the flagship geometry,
+    both shift sets, faithful layout, keep 1 and 0.9: the output within
+    2^-7 of max|out|, each gradient within 2^-6 of its largest value, the
+    dtypes bf16 (dbias float32).  Times a call beside the float32 kernel on
+    the same values.  Returns the kernels-line entries of its two entry
+    points (per AMP train step: 6 unshifted + 6 shifted calls, keep 0.9; the
+    bound from bf16 bytes and every product on bf16 operands at the bf16
+    tensor-core peak)."""
+    from dpmn_tpu_torch.models.pgrm import SwinTransformerBlock
+    from dpmn_tpu_torch.ops import window_attention_train as wt
+    from dpmn_tpu_torch.system import init_weights
+
+    h, w, dim, seed = 16, 64, 96, 4321
+    gen = torch.Generator().manual_seed(5)
+    bf = torch.bfloat16
+    cot = torch.randn(B, h * w, dim, generator=gen).to(dev, bf)
+    worst_fwd, worst_grad, times = 0.0, 0.0, {}
+    for shift in ((0, 0, 0), (1, 2, 4)):
+        blk = SwinTransformerBlock(dim, (h, w), 6, [2, 4, 8], list(shift))
+        init_weights(blk, seed=6)
+        a = blk.attn
+        leaf = lambda t, dt=bf: t.detach().clone().to(dev, dt).requires_grad_()
+        rnd = lambda *shape: 0.1 * torch.randn(*shape, generator=gen)
+        prim = [leaf(torch.randn(B, h * w, dim, generator=gen)), leaf(torch.randn(B, h * w, dim, generator=gen)),
+                leaf(1 + rnd(dim)), leaf(rnd(dim)), leaf(1 + rnd(dim)), leaf(rnd(dim)), leaf(a.q.weight),
+                leaf(rnd(dim)), leaf(a.kv.weight), leaf(rnd(2 * dim))]
+        biases = [leaf(rnd(*b.shape), torch.float32) for b in a.biases()]
+        masks = [m.to(dev) if m is not None else None for m in a.masks()]
+        static = (a.win, a.shf, a.gnum_heads, a.scale, a.hw)
+        for keep in (1.0, 0.9):
+            def run(fn):
+                out = fn(*prim, biases, masks, seed, keep, *static)
+                return out, torch.autograd.grad(out, prim + biases, cot)
+
+            out, grads = run(wt.window_attention_block_core)
+            ref, ref_grads = run(wt.window_attention_block_core_plain)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = BF16_ROUNDING * ref.float().abs().max().item()
+            gerr = max(((g.float() - r.float()).abs().max() / (K3_BF16_GRAD * r.float().abs().max())).item()
+                       for g, r in zip(grads, ref_grads))
+            dtypes = [t.dtype for t in (out, *grads)] == [bf] * 11 + [torch.float32] * len(biases)
+            ok = dtypes and bool(torch.isfinite(out.float()).all()) and err <= tol and gerr <= 1.0
+            log(f"K3 bf16 shift={shift} keep={keep}: forward max_abs_err {err:.3e} (tol {tol:.3e}: 2^-7 max|out|); "
+                f"worst gradient at {gerr:.3f} of its tolerance (max abs <= 2^-6 max|ref|); dtypes "
+                f"{'bf16 (dbias float32)' if dtypes else 'WRONG'} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K3 bf16 shift={shift} keep={keep}: kernel disagrees with its plain version")
+            worst_fwd = max(worst_fwd, err)
+            worst_grad = max(worst_grad, max((g.float() - r.float()).abs().max().item()
+                                             for g, r in zip(grads, ref_grads)))
+        keep = 0.9
+        st = wt.make_static(masks, seed, keep, *static)
+        p_det = [t.detach() for t in prim]
+        b_det = [t.detach() for t in biases]
+        p32 = [t.float() for t in p_det]
+        k_fwd = cuda_ms(lambda: wt._forward_cuda(st, p_det, b_det))
+        k_bwd = cuda_ms(lambda: wt._backward_cuda(st, p_det, b_det, cot))
+        f_fwd = cuda_ms(lambda: wt._forward_cuda(st, p32, b_det))
+        f_bwd = cuda_ms(lambda: wt._backward_cuda(st, p32, b_det, cot.float()))
+        p_fwd = cuda_ms(lambda: wt.window_attention_block_core_plain(*p_det, b_det, masks, seed, keep, *static),
+                        iters=5)
+        out = wt.window_attention_block_core_plain(*prim, biases, masks, seed, keep, *static)
+        p_bwd = cuda_ms(lambda: torch.autograd.grad(out, prim + biases, cot, retain_graph=True), iters=5)
+        del out
+        times[shift] = (k_fwd, k_bwd, p_fwd, p_bwd)
+        log(f"K3 bf16 B={B} shift={shift} keep=0.9: forward {k_fwd:.4f} ms a call (float32 K3 on the same values "
+            f"{f_fwd:.4f}), backward {k_bwd:.4f} (float32 {f_bwd:.4f}); plain forward {p_fwd:.4f}, backward "
+            f"{p_bwd:.4f}")
+    cost = k3_cost(B, (h, w), dim, (2, 4, 8))
+    fb_ms, fb_by = bound_ms(cost["fwd_bytes"] / 2, 0.0, 0.0, cost["fwd_flops"])
+    bb_ms, bb_by = bound_ms(cost["bwd_bytes"] / 2, 0.0, 0.0, cost["bwd_flops"])
+    log(f"K3 bf16 bounds a call: forward {fb_ms:.4f} ms ({fb_by}; {cost['fwd_bytes'] / 2e6:.1f} MB, "
+        f"{cost['fwd_flops'] / 1e9:.2f} GFLOP on bf16 operands), backward {bb_ms:.4f} ({bb_by}; "
+        f"{cost['bwd_bytes'] / 2e6:.1f} MB, {cost['bwd_flops'] / 1e9:.2f} GFLOP)")
+    per_step = lambda i: 6 * (times[(0, 0, 0)][i] + times[(1, 2, 4)][i])
+    common = {"route": "cuda", "source": "dpmn_tpu_torch/csrc/window_attention_train.cu", "library_ms": None}
+    fwd = {"name": "window_attention_train_forward_bf16", **common,
+           "replaces": REPLACES["window_attention_train"][0], "max_abs_err": worst_fwd, "ms": per_step(0),
+           "plain_ms": per_step(2), "bound_ms": 12 * fb_ms, "bound_by": fb_by}
+    bwd = {"name": "window_attention_train_backward_bf16", **common,
+           "replaces": REPLACES["window_attention_train"][1], "max_abs_err": worst_grad, "ms": per_step(1),
+           "plain_ms": per_step(3), "bound_ms": 12 * bb_ms, "bound_by": bb_by}
+    return fwd, bwd
+
+
 def attn_bwd_chunks(n, gh, nw):
     """Blocks per image of a group's attention backward (csrc/window_train_common.cuh)."""
     if n == 4:
@@ -1126,6 +1231,9 @@ TRAIN_LAUNCHES = {
     "block": expected_counts(gru_bidir=11, window_attention_train_forward=12, window_attention_train_backward=12),
     "attention": expected_counts(gru_bidir=11, window_attention_core_forward=12, window_attention_core_backward=12),
     "full": expected_counts(gru_bidir=11, window_attention_full_forward=12, window_attention_full_backward=12),
+    # the bf16 AMP step: K3 on bf16 io, the float32 K3 never
+    "block-amp": expected_counts(gru_bidir=11, window_attention_train_forward_bf16=12,
+                                 window_attention_train_backward_bf16=12),
 }
 
 
@@ -1167,16 +1275,156 @@ def hold_train_card_vs_cpu(tag, systems, dev, run, n_ids):
         raise AssertionError(f"{tag}: card and CPU disagree on the train path")
 
 
-def phase_train(dev, card, train_core, timed):
-    """The flagship train_step at B = 64 with `train_core`: a warm-up step,
-    one step whose launches are counted, `timed` timed steps; then card
-    against CPU on 2 images.  Returns the launch counts of one step."""
+AMP_AGREE = 5e-2  # card vs CPU AMP, each module on the same inputs: of its PGRM's gradient norm
+AMP_ROUNDED = 2e-3  # the card's AMP gradients at least this far from float32 on the same inputs
+
+
+def hook_modules(system, record=None, feed=None):
+    """Pre-hooks on the trainable modules of `system` (the PGRMs, distills and
+    CMM).  `record` (a dict): each module's input tensors are kept there on
+    the CPU as it runs.  `feed` (such a dict): each module reads those
+    tensors in place of its own, detached, on its device and in the dtype it
+    was given, so that its gradient is that of its own computation on them.
+    Returns the handles."""
+    def each(args, fn):
+        if torch.is_tensor(args):
+            return fn(args)
+        if isinstance(args, (list, tuple)):
+            return type(args)(each(a, fn) for a in args)
+        return args
+
+    handles = []
+    for name, m in system.trainable_modules().items():
+        if record is not None:
+            def keep(mod, args, name=name):
+                record[name] = []
+                each(args, lambda t: record[name].append(t.detach().cpu()))
+            handles.append(m.register_forward_pre_hook(keep))
+        if feed is not None:
+            def swap(mod, args, name=name):
+                it = iter(feed[name])
+                return each(args, lambda t: (lambda r: r.to(t.device, t.dtype) if t.is_floating_point() else t)(next(it)))
+            handles.append(m.register_forward_pre_hook(swap))
+    return handles
+
+
+def hold_amp_card_vs_cpu(tag, systems, dev, hr, lr):
+    """The AMP step on the card and on the CPU, the same weights, rates 0, 2
+    images.  The step's loss within rel 1e-2 of the CPU's, as
+    tests/test_torch_amp.py holds it against the JAX package (the CPU reads
+    the card's glyph ids: a bf16 student may read a word differently on the
+    two devices).  The gradients are held module by module: each trainable
+    module (PGRM, distill, CMM) reads the inputs it had in the card's step,
+    so that each module's gradient is compared on identical inputs.  There
+    each PGRM's gradient (its leaves as one vector) is within 5e-2 of its
+    norm of the CPU's and each leaf within 5e-2 of its PGRM's norm, the
+    limits of that test; and each PGRM's gradient is at least 2e-3 of its
+    norm from the CPU's float32 step on the same inputs (more than one bf16
+    rounding of the result, whose RMS is ~1.6e-3), which a float32 step
+    does not reach (two float32 implementations differ by ~1e-4): the
+    card's float32 step runs through the same check as a control and must
+    fail it.  Over the whole step (no inputs fed) two bf16 computations part
+    by as much as bf16 moves the float32 step, since their rounding errors
+    are independent and grow through the cascade (the CPU's own AMP step is
+    as far from float32 as from the card's): those readings are logged, not
+    held."""
     from dpmn_tpu_torch.config import TrainCfg, flagship_args
     from dpmn_tpu_torch.system import DPMNSystem
 
-    tag = f"train[{train_core}]"
+    renders, inputs = [], {}
+    hooks = [systems[dev].glyph.register_forward_pre_hook(
+        lambda mod, args: renders.append(tuple(t.cpu() for t in args)))]
+    hooks += hook_modules(systems[dev], record=inputs)
+    lg, gg = systems[dev]._micro_grads(hr, lr, 0)
+    for h in hooks:
+        h.remove()
+
+    def step(system, local):
+        it, seen = iter(renders), []
+
+        def feed(mod, args):
+            ids, lengths = next(it)
+            seen.append(torch.equal(args[0].cpu(), ids))
+            return ids.to(args[0].device), lengths.to(args[0].device)
+
+        hooks = [system.glyph.register_forward_pre_hook(feed)]
+        if local:
+            hooks += hook_modules(system, feed=inputs)
+        try:
+            loss, grads = system._micro_grads(hr, lr, 0)
+        finally:
+            for h in hooks:
+                h.remove()
+        return loss, [g.cpu() for g in grads], seen
+
+    lc, gc, seen = step(systems["cpu"], False)
+    f32 = {d: DPMNSystem(TrainCfg(batch_size=2), flagship_args(**ZERO_RATES), device=d, seed=0) for d in (dev, "cpu")}
+    _, g32, _ = step(f32[dev], False)
+    _, gc32, _ = step(f32["cpu"], False)
+    local = {"card": step(systems[dev], True)[1], "cpu": step(systems["cpu"], True)[1],
+             "card32": step(f32[dev], True)[1], "cpu32": step(f32["cpu"], True)[1]}
+    del f32
+    names = [n for n, p in systems["cpu"].named_parameters()
+             if any(p is q for q in systems["cpu"].trainable_parameters())]
+    gg = [g.cpu() for g in gg]
+    dist = lambda a, b, idx: (torch.sqrt(sum(((a[i] - b[i]).double() ** 2).sum() for i in idx))
+                              / torch.sqrt(sum((b[i].double() ** 2).sum() for i in idx))).item()
+    rows, worst_leaf = [], (0.0, "")
+    for mi in range(len(systems["cpu"].pgrms)):
+        idx = [i for i, n in enumerate(names) if n.startswith(f"pgrms.{mi}.")]
+        norm = torch.sqrt(sum((local["cpu"][i].double() ** 2).sum() for i in idx)).item()
+        rows.append(dict(agree=dist(local["card"], local["cpu"], idx), rounded=dist(local["card"], local["cpu32"], idx),
+                         agree32=dist(local["card32"], local["cpu"], idx),
+                         rounded32=dist(local["card32"], local["cpu32"], idx),
+                         step=dist(gg, gc, idx), step32=dist(gg, g32, idx), cpu32=dist(gc, gc32, idx)))
+        worst_leaf = max([worst_leaf] + [((local["card"][i] - local["cpu"][i]).norm().item() / norm, names[i])
+                                         for i in idx])
+    col = lambda k: ", ".join(f"{r[k]:.3e}" for r in rows)
+    passes = lambda agree, rounded: max(agree) <= AMP_AGREE and min(rounded) >= AMP_ROUNDED
+    l_rel = abs(lg.item() - lc.item()) / abs(lc.item())
+    dtypes = all(g.dtype == torch.float32 for g in (*gg, *gc))
+    amp_ok = passes([r["agree"] for r in rows], [r["rounded"] for r in rows]) and worst_leaf[0] <= AMP_AGREE
+    control_ok = passes([r["agree32"] for r in rows], [r["rounded32"] for r in rows])
+    log(f"{tag}: card vs CPU on 2 images at rates 0: loss {lg.item():.6f} vs {lc.item():.6f} (rel {l_rel:.2e}, tol "
+        f"1e-2); each module on the card's inputs, each PGRM's gradient of its norm: card vs CPU {col('agree')} "
+        f"(tol {AMP_AGREE}), worst leaf {worst_leaf[1]} at {worst_leaf[0]:.3e} of its PGRM's norm (tol {AMP_AGREE}); "
+        f"card vs the CPU's float32 step {col('rounded')} (at least {AMP_ROUNDED}); the card's float32 step as a "
+        f"control: vs the CPU's AMP {col('agree32')}, vs the CPU's float32 {col('rounded32')} (it must fail: "
+        f"{'fails' if not control_ok else 'PASSES'}); the whole step, logged: card vs CPU {col('step')}, the card's "
+        f"AMP vs its float32 {col('step32')}, the CPU's AMP vs its float32 {col('cpu32')}; the CPU's own glyph ids equal the card's in {sum(seen)} of "
+        f"{len(seen)} renders; gradients float32 {dtypes}")
+    if not (l_rel <= 1e-2 and amp_ok and not control_ok and dtypes and len(seen) == 3):
+        raise AssertionError(f"{tag}: card and CPU disagree on the AMP train path")
+
+
+def check_float32_state(tag, system):
+    """Raise unless every parameter, gradient-free buffer and Adam moment of
+    the system is float32 (nothing bf16 leaked from the AMP step)."""
+    bad = [n for n, t in system.state_dict().items() if t.is_floating_point() and t.dtype != torch.float32]
+    for p in system.trainable_parameters():
+        bad += [f"adam {k}" for k, v in system.optimizer.state[p].items()
+                if torch.is_tensor(v) and v.is_floating_point() and v.dtype != torch.float32]
+    log(f"{tag}: parameters, BatchNorm statistics and Adam moments all float32: {not bad}")
+    if bad:
+        raise AssertionError(f"{tag}: not float32 after the step: {bad[:5]}")
+
+
+def phase_train(dev, card, train_core, timed, train_dtype=None):
+    """The flagship train_step at B = 64 with `train_core` (and
+    `train_dtype`): a warm-up step, one step whose launches are counted,
+    `timed` timed steps; then card against CPU on 2 images.  Returns the
+    launch counts of one step.  Under bf16 AMP also: the state float32
+    after the steps, and the loss finite and falling over 5 steps on one
+    repeated batch (the JAX package's gate, tests/test_system.py:82-106)."""
+    from dpmn_tpu_torch.config import TrainCfg, flagship_args
+    from dpmn_tpu_torch.system import DPMNSystem
+
+    amp = train_dtype is not None
+    key = f"{train_core}-amp" if amp else train_core
+    tag = f"train[{key}]"
     t0 = time.perf_counter()
-    system = DPMNSystem(TrainCfg(batch_size=B), flagship_args(), device=dev, seed=0, train_core=train_core)
+    system = DPMNSystem(TrainCfg(batch_size=B), flagship_args(), device=dev, seed=0, train_core=train_core,
+                        train_dtype=train_dtype)
     log(f"{tag}: flagship system built in {time.perf_counter() - t0:.1f} s "
         f"({sum(p.numel() for p in system.trainable_parameters()) / 1e6:.1f} M trainable parameters)")
     rng = np.random.RandomState(1)
@@ -1188,8 +1436,8 @@ def phase_train(dev, card, train_core, timed):
     m = system.train_step(*batches[1], seed=1)
     torch.cuda.synchronize()
     launches = read_counts()
-    log(f"{tag}: launches in one step {launches} (expected {TRAIN_LAUNCHES[train_core]})")
-    if launches != TRAIN_LAUNCHES[train_core]:
+    log(f"{tag}: launches in one step {launches} (expected {TRAIN_LAUNCHES[key]})")
+    if launches != TRAIN_LAUNCHES[key]:
         raise AssertionError(f"{tag}: launch counts {launches}")
     loss, gnorm = m["loss"].item(), m["grad_norm"].item()
     if not (np.isfinite(loss) and np.isfinite(gnorm)):
@@ -1200,17 +1448,28 @@ def phase_train(dev, card, train_core, timed):
         m = system.train_step(hr, lr, seed=2 + i)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / timed
-    log(f"{tag}: flagship train_step B={B} fp32 dropout 0.1: {dt * 1e3:.2f} ms/step, {B / dt:.1f} images/s on {card}; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last loss {m['loss'].item():.4f} "
-        f"grad_norm {m['grad_norm'].item():.4f}")
+    log(f"{tag}: flagship train_step B={B} {'bf16 AMP' if amp else 'fp32'} dropout 0.1: {dt * 1e3:.2f} ms/step, "
+        f"{B / dt:.1f} images/s on {card}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last loss "
+        f"{m['loss'].item():.4f} grad_norm {m['grad_norm'].item():.4f}")
     MEASURED[tag] = (dt * 1e3, torch.cuda.max_memory_allocated() / 2**30)
+    if amp:
+        check_float32_state(tag, system)
+        hr, lr = batches[0]
+        losses = [system.train_step(hr, lr, seed=100 + i)["loss"].item() for i in range(5)]
+        log(f"{tag}: 5 steps on one repeated batch: losses {[round(v, 4) for v in losses]}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{tag}: the AMP loss does not fall on a repeated batch: {losses}")
+        check_float32_state(tag, system)
     del system
 
     # card against the CPU on 2 images, rates 0, the same weights
     systems = {d: DPMNSystem(TrainCfg(batch_size=2), flagship_args(**ZERO_RATES), device=d, seed=0,
-                             train_core=train_core) for d in (dev, "cpu")}
+                             train_core=train_core, train_dtype=train_dtype) for d in (dev, "cpu")}
     hr, lr = batches[1][0][:2], batches[1][1][:2]
-    hold_train_card_vs_cpu(tag, systems, dev, lambda s: s._micro_grads(hr, lr, 0), n_ids=3)
+    if amp:
+        hold_amp_card_vs_cpu(tag, systems, dev, hr, lr)
+    else:
+        hold_train_card_vs_cpu(tag, systems, dev, lambda s: s._micro_grads(hr, lr, 0), n_ids=3)
     return launches
 
 
@@ -2147,6 +2406,12 @@ def main():
         launches = phase_train(dev, card, core, timed)
         fwd["launches"], bwd["launches"] = launches[f"{name}_forward"], launches[f"{name}_backward"]
         entries += [fwd, bwd]
+    # the bf16 AMP step on K3's bf16 io
+    fwd, bwd = phase_k3_bf16(dev)
+    launches = phase_train(dev, card, "block", 4, train_dtype="bfloat16")
+    fwd["launches"] = launches["window_attention_train_forward_bf16"]
+    bwd["launches"] = launches["window_attention_train_backward_bf16"]
+    entries += [fwd, bwd]
     entries.append(phase_k8(dev))
     entries += phase_k7(dev)
     entries.append(phase_k6(dev))

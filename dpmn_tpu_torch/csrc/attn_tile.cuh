@@ -164,9 +164,10 @@ __device__ __forceinline__ void qk_tile_bf16(float (&s)[NT][4], const __nv_bfloa
 
 // o[c] += P . V for the warp's 16 rows and one head's output columns 8 c +
 // (0..7), c < 2: p in qk_tile_bf16's accumulator layout over NT x 8 keys
-// (float32, split into bf16 hi + lo), key n of V at V[n * ldv] in shared
-// memory (bf16, read transposed).
-template <int NT>
+// (float32, split into bf16 hi + lo; with ONCE, K3's bf16 form, rounded to
+// bf16 once: hi alone), key n of V at V[n * ldv] in shared memory (bf16,
+// read transposed).
+template <int NT, bool ONCE = false>
 __device__ __forceinline__ void pv_tile_bf16(float (&o)[2][4], const float (&p)[NT][4], const __nv_bfloat16* V,
                                              int ldv) {
   const int lane = threadIdx.x & 31, r8 = lane & 7, hi8 = (lane >> 3) & 1, quad = lane >> 4;
@@ -179,8 +180,10 @@ __device__ __forceinline__ void pv_tile_bf16(float (&o)[2][4], const float (&p)[
     split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], hi[3], lo[3]);
     uint32_t b[4];  // keys 0-7 / 8-15 of the step x columns 0-7, then 8-15
     ldmatrix_x4_trans(b, V + (16 * kk + r8 + 8 * hi8) * ldv + 8 * quad);
-    mma_bf16(o[0], lo, b[0], b[1]);
-    mma_bf16(o[1], lo, b[2], b[3]);
+    if constexpr (!ONCE) {
+      mma_bf16(o[0], lo, b[0], b[1]);
+      mma_bf16(o[1], lo, b[2], b[3]);
+    }
     mma_bf16(o[0], hi, b[0], b[1]);
     mma_bf16(o[1], hi, b[2], b[3]);
   }

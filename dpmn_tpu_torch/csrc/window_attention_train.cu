@@ -43,8 +43,80 @@
 // projection backward and dW 0.35, ln_proj 0.13, the attention backward
 // 0.18, of it 0.03 the 2x2 windows', the fixed-order sums 0.03).  q, kv, dq
 // and dkv still round-trip through device memory.
+//
+// bf16 io (the bf16 AMP train step; the JAX kernel on bf16 inputs takes
+// dt = xq.dtype, :361 and :421): xq, xkv, the LN parameters, the weights and
+// their biases, out, dout, dxq, dxkv and the parameter gradients are bf16;
+// the relative-position bias (as the JAX package passes it,
+// dpmn_tpu/models/pgrm.py:405-407), the mask and dbias float32.  The JAX
+// kernel's rounding points: the LN in float32 rounded to bf16; each
+// projection summed in float32 with its bias and rounded to bf16; q * scale
+// in bf16 (exact: the wrapper takes a power-of-two scale); the scores, the
+// softmax and the dropout in float32, P rounded to bf16 once before P v, out
+// rounded once.  Backward: P*M and dS rounded to bf16 before their products
+// (dbias sums the unrounded dS), dq / dkv in float32 rounded to bf16 before
+// the projection backward (db sums them unrounded), weight, bias and LN
+// gradients summed in float32 and rounded once, dx through the float32 LN
+// backward rounded once.  The forward runs K1's bf16 LN + projection
+// (ln_proj_bf16_kernel, bf16 m16n8k16) writing q / kv in bf16 and the
+// attention forward on bf16 io with the float32 bias
+// (window_attn_fwd_kernel<DROP, bf16, float>); the backward widens its bf16
+// inputs to float32 once (convert_kernel) and runs the float32 kernels with
+// their BF16 rounding (window_train_common.cuh).
 
 #include "window_train_common.cuh"
+
+using bf16 = __nv_bfloat16;
+
+namespace {
+
+// dst[i] = src[i] converted (float32 <-> bf16, round to nearest even), a
+// grid-stride loop.
+template <typename S, typename D>
+__global__ void convert_kernel(const S* __restrict__ src, D* __restrict__ dst, int64_t n) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += (int64_t)gridDim.x * blockDim.x)
+    from_f(dst[i], to_f(src[i]));
+}
+
+template <typename S, typename D>
+cudaError_t convert(const S* src, D* dst, int64_t n, cudaStream_t st) {
+  if (n <= 0) return cudaSuccess;
+  const int64_t blocks = (n + THREADS - 1) / THREADS;
+  convert_kernel<<<(int)(blocks < 4096 ? blocks : 4096), THREADS, 0, st>>>(src, dst, n);
+  return cudaGetLastError();
+}
+
+// The float32 scratch of the bf16 backward, carved from one buffer, every
+// piece a multiple of 4 floats (16-byte aligned).
+struct Bf16BwdWork {
+  float *qf, *kvf, *doutf, *xqf, *xkvf, *dq, *dkv, *dbias_part, *wpart_q, *wpart_kv, *lnpart_q, *lnpart_kv;
+  float* pf;  // the widened parameters [qs | qb | ks | kb | q_w | q_b | kv_w | kv_b]
+  float* gf;  // the float32 gradients [gq | gkv | gln_q | gln_kv]
+  bf16 *qh, *kvh;  // q and kv in bf16, as the forward computes them
+  size_t floats;
+
+  Bf16BwdWork(float* base, int B, int H, int W, int D, int n_group, const int* ws, int gh) {
+    const size_t ntok = (size_t)B * H * W, nd = ntok * D, nchunk = (ntok + TOKC - 1) / TOKC;
+    size_t off = 0;
+    auto take = [&](size_t n) {
+      float* p = base ? base + off : nullptr;
+      off += (n + 3) / 4 * 4;
+      return p;
+    };
+    qh = reinterpret_cast<bf16*>(take((nd + 1) / 2));
+    kvh = reinterpret_cast<bf16*>(take(nd));
+    qf = take(nd), kvf = take(2 * nd), doutf = take(nd), xqf = take(nd), xkvf = take(nd);
+    dq = take(nd), dkv = take(2 * nd);
+    dbias_part = take(attn_bwd_part_floats(B, H, W, n_group, ws, gh));
+    wpart_q = take(nchunk * (D * D + D)), wpart_kv = take(nchunk * (2 * D * D + 2 * D));
+    lnpart_q = take(ntok / TOK * 2 * D), lnpart_kv = take(ntok / TOK * 2 * D);
+    pf = take(7 * D + 3 * D * D);
+    gf = take(3 * D * D + 7 * D);
+    floats = off;
+  }
+};
+
+}  // namespace
 
 // Shapes: xq, xkv, out (B, L, D) with L = H*W; q_w (D, D), kv_w (2D, D) in
 // torch Linear layout; LN scales and biases (D,).  bias: per group
@@ -102,4 +174,81 @@ extern "C" int window_attention_train_backward(
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_ln_proj_bwd(xq, xkv, qs, qb, ks, kb, q_w, kv_w, dqbuf, dkvbuf, wpart_q, wpart_kv,
                                              lnpart_q, lnpart_kv, dxq, dxkv, gq, gkv, gln_q, gln_kv, ntok, D, st));
+}
+
+// The bf16 forward: the arguments of window_attention_train_forward with
+// xq ... kv_b, qbuf, kvbuf and out in bf16 and bias, mask float32.  scale a
+// power of two (q * scale exact in bf16).
+extern "C" int window_attention_train_forward_bf16(
+    const bf16* xq, const bf16* xkv, const bf16* qs, const bf16* qb, const bf16* ks, const bf16* kb, const bf16* q_w,
+    const bf16* q_b, const bf16* kv_w, const bf16* kv_b, const float* bias, const float* mask, bf16* qbuf,
+    bf16* kvbuf, bf16* out, int B, int H, int W, int D, int n_group, const int* ws, const int* shifts, int gh,
+    float scale, uint32_t seed, uint32_t thresh, float inv_keep, int drop, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = launch_ln_proj(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, B * H * W, D, 1, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_attn_groups_any(static_cast<const bf16*>(qbuf), static_cast<const bf16*>(kvbuf),
+                               static_cast<const bf16*>(kvbuf + D), 2 * D, bias, mask, out, B, H, W, D, n_group, ws,
+                               shifts, gh, scale, 0, seed, thresh, inv_keep, drop, st);
+  return static_cast<int>(err);
+}
+
+// The floats of the bf16 backward's work buffer.
+extern "C" size_t window_attention_train_backward_bf16_work(int B, int H, int W, int D, int n_group, const int* ws,
+                                                            int gh) {
+  return Bf16BwdWork(nullptr, B, H, W, D, n_group, ws, gh).floats;
+}
+
+// The bf16 backward: the forward's inputs, dout (B, L, D) bf16 and `work`
+// (window_attention_train_backward_bf16_work floats); outputs dxq, dxkv
+// (B, L, D), gq = [dWq | dbq], gkv = [dWkv | dbkv], gln_q = [dqs | dqb],
+// gln_kv = [dks | dkb] in bf16, dbias float32 laid out as bias.  At most 2
+// heads a group (the tensor-core attention backward).
+extern "C" int window_attention_train_backward_bf16(
+    const bf16* xq, const bf16* xkv, const bf16* qs, const bf16* qb, const bf16* ks, const bf16* kb, const bf16* q_w,
+    const bf16* q_b, const bf16* kv_w, const bf16* kv_b, const float* bias, const float* mask, const bf16* dout,
+    float* work, bf16* dxq, bf16* dxkv, bf16* gq, bf16* gkv, bf16* gln_q, bf16* gln_kv, float* dbias, int B, int H,
+    int W, int D, int n_group, const int* ws, const int* shifts, int gh, float scale, uint32_t seed, uint32_t thresh,
+    float inv_keep, int drop, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ntok = B * H * W;
+  const int64_t nd = (int64_t)ntok * D;
+  if (D / n_group != gh * GCH || gh > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const Bf16BwdWork r(work, B, H, W, D, n_group, ws, gh);
+  // the parameters, inputs and dout widened to float32
+  float* const qsf = r.pf;
+  float* const qbf = qsf + D;
+  float* const ksf = qbf + D;
+  float* const kbf = ksf + D;
+  float* const q_wf = kbf + D;
+  float* const kv_wf = q_wf + D * D + D;
+  const bf16* srcs[8] = {qs, qb, ks, kb, q_w, q_b, kv_w, kv_b};
+  float* dsts[8] = {qsf, qbf, ksf, kbf, q_wf, q_wf + D * D, kv_wf, kv_wf + 2 * D * D};
+  const int64_t sizes[8] = {D, D, D, D, (int64_t)D * D, D, 2LL * D * D, 2 * D};
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 8 && err == cudaSuccess; ++i) err = convert(srcs[i], dsts[i], sizes[i], st);
+  if (err != cudaSuccess || (err = convert(xq, r.xqf, nd, st)) != cudaSuccess ||
+      (err = convert(xkv, r.xkvf, nd, st)) != cudaSuccess || (err = convert(dout, r.doutf, nd, st)) != cudaSuccess)
+    return static_cast<int>(err);
+  // q and kv recomputed as the forward rounds them, then widened
+  if ((err = launch_ln_proj(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, r.qh, r.kvh, ntok, D, 1, st)) !=
+          cudaSuccess ||
+      (err = convert(r.qh, r.qf, nd, st)) != cudaSuccess || (err = convert(r.kvh, r.kvf, 2 * nd, st)) != cudaSuccess)
+    return static_cast<int>(err);
+  err = launch_attn_bwd_groups_any<true>(r.qf, r.kvf, r.kvf + D, 2 * D, r.doutf, bias, mask, r.dq, r.dkv, r.dkv + D,
+                                         r.dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh,
+                                         inv_keep, drop, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* const gqf = r.gf;
+  float* const gkvf = gqf + D * D + D;
+  float* const glnqf = gkvf + 2 * D * D + 2 * D;
+  float* const glnkvf = glnqf + 2 * D;
+  err = launch_ln_proj_bwd(r.xqf, r.xkvf, qsf, qbf, ksf, kbf, q_wf, kv_wf, r.dq, r.dkv, r.wpart_q, r.wpart_kv,
+                           r.lnpart_q, r.lnpart_kv, dxq, dxkv, gqf, gkvf, glnqf, glnkvf, ntok, D, st);
+  if (err != cudaSuccess || (err = convert(gqf, gq, (int64_t)D * D + D, st)) != cudaSuccess ||
+      (err = convert(gkvf, gkv, 2LL * D * D + 2 * D, st)) != cudaSuccess ||
+      (err = convert(glnqf, gln_q, 2 * D, st)) != cudaSuccess)
+    return static_cast<int>(err);
+  return static_cast<int>(convert(glnkvf, gln_kv, 2 * D, st));
 }

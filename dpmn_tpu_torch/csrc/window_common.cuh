@@ -5,7 +5,8 @@
 // kernel (persistent CTAs, the product on the tensor cores; a bf16-io form
 // on bf16 m16n8k16 for K1's bf16 serving path), the per-group
 // window-attention forward (float32 or bf16 io, every group in one launch;
-// the 4x4 and 8x8 windows on the tensor cores through attn_tile.cuh), the
+// the 4x4 and 8x8 windows on the tensor cores through attn_tile.cuh; with
+// bf16 io and a float32 bias, K3's bf16 form, P rounded to bf16 once), the
 // counter-based hash
 // that draws the attention-dropout mask, and SKConv's three forward kernels
 // (the two products on the tensor cores; weights, residual and output
@@ -100,6 +101,9 @@ __device__ __forceinline__ void st2(float* p, float2 v) { *reinterpret_cast<floa
 __device__ __forceinline__ void st2(__nv_bfloat16* p, float2 v) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
 }
+// x rounded to bf16 (nearest even) and widened back: a cast to the bf16 io
+// dtype where the JAX kernel makes one.
+__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
 
 constexpr int TOK = 64;      // tokens per tile of the token-tile kernels
@@ -304,20 +308,22 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const __nv_bfloat1
 // result rounded to bf16 in place, then q = xq_n Wq^T + bq and kv = xkv_n
 // Wkv^T + bkv on bf16 m16n8k16 mma.sync with float32 accumulation (one
 // pass: products of bf16 values are exact in float32), the bf16 biases
-// added in float32; q and kv are written float32 for the attention.  The
+// added in float32; q and kv are written as OT: float32 for K1's attention,
+// bf16 (rounded, as dpmn_tpu/ops/pallas_window_train.py:370-375 casts them
+// to its io dtype) for K3's bf16 form.  The
 // same persistent CTAs, two-stage cp.async tiles and warp layout as
 // ln_proj_kernel; the operands reach the tensor cores by ldmatrix, weight
 // and token rows at D + 8 elements (an odd number of 16 bytes: the eight
 // rows of every ldmatrix phase fall on disjoint bank groups).  Shared: w
 // [3D][D + 8], xs [2 stages][2 streams][TOK][D + 8], all bf16.
-template <int D>
+template <int D, typename OT = float>
 __global__ void __launch_bounds__(LNP_THREADS, 1)
     ln_proj_bf16_kernel(const __nv_bfloat16* __restrict__ xq, const __nv_bfloat16* __restrict__ xkv,
                         const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __restrict__ qb,
                         const __nv_bfloat16* __restrict__ ks, const __nv_bfloat16* __restrict__ kb,
                         const __nv_bfloat16* __restrict__ qw, const __nv_bfloat16* __restrict__ qbias,
                         const __nv_bfloat16* __restrict__ kvw, const __nv_bfloat16* __restrict__ kvbias,
-                        float* __restrict__ qout, float* __restrict__ kvout, int ntok, int do_ln) {
+                        OT* __restrict__ qout, OT* __restrict__ kvout, int ntok, int do_ln) {
   constexpr int S = D + 8, NT = D / 32;
   extern __shared__ __align__(16) unsigned char lnp_smem[];
   __nv_bfloat16* w = reinterpret_cast<__nv_bfloat16*>(lnp_smem);
@@ -403,9 +409,9 @@ __global__ void __launch_bounds__(LNP_THREADS, 1)
           const int o = n0 + 8 * j + 2 * t4;
           const float2 val = make_float2(acc[i][j][2 * h] + bias[j][0], acc[i][j][2 * h + 1] + bias[j][1]);
           if (is_q)
-            *reinterpret_cast<float2*>(qout + t * D + o) = val;
+            st2(qout + t * D + o, val);
           else
-            *reinterpret_cast<float2*>(kvout + t * 2 * D + o - D) = val;
+            st2(kvout + t * 2 * D + o - D, val);
         }
       }
     __syncthreads();  // every warp is done with this stage before it is refilled
@@ -475,9 +481,9 @@ __host__ __device__ inline int fwd_ldv(int ch) { return ch + (sizeof(T) == 4 ? 4
 
 // One channel group of an attention-forward launch: its window and shift,
 // its tables and the first of its units in the launch's work list.
-template <typename T>
+template <typename T, typename BT = T>
 struct AttnGroup {
-  const T* bias;      // (gh, N, N)
+  const BT* bias;     // (gh, N, N)
   const float* mask;  // (nW, N, N) where sh > 0
   int g, ws, sh, unit0;
 };
@@ -486,7 +492,7 @@ constexpr int MAX_ATTN_GROUPS = 6;  // D <= 96 in groups of 16 gh >= 16 channels
 // The arguments of one attention-forward launch (a __grid_constant__
 // kernel parameter).  grp holds the groups in work-list order: 8x8, then
 // 4x4, then 2x2 windows.
-template <typename T>
+template <typename T, typename BT = T>
 struct AttnArgs {
   const T* q;
   const T* k;
@@ -496,15 +502,23 @@ struct AttnArgs {
   float scale, inv_keep;
   uint32_t seed, thresh;
   int n_group, n_units, buf_elems;
-  AttnGroup<T> grp[MAX_ATTN_GROUPS];
+  AttnGroup<T, BT> grp[MAX_ATTN_GROUPS];
 };
+
+// bf16 io with a float32 bias is K3's bf16 form: P is rounded to bf16 once
+// before P V, as dpmn_tpu/ops/pallas_window_train.py:316 casts it (K7's
+// bf16 keeps P as bf16 hi + lo, attn_tile.cuh).
+template <typename T, typename BT>
+__host__ __device__ constexpr bool p_rounded_once() {
+  return sizeof(T) == 2 && sizeof(BT) == 4;
+}
 
 // A 2x2-window unit on the CUDA cores: a thread per (window, head, query
 // row), THREADS rows a unit; its q row and the window's k and v rows read as
 // 16-byte pieces (the 4 threads of a window and head share them through
 // L1), the 4 scores, softmax, dropout and the 16 outputs in registers.
-template <bool DROP, typename T>
-__device__ __forceinline__ void attn_unit4(const AttnArgs<T>& a, const AttnGroup<T>& gr, int unit) {
+template <bool DROP, typename T, typename BT>
+__device__ __forceinline__ void attn_unit4(const AttnArgs<T, BT>& a, const AttnGroup<T, BT>& gr, int unit) {
   const int ch = a.gh * GCH, L = a.H * a.W;
   const int nwc = a.W / 2, nw = (a.H / 2) * nwc;
   const int t = unit * THREADS + threadIdx.x;
@@ -518,7 +532,7 @@ __device__ __forceinline__ void attn_unit4(const AttnArgs<T>& a, const AttnGroup
   for (int j = 0; j < 4; ++j) tok[j] = window_token_c<2>(widx, j, nwc, gr.sh, a.H, a.W);
   float qv[GCH], s[4];
   load_row16(qv, a.q + (base + tok[i]) * a.D + col, a.vec);
-  const T* brow = gr.bias + (hd * 4 + i) * 4;
+  const BT* brow = gr.bias + (hd * 4 + i) * 4;
   const float* mrow = gr.sh > 0 ? gr.mask + ((int64_t)widx * 4 + i) * 4 : nullptr;
   float mx = -INFINITY;
 #pragma unroll
@@ -548,6 +562,7 @@ __device__ __forceinline__ void attn_unit4(const AttnArgs<T>& a, const AttnGroup
   for (int j = 0; j < 4; ++j) {
     float p = s[j] * inv;
     if (DROP) p = (hash_step(rkey, j) & 0x7fffffffu) < a.thresh ? p * a.inv_keep : 0.f;
+    if constexpr (p_rounded_once<T, BT>()) p = round_bf16(p);
     float vv[GCH];
     load_row16(vv, a.v + (base + tok[j]) * a.kvs + col, a.vec);
 #pragma unroll
@@ -561,8 +576,8 @@ __device__ __forceinline__ void attn_unit4(const AttnArgs<T>& a, const AttnGroup
 // cp.async group: 16-byte pieces (cp.async) where `vec`, else elements; a
 // thread takes (row, piece) pairs, the same piece of q, k, v.  Slot
 // (elements of T): q, k [N][ldq], v [N][ldv].
-template <int N, typename T>
-__device__ __forceinline__ void attn_stage(const AttnArgs<T>& a, const AttnGroup<T>& gr, int step, T* dst0) {
+template <int N, typename T, typename BT>
+__device__ __forceinline__ void attn_stage(const AttnArgs<T, BT>& a, const AttnGroup<T, BT>& gr, int step, T* dst0) {
   constexpr int WS = N == 16 ? 4 : 8;
   const int ch = a.gh * GCH, L = a.H * a.W;
   const int nwc = a.W / WS, nw = (a.H / WS) * nwc, units = a.B * nw;
@@ -600,8 +615,9 @@ __device__ __forceinline__ void attn_stage(const AttnArgs<T>& a, const AttnGroup
 // registers (8-byte loads, a quad per 32-byte sector), the softmax and the
 // dropout in registers, and each output row written in 16-byte pieces (a
 // lane pair swaps halves so that each lane holds 4 adjacent columns).
-template <int N, bool DROP, typename T>
-__device__ __forceinline__ void attn_step_tc(const AttnArgs<T>& a, const AttnGroup<T>& gr, int step, const T* sb) {
+template <int N, bool DROP, typename T, typename BT>
+__device__ __forceinline__ void attn_step_tc(const AttnArgs<T, BT>& a, const AttnGroup<T, BT>& gr, int step,
+                                             const T* sb) {
   constexpr int WS = N == 16 ? 4 : 8, MT = N / 16, NT = N / 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
   const int ch = a.gh * GCH, L = a.H * a.W;
@@ -619,7 +635,7 @@ __device__ __forceinline__ void attn_step_tc(const AttnArgs<T>& a, const AttnGro
       qk_tile_bf16<NT>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq);
     else
       qk_tile<NT>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq, GCH);
-    const T* bh = gr.bias + hd * N * N;
+    const BT* bh = gr.bias + hd * N * N;
     const float* mw = gr.sh > 0 ? gr.mask + (int64_t)widx * N * N : nullptr;
     const int i0 = 16 * mi + g8;
 #pragma unroll
@@ -653,7 +669,7 @@ __device__ __forceinline__ void attn_step_tc(const AttnArgs<T>& a, const AttnGro
     }
     float o[2][4] = {};
     if constexpr (sizeof(T) == 2)
-      pv_tile_bf16<NT>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);
+      pv_tile_bf16<NT, p_rounded_once<T, BT>()>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);
     else
       pv_tile<NT, 2>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);
 #pragma unroll
@@ -674,8 +690,9 @@ __device__ __forceinline__ void attn_step_tc(const AttnArgs<T>& a, const AttnGro
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void attn_stage_any(const AttnArgs<T>& a, const AttnGroup<T>& gr, int unit, T* dst) {
+template <typename T, typename BT>
+__device__ __forceinline__ void attn_stage_any(const AttnArgs<T, BT>& a, const AttnGroup<T, BT>& gr, int unit,
+                                               T* dst) {
   if (gr.ws == 8)
     attn_stage<64>(a, gr, unit - gr.unit0, dst);
   else
@@ -689,9 +706,10 @@ __device__ __forceinline__ void attn_stage_any(const AttnArgs<T>& a, const AttnG
 // g: the -sh roll (window_token), S = scale q k^T + bias [+ mask], P =
 // softmax(S), with DROP P times the dropout mask (kept entries by
 // inv_keep), and P v, written to raw row widx N + i (faithful) or to the
-// query's token row (corrected).  T is the io type of q, k, v, bias and out
-// (float, or bf16 for K7); the mask is float32 and every sum runs in
-// float32.  `vec`: q, k, v and out are 16-byte aligned, so rows move in
+// query's token row (corrected).  T is the io type of q, k, v and out, BT
+// the bias's (float, or bf16 for K7; bf16 io with a float32 bias for K3's
+// bf16 form, which rounds P to bf16 once before P v); the mask is float32
+// and every sum runs in float32.  `vec`: q, k, v and out are 16-byte aligned, so rows move in
 // 16-byte pieces; otherwise element by element (the same arithmetic).
 //
 // Persistent CTAs of 8 warps walk one work list of units, blockIdx.x, +
@@ -701,12 +719,12 @@ __device__ __forceinline__ void attn_stage_any(const AttnArgs<T>& a, const AttnG
 // previous step is computed, two buffers of buf_elems), then the 2x2 units
 // on the CUDA cores, which need no shared memory and fill the tails.  The
 // dispatch is per unit, so the groups share one launch and one tail.  At
-// least 2 CTAs an SM in float32 (up to 128 registers a thread), 3 in bf16
-// (up to 80, no spill; faster than 2 on an H100 SXM, where 4 spill:
-// tools/attention_groups.py `ctas2`).
-template <bool DROP, typename T>
-__global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
-    window_attn_fwd_kernel(const __grid_constant__ AttnArgs<T> a) {
+// least 2 CTAs an SM in float32 (up to 128 registers a thread), 3 in K7's
+// bf16 (up to 80, no spill; faster than 2 on an H100 SXM, where 4 spill:
+// tools/attention_groups.py `ctas2`), 2 in K3's bf16 form (it spills at 80).
+template <bool DROP, typename T, typename BT = T>
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 2 && sizeof(BT) == 2 ? 3 : 2)
+    window_attn_fwd_kernel(const __grid_constant__ AttnArgs<T, BT> a) {
   extern __shared__ __align__(16) unsigned char fwd_smem[];
   T* sm = reinterpret_cast<T*>(fwd_smem);
   int s = 0, buf = 0;  // the group of the CTA's current unit; the buffer its step sits in
@@ -720,7 +738,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
     if (a.grp[s].ws != 2) attn_stage_any(a, a.grp[s], blockIdx.x, sm);
   }
   for (int u = blockIdx.x; u < a.n_units; u += gridDim.x) {
-    const AttnGroup<T>& gr = a.grp[s];
+    const AttnGroup<T, BT>& gr = a.grp[s];
     const int next = u + gridDim.x;
     const int sn = next < a.n_units ? group_of(next) : s;
     if (gr.ws == 2) {  // the rest of this CTA's units are 2x2 units too
@@ -744,13 +762,13 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
 // Launch the forward attention of every group, one launch: biases[g] and
 // masks[g] are group g's tables (masks[g] read only where shifts[g] > 0).
 // Windows of 2, 4 or 8 dividing H and W, at most MAX_ATTN_GROUPS groups.
-template <bool DROP, typename T>
-cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const T* const* biases,
+template <bool DROP, typename T, typename BT = T>
+cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const BT* const* biases,
                         const float* const* masks, T* out, int B, int H, int W, int D, int n_group, const int* ws,
                         const int* shifts, int gh, float scale, int corrected, uint32_t seed, uint32_t thresh,
                         float inv_keep, cudaStream_t st) {
   if (n_group < 1 || n_group > MAX_ATTN_GROUPS) return cudaErrorInvalidValue;
-  AttnArgs<T> a;
+  AttnArgs<T, BT> a;
   a.q = q, a.k = k, a.v = v, a.out = out;
   a.kvs = kvs, a.B = B, a.H = H, a.W = W, a.D = D, a.gh = gh, a.corrected = corrected;
   a.vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
@@ -763,7 +781,7 @@ cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const T* co
       if (ws[g] != want) continue;
       if (H % want || W % want) return cudaErrorInvalidValue;
       const int nw = (H / want) * (W / want), nn = want * want;
-      a.grp[n++] = AttnGroup<T>{biases[g], shifts[g] > 0 ? masks[g] : nullptr, g, want, shifts[g], units};
+      a.grp[n++] = AttnGroup<T, BT>{biases[g], shifts[g] > 0 ? masks[g] : nullptr, g, want, shifts[g], units};
       if (want == 2) {
         units += (B * nw * gh * 4 + THREADS - 1) / THREADS;
       } else {
@@ -775,7 +793,7 @@ cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const T* co
   if (n != n_group) return cudaErrorInvalidValue;  // a window other than 2, 4 or 8
   a.n_group = n, a.n_units = units, a.buf_elems = buf_elems;
   const size_t smem = (size_t)2 * buf_elems * sizeof(T);
-  auto kern = window_attn_fwd_kernel<DROP, T>;
+  auto kern = window_attn_fwd_kernel<DROP, T, BT>;
   static GridCap cache;
   int cap = 0;
   const cudaError_t err = persistent_cap(cache, kern, THREADS, smem, &cap);
@@ -788,13 +806,13 @@ cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const T* co
 
 // launch_attn on the per-group tables concatenated (masks of shifted groups
 // only).
-template <bool DROP>
-cudaError_t launch_attn_groups(const float* q, const float* k, const float* v, int kvs, const float* bias,
-                               const float* mask, float* out, int B, int H, int W, int D, int n_group, const int* ws,
-                               const int* shifts, int gh, float scale, int corrected, uint32_t seed, uint32_t thresh,
-                               float inv_keep, cudaStream_t st) {
+template <bool DROP, typename T, typename BT>
+cudaError_t launch_attn_groups(const T* q, const T* k, const T* v, int kvs, const BT* bias, const float* mask,
+                               T* out, int B, int H, int W, int D, int n_group, const int* ws, const int* shifts,
+                               int gh, float scale, int corrected, uint32_t seed, uint32_t thresh, float inv_keep,
+                               cudaStream_t st) {
   if (n_group < 1 || n_group > MAX_ATTN_GROUPS) return cudaErrorInvalidValue;
-  const float* biases[MAX_ATTN_GROUPS];
+  const BT* biases[MAX_ATTN_GROUPS];
   const float* masks[MAX_ATTN_GROUPS];
   size_t boff = 0, moff = 0;
   for (int g = 0; g < n_group; ++g) {
@@ -810,8 +828,9 @@ cudaError_t launch_attn_groups(const float* q, const float* k, const float* v, i
 }
 
 // launch_attn_groups with the dropout flag chosen at run time.
-inline cudaError_t launch_attn_groups_any(const float* q, const float* k, const float* v, int kvs, const float* bias,
-                                          const float* mask, float* out, int B, int H, int W, int D, int n_group,
+template <typename T, typename BT>
+inline cudaError_t launch_attn_groups_any(const T* q, const T* k, const T* v, int kvs, const BT* bias,
+                                          const float* mask, T* out, int B, int H, int W, int D, int n_group,
                                           const int* ws, const int* shifts, int gh, float scale, int corrected,
                                           uint32_t seed, uint32_t thresh, float inv_keep, int drop,
                                           cudaStream_t st) {
@@ -850,29 +869,30 @@ inline cudaError_t launch_ln_proj(const float* xq, const float* xkv, const float
   }
 }
 
-template <int D>
+template <int D, typename OT>
 cudaError_t launch_ln_proj_bf16_d(const __nv_bfloat16* xq, const __nv_bfloat16* xkv, const __nv_bfloat16* qs,
                                   const __nv_bfloat16* qb, const __nv_bfloat16* ks, const __nv_bfloat16* kb,
                                   const __nv_bfloat16* q_w, const __nv_bfloat16* q_b, const __nv_bfloat16* kv_w,
-                                  const __nv_bfloat16* kv_b, float* qbuf, float* kvbuf, int ntok, int do_ln,
+                                  const __nv_bfloat16* kv_b, OT* qbuf, OT* kvbuf, int ntok, int do_ln,
                                   cudaStream_t st) {
   const size_t smem = (size_t)(3 * D + 4 * TOK) * (D + 8) * sizeof(__nv_bfloat16);
   cudaError_t err =
-      cudaFuncSetAttribute(ln_proj_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(ln_proj_bf16_kernel<D, OT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int grid = 0;
   if (err != cudaSuccess || (err = persistent_grid((ntok + TOK - 1) / TOK, &grid)) != cudaSuccess) return err;
   if (grid == 0) return cudaSuccess;
-  ln_proj_bf16_kernel<D><<<grid, LNP_THREADS, smem, st>>>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf,
-                                                          kvbuf, ntok, do_ln);
+  ln_proj_bf16_kernel<D, OT><<<grid, LNP_THREADS, smem, st>>>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf,
+                                                              kvbuf, ntok, do_ln);
   return cudaGetLastError();
 }
 
-// launch_ln_proj for bf16 io: q and kv come out float32.  D in {32, 64,
-// 96}; xq, xkv, q_w and kv_w 16-byte aligned.
+// launch_ln_proj for bf16 io: q and kv come out as OT, float32 (K1) or
+// bf16 (K3).  D in {32, 64, 96}; xq, xkv, q_w and kv_w 16-byte aligned.
+template <typename OT>
 inline cudaError_t launch_ln_proj(const __nv_bfloat16* xq, const __nv_bfloat16* xkv, const __nv_bfloat16* qs,
                                   const __nv_bfloat16* qb, const __nv_bfloat16* ks, const __nv_bfloat16* kb,
                                   const __nv_bfloat16* q_w, const __nv_bfloat16* q_b, const __nv_bfloat16* kv_w,
-                                  const __nv_bfloat16* kv_b, float* qbuf, float* kvbuf, int ntok, int D, int do_ln,
+                                  const __nv_bfloat16* kv_b, OT* qbuf, OT* kvbuf, int ntok, int D, int do_ln,
                                   cudaStream_t st) {
   if (!aligned16(xq) || !aligned16(xkv) || !aligned16(q_w) || !aligned16(kv_w)) return cudaErrorMisalignedAddress;
   switch (D) {

@@ -7,6 +7,15 @@
 // per-block partials (sum_rows_kernel) that every cross-block sum goes
 // through: no float atomics, so reruns agree bit for bit.
 //
+// K3's bf16 form runs these float32 kernels on bf16 values widened to
+// float32 (a bf16 value is exact in TF32, so the 3xTF32 products of two of
+// them are exact), with BF16 set where the JAX kernel rounds a float32
+// intermediate to its io dtype (dpmn_tpu/ops/pallas_window_train.py): the
+// attention backward rounds P*M before dV and dS before dQ / dK (:103, :111;
+// dbias sums the unrounded dS), the projection backward rounds dq / dkv
+// before dx_ln and dW (:488-502; db sums them unrounded) and the recomputed
+// LN before dW (:430-431), and dx leaves as bf16 (:511-512).
+//
 // The build hash of every csrc/*.cu covers this header (ops/kernels.py).
 
 #pragma once
@@ -200,7 +209,8 @@ __host__ __device__ inline int bwd4_windows(int gh) { return gh >= 32 ? 1 : 32 /
 // fixed-order sum_rows_kernel adds the blocks; no float atomics).  At
 // least 4 blocks an SM with dropout (registers up to 128 a thread: 4 %
 // faster than 3 on an H100 SXM at 700 W), 3 without (it spills at 128).
-template <bool DROP>
+// BF16: dS and PM rounded to bf16 before their products.
+template <bool DROP, bool BF16 = false>
 __global__ void __launch_bounds__(128, DROP ? 4 : 3)
     window_attn_bwd4_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                             int kvs, const float* __restrict__ dout, const float* __restrict__ bias,
@@ -302,9 +312,16 @@ __global__ void __launch_bounds__(128, DROP ? 4 : 3)
     }
     rowsum = fmaf(dp[j], p, rowsum);
   }
-  float ds[4];
+  float ds[4], dsr[4];  // dS; dS as the products take it
 #pragma unroll
-  for (int j = 0; j < 4; ++j) ds[j] = s[j] * (dp[j] - rowsum);
+  for (int j = 0; j < 4; ++j) {
+    ds[j] = s[j] * (dp[j] - rowsum);
+    dsr[j] = ds[j];
+    if constexpr (BF16) {
+      dsr[j] = round_bf16(ds[j]);
+      pm[j] = round_bf16(pm[j]);
+    }
+  }
   float acc[GCH];
 #pragma unroll
   for (int d = 0; d < GCH; ++d) acc[d] = 0.f;
@@ -313,7 +330,7 @@ __global__ void __launch_bounds__(128, DROP ? 4 : 3)
     float kv[GCH];
     row16(Kw + j * ld, kv);
 #pragma unroll
-    for (int d = 0; d < GCH; ++d) acc[d] = fmaf(ds[j], kv[d], acc[d]);
+    for (int d = 0; d < GCH; ++d) acc[d] = fmaf(dsr[j], kv[d], acc[d]);
   }
 #pragma unroll
   for (int d = 0; d < GCH; ++d) acc[d] *= scale;
@@ -325,7 +342,7 @@ __global__ void __launch_bounds__(128, DROP ? 4 : 3)
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     const int want = (r - t) & 3, i = (r + t) & 3;  // the column this lane sends; the row it takes
-    const float sd = want == 0 ? ds[0] : want == 1 ? ds[1] : want == 2 ? ds[2] : ds[3];
+    const float sd = want == 0 ? dsr[0] : want == 1 ? dsr[1] : want == 2 ? dsr[2] : dsr[3];
     const float sp = want == 0 ? pm[0] : want == 1 ? pm[1] : want == 2 ? pm[2] : pm[3];
     const float a = __shfl_sync(qmask, sd, quad + i), pmv = __shfl_sync(qmask, sp, quad + i);
     float qi[GCH], oi[GCH];
@@ -374,8 +391,9 @@ __global__ void __launch_bounds__(128, DROP ? 4 : 3)
 // with dS and PM shared per head [N][N + 4].  dbias: each warp sums its dS
 // over its windows in registers, the slots are added in order into the
 // block's partial (dbias_part [block][gh][N][N]).  Shared per slot: q, k, v,
-// dout [N][CH + 4]; dS, PM [GH][N][N + 4].
-template <int N, int GH, bool DROP>
+// dout [N][CH + 4]; dS, PM [GH][N][N + 4].  BF16: dS and PM shared rounded
+// to bf16 (dbias sums the unrounded dS).
+template <int N, int GH, bool DROP, bool BF16 = false>
 __global__ void __launch_bounds__(THREADS)
     window_attn_bwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                               int kvs, const float* __restrict__ dout, const float* __restrict__ bias,
@@ -482,7 +500,7 @@ __global__ void __launch_bounds__(THREADS)
           }
           s[0][jn][e] = p;
           dp[0][jn][e] = d;
-          PMs[(i0 + 8 * r) * SN + j] = pm;
+          PMs[(i0 + 8 * r) * SN + j] = BF16 ? round_bf16(pm) : pm;
           rs[r] = fmaf(d, p, rs[r]);
         }
 #pragma unroll
@@ -498,7 +516,8 @@ __global__ void __launch_bounds__(THREADS)
           const float d1 = s[0][jn][2 * r + 1] * (dp[0][jn][2 * r + 1] - rs[r]);
           dbacc[jn][2 * r] += d0;
           dbacc[jn][2 * r + 1] += d1;
-          *reinterpret_cast<float2*>(dSs + (i0 + 8 * r) * SN + 8 * jn + 2 * t4) = make_float2(d0, d1);
+          *reinterpret_cast<float2*>(dSs + (i0 + 8 * r) * SN + 8 * jn + 2 * t4) =
+              BF16 ? make_float2(round_bf16(d0), round_bf16(d1)) : make_float2(d0, d1);
         }
       __syncwarp();
       float a[1][2][4];
@@ -558,11 +577,12 @@ __global__ void __launch_bounds__(THREADS)
 // dxhat = dx_ln * scale; and the tile's sums of dx_ln * xhat and dx_ln
 // (lnpart [tile][2][C], fixed order: a warp's 8 tokens in turn, then the 8
 // warps).  Shared: wt [C][O + 4], dys [2][TOK][O + 4], dxs [TOK][C + 4],
-// red [8][2][C].
-template <int C, int O>
+// red [8][2][C].  T is dx's type: bf16 also rounds each dy tile to bf16
+// before the product.
+template <int C, int O, typename T = float>
 __global__ void __launch_bounds__(THREADS, 1)
     proj_ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ lns, const float* __restrict__ w,
-                       const float* __restrict__ dy, float* __restrict__ dx, float* __restrict__ lnpart, int ntile) {
+                       const float* __restrict__ dy, T* __restrict__ dx, float* __restrict__ lnpart, int ntile) {
   constexpr int SO = O + 4, SC = C + 4, NT = C / 32, NM = C / 32;
   extern __shared__ __align__(16) float sm[];
   float* wt = sm;
@@ -589,6 +609,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     cp_async_wait(next < ntile ? 1 : 0);
     __syncthreads();
+    if constexpr (sizeof(T) == 2) {
+      float* dyt = dys + stage * TOK * SO;
+      for (int e = threadIdx.x; e < TOK * O; e += blockDim.x) {
+        float& v = dyt[(e / O) * SO + e % O];
+        v = round_bf16(v);
+      }
+      __syncthreads();
+    }
     float acc[2][NT][4];
     zero_acc(acc);
     mma_tile<false, false, 2, NT>(acc, dys + stage * TOK * SO, SO, tw.m0, wt, SO, tw.n0, O);
@@ -648,7 +676,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int m = 0; m < 3; ++m)
           if (m < NM) {
-            dx[t * C + lane + 32 * m] = rstd[a] * (dxh[a][m] - m1 - xh[a][m] * m2);
+            from_f(dx[t * C + lane + 32 * m], rstd[a] * (dxh[a][m] - m1 - xh[a][m] * m2));
             gsc[m] = fmaf(dxl[a][m], xh[a][m], gsc[m]);
             gbi[m] += dxl[a][m];
           }
@@ -680,6 +708,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 // = 8 ceil(c / 32).  db[o] sums the sub-tiles' rows in order.  R in {32,
 // 64, 96}, c a multiple of 16 up to 96.  Shared: dys [2][TOK][R + 8], xs
 // [2][TOK][c + 8] (row strides 8 or 24 mod 32: conflict-free fragments).
+// BF16: after db's sums, the dy sub-tile and the recomputed LN are rounded
+// to bf16 for the product.
+template <bool BF16 = false>
 __global__ void __launch_bounds__(THREADS, 2)
     wgrad_kernel(const float* __restrict__ x, const float* __restrict__ lns, const float* __restrict__ lnb,
                  const float* __restrict__ dy, float* __restrict__ part, int ntok, int c, int O, int R) {
@@ -725,6 +756,19 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
     if (threadIdx.x < R)
       for (int r = 0; r < TOK; ++r) bacc += dyt[r * SR + threadIdx.x];
+    if constexpr (BF16) {
+      __syncthreads();  // db has read the unrounded sub-tile
+      for (int e = threadIdx.x; e < TOK * R; e += THREADS) {
+        float& v = dyt[(e / R) * SR + e % R];
+        v = round_bf16(v);
+      }
+      if (lns != nullptr)
+        for (int e = threadIdx.x; e < TOK * c; e += THREADS) {
+          float& v = xt[(e / c) * SX + e % c];
+          v = round_bf16(v);
+        }
+      __syncthreads();
+    }
     mma_tile<true, true, 3, 3>(acc, dyt, SR, m0, xt, SX, n0, TOK, mt, nt);
     __syncthreads();
   }
@@ -778,7 +822,7 @@ inline int attn_bwd_chunks(int n, int gh, int nw) {
   return (nw + 4 * wpb - 1) / (4 * wpb);
 }
 
-template <int N, bool DROP>
+template <int N, bool DROP, bool BF16>
 cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int kvs, const float* dout,
                             const float* bias, const float* mask, float* dq, float* dk, float* dv, float* dbias_part,
                             float* dbias, int B, int H, int W, int D, int g, int gh, int ws, int sh, float scale,
@@ -791,19 +835,19 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
                     aligned16(dk) && aligned16(dv);
     const int wb = bwd4_windows(gh);
     const size_t smem4 = (size_t)4 * wb * 4 * (gh * GCH + 4) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(window_attn_bwd4_kernel<DROP>,
+    cudaError_t err = cudaFuncSetAttribute(window_attn_bwd4_kernel<DROP, BF16>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem4);
     if (err != cudaSuccess) return err;
-    window_attn_bwd4_kernel<DROP><<<dim3(nchunk, B), wb * gh * 4, smem4, st>>>(
+    window_attn_bwd4_kernel<DROP, BF16><<<dim3(nchunk, B), wb * gh * 4, smem4, st>>>(
         q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, H, W, D, g, gh, sh, scale, seed, thresh, inv_keep,
         vec);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     return launch_sum_rows(dbias_part, dbias, B * nchunk, gh * N * N, st);
   } else {
     // the tensor-core kernel (wpb windows a step, as below) where its
-    // cp.async rows are 16-byte aligned
+    // cp.async rows are 16-byte aligned; the bf16 form takes it alone
     if ((gh == 1 || gh == 2) && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)) {
-      auto kern = gh == 1 ? window_attn_bwd_tc_kernel<N, 1, DROP> : window_attn_bwd_tc_kernel<N, 2, DROP>;
+      auto kern = gh == 1 ? window_attn_bwd_tc_kernel<N, 1, DROP, BF16> : window_attn_bwd_tc_kernel<N, 2, DROP, BF16>;
       const size_t smem_tc = (size_t)wpb * (4 * N * (gh * GCH + 4) + 2 * gh * N * (N + 4)) * sizeof(float);
       cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_tc);
       if (err != cudaSuccess) return err;
@@ -813,6 +857,7 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
       return launch_sum_rows(dbias_part, dbias, B * nchunk, gh * N * N, st);
     }
     // more than 2 heads or unaligned rows: a thread per row
+    if (BF16) return cudaErrorInvalidValue;
     const int threads = wpb * gh * N;
     const size_t smem =
         (size_t)(4 * wpb * N * gh * GCH + 2 * wpb * gh * N * (N + 1) + gh * N * N) * sizeof(float);
@@ -829,7 +874,7 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
 // The attention backward of every group.  dbias_part holds, per group, B *
 // attn_bwd_chunks rows of gh * N^2 floats (attn_bwd_part_floats); dbias is
 // laid out as the concatenated bias.
-template <bool DROP>
+template <bool DROP, bool BF16>
 cudaError_t launch_attn_bwd_groups(const float* q, const float* k, const float* v, int kvs, const float* dout,
                                    const float* bias, const float* mask, float* dq, float* dk, float* dv,
                                    float* dbias_part, float* dbias, int B, int H, int W, int D, int n_group,
@@ -841,9 +886,9 @@ cudaError_t launch_attn_bwd_groups(const float* q, const float* k, const float* 
     const float* mg = sh > 0 ? mask + moff : nullptr;
     cudaError_t err;
     switch (ws[g]) {
-      case 2: err = launch_attn_bwd<4, DROP>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 2, sh, scale, seed, thresh, inv_keep, st); break;
-      case 4: err = launch_attn_bwd<16, DROP>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 4, sh, scale, seed, thresh, inv_keep, st); break;
-      case 8: err = launch_attn_bwd<64, DROP>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 8, sh, scale, seed, thresh, inv_keep, st); break;
+      case 2: err = launch_attn_bwd<4, DROP, BF16>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 2, sh, scale, seed, thresh, inv_keep, st); break;
+      case 4: err = launch_attn_bwd<16, DROP, BF16>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 4, sh, scale, seed, thresh, inv_keep, st); break;
+      case 8: err = launch_attn_bwd<64, DROP, BF16>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 8, sh, scale, seed, thresh, inv_keep, st); break;
       default: err = cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return err;
@@ -855,15 +900,16 @@ cudaError_t launch_attn_bwd_groups(const float* q, const float* k, const float* 
   return cudaSuccess;
 }
 
+template <bool BF16 = false>
 inline cudaError_t launch_attn_bwd_groups_any(const float* q, const float* k, const float* v, int kvs,
                                               const float* dout, const float* bias, const float* mask, float* dq,
                                               float* dk, float* dv, float* dbias_part, float* dbias, int B, int H,
                                               int W, int D, int n_group, const int* ws, const int* shifts, int gh,
                                               float scale, uint32_t seed, uint32_t thresh, float inv_keep, int drop,
                                               cudaStream_t st) {
-  return drop ? launch_attn_bwd_groups<true>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W,
+  return drop ? launch_attn_bwd_groups<true, BF16>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W,
                                              D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st)
-              : launch_attn_bwd_groups<false>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W,
+              : launch_attn_bwd_groups<false, BF16>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W,
                                               D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
 }
 
@@ -882,34 +928,36 @@ inline size_t attn_bwd_part_floats(int B, int H, int W, int n_group, const int* 
 // / TOKC) rows of O*c + O), then the fixed-order sum into g = [dW | db].
 // O must be a multiple of D (the rows one block owns, D in {32, 64, 96}); c
 // a multiple of 16 up to 96; x and dy 16-byte aligned.
-inline cudaError_t launch_wgrad(const float* x, const float* lns, const float* lnb, const float* dy, float* part,
+template <bool BF16>
+cudaError_t launch_wgrad(const float* x, const float* lns, const float* lnb, const float* dy, float* part,
                                 float* g, int ntok, int c, int O, int D, cudaStream_t st) {
   if (!aligned16(x) || !aligned16(dy) || c % 16 != 0 || c > 96 || D % 32 != 0 || D > 96 || O % D != 0)
     return cudaErrorInvalidValue;
   const int nchunk = (ntok + TOKC - 1) / TOKC;
   const size_t smem = (size_t)2 * TOK * (D + 8 + c + 8) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  wgrad_kernel<<<dim3(nchunk, O / D), THREADS, smem, st>>>(x, lns, lnb, dy, part, ntok, c, O, D);
+  wgrad_kernel<BF16><<<dim3(nchunk, O / D), THREADS, smem, st>>>(x, lns, lnb, dy, part, ntok, c, O, D);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_sum_rows(part, g, nchunk, O * c + O, st);
 }
 
-template <int C, int O>
-cudaError_t launch_proj_ln_bwd(const float* x, const float* lns, const float* w, const float* dy, float* dx,
+template <int C, int O, typename T>
+cudaError_t launch_proj_ln_bwd(const float* x, const float* lns, const float* w, const float* dy, T* dx,
                                float* lnpart, int ntok, cudaStream_t st) {
   const size_t smem = (size_t)(C * (O + 4) + 2 * TOK * (O + 4) + TOK * (C + 4) + 16 * C) * sizeof(float);
   cudaError_t err =
-      cudaFuncSetAttribute(proj_ln_bwd_kernel<C, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(proj_ln_bwd_kernel<C, O, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int grid = 0;
   if (err != cudaSuccess || (err = persistent_grid(ntok / TOK, &grid)) != cudaSuccess || grid == 0) return err;
-  proj_ln_bwd_kernel<C, O><<<grid, THREADS, smem, st>>>(x, lns, w, dy, dx, lnpart, ntok / TOK);
+  proj_ln_bwd_kernel<C, O, T><<<grid, THREADS, smem, st>>>(x, lns, w, dy, dx, lnpart, ntok / TOK);
   return cudaGetLastError();
 }
 
 // dx and the LN sums of one LN + projection pair, O = k D (k = 1: q, 2: kv).
+template <typename T>
 inline cudaError_t launch_proj_ln_bwd_any(const float* x, const float* lns, const float* w, const float* dy,
-                                          float* dx, float* lnpart, int ntok, int D, int k, cudaStream_t st) {
+                                          T* dx, float* lnpart, int ntok, int D, int k, cudaStream_t st) {
   if (!aligned16(dy)) return cudaErrorMisalignedAddress;
   switch (D * 2 + k - 1) {
     case 64: return launch_proj_ln_bwd<32, 32>(x, lns, w, dy, dx, lnpart, ntok, st);
@@ -926,18 +974,20 @@ inline cudaError_t launch_proj_ln_bwd_any(const float* x, const float* lns, cons
 // (B*L, 2D): dxq, dxkv; gq = [dWq | dbq], gkv = [dWkv | dbkv]; gln_q = [dqs
 // | dqb], gln_kv = [dks | dkb].  Scratch: wpart_q (S, D*D + D), wpart_kv (S,
 // 2D*D + 2D) with S = ceil(ntok / 512); lnpart_q, lnpart_kv (ntok / 64, 2D).
-// ntok % 64 == 0.
+// ntok % 64 == 0.  dxq and dxkv of type T: bf16 (K3's bf16 form) runs the
+// BF16 kernels on float32 inputs holding bf16 values.
+template <typename T>
 inline cudaError_t launch_ln_proj_bwd(const float* xq, const float* xkv, const float* qs, const float* qb,
                                       const float* ks, const float* kb, const float* q_w, const float* kv_w,
                                       const float* dqbuf, const float* dkvbuf, float* wpart_q, float* wpart_kv,
-                                      float* lnpart_q, float* lnpart_kv, float* dxq, float* dxkv, float* gq,
+                                      float* lnpart_q, float* lnpart_kv, T* dxq, T* dxkv, float* gq,
                                       float* gkv, float* gln_q, float* gln_kv, int ntok, int D, cudaStream_t st) {
   const float* xs[2] = {xq, xkv};
   const float* lns[2] = {qs, ks};
   const float* lnb[2] = {qb, kb};
   const float* wts[2] = {q_w, kv_w};
   const float* dys[2] = {dqbuf, dkvbuf};
-  float* dxs[2] = {dxq, dxkv};
+  T* dxs[2] = {dxq, dxkv};
   float* lnparts[2] = {lnpart_q, lnpart_kv};
   float* glns[2] = {gln_q, gln_kv};
   float* wparts[2] = {wpart_q, wpart_kv};
@@ -948,7 +998,8 @@ inline cudaError_t launch_ln_proj_bwd(const float* xq, const float* xkv, const f
         cudaSuccess)
       return err;
     if ((err = launch_sum_rows(lnparts[k], glns[k], ntok / TOK, 2 * D, st)) != cudaSuccess) return err;
-    if ((err = launch_wgrad(xs[k], lns[k], lnb[k], dys[k], wparts[k], gws[k], ntok, D, (k + 1) * D, D, st)) !=
+    if ((err = launch_wgrad<sizeof(T) == 2>(xs[k], lns[k], lnb[k], dys[k], wparts[k], gws[k], ntok, D, (k + 1) * D,
+                                            D, st)) !=
         cudaSuccess)
       return err;
   }

@@ -4,7 +4,8 @@ reference loss/image_loss.py:5-44).
 ImageLoss = w0 * MSE + w1 * GradientPriorLoss, the gradient prior being the
 L1 distance between central-difference gradient-magnitude maps of the first
 3 channels.  The reference trainer uses loss_weight = (1, 1) and the
-cascade multiplies by 100.
+cascade multiplies by 100.  The bf16 AMP step passes float32 images, as the
+JAX package casts the SR to float32 before its losses (dpmn_tpu/system.py:395).
 """
 
 from __future__ import annotations

@@ -6,6 +6,9 @@ bottleneck applied as residual * weight + residual, and a skip-concat
 transpose-conv decoder.  NCHW; on 32x128 inputs the stages run 32x128 →
 16x64 → 8x32 → 4x16 → 2x8 → 1x4.  In train mode its BatchNorms use batch
 statistics and move their running statistics as flax does (ops/batch_norm.py).
+On bf16 input (the bf16 AMP step) every op runs in bf16, its BatchNorms by
+flax's half-precision rule, the leaky-ReLU slope rounded to bf16 as JAX's
+weakly typed 0.2 is.
 """
 
 from __future__ import annotations
@@ -15,10 +18,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.batch_norm import BatchNorm2d
+from ..ops.torch_compat import weak
 
 
 def _leaky(x):
-    return F.leaky_relu(x, 0.2)
+    return F.leaky_relu(x, weak(0.2, x.dtype))
 
 
 class EncodeBlock(nn.Module):

@@ -4,7 +4,9 @@ dpmn_tpu/models/distill.py, reference model/distill_module.py:4-31).
 cat(deep, shallow) → conv(6→3) + BN + ReLU against conv(shallow)(3→3) + BN +
 ReLU; the L1 between the two features is the distill loss, and the cat
 feature is passed down the cascade (interfaces/super_resolution.py:245-263).
-NCHW.
+NCHW.  On bf16 input (the bf16 AMP step) the features and the loss are bf16
+(the mean summed in float32, as jnp.mean does), the BatchNorms by flax's
+half-precision rule (ops/batch_norm.py); the step casts the loss to float32.
 """
 
 from __future__ import annotations

@@ -17,6 +17,10 @@ backward, chosen by `train_core` as dpmn_tpu/models/pgrm.py:378-510 chooses
   * "full": all of it, SKConv included, in `window_attention_full_core`
     (kernel K5); faithful layout only, "block" runs in its place otherwise.
 Dropout, attention dropout and drop path draw from the step's `TrainRng`.
+On bf16 tokens (the bf16 AMP step, the system's `train_dtype`) every block
+runs in bf16 and "block" passes K3 bf16 io with float32 bias tables, as the
+JAX package does (dpmn_tpu/models/pgrm.py:405-407); "attention" and "full"
+on bf16 raise (ROADMAP queue 1, item 1: K4 and K5 on bf16 io).
 
 Faithful quirks (`faithful=True`, the default): the attention output's
 window-major rows are read back as raster rows (model/pgrm.py:263), and the
@@ -38,7 +42,7 @@ import torch.nn.functional as F
 
 from ..ops.dropout import TrainRng, drop_path, dropout
 from ..ops.mlp_convs import mlp_convs_plain
-from ..ops.torch_compat import LN_EPS
+from ..ops.torch_compat import LN_EPS, weak
 from ..ops.window_attention import layer_norm, skconv, window_attention_block
 from ..ops.window_attention_core import window_attention_core
 from ..ops.window_attention_full import window_attention_full_core
@@ -178,9 +182,15 @@ class WindowAttention(nn.Module):
         core `train_core` names."""
         if not self.training:
             return window_attention_block(x_q, x_kv, **self.block_args(ln))
+        biases = self.biases()
+        if x_q.dtype == torch.bfloat16:
+            if self.train_core != "block":
+                raise NotImplementedError(f"train_core {self.train_core!r} on bf16 (the bf16 AMP step) is not ported "
+                                          "yet: ROADMAP queue 1, item 1 (K4 and K5 on bf16 io)")
+            biases = [bb.float() for bb in biases]
         keep = 1.0 - self.attn_drop
         seed = rng.kernel_seed() if keep < 1.0 else 0
-        tail = (self.biases(), self.masks(), seed, keep, self.win, self.shf, self.gnum_heads, self.scale, self.hw)
+        tail = (biases, self.masks(), seed, keep, self.win, self.shf, self.gnum_heads, self.scale, self.hw)
         if self.train_core == "full":
             return window_attention_full_core(x_q, x_kv, ln["qs"], ln["qb"], ln["ks"], ln["kb"], self.q.weight,
                                               self.q.bias, self.kv.weight, self.kv.bias, *self.SKConv.weights(),
@@ -324,7 +334,7 @@ class PGRM(nn.Module):
             x_q, x_kv = layer(x_q, x_kv, rng)
         ph, pw = self.grid
         x = x_kv.transpose(1, 2).reshape(-1, self.embed_dim, ph, pw)  # patch_unembed (ref :450-453)
-        x = F.leaky_relu(self.conv_before_upsample(x), 0.01)
+        x = F.leaky_relu(self.conv_before_upsample(x), weak(0.01, x.dtype))
         x = F.pixel_shuffle(x, self.patch_size)
         x = x * self.weight_list[0]
         for i in range(1, len(residual_list)):

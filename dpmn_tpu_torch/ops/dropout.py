@@ -4,13 +4,16 @@
 `torch.rand(..., generator=...)` from the step's own generators (`TrainRng`),
 and a train step is a function of its seed.  The JAX package draws from
 `jax.random`, which torch cannot reproduce: parity with it holds at rate 0,
-where every function here is the identity and draws nothing.
+where every function here is the identity and draws nothing.  On bf16 input
+the output is bf16 and the kept elements are divided by the keep
+probability rounded to bf16, as JAX's weakly typed `x / keep` does.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .torch_compat import weak
 from .window_attention_train import SEED_BOUND
 
 
@@ -40,7 +43,8 @@ def dropout(x: torch.Tensor, rate: float, rng: TrainRng) -> torch.Tensor:
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    return torch.where(_uniform(x.shape, x, rng) < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    return torch.where(_uniform(x.shape, x, rng) < keep, x / weak(keep, x.dtype),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def drop_path(x: torch.Tensor, rate: float, rng: TrainRng) -> torch.Tensor:
@@ -50,4 +54,4 @@ def drop_path(x: torch.Tensor, rate: float, rng: TrainRng) -> torch.Tensor:
         return x
     keep = 1.0 - rate
     mask = (_uniform((x.shape[0],) + (1,) * (x.ndim - 1), x, rng) < keep).to(x.dtype)
-    return x * mask / keep
+    return x * mask / weak(keep, x.dtype)

@@ -26,11 +26,31 @@ head, window, query, key) — a murmur3 fmix32 chain — that the kernel and
 `dropout_bits` compute identically, so the card can hold kernel against
 plain version with dropout on.  The TPU kernel draws from the TPU's own
 PRNG, which nothing else reproduces: parity with dpmn_tpu holds at keep = 1.
+
+bf16 io (the bf16 AMP train step): the primals bf16 and the biases float32,
+as the JAX package passes them (dpmn_tpu/models/pgrm.py:405-407).  The
+result and the primals' gradients are bf16, the biases' float32.  Both the
+kernels (csrc/window_attention_train.cu `_bf16` entry points, their own
+launch counters) and the plain version keep the TPU kernel's rounding points
+(dpmn_tpu/ops/pallas_window_train.py): the LN in float32 rounded to bf16,
+each projection summed in float32 with its bias and rounded, q * scale in
+bf16, scores, softmax and dropout in float32, P rounded before P v and the
+output once; in the backward P*M and dS rounded before their products, dq /
+dkv rounded before the projection backward (the bias sums take them
+unrounded), the parameter gradients summed in float32 and rounded once.  The
+plain version computes in float32 on bf16 values, with `_Round` (rounds the
+value, passes the gradient) and `_RoundGrad` (passes the value, rounds the
+gradient) at those points, so autograd through it gives the kernel's
+backward.  The bf16 kernels take a power-of-two scale (q * scale is exact in
+bf16; the PGRM's head dim 16 gives 0.25) and at most 2 heads a group, where
+the plain version and the JAX kernel take any: a gap that ROADMAP queue 1,
+item 1 lifts.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,6 +61,8 @@ from .window_attention import _window_partition, layer_norm
 
 forward_counter = kernels.LaunchCounter()
 backward_counter = kernels.LaunchCounter()
+forward_bf16_counter = kernels.LaunchCounter()
+backward_bf16_counter = kernels.LaunchCounter()
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -103,6 +125,36 @@ def keep_multiplier(bits: torch.Tensor, keep: float) -> torch.Tensor:
 # ----------------------------------------------------------- plain version
 
 
+class _Round(torch.autograd.Function):
+    """x rounded to bf16 and widened back (a cast to the io dtype in the
+    kernel's forward); the gradient passes unrounded."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _RoundGrad(torch.autograd.Function):
+    """The identity, whose gradient is rounded to bf16 (a cotangent the
+    kernel casts to its io dtype before a product)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+def _identity(x):
+    return x
+
+
 def window_attention_core_plain(q, k, v, biases: Sequence[torch.Tensor], masks: Sequence[Optional[torch.Tensor]],
                                 seed: int, keep: float, window_sizes: Sequence[int], shifts: Sequence[int],
                                 gnum_heads: int, scale: float, hw_shape) -> torch.Tensor:
@@ -112,6 +164,15 @@ def window_attention_core_plain(q, k, v, biases: Sequence[torch.Tensor], masks: 
     partition, per head softmax(scale q k^T + bias [+ mask]) with dropout,
     times v; returns the faithful-layout output (B, L, dim).  `biases` per
     group (heads, N, N), `masks` per group (nW, N, N) or None."""
+    return _attention(q, k, v, biases, masks, seed, keep, window_sizes, shifts, gnum_heads, scale, hw_shape, False)
+
+
+def _attention(q, k, v, biases, masks, seed, keep, window_sizes, shifts, gnum_heads, scale, hw_shape,
+               bf16: bool) -> torch.Tensor:
+    """window_attention_core_plain; with `bf16`, on float32 q, k, v holding
+    bf16 values, with the bf16 kernel's rounding points: q * scale rounded,
+    the gradient of the scores' product rounded, P rounded before P v."""
+    rnd, rnd_grad = (_Round.apply, _RoundGrad.apply) if bf16 else (_identity, _identity)
     b, l, dim = q.shape
     h, w = hw_shape
     n_group = len(window_sizes)
@@ -133,14 +194,14 @@ def window_attention_core_plain(q, k, v, biases: Sequence[torch.Tensor], masks: 
         qh, kh, vh = heads(qg), heads(kg), heads(vg)
         bw = qh.shape[0]
         nw = bw // b
-        attn = (qh * scale) @ kh.transpose(-1, -2) + biases[g][None]
+        attn = rnd_grad(rnd(qh * scale) @ kh.transpose(-1, -2)) + biases[g][None]
         if sh > 0:
             attn = (attn.reshape(b, nw, gnum_heads, n, n) + masks[g][None, :, None]).reshape(bw, gnum_heads, n, n)
         attn = torch.softmax(attn, dim=-1)
         if keep < 1.0:
             bits = dropout_bits(seed, b, g, gnum_heads, nw, n, attn.device)
             attn = (attn.reshape(b, nw, gnum_heads, n, n) * keep_multiplier(bits, keep)).reshape(bw, gnum_heads, n, n)
-        out = (attn @ vh).permute(0, 2, 1, 3).reshape(b, h, w, channel)  # faithful raw layout
+        out = (rnd(attn) @ vh).permute(0, 2, 1, 3).reshape(b, h, w, channel)  # faithful raw layout
         groups.append(out)
     return torch.cat(groups, dim=-1).reshape(b, l, dim)
 
@@ -150,14 +211,36 @@ def window_attention_block_core_plain(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, k
                                       seed: int, keep: float, window_sizes: Sequence[int], shifts: Sequence[int],
                                       gnum_heads: int, scale: float, hw_shape) -> torch.Tensor:
     """Plain PyTorch version of the core; returns the faithful-layout
-    attention output (B, L, dim).  Weights in torch layout: q_w (dim, c),
-    kv_w (2 dim, c); `biases` per group (heads, N, N), `masks` per group
-    (nW, N, N) or None."""
+    attention output (B, L, dim) in the io dtype.  Weights in torch layout:
+    q_w (dim, c), kv_w (2 dim, c); `biases` per group (heads, N, N), `masks`
+    per group (nW, N, N) or None.  bf16 primals take float32 biases and run
+    with the bf16 kernel's rounding points (module docstring)."""
+    primals = (xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b)
+    bf16 = check_dtypes(primals, biases) == torch.bfloat16
+    if bf16:
+        xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b = (t.float() for t in primals)
+    rnd, rnd_grad = (_Round.apply, _RoundGrad.apply) if bf16 else (_identity, _identity)
     dim = q_w.shape[0]
-    q = layer_norm(xq, qs, qb) @ q_w.T + q_b
-    kv = layer_norm(xkv, ks, kb) @ kv_w.T + kv_b
-    return window_attention_core_plain(q, kv[..., :dim], kv[..., dim:], biases, masks, seed, keep, window_sizes,
-                                       shifts, gnum_heads, scale, hw_shape)
+    q = rnd(rnd_grad(rnd(layer_norm(xq, qs, qb)) @ q_w.T) + q_b)
+    kv = rnd(rnd_grad(rnd(layer_norm(xkv, ks, kb)) @ kv_w.T) + kv_b)
+    out = _attention(q, kv[..., :dim], kv[..., dim:], biases, masks, seed, keep, window_sizes, shifts, gnum_heads,
+                     scale, hw_shape, bf16)
+    return out.to(torch.bfloat16) if bf16 else out
+
+
+def check_dtypes(primals, biases) -> torch.dtype:
+    """The io dtype of a K3 call: every primal of one dtype, and the biases
+    float32 for bf16 primals, else of the primals' dtype.  Raises on
+    anything mixed (the kernels cast nothing)."""
+    io = primals[0].dtype
+    for name, t in zip(_PRIMALS, primals):
+        if t.dtype != io:
+            raise TypeError(f"window_attention_block_core: {name} is {t.dtype}, xq {io}: mixed primal dtypes")
+    want = torch.float32 if io == torch.bfloat16 else io
+    for i, bb in enumerate(biases):
+        if bb.dtype != want:
+            raise TypeError(f"window_attention_block_core: bias {i} is {bb.dtype}, {io} primals take {want} biases")
+    return io
 
 
 def corrected_relayout(out: torch.Tensor, window_sizes: Sequence[int], shifts: Sequence[int],
@@ -251,9 +334,10 @@ def split_bias_grad(dbias: torch.Tensor, biases):
     return out
 
 
-def _prepare(st: _Static, primals, biases):
-    """Check what the K3 kernels take; returns (B, H, W, D, bias, mask,
-    ws_arr, sh_arr) with the per-group tables concatenated."""
+def _prepare(st: _Static, primals, biases, io=torch.float32):
+    """Check what the K3 kernels take (primals of dtype `io`, float32
+    biases); returns (B, H, W, D, bias, mask, ws_arr, sh_arr) with the
+    per-group tables concatenated."""
     xq = primals[0]
     b, l, dim = xq.shape
     check_geometry("window_attention_train", st, l, dim)
@@ -261,7 +345,14 @@ def _prepare(st: _Static, primals, biases):
     shapes = {"xq": (b, l, dim), "xkv": (b, l, dim), "qs": (dim,), "qb": (dim,), "ks": (dim,), "kb": (dim,),
               "q_w": (dim, dim), "q_b": (dim,), "kv_w": (2 * dim, dim), "kv_b": (2 * dim,)}
     for name, t in zip(_PRIMALS, primals):
-        kernels.check_cuda_tensor(name, t, shapes[name], dev)
+        kernels.check_cuda_tensor(name, t, shapes[name], dev, io)
+    if io == torch.bfloat16:
+        if st.gnum_heads > 2:
+            raise ValueError(f"window_attention_train bf16 kernel: {st.gnum_heads} heads a group, it takes 1 or 2 "
+                             "(ROADMAP queue 1, item 1)")
+        if math.frexp(st.scale)[0] != 0.5:
+            raise ValueError(f"window_attention_train bf16 kernel: scale {st.scale}, it takes a power of two "
+                             "(ROADMAP queue 1, item 1)")
     return (b, *st.hw_shape, dim, *pack_tables(st, biases, dev))
 
 
@@ -288,6 +379,8 @@ def drop_args(st: _Static):
 
 def _forward_cuda(st: _Static, primals, biases):
     """(out, ()): the backward takes the inputs alone."""
+    if primals[0].dtype == torch.bfloat16:
+        return _forward_bf16_cuda(st, primals, biases)
     b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device
     l = h * w
@@ -305,6 +398,8 @@ def _forward_cuda(st: _Static, primals, biases):
 
 def _backward_cuda(st: _Static, primals, biases, dout: torch.Tensor, kept=()):
     """All 10 primal gradients and the per-group bias gradients."""
+    if primals[0].dtype == torch.bfloat16:
+        return _backward_bf16_cuda(st, primals, biases, dout)
     b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device
     l, ntok = h * w, b * h * w
@@ -329,6 +424,47 @@ def _backward_cuda(st: _Static, primals, biases, dout: torch.Tensor, kept=()):
              *drop_args(st), kernels.stream_ptr(dev))
     kernels.check_launch(err, "window_attention_train_backward")
     backward_counter.launches += 1
+    return (dxq, dxkv, gln_q[:dim], gln_q[dim:], gln_kv[:dim], gln_kv[dim:],
+            gq[:dim * dim].view(dim, dim), gq[dim * dim:], gkv[:2 * dim * dim].view(2 * dim, dim),
+            gkv[2 * dim * dim:], *split_bias_grad(dbias, biases))
+
+
+def _forward_bf16_cuda(st: _Static, primals, biases):
+    """The bf16 forward: (out bf16, ())."""
+    b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases, torch.bfloat16)
+    dev = primals[0].device
+    l = h * w
+    qbuf, kvbuf, out = (torch.empty(b, l, k * dim, device=dev, dtype=torch.bfloat16) for k in (1, 2, 1))
+    fn = kernels.bind("window_attention_train", "window_attention_train_forward_bf16", core_argtypes(15))
+    ptrs = [kernels.ptr(t) for t in (*primals, bias, mask, qbuf, kvbuf, out)]
+    err = fn(*ptrs, b, h, w, dim, len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, float(st.scale),
+             *drop_args(st), kernels.stream_ptr(dev))
+    kernels.check_launch(err, "window_attention_train_forward_bf16")
+    forward_bf16_counter.launches += 1
+    return out, ()
+
+
+def _backward_bf16_cuda(st: _Static, primals, biases, dout: torch.Tensor):
+    """The bf16 backward: the primals' gradients in bf16, the biases' in
+    float32."""
+    b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases, torch.bfloat16)
+    dev = primals[0].device
+    l = h * w
+    kernels.check_cuda_tensor("dout", dout, (b, l, dim), dev, torch.bfloat16)
+    n_work = kernels.bind("window_attention_train", "window_attention_train_backward_bf16_work",
+                          [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int], ctypes.c_size_t)
+    work = torch.empty(n_work(b, h, w, dim, len(st.window_sizes), ws_arr, st.gnum_heads), device=dev)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    dxq, dxkv = torch.empty(b, l, dim, **bf), torch.empty(b, l, dim, **bf)
+    gq, gkv = torch.empty(dim * dim + dim, **bf), torch.empty(2 * dim * dim + 2 * dim, **bf)
+    gln_q, gln_kv = torch.empty(2 * dim, **bf), torch.empty(2 * dim, **bf)
+    dbias = torch.empty(bias.numel(), device=dev)
+    fn = kernels.bind("window_attention_train", "window_attention_train_backward_bf16", core_argtypes(21))
+    ptrs = [kernels.ptr(t) for t in (*primals, bias, mask, dout, work, dxq, dxkv, gq, gkv, gln_q, gln_kv, dbias)]
+    err = fn(*ptrs, b, h, w, dim, len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, float(st.scale),
+             *drop_args(st), kernels.stream_ptr(dev))
+    kernels.check_launch(err, "window_attention_train_backward_bf16")
+    backward_bf16_counter.launches += 1
     return (dxq, dxkv, gln_q[:dim], gln_q[dim:], gln_kv[:dim], gln_kv[dim:],
             gq[:dim * dim].view(dim, dim), gq[dim * dim:], gkv[:2 * dim * dim].view(2 * dim, dim),
             gkv[2 * dim * dim:], *split_bias_grad(dbias, biases))
@@ -389,7 +525,9 @@ def window_attention_block_core(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b,
     """The core with its backward: the CUDA kernels for CUDA tensors, the
     plain version for CPU tensors.  Same arguments and result as
     `window_attention_block_core_plain`; gradients flow to the 10 primals and
-    the per-group biases.  `seed` is a host int in [0, SEED_BOUND); with
-    keep = 1 it is not read."""
+    the per-group biases.  The primals all float32 or all bf16 (float32
+    biases; module docstring), or float64 on the CPU; mixed dtypes raise.
+    `seed` is a host int in [0, SEED_BOUND); with keep = 1 it is not read."""
+    check_dtypes((xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b), biases)
     st = make_static(masks, seed, keep, window_sizes, shifts, gnum_heads, scale, hw_shape)
     return KernelCore.apply(_BLOCK, st, xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, *biases)

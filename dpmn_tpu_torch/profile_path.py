@@ -1,6 +1,6 @@
 """Where the time of the flagship sr_forward, or of its train step, goes on the card.
 
-    python -m dpmn_tpu_torch.profile_path [--batch 64] [--train [--train-core {block,attention,full}]]
+    python -m dpmn_tpu_torch.profile_path [--batch 64] [--train [--train-core {block,attention,full}] [--amp]]
     python -m dpmn_tpu_torch.profile_path [--bf16] [--glyph-from-psn] [--student-dtype bfloat16]
     python -m dpmn_tpu_torch.profile_path --arch {tsrn,tg,tpgsr,tbsrn,tatt}
 
@@ -26,7 +26,11 @@ Adam), timed with CUDA events around the step's own two halves
 (`_train_loss`, `_loss_grads`) and `_apply_update`.  --train-core picks the
 PGRMs' training attention core (kernel K3, K4 or K5; models/pgrm.py
 `resolve_train_core`, which reads DPMN_TPU_FUSE_QKV / DPMN_TPU_FUSE_SKCONV
-when the option is not given).
+when the option is not given).  --amp profiles the bf16 AMP step
+(train_dtype="bfloat16", the counterpart of tools/bench_train.py --amp):
+the frozen stages are its bf16 copy's modules, the PGRMs, distills and CMM
+the system's own (run on their bf16 views); the peak device memory of the
+profiled step is printed with the rest.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -142,6 +147,7 @@ def main(argv=None):
     p.add_argument("--train", action="store_true", help="profile one train_step instead of one sr_forward")
     p.add_argument("--train-core", choices=TRAIN_CORES, default=None,
                    help="the PGRMs' training attention core (default: from DPMN_TPU_FUSE_QKV / DPMN_TPU_FUSE_SKCONV)")
+    p.add_argument("--amp", action="store_true", help="with --train: the bf16 AMP step (train_dtype bfloat16)")
     p.add_argument("--bf16", action="store_true", help="profile sr_forward_bf16 (the bf16 serving forward)")
     p.add_argument("--glyph-from-psn", action="store_true",
                    help="every student reads the PSN output, as one vmapped call (the test() path)")
@@ -149,17 +155,19 @@ def main(argv=None):
     a = p.parse_args(argv)
     if a.train and (a.bf16 or a.glyph_from_psn or a.student_dtype):
         p.error("the serving modes are eval forwards: no --train with them")
+    if a.amp and not a.train:
+        p.error("--amp is a mode of the train step: it needs --train")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     system = DPMNSystem(TrainCfg(batch_size=a.batch), flagship_args(arch=a.arch), seed=0, train_core=a.train_core,
-                        student_dtype=a.student_dtype)
+                        student_dtype=a.student_dtype, train_dtype="bfloat16" if a.amp else None)
     rng = np.random.RandomState(0)
     hr = rng.rand(a.batch, 32, 128, 4).astype(np.float32)
     lr = rng.rand(a.batch, 16, 64, 4).astype(np.float32)
     seeds = iter(range(10**6))
     if a.train:
-        what = f"train_step (train_core {resolve_train_core(a.train_core)})"
+        what = f"train_step (train_core {resolve_train_core(a.train_core)}{', bf16 AMP' if a.amp else ''})"
         run = lambda: system.train_step(hr, lr, next(seeds))
     else:
         forward = system.sr_forward_bf16 if a.bf16 else system.sr_forward
@@ -169,15 +177,21 @@ def main(argv=None):
     for _ in range(2):
         run()
     marks = []
+    nets = system.state_bf16.get() if a.bf16 else None
+    if a.amp:  # the frozen stages of the AMP step are its bf16 copy's
+        frozen = system.frozen_bf16.get()
+        nets = SimpleNamespace(psn=frozen.psn, crnn_psn=frozen.crnn_psn, students=frozen.students,
+                               pgrms=system.pgrms, distills=system.distills, cmm=system.cmm)
+    torch.cuda.reset_peak_memory_stats()
     rows, total = hooked_stage_times(
-        system, (lambda: train_step_phases(system, hr, lr, next(seeds), marks)) if a.train else run,
-        system.state_bf16.get() if a.bf16 else None)
+        system, (lambda: train_step_phases(system, hr, lr, next(seeds), marks)) if a.train else run, nets)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"stages of one {what} at B={a.batch} (CUDA events from forward hooks):")
     for label, calls, ms in rows:
         print(f"  {label:26s} x{calls}  {ms:9.3f} ms  {100 * ms / total:5.1f} %")
     rest = total - sum(ms for _, _, ms in rows)
     print(f"  {'outside the stage modules':26s}     {rest:9.3f} ms  {100 * rest / total:5.1f} %")
-    print(f"  {what:26s}     {total:9.3f} ms")
+    print(f"  {what:26s}     {total:9.3f} ms; peak device memory {peak:.2f} GiB")
     if marks:
         print("the train step's halves (CUDA events):")
         for (_, start), (label, end) in zip(marks, marks[1:]):

@@ -54,6 +54,24 @@ the default), "attention" (K4) or "full" (K5); None reads the JAX package's
 DPMN_TPU_FUSE_QKV / DPMN_TPU_FUSE_SKCONV (models/pgrm.py
 `resolve_train_core`).  Eval always runs K1.
 
+bf16 mixed-precision training, `train_dtype="bfloat16"` (system.py:97-110,
+:441-479): the master parameters, the Adam state, the per-module
+clipping, the BatchNorm statistics and every loss stay float32, the forward
+and backward compute in bf16.  The frozen side (`_amp_frozen_cast`): the
+PSN, the CRNN prior and the students run on a bf16 copy of their own
+(`frozen_bf16`, made once: their weights do not change in training) and the
+LR image is cast to bf16.  The trainable side (`_micro_grads`'s
+cast-through-grad): the PGRMs, distills and CMM run through
+`torch.func.functional_call` on a bf16 view `p.to(bfloat16)` of every
+trainable parameter, which autograd differentiates back onto the float32
+master, so the gradients land float32; the BatchNorms move their float32
+statistics by flax's half-precision rule (ops/batch_norm.py).  The SR
+images and the distill losses are cast to float32 before the losses, as
+system.py:395-435 does; the HR image stays float32.  The JAX package's
+`amp_scope` ("frozen-only" / "trainable-only", a bisect knob of its TPU
+AMP investigation) is not ported: `train_dtype` is its "full".  K3 ("block") runs on bf16 io; "attention" and
+"full" under `train_dtype` raise (ROADMAP queue 1, item 1).
+
 Entry points keep the JAX package's NHWC contract: (B, h, w, C) LR in,
 (B, 2h, 2w, 3) SR out; (B, 2h, 2w, C) HR for training, with C = 4 under
 `mask` (RGB and the mask channel) and 3 without.  Modules run NCHW on
@@ -150,14 +168,29 @@ class StackedStudents:
         return torch.func.vmap(one)(*self.state)
 
 
+class _Call(nn.Module):
+    """The module functional_call runs: `fn()`, with the tensors of `system`
+    (its submodule) swapped for the ones passed."""
+
+    def __init__(self, system: nn.Module):
+        super().__init__()
+        self.system = system
+
+    def forward(self, fn):
+        return fn()
+
+
 class DPMNSystem(nn.Module):
     def __init__(self, cfg: TrainCfg, args: Args, device=None, seed: int = 0, train_core: str = None,
-                 student_dtype: str = None):
+                 student_dtype: str = None, train_dtype: str = None):
         super().__init__()
         device = resolve_device(device)
         if student_dtype not in (None, "bfloat16"):
             raise ValueError(f"student_dtype {student_dtype!r}: None or 'bfloat16'")
+        if train_dtype not in (None, "bfloat16"):
+            raise ValueError(f"train_dtype {train_dtype!r}: None or 'bfloat16'")
         self.student_dtype = student_dtype
+        self.train_dtype = train_dtype
         a = self.args = args
         self.cfg = cfg
         if a.font_path is not None:
@@ -188,6 +221,10 @@ class DPMNSystem(nn.Module):
             pgrms = [make_pgrm(k, True) for k in range(self.b1)]
             pgrms += [make_pgrm(k, False) for k in range(self.b1, self.b1 + self.b2)]
         self.pgrms = nn.ModuleList(pgrms)
+        cores = {blk.attn.train_core for p in self.pgrms for layer in p.layers for blk in layer.blocks}
+        if train_dtype is not None and cores != {"block"}:
+            raise NotImplementedError(f"train_core {sorted(cores - {'block'})} under train_dtype {train_dtype!r} is "
+                                      "not ported yet: ROADMAP queue 1, item 1 (K4 and K5 on bf16 io)")
         self.cmm = CMM()
         # the frozen PSN by arch (system.py:154-177); the STN is left out, as
         # every PSN applies it in training only
@@ -221,6 +258,9 @@ class DPMNSystem(nn.Module):
         self.state_bf16 = Bf16Copy(psn=self.psn, crnn_psn=self.crnn_psn, students=self.students, pgrms=self.pgrms,
                                    cmm=self.cmm, distills=self.distills)
         self._stacks = weakref.WeakKeyDictionary()  # students ModuleList -> StackedStudents
+        # the AMP step's frozen side: its own copy, so that the trainable
+        # modules' updates never make it stale
+        self.frozen_bf16 = Bf16Copy(psn=self.psn, crnn_psn=self.crnn_psn, students=self.students)
 
     def trainable_modules(self) -> dict:
         """The top-level trainable modules by their dpmn_tpu names; each is
@@ -285,16 +325,18 @@ class DPMNSystem(nn.Module):
     def _cascade(self, images_lr_psn, images_hr=None, rng: TrainRng = None, nets=None, glyph_from_psn=False):
         """The two branches and CMM → (sr, loss).  With `images_hr` (the
         train step) the loss sums the per-PGRM and CMM image losses and the
-        distill cascade (system.py:383-436); without, it is None.  `nets`
-        holds the modules to run (the system itself by default);
-        `glyph_from_psn` gives every student the PSN output (system.py:386-391)."""
+        distill cascade (system.py:383-436), each SR image and distill loss
+        cast to the HR image's dtype first (float32 under AMP); without, it
+        is None.  `nets` holds the modules to run (the system itself by
+        default); `glyph_from_psn` gives every student the PSN output
+        (system.py:386-391)."""
         nets = nets or self
         pgrm = lambda idx: nets.pgrms[0 if self.args.sr_share else idx]
         losses = []
 
         def image_term(sr):
             if images_hr is not None:
-                losses.append(image_loss(sr, images_hr[:, :3], self.args.gradient) * 100.0)
+                losses.append(image_loss(sr.to(images_hr.dtype), images_hr[:, :3], self.args.gradient) * 100.0)
 
         cascade, b1_list = images_lr_psn, []
         if glyph_from_psn:
@@ -319,11 +361,11 @@ class DPMNSystem(nn.Module):
             feat = b1_list[-1]
             for k in range(self.b1 - 1, 0, -1):
                 loss, feat = self.distills[k - 1](feat, b1_list[k - 1])
-                losses.append(loss * 100.0)
+                losses.append(loss.to(images_hr.dtype) * 100.0)
             feat = b2_list[-1]
             for k in range(self.b2 - 1, 0, -1):
                 loss, feat = self.distills[k + self.b1 - 2](feat, b2_list[k - 1])
-                losses.append(loss * 100.0)
+                losses.append(loss.to(images_hr.dtype) * 100.0)
         sr = nets.cmm(b1_list[-1], b2_list[-1])
         image_term(sr)
         if images_hr is None:
@@ -406,18 +448,35 @@ class DPMNSystem(nn.Module):
 
     def _train_loss(self, images_hr, images_lr, seed: int) -> torch.Tensor:
         """The forward of the train step: the frozen PSN under no_grad, the
-        cascade with the trainable modules in train mode, the joint loss."""
-        hr, lr = self._nchw(images_hr), self._nchw(images_lr)
+        cascade with the trainable modules in train mode, the joint loss.
+        Under `train_dtype` the frozen side runs on `frozen_bf16` and the
+        cascade through the trainable parameters' bf16 views (module
+        docstring); the loss is float32."""
+        amp = self.train_dtype is not None
+        frozen = self.frozen_bf16.get() if amp else self
+        hr, lr = self._nchw(images_hr), self._nchw(images_lr, frozen)
         with torch.no_grad():
-            images_lr_psn = self._psn_forward(lr)
+            images_lr_psn = self._psn_forward(lr, frozen)
+        views = self._trainable_views() if amp else {}
+        nets = SimpleNamespace(pgrms=self.pgrms, cmm=self.cmm, students=frozen.students) if amp else None
+        rng = TrainRng(seed, self.device)
         modules = self.trainable_modules().values()
         for m in modules:
             m.train()
         try:
-            return self._cascade(images_lr_psn, hr, TrainRng(seed, self.device))[1]
+            run = lambda: self._cascade(images_lr_psn, hr, rng, nets)[1]
+            if not views:
+                return run()
+            return torch.func.functional_call(_Call(self), {f"system.{k}": v for k, v in views.items()}, (run,))
         finally:
             for m in modules:
                 m.eval()
+
+    def _trainable_views(self) -> dict:
+        """{name: the bf16 view of each trainable parameter}, differentiable
+        back onto the float32 master."""
+        ids = {id(p) for p in self.trainable_parameters()}
+        return {n: p.to(torch.bfloat16) for n, p in self.named_parameters() if id(p) in ids}
 
     def _loss_grads(self, loss: torch.Tensor) -> list:
         params = self.trainable_parameters()

@@ -28,7 +28,7 @@ CASES = (((8,), (4,)), ((4,), (2,)), ((2,), (1,)), ((2, 4, 8), (1, 2, 4)))
 
 _QK_BF16 = "      qk_tile_bf16<NT>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq);\n"
 _QK_F32 = "      qk_tile<NT>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq, GCH);\n"
-_PV_BF16 = "      pv_tile_bf16<NT>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);\n"
+_PV_BF16 = "      pv_tile_bf16<NT, p_rounded_once<T, BT>()>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);\n"
 _PV_F32 = "      pv_tile<NT, 2>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);\n"
 _PV_NONE = ("      for (int e = 0; e < 4; ++e) o[0][e] = s[e][e] + s[NT - 1][e], o[1][e] = s[e + 1][e] * s[2][e];\n")
 # variant: [(source under csrc/, text, replacement)], each text found exactly once
@@ -47,7 +47,7 @@ ABLATIONS = {
               "        float2 add = make_float2(0.f, 0.f);\n        if (false) {")],
     "store": [("window_common.cuh", "      store4(orow + (odd ? 2 * t4 + 6 : 2 * t4), val, a.vec);",
                "      if (val.x == 12345.f) store4(orow + (odd ? 2 * t4 + 6 : 2 * t4), val, a.vec);")],
-    "ctas2": [("window_common.cuh", "__launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)",
+    "ctas2": [("window_common.cuh", "__launch_bounds__(THREADS, sizeof(T) == 2 && sizeof(BT) == 2 ? 3 : 2)",
                "__launch_bounds__(THREADS, 2)")],
 }
 

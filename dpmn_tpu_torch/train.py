@@ -15,9 +15,12 @@ interfaces/super_resolution.py):
     (:648), the system's glyph_from_psn.
 
 Each train step's dropout seed and the rotation angles are drawn from the
-generator `set_seed` returns, where the JAX package splits its key.  What
-the port cannot run yet raises NotImplementedError naming its ROADMAP item;
-nothing is quietly ignored.
+generator `set_seed` returns, where the JAX package splits its key.
+DPMN_TPU_TRAIN_DTYPE=bfloat16 trains with bf16 mixed precision (float32
+masters, Adam state, statistics and losses; DPMNSystem `train_dtype`), as
+dpmn_tpu/train.py:52-56 reads it; checkpoints hold the float32 state either
+way.  What the port cannot run yet raises NotImplementedError naming its
+ROADMAP item (queue 1, items 7b-7h); nothing is quietly ignored.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from .weights import load_driver_weights
 def _refuse_msgpack(resume: str) -> None:
     if resume and resume.endswith(".msgpack"):
         raise NotImplementedError(f"--resume {resume}: reading dpmn_tpu's .msgpack checkpoints is not ported yet: "
-                                  "ROADMAP queue 1, item 6e")
+                                  "ROADMAP queue 1, item 7e")
 
 
 class Trainer:
@@ -57,15 +60,17 @@ class Trainer:
         self.device = resolve_device(device or args.device)
         if args.debug_nans:
             torch.autograd.set_detect_anomaly(True)
-        if os.environ.get("DPMN_TPU_TRAIN_DTYPE"):
-            raise NotImplementedError("DPMN_TPU_TRAIN_DTYPE (bf16 AMP training) is not ported yet: ROADMAP queue 1, "
-                                      "item 6d")
+        # DPMN_TPU_TRAIN_DTYPE=bfloat16: bf16 mixed-precision training.  The
+        # JAX driver's slowdown warning for it (dpmn_tpu/train.py:272-303)
+        # fires on a TPU alone, for an XLA runtime fault there; it is not
+        # ported.
+        train_dtype = os.environ.get("DPMN_TPU_TRAIN_DTYPE") or None
         n_dp = args.data_parallel or cfg.ngpu
         if n_dp > 1:
             raise NotImplementedError(f"data parallelism over {n_dp} devices (--data_parallel / ngpu) is not ported "
-                                      "yet: ROADMAP queue 1, item 6h (DDP)")
+                                      "yet: ROADMAP queue 1, item 7h (DDP)")
         self.rng = set_seed(cfg.manualSeed)
-        self.system = DPMNSystem(cfg, args, device=self.device, seed=cfg.manualSeed)
+        self.system = DPMNSystem(cfg, args, device=self.device, seed=cfg.manualSeed, train_dtype=train_dtype)
         self.batch_size = args.batch_size or cfg.batch_size
         self.evaluator = None
         # --grad_accum N: one optimizer step per N sequential microbatches
@@ -80,7 +85,7 @@ class Trainer:
         if self.args.synthetic_data:
             # dpmn_tpu's SyntheticTextZoom draws TrueType text from a system font
             raise NotImplementedError("--synthetic_data (SyntheticTextZoom) is not ported yet: ROADMAP queue 1, "
-                                      "item 6b")
+                                      "item 7b")
         return TextZoomLMDB(root, voc_type=self.cfg.voc_type, max_len=self.cfg.max_len, test=test)
 
     def _collate(self, train: bool) -> AlignCollate:
@@ -113,7 +118,7 @@ class Trainer:
                  test_mode: bool = False) -> dict:
         if vis_index is not None:
             raise NotImplementedError("the visualization dumps (vis_index) are not ported yet: ROADMAP queue 1, "
-                                      "item 6g")
+                                      "item 7g")
         if self.evaluator is None:
             # the --rec judge, from the VAL-config checkpoint when one is
             # named (rec/moran/crnn_pretrained — base.py:375-439)

@@ -415,6 +415,64 @@ def test_window_attention_kernel_bf16_reruns_bit_for_bit_and_refuses_mixed_dtype
             window_attention_block(xq.half(), xkv.half(), **kw)
 
 
+def bf16_core_args(prim, biases):
+    """K3's primals as bf16 leaves; the biases stay float32."""
+    return [p.detach().bfloat16().requires_grad_() for p in prim[:10]], biases
+
+
+@pytest.mark.parametrize("batch", [1, 3, 9])
+@pytest.mark.parametrize("width", WIDTHS, ids=lambda wd: f"D{wd[0]}")
+@pytest.mark.parametrize("keep", [1.0, 0.9])
+def test_window_attention_train_kernel_bf16(dev, batch, width, keep):
+    """K3 on bf16 io forward and backward against autograd through its plain
+    version on the card (tests/test_torch_window_attention_train_bf16.py's
+    limits: the output within 2^-7 of max|out|, each gradient within 2^-6
+    of its largest value); bf16 out and gradients, float32 dbias; the bf16
+    counters move by one each, the float32 ones not."""
+    dim, windows, heads, shift = width
+    prim, biases, static = train_core_inputs(dev, shift, batch, dim=dim, windows=windows, heads=heads)
+    prim, biases = bf16_core_args(prim, biases)
+    cot = torch.randn(*prim[0].shape, generator=torch.Generator().manual_seed(9)).to(dev, torch.bfloat16)
+    counters = (WT.forward_bf16_counter, WT.backward_bf16_counter, WT.forward_counter, WT.backward_counter)
+    before = [c.launches for c in counters]
+    out, grads = run_train_core(WT.window_attention_block_core, prim, biases, static, 123, keep, "faithful", cot)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [before[0] + 1, before[1] + 1, before[2], before[3]]
+    ref, ref_grads = run_train_core(WT.window_attention_block_core_plain, prim, biases, static, 123, keep,
+                                    "faithful", cot)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2.0**-7 * ref.float().abs().max().item()
+    for i, (g, r) in enumerate(zip(grads, ref_grads)):
+        assert g.dtype == (torch.bfloat16 if i < 10 else torch.float32)
+        assert (g.float() - r.float()).abs().max().item() <= 2.0**-6 * r.float().abs().max().item()
+
+
+def test_window_attention_train_kernel_bf16_reruns_bit_for_bit_and_refuses(dev):
+    """K3 on bf16 io: forward and every gradient equal across two runs; mixed
+    dtypes, more than 2 heads a group and a scale that is not a power of two
+    raise on the card."""
+    prim, biases, static = train_core_inputs(dev, (1, 2, 4), batch=9)
+    prim16, biases = bf16_core_args(prim, biases)
+    cot = torch.randn(*prim[0].shape, generator=torch.Generator().manual_seed(9)).to(dev, torch.bfloat16)
+    runs = [run_train_core(WT.window_attention_block_core, prim16, biases, static, 123, 0.9, "faithful", cot)
+            for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0]) and all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    call = lambda p, b, **kw: WT.window_attention_block_core(*p, b, static["masks"], 0, 1.0, static["window_sizes"],
+                                                             static["shifts"], kw.get("gh", static["gnum_heads"]),
+                                                             kw.get("scale", static["scale"]), static["hw_shape"])
+    with pytest.raises(TypeError):
+        call(prim16[:6] + prim[6:10], biases)
+    with pytest.raises(TypeError):
+        call(prim16, [b.bfloat16() for b in biases])
+    with pytest.raises(ValueError):
+        call(prim16, biases, scale=0.3)
+    wide, wbiases, wstatic = train_core_inputs(dev, (0,), 1, dim=96, windows=(8,), heads=6)
+    wide, wbiases = bf16_core_args(wide, wbiases)
+    with pytest.raises(ValueError):  # one group of 6 heads
+        WT.window_attention_block_core(*wide, wbiases, wstatic["masks"], 0, 1.0, wstatic["window_sizes"],
+                                       wstatic["shifts"], wstatic["gnum_heads"], wstatic["scale"], wstatic["hw_shape"])
+
+
 def test_window_kernels_reject_other_widths(dev):
     """D = 128 (beyond the kernels' 96) raises in K1 and K3."""
     xq, xkv, kw = k1_inputs(dev, 1, 128, (2, 4, 8, 4), 8, (0, 0, 0, 0))

@@ -216,16 +216,18 @@ def test_trainer_refuses_what_is_not_ported(lmdbs, tmp_path, monkeypatch):
     cfg = _cfg(PCfg, lmdbs, tmp_path)
     with pytest.raises(NotImplementedError, match="DDP"):
         Trainer(cfg, _args(PCfg, data_parallel=2), device="cpu")
-    monkeypatch.setenv("DPMN_TPU_TRAIN_DTYPE", "bfloat16")
-    with pytest.raises(NotImplementedError, match="AMP"):
+    monkeypatch.setenv("DPMN_TPU_TRAIN_DTYPE", "bfloat16")  # bf16 AMP: ported, the system takes it
+    assert Trainer(cfg, _args(PCfg), device="cpu").system.train_dtype == "bfloat16"
+    monkeypatch.setenv("DPMN_TPU_TRAIN_DTYPE", "float16")
+    with pytest.raises(ValueError, match="float16"):
         Trainer(cfg, _args(PCfg), device="cpu")
     monkeypatch.delenv("DPMN_TPU_TRAIN_DTYPE")
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(NotImplementedError, match="item 7b"):
         Trainer(cfg, _args(PCfg, synthetic_data=True), device="cpu").get_train_loader()
     trainer = Trainer(cfg, _args(PCfg), device="cpu")
     with pytest.raises(NotImplementedError, match="visualization"):
         trainer.evaluate(trainer.system, [], vis_index=0)
-    with pytest.raises(NotImplementedError, match=r"item 6e"):
+    with pytest.raises(NotImplementedError, match=r"item 7e"):
         Trainer(_cfg(PCfg, lmdbs, tmp_path, resume=str(tmp_path / "checkpoint.msgpack")), _args(PCfg),
                 device="cpu").load_test_state()
     with pytest.raises(RuntimeError, match="CUDA"):

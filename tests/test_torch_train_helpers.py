@@ -137,11 +137,24 @@ def _trainable_names(system):
     return [n for n, p in system.named_parameters() if id(p) in ids]
 
 
+def _state_view(res, step):
+    """A port system holding the JAX package's state after `step`, made once
+    per result and shared by the tests that read it."""
+    views = res.setdefault("views", {})
+    if step not in views:
+        views[step] = _port_system(res["kw"], res["dtype"], res["j"][step]["state"])
+    return views[step]
+
+
 def _grad_leaves(res, step):
-    """(name, port grad, JAX grad in port layout) for every trainable parameter."""
-    j = res["j"][step]
-    view = _port_system(res["kw"], res["dtype"], dict(j["state"], params=j["grads"]))
-    ref = [p.detach().numpy() for p in view.trainable_parameters()]
-    names = _trainable_names(view)
-    assert len(names) == len(ref) == len(res["p"][step]["grads"])
-    return list(zip(names, res["p"][step]["grads"], ref))
+    """(name, port grad, JAX grad in port layout) for every trainable
+    parameter; computed once per result and step."""
+    leaves = res.setdefault("grad_leaves", {})
+    if step not in leaves:
+        j = res["j"][step]
+        view = _port_system(res["kw"], res["dtype"], dict(j["state"], params=j["grads"]))
+        ref = [p.detach().numpy() for p in view.trainable_parameters()]
+        names = _trainable_names(view)
+        assert len(names) == len(ref) == len(res["p"][step]["grads"])
+        leaves[step] = list(zip(names, res["p"][step]["grads"], ref))
+    return leaves[step]

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_train_helpers import TRAIN, _grad_leaves, _port_system, _two_steps
+from test_torch_train_helpers import TRAIN, _grad_leaves, _state_view, _two_steps
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +59,7 @@ def test_train_step_gradients(strict):
 def test_train_step_batch_stats(strict):
     """CMM and distill running statistics after each step, rtol 1e-4."""
     for step in (0, 1):
-        view = _port_system(strict["kw"], strict["dtype"], strict["j"][step]["state"])
+        view = _state_view(strict, step)
         got = strict["p"][step]["state"]
         n = 0
         for name, buf in view.named_buffers():
@@ -77,7 +77,7 @@ def test_train_step_params(strict):
     share is counted and must stay under 1 %.  The BatchNorm statistics at
     rtol 1e-4; everything else in the state_dict unchanged and exact."""
     for step in (0, 1):
-        view = _port_system(strict["kw"], strict["dtype"], strict["j"][step]["state"])
+        view = _state_view(strict, step)
         got = strict["p"][step]["state"]
         flips = {name: np.sign(g_p) != np.sign(g_j) for name, g_p, g_j in _grad_leaves(strict, step)}
         share = sum(int(f.sum()) for f in flips.values()) / sum(f.size for f in flips.values())
