@@ -66,16 +66,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
   8. K5 (K3 with SKConv fused in, faithful layout) as phase 5 does K3, with
      the sub-kernel split of its forward and backward; then the train path
      with train_core "full", as phase 6;
-  8b. K3 on bf16 io (the bf16 AMP step's core) forward and backward against
-     autograd through its plain version at B = 64 and the flagship geometry:
-     both shift sets, faithful layout, dropout off and at keep 0.9; the
-     output within 2^-7 of max|out|, each gradient within 2^-6 of its
-     largest value, the dtypes (bf16, dbias float32); its times a call
-     beside the float32 kernel on the same values; then the train path
-     under train_dtype="bfloat16" as phase 6, with exact launches (bf16 K3
-     12 + 12, float32 K3 0, K2 11), the state float32 after the steps, the
-     loss finite and falling over 5 steps on one repeated batch, and the
-     card against the CPU on 2 images (hold_amp_card_vs_cpu);
+  8b. for each training core, K3, K4 and K5 on bf16 io (the bf16 AMP step's
+     cores) forward and backward against autograd through the plain version
+     at B = 64 and the flagship geometry: both shift sets, faithful layout,
+     dropout off and at keep 0.9 (K4's k and v the halves of one kv
+     tensor); the output within 2^-7 of max|out|, each gradient within 2^-6
+     of its largest value, the dtypes (bf16, dbias float32); K3 also with 3
+     heads a group and with a scale that is not a power of two; the times a
+     call beside the float32 kernel on the same values (K4 also beside SDPA
+     on bf16); then the train path under train_dtype="bfloat16" with that
+     core as phase 6, with exact launches (the bf16 kernel 12 + 12, no
+     float32 training kernel, K2 11), the state float32 after the steps,
+     the loss finite and falling over 5 steps on one repeated batch, and
+     the card against the CPU on 2 images (hold_amp_card_vs_cpu);
   9. K8, the per-window attention tiles: its entry point once at each of the
      flagship's three folded window shapes at B = 64 (with a shift mask) and
      at the JAX test's (10, 16, 8), launches counted, against the plain
@@ -130,8 +133,9 @@ where they fit.  `ms`, `plain_ms`, `library_ms` and `bound_ms` in the kernels
 line are per call of the path that launches the kernel: K1 and K2 per
 flagship forward (the sum over their launches in one sr_forward at B = 64),
 K3, K4 and K5 per flagship train step on their path (12 forward and 12
-backward launches; K3's bf16 entry points per bf16 AMP step, bounded by
-bf16 bytes and every product on bf16 operands at 989 TFLOP/s); the standalone kernels K6-K9 per run of their phase's
+backward launches; the bf16 entry points of K3, K4 and K5 per bf16 AMP
+step, bounded by bf16 bytes, the products on bf16 operands at 989 TFLOP/s
+and K5's SKConv in float32); the standalone kernels K6-K9 per run of their phase's
 path (the launches it counts).  Bounds use the published H100 SXM peaks:
 3.35 TB/s and 67 TFLOP/s float32 on the CUDA cores; a sub-kernel's bound
 counts a product it runs on the tensor cores as 3xTF32 at 3 x its operations
@@ -612,8 +616,12 @@ def counters():
             "window_attention_train_backward_bf16": wt.backward_bf16_counter,
             "window_attention_core_forward": wc.forward_counter,
             "window_attention_core_backward": wc.backward_counter,
+            "window_attention_core_forward_bf16": wc.forward_bf16_counter,
+            "window_attention_core_backward_bf16": wc.backward_bf16_counter,
             "window_attention_full_forward": wf.forward_counter,
             "window_attention_full_backward": wf.backward_counter,
+            "window_attention_full_forward_bf16": wf.forward_bf16_counter,
+            "window_attention_full_backward_bf16": wf.backward_bf16_counter,
             "window_tile_attention": window_tile_attention_counter,
             "grouped_window_attention": grouped_window_attention_counter,
             "mlp_convs": mlp_convs_counter, "dropout_mask": dropout_mask_counter}
@@ -1128,91 +1136,160 @@ def phase_k3(dev):
                           worst_fwd, worst_grad, library=False)
 
 
-def phase_k3_bf16(dev):
-    """K3 on bf16 io (the bf16 AMP step's core) forward and backward against
-    autograd through its plain version at B = 64, the flagship geometry,
-    both shift sets, faithful layout, keep 1 and 0.9: the output within
-    2^-7 of max|out|, each gradient within 2^-6 of its largest value, the
-    dtypes bf16 (dbias float32).  Times a call beside the float32 kernel on
-    the same values.  Returns the kernels-line entries of its two entry
-    points (per AMP train step: 6 unshifted + 6 shifted calls, keep 0.9; the
-    bound from bf16 bytes and every product on bf16 operands at the bf16
-    tensor-core peak)."""
+def bf16_core_case(dev, core, gen, shift, dim=96, windows=(2, 4, 8), heads=6, batch=B):
+    """A training core's bf16 inputs at the flagship's 16x64 grid: its primals
+    as bf16 leaves (K3 its 10, K4 q and the halves of one kv leaf, as the
+    "attention" core hands them over, K5 its 18), float32 bias leaves, the
+    masks and the static arguments."""
     from dpmn_tpu_torch.models.pgrm import SwinTransformerBlock
-    from dpmn_tpu_torch.ops import window_attention_train as wt
     from dpmn_tpu_torch.system import init_weights
 
+    h, w, bf = 16, 64, torch.bfloat16
+    blk = SwinTransformerBlock(dim, (h, w), heads, list(windows), list(shift))
+    init_weights(blk, seed=6)
+    a = blk.attn
+    leaf = lambda t, dt=bf: t.detach().clone().to(dev, dt).requires_grad_()
+    rnd = lambda *shape: 0.1 * torch.randn(*shape, generator=gen)
+    if core == "attention":
+        q, kv = leaf(torch.randn(batch, h * w, dim, generator=gen)), leaf(torch.randn(batch, h * w, 2 * dim, generator=gen))
+        prim, leaves = [q, kv[..., :dim], kv[..., dim:]], [q, kv]
+    else:
+        prim = [leaf(torch.randn(batch, h * w, dim, generator=gen)), leaf(torch.randn(batch, h * w, dim, generator=gen)),
+                leaf(1 + rnd(dim)), leaf(rnd(dim)), leaf(1 + rnd(dim)), leaf(rnd(dim)), leaf(a.q.weight),
+                leaf(rnd(dim)), leaf(a.kv.weight), leaf(rnd(2 * dim))]
+        if core == "full":
+            prim += [leaf(t) if t.dim() == 2 else leaf(rnd(*t.shape)) for t in a.SKConv.weights()]
+        leaves = prim
+    biases = [leaf(rnd(*b.shape), torch.float32) for b in a.biases()]
+    masks = [m.to(dev) if m is not None else None for m in a.masks()]
+    return a, prim, leaves, biases, masks, [a.win, a.shf, a.gnum_heads, a.scale, a.hw]
+
+
+BF16_CORES = {"block": ("window_attention_train", "window_attention_block_core"),
+              "attention": ("window_attention_core", "window_attention_core"),
+              "full": ("window_attention_full", "window_attention_full_core")}
+
+
+def hold_bf16_core(tag, mod, fn_name, prim, leaves, biases, masks, seed, keep, static, cot):
+    """The core's kernels on bf16 io against autograd through its plain
+    version on the card: the output within 2^-7 of max|out|, each gradient
+    within 2^-6 of its largest value, the dtypes bf16 (dbias float32).
+    Returns (forward max abs, worst gradient max abs)."""
+    def run(fn):
+        out = fn(*prim, biases, masks, seed, keep, *static)
+        return out, torch.autograd.grad(out, leaves + biases, cot)
+
+    out, grads = run(getattr(mod, fn_name))
+    ref, ref_grads = run(getattr(mod, fn_name + "_plain"))
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = BF16_ROUNDING * ref.float().abs().max().item()
+    gerr = max(((g.float() - r.float()).abs().max() / (K3_BF16_GRAD * r.float().abs().max())).item()
+               for g, r in zip(grads, ref_grads))
+    bf = torch.bfloat16
+    dtypes = [t.dtype for t in (out, *grads)] == [bf] * (1 + len(leaves)) + [torch.float32] * len(biases)
+    ok = dtypes and bool(torch.isfinite(out.float()).all()) and err <= tol and gerr <= 1.0
+    log(f"{tag}: forward max_abs_err {err:.3e} (tol {tol:.3e}: 2^-7 max|out|); worst gradient at {gerr:.3f} of its "
+        f"tolerance (max abs <= 2^-6 max|ref|); dtypes {'bf16 (dbias float32)' if dtypes else 'WRONG'} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: kernel disagrees with its plain version")
+    return err, max((g.float() - r.float()).abs().max().item() for g, r in zip(grads, ref_grads))
+
+
+def phase_core_bf16(dev, core):
+    """A training core on bf16 io (the bf16 AMP step's K3, K4 or K5) forward
+    and backward against autograd through its plain version at B = 64, the
+    flagship geometry, both shift sets, keep 1 and 0.9 (hold_bf16_core); K3
+    also with 3 heads a group (two groups of 48 channels) and with a scale
+    that is not a power of two, at B = 9.  Times a call beside the float32
+    kernel on the same values, and for K4 beside SDPA on bf16.  Returns the
+    kernels-line entries of its two entry points (per AMP train step: 6
+    unshifted + 6 shifted calls, keep 0.9; the bound from bf16 bytes, the
+    products on bf16 operands at the bf16 tensor-core peak and SKConv's
+    (K5) in float32)."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    name, fn_name = BF16_CORES[core]
+    mod = importlib.import_module(f"dpmn_tpu_torch.ops.{name}")
+    from dpmn_tpu_torch.ops import window_attention_train as wt
+
     h, w, dim, seed = 16, 64, 96, 4321
+    tag = {"block": "K3", "attention": "K4", "full": "K5"}[core] + " bf16"
     gen = torch.Generator().manual_seed(5)
     bf = torch.bfloat16
     cot = torch.randn(B, h * w, dim, generator=gen).to(dev, bf)
     worst_fwd, worst_grad, times = 0.0, 0.0, {}
+    if core == "block":
+        # 3 heads a group (the thread-per-row attention backward), and a scale
+        # that is not a power of two (head dim 12's), against the plain version
+        for kw, scale in ((dict(windows=(2, 8), heads=6), None), ({}, 12**-0.5)):
+            _, prim, leaves, biases, masks, static = bf16_core_case(dev, core, gen, (1, 4) if kw else (1, 2, 4),
+                                                                    batch=9, **kw)
+            static[3] = scale or static[3]
+            cot9 = torch.randn(9, h * w, dim, generator=gen).to(dev, bf)
+            hold_bf16_core(f"{tag} B=9 {static[2]} heads a group scale {static[3]:.6f}", mod, fn_name, prim, leaves,
+                           biases, masks, seed, 0.9, static, cot9)
     for shift in ((0, 0, 0), (1, 2, 4)):
-        blk = SwinTransformerBlock(dim, (h, w), 6, [2, 4, 8], list(shift))
-        init_weights(blk, seed=6)
-        a = blk.attn
-        leaf = lambda t, dt=bf: t.detach().clone().to(dev, dt).requires_grad_()
-        rnd = lambda *shape: 0.1 * torch.randn(*shape, generator=gen)
-        prim = [leaf(torch.randn(B, h * w, dim, generator=gen)), leaf(torch.randn(B, h * w, dim, generator=gen)),
-                leaf(1 + rnd(dim)), leaf(rnd(dim)), leaf(1 + rnd(dim)), leaf(rnd(dim)), leaf(a.q.weight),
-                leaf(rnd(dim)), leaf(a.kv.weight), leaf(rnd(2 * dim))]
-        biases = [leaf(rnd(*b.shape), torch.float32) for b in a.biases()]
-        masks = [m.to(dev) if m is not None else None for m in a.masks()]
-        static = (a.win, a.shf, a.gnum_heads, a.scale, a.hw)
+        a, prim, leaves, biases, masks, static = bf16_core_case(dev, core, gen, shift)
         for keep in (1.0, 0.9):
-            def run(fn):
-                out = fn(*prim, biases, masks, seed, keep, *static)
-                return out, torch.autograd.grad(out, prim + biases, cot)
-
-            out, grads = run(wt.window_attention_block_core)
-            ref, ref_grads = run(wt.window_attention_block_core_plain)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = BF16_ROUNDING * ref.float().abs().max().item()
-            gerr = max(((g.float() - r.float()).abs().max() / (K3_BF16_GRAD * r.float().abs().max())).item()
-                       for g, r in zip(grads, ref_grads))
-            dtypes = [t.dtype for t in (out, *grads)] == [bf] * 11 + [torch.float32] * len(biases)
-            ok = dtypes and bool(torch.isfinite(out.float()).all()) and err <= tol and gerr <= 1.0
-            log(f"K3 bf16 shift={shift} keep={keep}: forward max_abs_err {err:.3e} (tol {tol:.3e}: 2^-7 max|out|); "
-                f"worst gradient at {gerr:.3f} of its tolerance (max abs <= 2^-6 max|ref|); dtypes "
-                f"{'bf16 (dbias float32)' if dtypes else 'WRONG'} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"K3 bf16 shift={shift} keep={keep}: kernel disagrees with its plain version")
-            worst_fwd = max(worst_fwd, err)
-            worst_grad = max(worst_grad, max((g.float() - r.float()).abs().max().item()
-                                             for g, r in zip(grads, ref_grads)))
+            err, gerr = hold_bf16_core(f"{tag} shift={shift} keep={keep}", mod, fn_name, prim, leaves, biases, masks,
+                                       seed, keep, static, cot)
+            worst_fwd, worst_grad = max(worst_fwd, err), max(worst_grad, gerr)
         keep = 0.9
         st = wt.make_static(masks, seed, keep, *static)
         p_det = [t.detach() for t in prim]
         b_det = [t.detach() for t in biases]
-        p32 = [t.float() for t in p_det]
-        k_fwd = cuda_ms(lambda: wt._forward_cuda(st, p_det, b_det))
-        k_bwd = cuda_ms(lambda: wt._backward_cuda(st, p_det, b_det, cot))
-        f_fwd = cuda_ms(lambda: wt._forward_cuda(st, p32, b_det))
-        f_bwd = cuda_ms(lambda: wt._backward_cuda(st, p32, b_det, cot.float()))
-        p_fwd = cuda_ms(lambda: wt.window_attention_block_core_plain(*p_det, b_det, masks, seed, keep, *static),
-                        iters=5)
-        out = wt.window_attention_block_core_plain(*prim, biases, masks, seed, keep, *static)
-        p_bwd = cuda_ms(lambda: torch.autograd.grad(out, prim + biases, cot, retain_graph=True), iters=5)
+        p32 = [t.float().contiguous() for t in p_det]
+        kept = mod._forward_cuda(st, p_det, b_det)[1]
+        kept32 = mod._forward_cuda(st, p32, b_det)[1]
+        k_fwd = cuda_ms(lambda: mod._forward_cuda(st, p_det, b_det))
+        k_bwd = cuda_ms(lambda: mod._backward_cuda(st, p_det, b_det, cot, kept))
+        f_fwd = cuda_ms(lambda: mod._forward_cuda(st, p32, b_det))
+        f_bwd = cuda_ms(lambda: mod._backward_cuda(st, p32, b_det, cot.float(), kept32))
+        plain = getattr(mod, fn_name + "_plain")
+        p_fwd = cuda_ms(lambda: plain(*p_det, b_det, masks, seed, keep, *static), iters=5)
+        out = plain(*prim, biases, masks, seed, keep, *static)
+        p_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves + biases, cot, retain_graph=True), iters=5)
         del out
-        times[shift] = (k_fwd, k_bwd, p_fwd, p_bwd)
-        log(f"K3 bf16 B={B} shift={shift} keep=0.9: forward {k_fwd:.4f} ms a call (float32 K3 on the same values "
+        lib, l_fwd, l_bwd = "", 0.0, 0.0
+        if core == "attention":
+            # SDPA on bf16 over the partitioned windows (bias + mask as a bf16
+            # attn_mask, no dropout), forward and backward timed apart
+            sdpa_args = [([t.detach().to(bf).requires_grad_() for t in qkv_g], m.to(bf), do.to(bf))
+                         for qkv_g, m, do in sdpa_groups(a, b_det, masks, h, w, gen, dev)]
+            l_fwd = cuda_ms(lambda: [F.scaled_dot_product_attention(*qkv_g, attn_mask=m, scale=a.scale)
+                                     for qkv_g, m, _ in sdpa_args])
+            outs = [F.scaled_dot_product_attention(*qkv_g, attn_mask=m, scale=a.scale) for qkv_g, m, _ in sdpa_args]
+            l_bwd = cuda_ms(lambda: [torch.autograd.grad(o, qkv_g, do, retain_graph=True)
+                                     for o, (qkv_g, _, do) in zip(outs, sdpa_args)])
+            del outs
+            lib = f"; SDPA on bf16 forward {l_fwd:.4f}, backward {l_bwd:.4f}"
+        times[shift] = (k_fwd, k_bwd, p_fwd, p_bwd, l_fwd, l_bwd)
+        log(f"{tag} B={B} shift={shift} keep=0.9: forward {k_fwd:.4f} ms a call (float32 kernel on the same values "
             f"{f_fwd:.4f}), backward {k_bwd:.4f} (float32 {f_bwd:.4f}); plain forward {p_fwd:.4f}, backward "
-            f"{p_bwd:.4f}")
-    cost = k3_cost(B, (h, w), dim, (2, 4, 8))
-    fb_ms, fb_by = bound_ms(cost["fwd_bytes"] / 2, 0.0, 0.0, cost["fwd_flops"])
-    bb_ms, bb_by = bound_ms(cost["bwd_bytes"] / 2, 0.0, 0.0, cost["bwd_flops"])
-    log(f"K3 bf16 bounds a call: forward {fb_ms:.4f} ms ({fb_by}; {cost['fwd_bytes'] / 2e6:.1f} MB, "
-        f"{cost['fwd_flops'] / 1e9:.2f} GFLOP on bf16 operands), backward {bb_ms:.4f} ({bb_by}; "
-        f"{cost['bwd_bytes'] / 2e6:.1f} MB, {cost['bwd_flops'] / 1e9:.2f} GFLOP)")
+            f"{p_bwd:.4f}{lib}")
+    # bounds: bf16 bytes; the attention and projection products on bf16
+    # operands; K5's SKConv products in float32
+    win, t = (2, 4, 8), B * h * w
+    cost = {"block": k3_cost, "attention": k4_cost, "full": k5_cost}[core](B, (h, w), dim, win)
+    skconv = 2 * t * dim * dim + 2 * t * (dim // 3) * dim if core == "full" else 0.0
+    fb_ms, fb_by = bound_ms(cost["fwd_bytes"] / 2, skconv, 0.0, cost["fwd_flops"] - skconv)
+    bb_ms, bb_by = bound_ms(cost["bwd_bytes"] / 2, 3 * skconv, 0.0, cost["bwd_flops"] - 3 * skconv)
+    log(f"{tag} bounds a call: forward {fb_ms:.4f} ms ({fb_by}; {cost['fwd_bytes'] / 2e6:.1f} MB, "
+        f"{(cost['fwd_flops'] - skconv) / 1e9:.2f} GFLOP on bf16 operands, {skconv / 1e9:.2f} in float32), backward "
+        f"{bb_ms:.4f} ({bb_by}; {cost['bwd_bytes'] / 2e6:.1f} MB, {(cost['bwd_flops'] - 3 * skconv) / 1e9:.2f} GFLOP "
+        f"on bf16 operands, {3 * skconv / 1e9:.2f} in float32)")
     per_step = lambda i: 6 * (times[(0, 0, 0)][i] + times[(1, 2, 4)][i])
-    common = {"route": "cuda", "source": "dpmn_tpu_torch/csrc/window_attention_train.cu", "library_ms": None}
-    fwd = {"name": "window_attention_train_forward_bf16", **common,
-           "replaces": REPLACES["window_attention_train"][0], "max_abs_err": worst_fwd, "ms": per_step(0),
-           "plain_ms": per_step(2), "bound_ms": 12 * fb_ms, "bound_by": fb_by}
-    bwd = {"name": "window_attention_train_backward_bf16", **common,
-           "replaces": REPLACES["window_attention_train"][1], "max_abs_err": worst_grad, "ms": per_step(1),
-           "plain_ms": per_step(3), "bound_ms": 12 * bb_ms, "bound_by": bb_by}
+    common = {"route": "cuda", "source": f"dpmn_tpu_torch/csrc/{name}.cu"}
+    fwd = {"name": f"{name}_forward_bf16", **common, "replaces": REPLACES[name][0], "max_abs_err": worst_fwd,
+           "ms": per_step(0), "plain_ms": per_step(2), "bound_ms": 12 * fb_ms, "bound_by": fb_by,
+           "library_ms": per_step(4) if core == "attention" else None}
+    bwd = {"name": f"{name}_backward_bf16", **common, "replaces": REPLACES[name][1], "max_abs_err": worst_grad,
+           "ms": per_step(1), "plain_ms": per_step(3), "bound_ms": 12 * bb_ms, "bound_by": bb_by,
+           "library_ms": per_step(5) if core == "attention" else None}
     return fwd, bwd
 
 
@@ -1231,9 +1308,13 @@ TRAIN_LAUNCHES = {
     "block": expected_counts(gru_bidir=11, window_attention_train_forward=12, window_attention_train_backward=12),
     "attention": expected_counts(gru_bidir=11, window_attention_core_forward=12, window_attention_core_backward=12),
     "full": expected_counts(gru_bidir=11, window_attention_full_forward=12, window_attention_full_backward=12),
-    # the bf16 AMP step: K3 on bf16 io, the float32 K3 never
+    # the bf16 AMP step: the core on bf16 io, no float32 training kernel
     "block-amp": expected_counts(gru_bidir=11, window_attention_train_forward_bf16=12,
                                  window_attention_train_backward_bf16=12),
+    "attention-amp": expected_counts(gru_bidir=11, window_attention_core_forward_bf16=12,
+                                     window_attention_core_backward_bf16=12),
+    "full-amp": expected_counts(gru_bidir=11, window_attention_full_forward_bf16=12,
+                                window_attention_full_backward_bf16=12),
 }
 
 
@@ -1308,7 +1389,7 @@ def hook_modules(system, record=None, feed=None):
     return handles
 
 
-def hold_amp_card_vs_cpu(tag, systems, dev, hr, lr):
+def hold_amp_card_vs_cpu(tag, systems, dev, hr, lr, train_core="block"):
     """The AMP step on the card and on the CPU, the same weights, rates 0, 2
     images.  The step's loss within rel 1e-2 of the CPU's, as
     tests/test_torch_amp.py holds it against the JAX package (the CPU reads
@@ -1358,7 +1439,8 @@ def hold_amp_card_vs_cpu(tag, systems, dev, hr, lr):
         return loss, [g.cpu() for g in grads], seen
 
     lc, gc, seen = step(systems["cpu"], False)
-    f32 = {d: DPMNSystem(TrainCfg(batch_size=2), flagship_args(**ZERO_RATES), device=d, seed=0) for d in (dev, "cpu")}
+    f32 = {d: DPMNSystem(TrainCfg(batch_size=2), flagship_args(**ZERO_RATES), device=d, seed=0, train_core=train_core)
+           for d in (dev, "cpu")}
     _, g32, _ = step(f32[dev], False)
     _, gc32, _ = step(f32["cpu"], False)
     local = {"card": step(systems[dev], True)[1], "cpu": step(systems["cpu"], True)[1],
@@ -1467,7 +1549,7 @@ def phase_train(dev, card, train_core, timed, train_dtype=None):
                              train_core=train_core, train_dtype=train_dtype) for d in (dev, "cpu")}
     hr, lr = batches[1][0][:2], batches[1][1][:2]
     if amp:
-        hold_amp_card_vs_cpu(tag, systems, dev, hr, lr)
+        hold_amp_card_vs_cpu(tag, systems, dev, hr, lr, train_core)
     else:
         hold_train_card_vs_cpu(tag, systems, dev, lambda s: s._micro_grads(hr, lr, 0), n_ids=3)
     return launches
@@ -2400,18 +2482,19 @@ def main():
     torch.cuda.empty_cache()
     entries = [k1, k1_bf16, k2]
     for phase_kernel, core, name, timed in ((phase_k3, "block", "window_attention_train", 4),
-                                            (phase_k4, "attention", "window_attention_core", 3),
-                                            (phase_k5, "full", "window_attention_full", 3)):
+                                            (phase_k4, "attention", "window_attention_core", 2),
+                                            (phase_k5, "full", "window_attention_full", 2)):
         fwd, bwd = phase_kernel(dev)
         launches = phase_train(dev, card, core, timed)
         fwd["launches"], bwd["launches"] = launches[f"{name}_forward"], launches[f"{name}_backward"]
         entries += [fwd, bwd]
-    # the bf16 AMP step on K3's bf16 io
-    fwd, bwd = phase_k3_bf16(dev)
-    launches = phase_train(dev, card, "block", 4, train_dtype="bfloat16")
-    fwd["launches"] = launches["window_attention_train_forward_bf16"]
-    bwd["launches"] = launches["window_attention_train_backward_bf16"]
-    entries += [fwd, bwd]
+    # the bf16 AMP step under each core, on its kernel's bf16 io
+    for core, timed in (("block", 3), ("attention", 3), ("full", 3)):
+        name = BF16_CORES[core][0]
+        fwd, bwd = phase_core_bf16(dev, core)
+        launches = phase_train(dev, card, core, timed, train_dtype="bfloat16")
+        fwd["launches"], bwd["launches"] = launches[f"{name}_forward_bf16"], launches[f"{name}_backward_bf16"]
+        entries += [fwd, bwd]
     entries.append(phase_k8(dev))
     entries += phase_k7(dev)
     entries.append(phase_k6(dev))

@@ -144,15 +144,29 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint3
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// Two bf16 values (a packed pair) times a float32 scale that holds a bf16
+// value: each product exact in float32, rounded to bf16 once.
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
+  __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&x);
+  const float2 f = __bfloat1622float2(h);
+  h = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
 // s[j] += the warp's 16 query rows . keys 8 j + (0..7) over one head's 16
 // channels, bf16 in shared memory: row r of Q at Q[r * ldq], key n of K at
-// K[n * ldk] (ld* an odd number of 16-byte units).  NT even.
-template <int NT>
+// K[n * ldk] (ld* an odd number of 16-byte units).  NT even.  SCALE_Q: the
+// rows of Q times qscale (a bf16 value), rounded to bf16, in registers.
+template <int NT, bool SCALE_Q = false>
 __device__ __forceinline__ void qk_tile_bf16(float (&s)[NT][4], const __nv_bfloat16* Q, int ldq,
-                                             const __nv_bfloat16* K, int ldk) {
+                                             const __nv_bfloat16* K, int ldk, float qscale = 1.f) {
   const int lane = threadIdx.x & 31, r8 = lane & 7, hi8 = (lane >> 3) & 1, quad = lane >> 4;
   uint32_t a[4];  // rows 0-7 / 8-15 x channels 0-7 / 8-15
   ldmatrix_x4(a, Q + (r8 + 8 * hi8) * ldq + 8 * quad);
+  if constexpr (SCALE_Q) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) a[m] = scale_bf16x2(a[m], qscale);
+  }
 #pragma unroll
   for (int j = 0; j < NT; j += 2) {
     uint32_t b[4];  // keys 8 j .. + 7 x channels 0-7, 8-15, then keys 8 j + 8 .. + 15

@@ -44,8 +44,36 @@
 // (window_common.cuh window_attn_fwd_kernel); the 2x2 windows' attention
 // runs on the CUDA cores; q, kv and the tokens' gradient still round-trip
 // through device memory.
+//
+// bf16 io (the bf16 AMP step under DPMN_TPU_FUSE_SKCONV=1; the JAX kernel on
+// bf16 inputs takes dt = xq.dtype, :716 and :791): xq, xkv, the 16 weights,
+// out, dout, dxq, dxkv and the weight gradients bf16; the bias, the mask,
+// dbias and what the forward keeps float32.  The JAX kernel's rounding
+// points (_full_fwd :706-775, _full_bwd_impl :778-973): the LN in float32
+// rounded to bf16, q / kv summed in float32 with their bias and rounded, q
+// times the scale rounded to bf16 and the product rounded, P rounded once
+// before P v; the attention's tokens float32 and unrounded (tok_sc, :740,
+// :772); SKConv in float32 on them with the weights widened (:749-754), out
+// rounded once.  Backward: dout widened; SKConv's backward in float32; the
+// tokens' gradient rounded to bf16 before the attention backward (:902); P*M
+// and dS rounded before their products, dbias from the unrounded dS; dq /
+// dkv in float32, rounded before the projection backward (:917-933; the
+// bias sums take them unrounded); the 16 weight gradients summed in float32
+// and rounded once (:971).  The forward runs K1's bf16 LN + projection
+// (ln_proj_bf16_kernel storing q / kv in bf16), the attention forward on
+// bf16 rows writing float32 tokens (window_attn_fwd_kernel<DROP, bf16,
+// float, float>) and SKConv on bf16 weights in float32 sums
+// (launch_skconv_t<bf16>, K1's bf16 tail without the residual); the
+// backward widens its bf16 inputs and weights once and runs the float32
+// kernels, with BF16 rounding in the attention and projection backward.
+// Bound at B = 64, flagship geometry: forward 37.7 MB of bf16 (xq, xkv,
+// out) = 11 us, and 4.33 GFLOP on bf16 operands at 989 TFLOP/s plus SKConv's
+// 1.61 in float32 at 67 = 28 us; backward 62.9 MB = 19 us, and 12.98 GFLOP
+// on bf16 operands plus 4.83 in float32 = 85 us; both bound by operations.
 
 #include "window_train_common.cuh"
+
+using bf16 = __nv_bfloat16;
 
 namespace {
 
@@ -571,4 +599,146 @@ extern "C" int window_attention_full_backward(const float* xq, const float* xkv,
   return static_cast<int>(launch_ln_proj_bwd(xq, xkv, wt[0], wt[1], wt[2], wt[3], wt[4], wt[6], r.dq, r.dkv,
                                              r.wpart_q, r.wpart_kv, r.lnpart_q, r.lnpart_kv, dxq, dxkv, g_q, g_kv,
                                              g_ln_q, g_ln_kv, ntok, D, st));
+}
+
+namespace {
+
+// The element counts of the 16 weights, in wt's order.
+void weight_sizes(int D, int dz, int ch, int64_t (&n)[16]) {
+  const int64_t sizes[16] = {D, D, D, D, (int64_t)D * D, D, 2LL * D * D, 2 * D, (int64_t)D * D, D,
+                             (int64_t)dz * D, dz, (int64_t)D * dz, D, (int64_t)D * ch, D};
+  for (int i = 0; i < 16; ++i) n[i] = sizes[i];
+}
+
+// The bf16 backward's scratch besides carve_bwd's: q and kv recomputed in
+// bf16; xq, xkv and dout widened; the 16 weights widened, each on its own
+// 128-byte boundary; their float32 gradients, laid out as gw.
+struct Bf16Extra {
+  bf16 *qh, *kvh;
+  float *xqf, *xkvf, *doutf, *gwf;
+  float* wtf[16];
+  int64_t n[16], n_w;
+};
+
+Bf16Extra carve_bf16(Carver& c, int B, int H, int W, int D, int n_group, int dz) {
+  const size_t T = (size_t)B * H * W;
+  Bf16Extra e;
+  e.qh = reinterpret_cast<bf16*>(c.take(T * D / 2));
+  e.kvh = reinterpret_cast<bf16*>(c.take(T * D));
+  e.xqf = c.take(T * D), e.xkvf = c.take(T * D), e.doutf = c.take(T * D);
+  weight_sizes(D, dz, D / n_group, e.n);
+  e.n_w = 0;
+  for (int i = 0; i < 16; ++i) e.wtf[i] = c.take(e.n[i]), e.n_w += e.n[i];
+  e.gwf = c.take(e.n_w);
+  return e;
+}
+
+}  // namespace
+
+// The bf16 forward: the arguments of window_attention_full_forward with xq,
+// xkv, the 16 weights of wt and out bf16 (bias, mask, tok, partial, gate
+// float32) and scratch of window_attention_full_forward_bf16_scratch floats.
+extern "C" size_t window_attention_full_forward_bf16_scratch(int B, int H, int W, int D) {
+  const size_t T = (size_t)B * H * W;
+  Carver c{nullptr};
+  c.take(T * D / 2);
+  c.take(T * D);
+  c.take(T * D);
+  return c.n;
+}
+
+extern "C" int window_attention_full_forward_bf16(const bf16* xq, const bf16* xkv, const bf16* const* wt,
+                                                  const float* bias, const float* mask, float* scratch, bf16* out,
+                                                  float* tok, float* partial, float* gate, int B, int H, int W,
+                                                  int D, int n_group, const int* ws, const int* shifts, int gh,
+                                                  int dz, float scale, uint32_t seed, uint32_t thresh,
+                                                  float inv_keep, int drop, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  const int L = H * W;
+  const size_t T = (size_t)B * L;
+  Carver c{scratch};
+  bf16* qbuf = reinterpret_cast<bf16*>(c.take(T * D / 2));
+  bf16* kvbuf = reinterpret_cast<bf16*>(c.take(T * D));
+  float* feats = c.take(T * D);
+  cudaError_t err = launch_ln_proj(xq, xkv, wt[0], wt[1], wt[2], wt[3], wt[4], wt[5], wt[6], wt[7], qbuf, kvbuf,
+                                   B * L, D, 1, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_attn_groups_any(static_cast<const bf16*>(qbuf), static_cast<const bf16*>(kvbuf),
+                               static_cast<const bf16*>(kvbuf + D), 2 * D, bias, mask, tok, B, H, W, D, n_group, ws,
+                               shifts, gh, scale, 0, seed, thresh, inv_keep, drop, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_skconv_t(static_cast<const float*>(tok), wt[8], wt[9], wt[10], wt[11], wt[12],
+                                          wt[13], wt[14], wt[15], static_cast<const bf16*>(nullptr), feats, partial,
+                                          gate, out, B, L, D, n_group, dz, 0, st));
+}
+
+// The floats of the bf16 backward's scratch (on the current device).
+extern "C" size_t window_attention_full_backward_bf16_scratch(int B, int H, int W, int D, int n_group,
+                                                              const int* ws, int gh, int dz) {
+  int grid = 0;
+  if (persistent_grid(B * H * W / TOK, &grid) != cudaSuccess) return 0;
+  Carver c{nullptr};
+  carve_bwd(c, B, H, W, D, n_group, ws, gh, dz, grid);
+  carve_bf16(c, B, H, W, D, n_group, dz);
+  return c.n;
+}
+
+// The bf16 backward: the arguments of window_attention_full_backward with
+// xq, xkv, the weights of wt, dout, dxq, dxkv and gw bf16 (bias, mask, tok,
+// partial, gate and dbias float32) and scratch of
+// window_attention_full_backward_bf16_scratch floats.
+extern "C" int window_attention_full_backward_bf16(const bf16* xq, const bf16* xkv, const bf16* const* wt,
+                                                   const float* bias, const float* mask, const bf16* dout,
+                                                   const float* tok, const float* partial, const float* gate,
+                                                   float* scratch, bf16* dxq, bf16* dxkv, bf16* gw, float* dbias,
+                                                   int B, int H, int W, int D, int n_group, const int* ws,
+                                                   const int* shifts, int gh, int dz, float scale, uint32_t seed,
+                                                   uint32_t thresh, float inv_keep, int drop, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  const int L = H * W, ntok = B * L;
+  const int64_t nd = (int64_t)ntok * D;
+  int grid = 0;
+  cudaError_t err = persistent_grid(ntok / TOK, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Carver c{scratch};
+  const BwdBufs r = carve_bwd(c, B, H, W, D, n_group, ws, gh, dz, grid);
+  const Bf16Extra e = carve_bf16(c, B, H, W, D, n_group, dz);
+  const Kept k{const_cast<float*>(tok), const_cast<float*>(partial), const_cast<float*>(gate)};
+  // the weights, the inputs and dout widened
+  for (int i = 0; i < 16; ++i)
+    if ((err = convert(wt[i], e.wtf[i], e.n[i], st)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = convert(xq, e.xqf, nd, st)) != cudaSuccess || (err = convert(xkv, e.xkvf, nd, st)) != cudaSuccess ||
+      (err = convert(dout, e.doutf, nd, st)) != cudaSuccess)
+    return static_cast<int>(err);
+  // q and kv recomputed as the forward rounds them, then widened (q times the
+  // bf16 scale, as the forward's attention scales it)
+  if ((err = launch_ln_proj(xq, xkv, wt[0], wt[1], wt[2], wt[3], wt[4], wt[5], wt[6], wt[7], e.qh, e.kvh, ntok, D, 1,
+                            st)) != cudaSuccess ||
+      (err = bf16_rows(e.qh, D, r.qbuf, D, ntok, D, bf16_scale(scale), st)) != cudaSuccess ||
+      (err = convert(e.kvh, r.kvbuf, 2 * nd, st)) != cudaSuccess)
+    return static_cast<int>(err);
+  // offsets of the 16 float32 gradients in gwf, as in gw
+  float* g_ln_q = e.gwf;
+  float* g_ln_kv = g_ln_q + 2 * D;
+  float* g_q = g_ln_kv + 2 * D;
+  float* g_kv = g_q + D * D + D;
+  float* g_p = g_kv + 2 * D * D + 2 * D;
+  float* g_fc = g_p + D * D + D;
+  float* g_ph = g_fc + 2 * dz * D + dz + D;
+  // SKConv's backward in float32, then the tokens' gradient rounded to bf16
+  if ((err = launch_skconv_bwd(e.doutf, k, e.wtf, r, g_fc, g_p, g_ph, B, L, D, n_group, dz, grid, st)) !=
+          cudaSuccess ||
+      (err = bf16_rows(r.dtok, D, r.dtok, D, ntok, D, 1.f, st)) != cudaSuccess)
+    return static_cast<int>(err);
+  err = launch_attn_bwd_groups_any<true>(r.qbuf, r.kvbuf, r.kvbuf + D, 2 * D, r.dtok, bias, mask, r.dq, r.dkv,
+                                         r.dkv + D, r.dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale,
+                                         seed, thresh, inv_keep, drop, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_ln_proj_bwd(e.xqf, e.xkvf, e.wtf[0], e.wtf[1], e.wtf[2], e.wtf[3], e.wtf[4], e.wtf[6], r.dq, r.dkv,
+                           r.wpart_q, r.wpart_kv, r.lnpart_q, r.lnpart_kv, dxq, dxkv, g_q, g_kv, g_ln_q, g_ln_kv, ntok,
+                           D, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(convert(static_cast<const float*>(e.gwf), gw, e.n_w, st));
 }

@@ -50,8 +50,9 @@
 // the relative-position bias (as the JAX package passes it,
 // dpmn_tpu/models/pgrm.py:405-407), the mask and dbias float32.  The JAX
 // kernel's rounding points: the LN in float32 rounded to bf16; each
-// projection summed in float32 with its bias and rounded to bf16; q * scale
-// in bf16 (exact: the wrapper takes a power-of-two scale); the scores, the
+// projection summed in float32 with its bias and rounded to bf16; q times
+// the scale rounded to bf16, the product rounded to bf16 (:301; dq takes the
+// float32 scale, :114); the scores, the
 // softmax and the dropout in float32, P rounded to bf16 once before P v, out
 // rounded once.  Backward: P*M and dS rounded to bf16 before their products
 // (dbias sums the unrounded dS), dq / dkv in float32 rounded to bf16 before
@@ -61,30 +62,15 @@
 // (ln_proj_bf16_kernel, bf16 m16n8k16) writing q / kv in bf16 and the
 // attention forward on bf16 io with the float32 bias
 // (window_attn_fwd_kernel<DROP, bf16, float>); the backward widens its bf16
-// inputs to float32 once (convert_kernel) and runs the float32 kernels with
-// their BF16 rounding (window_train_common.cuh).
+// inputs to float32 once (convert_kernel; q times the bf16 scale,
+// bf16_rows) and runs the float32 kernels with their BF16 rounding
+// (window_train_common.cuh).
 
 #include "window_train_common.cuh"
 
 using bf16 = __nv_bfloat16;
 
 namespace {
-
-// dst[i] = src[i] converted (float32 <-> bf16, round to nearest even), a
-// grid-stride loop.
-template <typename S, typename D>
-__global__ void convert_kernel(const S* __restrict__ src, D* __restrict__ dst, int64_t n) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += (int64_t)gridDim.x * blockDim.x)
-    from_f(dst[i], to_f(src[i]));
-}
-
-template <typename S, typename D>
-cudaError_t convert(const S* src, D* dst, int64_t n, cudaStream_t st) {
-  if (n <= 0) return cudaSuccess;
-  const int64_t blocks = (n + THREADS - 1) / THREADS;
-  convert_kernel<<<(int)(blocks < 4096 ? blocks : 4096), THREADS, 0, st>>>(src, dst, n);
-  return cudaGetLastError();
-}
 
 // The float32 scratch of the bf16 backward, carved from one buffer, every
 // piece a multiple of 4 floats (16-byte aligned).
@@ -177,8 +163,7 @@ extern "C" int window_attention_train_backward(
 }
 
 // The bf16 forward: the arguments of window_attention_train_forward with
-// xq ... kv_b, qbuf, kvbuf and out in bf16 and bias, mask float32.  scale a
-// power of two (q * scale exact in bf16).
+// xq ... kv_b, qbuf, kvbuf and out in bf16 and bias, mask float32.
 extern "C" int window_attention_train_forward_bf16(
     const bf16* xq, const bf16* xkv, const bf16* qs, const bf16* qb, const bf16* ks, const bf16* kb, const bf16* q_w,
     const bf16* q_b, const bf16* kv_w, const bf16* kv_b, const float* bias, const float* mask, bf16* qbuf,
@@ -203,8 +188,7 @@ extern "C" size_t window_attention_train_backward_bf16_work(int B, int H, int W,
 // The bf16 backward: the forward's inputs, dout (B, L, D) bf16 and `work`
 // (window_attention_train_backward_bf16_work floats); outputs dxq, dxkv
 // (B, L, D), gq = [dWq | dbq], gkv = [dWkv | dbkv], gln_q = [dqs | dqb],
-// gln_kv = [dks | dkb] in bf16, dbias float32 laid out as bias.  At most 2
-// heads a group (the tensor-core attention backward).
+// gln_kv = [dks | dkb] in bf16, dbias float32 laid out as bias.
 extern "C" int window_attention_train_backward_bf16(
     const bf16* xq, const bf16* xkv, const bf16* qs, const bf16* qb, const bf16* ks, const bf16* kb, const bf16* q_w,
     const bf16* q_b, const bf16* kv_w, const bf16* kv_b, const float* bias, const float* mask, const bf16* dout,
@@ -214,7 +198,7 @@ extern "C" int window_attention_train_backward_bf16(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ntok = B * H * W;
   const int64_t nd = (int64_t)ntok * D;
-  if (D / n_group != gh * GCH || gh > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
   const Bf16BwdWork r(work, B, H, W, D, n_group, ws, gh);
   // the parameters, inputs and dout widened to float32
   float* const qsf = r.pf;
@@ -231,10 +215,12 @@ extern "C" int window_attention_train_backward_bf16(
   if (err != cudaSuccess || (err = convert(xq, r.xqf, nd, st)) != cudaSuccess ||
       (err = convert(xkv, r.xkvf, nd, st)) != cudaSuccess || (err = convert(dout, r.doutf, nd, st)) != cudaSuccess)
     return static_cast<int>(err);
-  // q and kv recomputed as the forward rounds them, then widened
+  // q and kv recomputed as the forward rounds them, then widened (q times
+  // the bf16 scale, as the forward's attention scales it)
   if ((err = launch_ln_proj(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, r.qh, r.kvh, ntok, D, 1, st)) !=
           cudaSuccess ||
-      (err = convert(r.qh, r.qf, nd, st)) != cudaSuccess || (err = convert(r.kvh, r.kvf, 2 * nd, st)) != cudaSuccess)
+      (err = bf16_rows(r.qh, D, r.qf, D, ntok, D, bf16_scale(scale), st)) != cudaSuccess ||
+      (err = convert(r.kvh, r.kvf, 2 * nd, st)) != cudaSuccess)
     return static_cast<int>(err);
   err = launch_attn_bwd_groups_any<true>(r.qf, r.kvf, r.kvf + D, 2 * D, r.doutf, bias, mask, r.dq, r.dkv, r.dkv + D,
                                          r.dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh,

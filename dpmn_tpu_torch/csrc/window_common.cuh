@@ -492,12 +492,12 @@ constexpr int MAX_ATTN_GROUPS = 6;  // D <= 96 in groups of 16 gh >= 16 channels
 // The arguments of one attention-forward launch (a __grid_constant__
 // kernel parameter).  grp holds the groups in work-list order: 8x8, then
 // 4x4, then 2x2 windows.
-template <typename T, typename BT = T>
+template <typename T, typename BT = T, typename OT = T>
 struct AttnArgs {
   const T* q;
   const T* k;
   const T* v;
-  T* out;
+  OT* out;
   int kvs, B, H, W, D, gh, corrected, vec;
   float scale, inv_keep;
   uint32_t seed, thresh;
@@ -505,9 +505,12 @@ struct AttnArgs {
   AttnGroup<T, BT> grp[MAX_ATTN_GROUPS];
 };
 
-// bf16 io with a float32 bias is K3's bf16 form: P is rounded to bf16 once
-// before P V, as dpmn_tpu/ops/pallas_window_train.py:316 casts it (K7's
-// bf16 keeps P as bf16 hi + lo, attn_tile.cuh).
+// bf16 io with a float32 bias is the training cores' bf16 form (K3, K4,
+// K5): q is multiplied by the scale rounded to bf16 and the product rounded
+// to bf16 (dpmn_tpu/ops/pallas_window_train.py:301, a bf16 array times a
+// weakly typed Python float; launch_attn rounds the scale), the scores take
+// no further scale, and P is rounded to bf16 once before P V, as :316 casts
+// it (K7's bf16 keeps P as bf16 hi + lo, attn_tile.cuh).
 template <typename T, typename BT>
 __host__ __device__ constexpr bool p_rounded_once() {
   return sizeof(T) == 2 && sizeof(BT) == 4;
@@ -517,8 +520,8 @@ __host__ __device__ constexpr bool p_rounded_once() {
 // row), THREADS rows a unit; its q row and the window's k and v rows read as
 // 16-byte pieces (the 4 threads of a window and head share them through
 // L1), the 4 scores, softmax, dropout and the 16 outputs in registers.
-template <bool DROP, typename T, typename BT>
-__device__ __forceinline__ void attn_unit4(const AttnArgs<T, BT>& a, const AttnGroup<T, BT>& gr, int unit) {
+template <bool DROP, typename T, typename BT, typename OT>
+__device__ __forceinline__ void attn_unit4(const AttnArgs<T, BT, OT>& a, const AttnGroup<T, BT>& gr, int unit) {
   const int ch = a.gh * GCH, L = a.H * a.W;
   const int nwc = a.W / 2, nw = (a.H / 2) * nwc;
   const int t = unit * THREADS + threadIdx.x;
@@ -532,6 +535,10 @@ __device__ __forceinline__ void attn_unit4(const AttnArgs<T, BT>& a, const AttnG
   for (int j = 0; j < 4; ++j) tok[j] = window_token_c<2>(widx, j, nwc, gr.sh, a.H, a.W);
   float qv[GCH], s[4];
   load_row16(qv, a.q + (base + tok[i]) * a.D + col, a.vec);
+  if constexpr (p_rounded_once<T, BT>()) {
+#pragma unroll
+    for (int d = 0; d < GCH; ++d) qv[d] = round_bf16(qv[d] * a.scale);
+  }
   const BT* brow = gr.bias + (hd * 4 + i) * 4;
   const float* mrow = gr.sh > 0 ? gr.mask + ((int64_t)widx * 4 + i) * 4 : nullptr;
   float mx = -INFINITY;
@@ -542,7 +549,10 @@ __device__ __forceinline__ void attn_unit4(const AttnArgs<T, BT>& a, const AttnG
     float acc = 0.f;
 #pragma unroll
     for (int d = 0; d < GCH; ++d) acc = fmaf(qv[d], kv[d], acc);
-    acc = acc * a.scale + ldg_one(brow + j);
+    if constexpr (p_rounded_once<T, BT>())
+      acc += ldg_one(brow + j);
+    else
+      acc = acc * a.scale + ldg_one(brow + j);
     if (mrow) acc += __ldg(mrow + j);
     s[j] = acc;
     mx = fmaxf(mx, acc);
@@ -576,8 +586,9 @@ __device__ __forceinline__ void attn_unit4(const AttnArgs<T, BT>& a, const AttnG
 // cp.async group: 16-byte pieces (cp.async) where `vec`, else elements; a
 // thread takes (row, piece) pairs, the same piece of q, k, v.  Slot
 // (elements of T): q, k [N][ldq], v [N][ldv].
-template <int N, typename T, typename BT>
-__device__ __forceinline__ void attn_stage(const AttnArgs<T, BT>& a, const AttnGroup<T, BT>& gr, int step, T* dst0) {
+template <int N, typename T, typename BT, typename OT>
+__device__ __forceinline__ void attn_stage(const AttnArgs<T, BT, OT>& a, const AttnGroup<T, BT>& gr, int step,
+                                           T* dst0) {
   constexpr int WS = N == 16 ? 4 : 8;
   const int ch = a.gh * GCH, L = a.H * a.W;
   const int nwc = a.W / WS, nw = (a.H / WS) * nwc, units = a.B * nw;
@@ -615,8 +626,8 @@ __device__ __forceinline__ void attn_stage(const AttnArgs<T, BT>& a, const AttnG
 // registers (8-byte loads, a quad per 32-byte sector), the softmax and the
 // dropout in registers, and each output row written in 16-byte pieces (a
 // lane pair swaps halves so that each lane holds 4 adjacent columns).
-template <int N, bool DROP, typename T, typename BT>
-__device__ __forceinline__ void attn_step_tc(const AttnArgs<T, BT>& a, const AttnGroup<T, BT>& gr, int step,
+template <int N, bool DROP, typename T, typename BT, typename OT>
+__device__ __forceinline__ void attn_step_tc(const AttnArgs<T, BT, OT>& a, const AttnGroup<T, BT>& gr, int step,
                                              const T* sb) {
   constexpr int WS = N == 16 ? 4 : 8, MT = N / 16, NT = N / 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
@@ -632,7 +643,8 @@ __device__ __forceinline__ void attn_step_tc(const AttnArgs<T, BT>& a, const Att
     const T* Qs = sb + lw * slot;
     float s[NT][4] = {};
     if constexpr (sizeof(T) == 2)
-      qk_tile_bf16<NT>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq);
+      qk_tile_bf16<NT, p_rounded_once<T, BT>()>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq,
+                                               a.scale);
     else
       qk_tile<NT>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq, GCH);
     const BT* bh = gr.bias + hd * N * N;
@@ -649,8 +661,13 @@ __device__ __forceinline__ void attn_step_tc(const AttnArgs<T, BT>& a, const Att
           add.x += mm.x;
           add.y += mm.y;
         }
-        s[jn][2 * r] = s[jn][2 * r] * a.scale + add.x;
-        s[jn][2 * r + 1] = s[jn][2 * r + 1] * a.scale + add.y;
+        if constexpr (p_rounded_once<T, BT>()) {
+          s[jn][2 * r] += add.x;
+          s[jn][2 * r + 1] += add.y;
+        } else {
+          s[jn][2 * r] = s[jn][2 * r] * a.scale + add.x;
+          s[jn][2 * r + 1] = s[jn][2 * r + 1] * a.scale + add.y;
+        }
       }
     softmax_rows<true>(s);
     if (DROP) {
@@ -676,7 +693,7 @@ __device__ __forceinline__ void attn_step_tc(const AttnArgs<T, BT>& a, const Att
     for (int r = 0; r < 2; ++r) {
       const int i = i0 + 8 * r;
       const int row = a.corrected ? window_token_c<WS>(widx, i, nwc, gr.sh, a.H, a.W) : widx * N + i;
-      T* orow = a.out + ((int64_t)b * L + row) * a.D + gr.g * ch + hd * GCH;
+      OT* orow = a.out + ((int64_t)b * L + row) * a.D + gr.g * ch + hd * GCH;
       // lane t4 holds columns 2 t4, 2 t4 + 1 of both 8-column tiles; after
       // the swap an even lane holds columns 2 t4 .. 2 t4 + 3 of tile 0, an
       // odd lane columns 2 t4 + 6 .. 2 t4 + 9 (tile 1)
@@ -690,8 +707,8 @@ __device__ __forceinline__ void attn_step_tc(const AttnArgs<T, BT>& a, const Att
   }
 }
 
-template <typename T, typename BT>
-__device__ __forceinline__ void attn_stage_any(const AttnArgs<T, BT>& a, const AttnGroup<T, BT>& gr, int unit,
+template <typename T, typename BT, typename OT>
+__device__ __forceinline__ void attn_stage_any(const AttnArgs<T, BT, OT>& a, const AttnGroup<T, BT>& gr, int unit,
                                                T* dst) {
   if (gr.ws == 8)
     attn_stage<64>(a, gr, unit - gr.unit0, dst);
@@ -706,10 +723,11 @@ __device__ __forceinline__ void attn_stage_any(const AttnArgs<T, BT>& a, const A
 // g: the -sh roll (window_token), S = scale q k^T + bias [+ mask], P =
 // softmax(S), with DROP P times the dropout mask (kept entries by
 // inv_keep), and P v, written to raw row widx N + i (faithful) or to the
-// query's token row (corrected).  T is the io type of q, k, v and out, BT
-// the bias's (float, or bf16 for K7; bf16 io with a float32 bias for K3's
-// bf16 form, which rounds P to bf16 once before P v); the mask is float32
-// and every sum runs in float32.  `vec`: q, k, v and out are 16-byte aligned, so rows move in
+// query's token row (corrected).  T is the io type of q, k, v, OT out's
+// (T, or float32 for K5's bf16 form, whose tokens stay unrounded), BT the
+// bias's (float, or bf16 for K7; bf16 io with a float32 bias for the
+// training cores' bf16 form, p_rounded_once); the mask is float32 and every
+// sum runs in float32.  `vec`: q, k, v and out are 16-byte aligned, so rows move in
 // 16-byte pieces; otherwise element by element (the same arithmetic).
 //
 // Persistent CTAs of 8 warps walk one work list of units, blockIdx.x, +
@@ -722,9 +740,9 @@ __device__ __forceinline__ void attn_stage_any(const AttnArgs<T, BT>& a, const A
 // least 2 CTAs an SM in float32 (up to 128 registers a thread), 3 in K7's
 // bf16 (up to 80, no spill; faster than 2 on an H100 SXM, where 4 spill:
 // tools/attention_groups.py `ctas2`), 2 in K3's bf16 form (it spills at 80).
-template <bool DROP, typename T, typename BT = T>
+template <bool DROP, typename T, typename BT = T, typename OT = T>
 __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 && sizeof(BT) == 2 ? 3 : 2)
-    window_attn_fwd_kernel(const __grid_constant__ AttnArgs<T, BT> a) {
+    window_attn_fwd_kernel(const __grid_constant__ AttnArgs<T, BT, OT> a) {
   extern __shared__ __align__(16) unsigned char fwd_smem[];
   T* sm = reinterpret_cast<T*>(fwd_smem);
   int s = 0, buf = 0;  // the group of the CTA's current unit; the buffer its step sits in
@@ -762,17 +780,18 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 && sizeof(BT) == 2 ? 3
 // Launch the forward attention of every group, one launch: biases[g] and
 // masks[g] are group g's tables (masks[g] read only where shifts[g] > 0).
 // Windows of 2, 4 or 8 dividing H and W, at most MAX_ATTN_GROUPS groups.
-template <bool DROP, typename T, typename BT = T>
+template <bool DROP, typename T, typename BT = T, typename OT = T>
 cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const BT* const* biases,
-                        const float* const* masks, T* out, int B, int H, int W, int D, int n_group, const int* ws,
+                        const float* const* masks, OT* out, int B, int H, int W, int D, int n_group, const int* ws,
                         const int* shifts, int gh, float scale, int corrected, uint32_t seed, uint32_t thresh,
                         float inv_keep, cudaStream_t st) {
   if (n_group < 1 || n_group > MAX_ATTN_GROUPS) return cudaErrorInvalidValue;
-  AttnArgs<T, BT> a;
+  AttnArgs<T, BT, OT> a;
   a.q = q, a.k = k, a.v = v, a.out = out;
   a.kvs = kvs, a.B = B, a.H = H, a.W = W, a.D = D, a.gh = gh, a.corrected = corrected;
   a.vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
-  a.scale = scale, a.inv_keep = inv_keep, a.seed = seed, a.thresh = thresh;
+  a.scale = p_rounded_once<T, BT>() ? __bfloat162float(__float2bfloat16_rn(scale)) : scale;
+  a.inv_keep = inv_keep, a.seed = seed, a.thresh = thresh;
   const int ch = gh * GCH;
   int n = 0, units = 0, buf_elems = 0;
   const int order[3] = {8, 4, 2};
@@ -793,7 +812,7 @@ cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const BT* c
   if (n != n_group) return cudaErrorInvalidValue;  // a window other than 2, 4 or 8
   a.n_group = n, a.n_units = units, a.buf_elems = buf_elems;
   const size_t smem = (size_t)2 * buf_elems * sizeof(T);
-  auto kern = window_attn_fwd_kernel<DROP, T, BT>;
+  auto kern = window_attn_fwd_kernel<DROP, T, BT, OT>;
   static GridCap cache;
   int cap = 0;
   const cudaError_t err = persistent_cap(cache, kern, THREADS, smem, &cap);
@@ -806,9 +825,9 @@ cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const BT* c
 
 // launch_attn on the per-group tables concatenated (masks of shifted groups
 // only).
-template <bool DROP, typename T, typename BT>
+template <bool DROP, typename T, typename BT, typename OT>
 cudaError_t launch_attn_groups(const T* q, const T* k, const T* v, int kvs, const BT* bias, const float* mask,
-                               T* out, int B, int H, int W, int D, int n_group, const int* ws, const int* shifts,
+                               OT* out, int B, int H, int W, int D, int n_group, const int* ws, const int* shifts,
                                int gh, float scale, int corrected, uint32_t seed, uint32_t thresh, float inv_keep,
                                cudaStream_t st) {
   if (n_group < 1 || n_group > MAX_ATTN_GROUPS) return cudaErrorInvalidValue;
@@ -828,9 +847,9 @@ cudaError_t launch_attn_groups(const T* q, const T* k, const T* v, int kvs, cons
 }
 
 // launch_attn_groups with the dropout flag chosen at run time.
-template <typename T, typename BT>
+template <typename T, typename BT, typename OT>
 inline cudaError_t launch_attn_groups_any(const T* q, const T* k, const T* v, int kvs, const BT* bias,
-                                          const float* mask, T* out, int B, int H, int W, int D, int n_group,
+                                          const float* mask, OT* out, int B, int H, int W, int D, int n_group,
                                           const int* ws, const int* shifts, int gh, float scale, int corrected,
                                           uint32_t seed, uint32_t thresh, float inv_keep, int drop,
                                           cudaStream_t st) {

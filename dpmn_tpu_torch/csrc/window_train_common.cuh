@@ -7,14 +7,18 @@
 // per-block partials (sum_rows_kernel) that every cross-block sum goes
 // through: no float atomics, so reruns agree bit for bit.
 //
-// K3's bf16 form runs these float32 kernels on bf16 values widened to
-// float32 (a bf16 value is exact in TF32, so the 3xTF32 products of two of
-// them are exact), with BF16 set where the JAX kernel rounds a float32
-// intermediate to its io dtype (dpmn_tpu/ops/pallas_window_train.py): the
-// attention backward rounds P*M before dV and dS before dQ / dK (:103, :111;
-// dbias sums the unrounded dS), the projection backward rounds dq / dkv
-// before dx_ln and dW (:488-502; db sums them unrounded) and the recomputed
-// LN before dW (:430-431), and dx leaves as bf16 (:511-512).
+// The training cores' bf16 forms (K3, K4, K5) run these float32 kernels on
+// bf16 values widened to float32 (a bf16 value is exact in TF32, so the
+// 3xTF32 products of two of them are exact), with BF16 set where the JAX
+// kernel rounds a float32 intermediate to its io dtype
+// (dpmn_tpu/ops/pallas_window_train.py): the attention backward takes q
+// already scaled as the forward scales it, round_bf16(q * bf16(scale))
+// (:208, :835; the caller widens it so, `bf16_rows`), so the scores and dK
+// take no further scale while dQ takes the float32 scale (:114), and rounds
+// P*M before dV and dS before dQ / dK (:103, :111; dbias sums the unrounded
+// dS); the projection backward rounds dq / dkv before dx_ln and dW
+// (:488-502; db sums them unrounded) and the recomputed LN before dW
+// (:430-431), and dx leaves as bf16 (:511-512).
 //
 // The build hash of every csrc/*.cu covers this header (ops/kernels.py).
 
@@ -23,6 +27,45 @@
 #include "window_common.cuh"
 
 namespace {
+
+// dst[i] = src[i] converted (float32 <-> bf16, round to nearest even), a
+// grid-stride loop.
+template <typename S, typename D>
+__global__ void convert_kernel(const S* __restrict__ src, D* __restrict__ dst, int64_t n) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += (int64_t)gridDim.x * blockDim.x)
+    from_f(dst[i], to_f(src[i]));
+}
+
+template <typename S, typename D>
+cudaError_t convert(const S* src, D* dst, int64_t n, cudaStream_t st) {
+  if (n <= 0) return cudaSuccess;
+  const int64_t blocks = (n + THREADS - 1) / THREADS;
+  convert_kernel<<<(int)(blocks < 4096 ? blocks : 4096), THREADS, 0, st>>>(src, dst, n);
+  return cudaGetLastError();
+}
+
+// dst[r ds + c] = round_bf16(src[r ss + c] * mul), stored in D (bf16, or
+// float32 holding a bf16 value), r < rows, c < cols: a warp per row, 8 rows a
+// block, grid-stride.  With mul = bf16_scale(scale) it widens q as the bf16
+// forward scales it; with mul = 1 it widens bf16 rows of any stride, narrows
+// float32 rows, or rounds float32 rows in place (src == dst).
+template <typename S, typename D>
+__global__ void bf16_rows_kernel(const S* src, int64_t ss, D* dst, int64_t ds, int64_t rows, int cols, float mul) {
+  for (int64_t r = (int64_t)blockIdx.x * 8 + threadIdx.y; r < rows; r += (int64_t)gridDim.x * 8)
+    for (int c = threadIdx.x; c < cols; c += 32) from_f(dst[r * ds + c], round_bf16(to_f(src[r * ss + c]) * mul));
+}
+
+template <typename S, typename D>
+cudaError_t bf16_rows(const S* src, int64_t ss, D* dst, int64_t ds, int64_t rows, int cols, float mul,
+                      cudaStream_t st) {
+  if (rows <= 0) return cudaSuccess;
+  const int64_t blocks = (rows + 7) / 8;
+  bf16_rows_kernel<<<(int)(blocks < 4096 ? blocks : 4096), dim3(32, 8), 0, st>>>(src, ss, dst, ds, rows, cols, mul);
+  return cudaGetLastError();
+}
+
+// The scale as the JAX kernel multiplies a bf16 q by it: rounded to bf16.
+inline float bf16_scale(float scale) { return __bfloat162float(__float2bfloat16_rn(scale)); }
 
 // Tokens per block of the weight-gradient kernel.  At B = 64 (65536 tokens)
 // that is 128 blocks for a D-row weight, one wave of 132 SMs, and 256 for
@@ -40,7 +83,9 @@ constexpr int TOKC = 512;
 // (as in window_attn_fwd_kernel).  Shared:
 // scaled q, k, v and dout of the wpb windows [wpb][N][ch] each; dS and P*M
 // [wpb][gh][N][N + 1] (padded rows); the block's dbias sum [gh][N][N].
-template <int N, bool DROP>
+// BF16: q arrives scaled (module comment); dS and P*M rounded to bf16 before
+// their products (dbias sums the unrounded dS).
+template <int N, bool DROP, bool BF16 = false>
 __global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                        const float* __restrict__ v, int kvs, const float* __restrict__ dout,
                                        const float* __restrict__ bias, const float* __restrict__ mask,
@@ -72,7 +117,7 @@ __global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float*
       float qv = 0.f, kval = 0.f, vval = 0.f, dov = 0.f;
       if (widx < w_end) {
         const int64_t tok = base + window_token(widx, j, ws, nwc, sh, H, W);
-        qv = q[tok * D + g * ch + c] * scale;
+        qv = BF16 ? q[tok * D + g * ch + c] : q[tok * D + g * ch + c] * scale;
         kval = k[tok * kvs + g * ch + c];
         vval = v[tok * kvs + g * ch + c];
         dov = dout[(base + (int64_t)widx * N + j) * D + g * ch + c];
@@ -132,7 +177,7 @@ __global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float*
           dp *= m;
           pm = p * m;
         }
-        pdrow[j] = pm;
+        pdrow[j] = BF16 ? round_bf16(pm) : pm;
         dsrow[j] = dp;
         rowsum = fmaf(dp, p, rowsum);
       }
@@ -144,7 +189,7 @@ __global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float*
         const float dsv = s[j] * (dsrow[j] - rowsum);
         dsrow[j] = dsv;
 #pragma unroll
-        for (int d = 0; d < GCH; ++d) dqv[d] = fmaf(dsv, kw[j * ch + d], dqv[d]);
+        for (int d = 0; d < GCH; ++d) dqv[d] = fmaf(BF16 ? round_bf16(dsv) : dsv, kw[j * ch + d], dqv[d]);
       }
       float* dqrow = dq + (base + window_token(widx, r, ws, nwc, sh, H, W)) * D + g * ch + hd * GCH;
 #pragma unroll
@@ -163,7 +208,7 @@ __global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float*
 #pragma unroll
       for (int d = 0; d < GCH; ++d) dkv_[d] = dvv[d] = 0.f;
       for (int i = 0; i < N; ++i) {
-        const float a = dsb[i * NP + r], pm = pdb[i * NP + r];
+        const float a = BF16 ? round_bf16(dsb[i * NP + r]) : dsb[i * NP + r], pm = pdb[i * NP + r];
 #pragma unroll
         for (int d = 0; d < GCH; ++d) {
           dkv_[d] = fmaf(a, qw[i * ch + d], dkv_[d]);
@@ -209,7 +254,8 @@ __host__ __device__ inline int bwd4_windows(int gh) { return gh >= 32 ? 1 : 32 /
 // fixed-order sum_rows_kernel adds the blocks; no float atomics).  At
 // least 4 blocks an SM with dropout (registers up to 128 a thread: 4 %
 // faster than 3 on an H100 SXM at 700 W), 3 without (it spills at 128).
-// BF16: dS and PM rounded to bf16 before their products.
+// BF16: q arrives scaled (module comment); dS and PM rounded to bf16 before
+// their products.
 template <bool DROP, bool BF16 = false>
 __global__ void __launch_bounds__(128, DROP ? 4 : 3)
     window_attn_bwd4_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
@@ -285,7 +331,10 @@ __global__ void __launch_bounds__(128, DROP ? 4 : 3)
       acc = fmaf(qr[d], kv[d], acc);
       dacc = fmaf(dor[d], vv[d], dacc);
     }
-    acc = acc * scale + __ldg(brow + j);
+    if constexpr (BF16)
+      acc += __ldg(brow + j);
+    else
+      acc = acc * scale + __ldg(brow + j);
     if (mrow) acc += __ldg(mrow + j);
     s[j] = acc;
     dp[j] = dacc;
@@ -354,8 +403,10 @@ __global__ void __launch_bounds__(128, DROP ? 4 : 3)
       dva[d] = fmaf(pmv, oi[d], dva[d]);
     }
   }
+  if constexpr (!BF16) {
 #pragma unroll
-  for (int d = 0; d < GCH; ++d) dka[d] *= scale;
+    for (int d = 0; d < GCH; ++d) dka[d] *= scale;
+  }
   if (valid) {
     const int64_t off = tok_r * kvs + g * ch + hd * GCH;
     store_row16(dk + off, dka, vec);
@@ -391,8 +442,8 @@ __global__ void __launch_bounds__(128, DROP ? 4 : 3)
 // with dS and PM shared per head [N][N + 4].  dbias: each warp sums its dS
 // over its windows in registers, the slots are added in order into the
 // block's partial (dbias_part [block][gh][N][N]).  Shared per slot: q, k, v,
-// dout [N][CH + 4]; dS, PM [GH][N][N + 4].  BF16: dS and PM shared rounded
-// to bf16 (dbias sums the unrounded dS).
+// dout [N][CH + 4]; dS, PM [GH][N][N + 4].  BF16: q arrives scaled (module
+// comment); dS and PM shared rounded to bf16 (dbias sums the unrounded dS).
 template <int N, int GH, bool DROP, bool BF16 = false>
 __global__ void __launch_bounds__(THREADS)
     window_attn_bwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
@@ -453,7 +504,8 @@ __global__ void __launch_bounds__(THREADS)
         for (int r = 0; r < 2; ++r) {
           const int off = (i0 + 8 * r) * N + 8 * jn + 2 * t4;
           const float2 bb = __ldg(reinterpret_cast<const float2*>(bh + off));
-          float s0 = s[0][jn][2 * r] * scale + bb.x, s1 = s[0][jn][2 * r + 1] * scale + bb.y;
+          float s0 = BF16 ? s[0][jn][2 * r] + bb.x : s[0][jn][2 * r] * scale + bb.x;
+          float s1 = BF16 ? s[0][jn][2 * r + 1] + bb.y : s[0][jn][2 * r + 1] * scale + bb.y;
           if (mw) {
             const float2 mm = __ldg(reinterpret_cast<const float2*>(mw + off));
             s0 += mm.x;
@@ -545,7 +597,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int jn = 0; jn < 2; ++jn) {
           *reinterpret_cast<float2*>(dk + off + 8 * jn + 2 * t4) =
-              make_float2(a[0][jn][2 * r] * scale, a[0][jn][2 * r + 1] * scale);
+              BF16 ? make_float2(a[0][jn][2 * r], a[0][jn][2 * r + 1])
+                   : make_float2(a[0][jn][2 * r] * scale, a[0][jn][2 * r + 1] * scale);
           *reinterpret_cast<float2*>(dv + off + 8 * jn + 2 * t4) = make_float2(c[0][jn][2 * r], c[0][jn][2 * r + 1]);
         }
       }
@@ -845,7 +898,7 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
     return launch_sum_rows(dbias_part, dbias, B * nchunk, gh * N * N, st);
   } else {
     // the tensor-core kernel (wpb windows a step, as below) where its
-    // cp.async rows are 16-byte aligned; the bf16 form takes it alone
+    // cp.async rows are 16-byte aligned
     if ((gh == 1 || gh == 2) && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)) {
       auto kern = gh == 1 ? window_attn_bwd_tc_kernel<N, 1, DROP, BF16> : window_attn_bwd_tc_kernel<N, 2, DROP, BF16>;
       const size_t smem_tc = (size_t)wpb * (4 * N * (gh * GCH + 4) + 2 * gh * N * (N + 4)) * sizeof(float);
@@ -857,12 +910,12 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
       return launch_sum_rows(dbias_part, dbias, B * nchunk, gh * N * N, st);
     }
     // more than 2 heads or unaligned rows: a thread per row
-    if (BF16) return cudaErrorInvalidValue;
     const int threads = wpb * gh * N;
     const size_t smem =
         (size_t)(4 * wpb * N * gh * GCH + 2 * wpb * gh * N * (N + 1) + gh * N * N) * sizeof(float);
-    cudaFuncSetAttribute(window_attn_bwd_kernel<N, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    window_attn_bwd_kernel<N, DROP><<<dim3(nchunk, B), threads, smem, st>>>(
+    cudaFuncSetAttribute(window_attn_bwd_kernel<N, DROP, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    window_attn_bwd_kernel<N, DROP, BF16><<<dim3(nchunk, B), threads, smem, st>>>(
         q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, H, W, D, g, gh, ws, sh, wpb, 4 * wpb, scale, seed,
         thresh, inv_keep);
     cudaError_t err = cudaGetLastError();

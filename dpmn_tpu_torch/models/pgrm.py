@@ -18,9 +18,14 @@ backward, chosen by `train_core` as dpmn_tpu/models/pgrm.py:378-510 chooses
     (kernel K5); faithful layout only, "block" runs in its place otherwise.
 Dropout, attention dropout and drop path draw from the step's `TrainRng`.
 On bf16 tokens (the bf16 AMP step, the system's `train_dtype`) every block
-runs in bf16 and "block" passes K3 bf16 io with float32 bias tables, as the
-JAX package does (dpmn_tpu/models/pgrm.py:405-407); "attention" and "full"
-on bf16 raise (ROADMAP queue 1, item 1: K4 and K5 on bf16 io).
+runs in bf16 and each core takes bf16 tokens with float32 bias tables, as
+the JAX package passes them (dpmn_tpu/models/pgrm.py:405-407, :488-490): K3,
+K4 and K5 on bf16 io.  Under "attention" the LayerNorm and the projections
+before K4 follow the JAX package's XLA side on bf16: `_layer_norm`'s float32
+statistics rounded to bf16 once (dpmn_tpu/ops/pallas_window.py:191-202),
+and flax `nn.Dense` on bf16 operands, the product rounded to bf16 and the
+bias added in bf16 (`_dense_bf16`); k and v reach K4 as the halves of the
+kv projection, uncopied.
 
 Faithful quirks (`faithful=True`, the default): the attention output's
 window-major rows are read back as raster rows (model/pgrm.py:263), and the
@@ -183,10 +188,8 @@ class WindowAttention(nn.Module):
         if not self.training:
             return window_attention_block(x_q, x_kv, **self.block_args(ln))
         biases = self.biases()
-        if x_q.dtype == torch.bfloat16:
-            if self.train_core != "block":
-                raise NotImplementedError(f"train_core {self.train_core!r} on bf16 (the bf16 AMP step) is not ported "
-                                          "yet: ROADMAP queue 1, item 1 (K4 and K5 on bf16 io)")
+        bf16 = x_q.dtype == torch.bfloat16
+        if bf16:
             biases = [bb.float() for bb in biases]
         keep = 1.0 - self.attn_drop
         seed = rng.kernel_seed() if keep < 1.0 else 0
@@ -196,15 +199,34 @@ class WindowAttention(nn.Module):
                                               self.q.bias, self.kv.weight, self.kv.bias, *self.SKConv.weights(),
                                               *tail)
         if self.train_core == "attention":
-            q = self.q(layer_norm(x_q, ln["qs"], ln["qb"]))
-            kv = self.kv(layer_norm(x_kv, ln["ks"], ln["kb"]))
-            out = window_attention_core(q, kv[..., :self.dim].contiguous(), kv[..., self.dim:].contiguous(), *tail)
+            if bf16:
+                q = _dense_bf16(_layer_norm_bf16(x_q, ln["qs"], ln["qb"]), self.q)
+                kv = _dense_bf16(_layer_norm_bf16(x_kv, ln["ks"], ln["kb"]), self.kv)
+                out = window_attention_core(q, kv[..., :self.dim], kv[..., self.dim:], *tail)
+            else:
+                q = self.q(layer_norm(x_q, ln["qs"], ln["qb"]))
+                kv = self.kv(layer_norm(x_kv, ln["ks"], ln["kb"]))
+                out = window_attention_core(q, kv[..., :self.dim].contiguous(), kv[..., self.dim:].contiguous(),
+                                            *tail)
         else:
             out = window_attention_block_core(x_q, x_kv, ln["qs"], ln["qb"], ln["ks"], ln["kb"], self.q.weight,
                                               self.q.bias, self.kv.weight, self.kv.bias, *tail)
         if not self.faithful:
             out = corrected_relayout(out, self.win, self.shf, self.hw)
         return self.SKConv(out)
+
+
+def _layer_norm_bf16(x, scale, bias):
+    """`layer_norm` on bf16 tokens as the JAX package's `_layer_norm` computes
+    it: float32 statistics and affine on the widened values, rounded to bf16
+    once."""
+    return layer_norm(x.float(), scale.float(), bias.float()).to(torch.bfloat16)
+
+
+def _dense_bf16(x, lin: nn.Linear):
+    """flax `nn.Dense` on bf16 operands: the product (float32 sums) rounded to
+    bf16, then the bias added in bf16."""
+    return torch.matmul(x, lin.weight.T) + lin.bias
 
 
 class Mlp(nn.Module):

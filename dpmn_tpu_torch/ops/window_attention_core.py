@@ -19,10 +19,24 @@ the per-group bias gradients (heads, N, N).
 The JAX kernel takes one packed (n_group, heads, HW/128, 128, 128) bias that
 carries the shift masks and a -1e9 wall between windows; the port takes the
 per-group biases and masks, as its K3 does.
+
+bf16 io (the bf16 AMP step under "attention"): q, k, v bf16 with float32
+biases, as dpmn_tpu/models/pgrm.py:488-490 passes them; the output and dq,
+dk, dv bf16, dbias float32.  The kernels (csrc/window_attention_core.cu
+`_bf16` entry points, their own launch counters) and the plain version keep
+the TPU kernel's rounding points (_core_fwd / _core_bwd / _attn_head_bwd,
+dpmn_tpu/ops/pallas_window_train.py:82-265): q * bf16(scale) rounded
+(ops/window_attention_train.py `scale_q`), the scores, softmax and dropout
+in float32, P rounded once before P v, the output once; in the backward P*M
+and dS rounded before their products, dbias summed from the unrounded dS,
+dq / dk / dv rounded at the store.  There k and v may be row-strided views
+of one kv tensor (the halves of the kv projection, one row stride), so the
+caller copies nothing.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence
 
 import torch
@@ -33,13 +47,15 @@ from .window_attention_train import window_attention_core_plain  # noqa: F401  (
 
 forward_counter = kernels.LaunchCounter()
 backward_counter = kernels.LaunchCounter()
+forward_bf16_counter = kernels.LaunchCounter()
+backward_bf16_counter = kernels.LaunchCounter()
 
 _NAME = "window_attention_core"
 
 
 def _prepare(st: WT._Static, primals, biases):
-    """Check what the kernels take; returns (B, H, W, D, bias, mask, ws_arr,
-    sh_arr)."""
+    """Check what the float32 kernels take; returns (B, H, W, D, bias, mask,
+    ws_arr, sh_arr)."""
     q = primals[0]
     b, l, dim = q.shape
     WT.check_geometry(_NAME, st, l, dim)
@@ -48,8 +64,28 @@ def _prepare(st: WT._Static, primals, biases):
     return (b, *st.hw_shape, dim, *WT.pack_tables(st, biases, q.device))
 
 
+def _prepare_bf16(st: WT._Static, primals, biases):
+    """Check what the bf16 kernels take: q contiguous, k and v of one row
+    stride kvs (a multiple of 8 elements, at least D; contiguous or the
+    halves of one kv tensor), all bf16, float32 tables.  Returns (kvs, B, H,
+    W, D, bias, mask, ws_arr, sh_arr)."""
+    q, k, v = primals
+    b, l, dim = q.shape
+    WT.check_geometry(_NAME, st, l, dim)
+    kernels.check_cuda_tensor("q", q, (b, l, dim), q.device, torch.bfloat16)
+    kvs = k.stride(1)
+    for name, t in (("k", k), ("v", v)):
+        kernels.check_cuda_tensor(name, t, (b, l, dim), q.device, torch.bfloat16, contiguous=False)
+        if t.stride() != (l * kvs, kvs, 1) or kvs % 8 or kvs < dim:
+            raise ValueError(f"{name}: strides {t.stride()}, the bf16 kernel takes rows of one stride for k and v "
+                             f"(a multiple of 8 and at least {dim}; k has {kvs})")
+    return (kvs, b, *st.hw_shape, dim, *WT.pack_tables(st, biases, q.device))
+
+
 def _forward_cuda(st: WT._Static, primals, biases):
     """(out, ()): the backward takes the inputs alone."""
+    if primals[0].dtype == torch.bfloat16:
+        return _forward_bf16_cuda(st, primals, biases)
     b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device
     out = torch.empty(b, h * w, dim, device=dev)
@@ -63,6 +99,8 @@ def _forward_cuda(st: WT._Static, primals, biases):
 
 def _backward_cuda(st: WT._Static, primals, biases, dout: torch.Tensor, kept=()):
     """dq, dk, dv and the per-group bias gradients."""
+    if primals[0].dtype == torch.bfloat16:
+        return _backward_bf16_cuda(st, primals, biases, dout)
     b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases)
     dev = primals[0].device
     kernels.check_cuda_tensor("dout", dout, (b, h * w, dim), dev)
@@ -79,6 +117,41 @@ def _backward_cuda(st: WT._Static, primals, biases, dout: torch.Tensor, kept=())
     return (dq, dk, dv, *WT.split_bias_grad(dbias, biases))
 
 
+def _forward_bf16_cuda(st: WT._Static, primals, biases):
+    """The bf16 forward: (out bf16, ())."""
+    kvs, b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare_bf16(st, primals, biases)
+    dev = primals[0].device
+    out = torch.empty(b, h * w, dim, device=dev, dtype=torch.bfloat16)
+    fn = kernels.bind(_NAME, "window_attention_core_forward_bf16",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] + WT.core_argtypes(0))
+    err = fn(*[kernels.ptr(t) for t in (*primals, bias, mask, out)], kvs, b, h, w, dim, len(st.window_sizes), ws_arr,
+             sh_arr, st.gnum_heads, float(st.scale), *WT.drop_args(st), kernels.stream_ptr(dev))
+    kernels.check_launch(err, "window_attention_core_forward_bf16")
+    forward_bf16_counter.launches += 1
+    return out, ()
+
+
+def _backward_bf16_cuda(st: WT._Static, primals, biases, dout: torch.Tensor):
+    """The bf16 backward: dq, dk, dv bf16 (contiguous), the per-group bias
+    gradients float32."""
+    kvs, b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare_bf16(st, primals, biases)
+    dev = primals[0].device
+    kernels.check_cuda_tensor("dout", dout, (b, h * w, dim), dev, torch.bfloat16)
+    n_work = kernels.bind(_NAME, "window_attention_core_backward_bf16_work",
+                          [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int], ctypes.c_size_t)
+    work = torch.empty(n_work(b, h, w, dim, len(st.window_sizes), ws_arr, st.gnum_heads), device=dev)
+    dq, dk, dv = (torch.empty(b, h * w, dim, device=dev, dtype=torch.bfloat16) for _ in range(3))
+    dbias = torch.empty(bias.numel(), device=dev)
+    fn = kernels.bind(_NAME, "window_attention_core_backward_bf16",
+                      [ctypes.c_void_p] * 11 + [ctypes.c_int] + WT.core_argtypes(0))
+    err = fn(*[kernels.ptr(t) for t in (*primals, bias, mask, dout, work, dq, dk, dv, dbias)], kvs, b, h, w, dim,
+             len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, float(st.scale), *WT.drop_args(st),
+             kernels.stream_ptr(dev))
+    kernels.check_launch(err, "window_attention_core_backward_bf16")
+    backward_bf16_counter.launches += 1
+    return (dq, dk, dv, *WT.split_bias_grad(dbias, biases))
+
+
 _CORE = WT.CoreImpl(3, lambda st, p, b: window_attention_core_plain(*p, b, *st.plain_args()), _forward_cuda,
                     _backward_cuda)
 
@@ -88,8 +161,12 @@ def window_attention_core(q, k, v, biases: Sequence[torch.Tensor], masks: Sequen
                           gnum_heads: int, scale: float, hw_shape) -> torch.Tensor:
     """The core with its backward: the CUDA kernels for CUDA tensors, the
     plain version for CPU tensors.  Same arguments and result as
-    `window_attention_core_plain`; q, k, v are contiguous (B, L, dim) tensors
-    and gradients flow to them and to the per-group biases.  `seed` is a
-    host int in [0, SEED_BOUND); with keep = 1 it is not read."""
+    `window_attention_core_plain`; q, k, v are (B, L, dim) tensors, all
+    float32 and contiguous, or all bf16 (k and v may be the halves of one kv
+    tensor) with float32 biases, and gradients flow to them and to the
+    per-group biases.  `seed` is a host int in [0, SEED_BOUND); with keep =
+    1 it is not read."""
+    if torch.bfloat16 in (q.dtype, k.dtype, v.dtype):
+        WT.check_dtypes((q, k, v), biases, ("q", "k", "v"), _NAME)
     st = WT.make_static(masks, seed, keep, window_sizes, shifts, gnum_heads, scale, hw_shape)
     return WT.KernelCore.apply(_CORE, st, q, k, v, *biases)

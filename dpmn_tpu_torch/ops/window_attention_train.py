@@ -41,16 +41,16 @@ unrounded), the parameter gradients summed in float32 and rounded once.  The
 plain version computes in float32 on bf16 values, with `_Round` (rounds the
 value, passes the gradient) and `_RoundGrad` (passes the value, rounds the
 gradient) at those points, so autograd through it gives the kernel's
-backward.  The bf16 kernels take a power-of-two scale (q * scale is exact in
-bf16; the PGRM's head dim 16 gives 0.25) and at most 2 heads a group, where
-the plain version and the JAX kernel take any: a gap that ROADMAP queue 1,
-item 1 lifts.
+backward.  q * scale is `scale_q`: JAX multiplies the bf16 q by a Python
+float, which it rounds to bf16 first (a weakly typed scalar), so the product
+is round_bf16(q * bf16(scale)), while dq = (dS K) * scale takes the float32
+scale (:114).  Any scale and any number of heads a group, in the kernels as
+in the plain version; the card takes head dim 16 only (`check_geometry`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -151,6 +151,29 @@ class _RoundGrad(torch.autograd.Function):
         return g.to(torch.bfloat16).to(g.dtype)
 
 
+class _ScaleQ(torch.autograd.Function):
+    """bf16 q times the scale as the JAX kernel multiplies them: the scale
+    rounded to bf16 (a weakly typed Python float meeting a bf16 array), the
+    product exact in float32 and rounded to bf16 once; the gradient times
+    the float32 scale, as the kernel's dq = (dS K) * scale."""
+
+    @staticmethod
+    def forward(ctx, q, scale: float):
+        ctx.scale = scale
+        bf16_scale = float(torch.tensor(scale, dtype=torch.float32).to(torch.bfloat16))
+        return (q * bf16_scale).to(torch.bfloat16).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * np.float32(ctx.scale), None
+
+
+def scale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """q (float32 holding bf16 values) times the scale with the bf16 kernels'
+    rounding: round_bf16(q * bf16(scale)), the gradient g * float32(scale)."""
+    return _ScaleQ.apply(q, scale)
+
+
 def _identity(x):
     return x
 
@@ -163,16 +186,25 @@ def window_attention_core_plain(q, k, v, biases: Sequence[torch.Tensor], masks: 
     K3's after the projections: per group the -sh roll, the window
     partition, per head softmax(scale q k^T + bias [+ mask]) with dropout,
     times v; returns the faithful-layout output (B, L, dim).  `biases` per
-    group (heads, N, N), `masks` per group (nW, N, N) or None."""
-    return _attention(q, k, v, biases, masks, seed, keep, window_sizes, shifts, gnum_heads, scale, hw_shape, False)
+    group (heads, N, N), `masks` per group (nW, N, N) or None.  On bf16 q,
+    k, v with float32 biases, K4's bf16 form: computed in float32 on their
+    values with the bf16 rounding points (`_attention`), the output rounded
+    once; autograd's cast back to the bf16 inputs rounds dq, dk and dv."""
+    bf16 = check_dtypes((q, k, v), biases, ("q", "k", "v"), "window_attention_core") == torch.bfloat16
+    if bf16:
+        q, k, v = q.float(), k.float(), v.float()
+    out = _attention(q, k, v, biases, masks, seed, keep, window_sizes, shifts, gnum_heads, scale, hw_shape, bf16)
+    return out.to(torch.bfloat16) if bf16 else out
 
 
 def _attention(q, k, v, biases, masks, seed, keep, window_sizes, shifts, gnum_heads, scale, hw_shape,
                bf16: bool) -> torch.Tensor:
     """window_attention_core_plain; with `bf16`, on float32 q, k, v holding
-    bf16 values, with the bf16 kernel's rounding points: q * scale rounded,
-    the gradient of the scores' product rounded, P rounded before P v."""
+    bf16 values, with the bf16 kernel's rounding points: q * scale as
+    `scale_q`, the gradient of the scores' product rounded, P rounded before
+    P v."""
     rnd, rnd_grad = (_Round.apply, _RoundGrad.apply) if bf16 else (_identity, _identity)
+    times_scale = (lambda t: scale_q(t, scale)) if bf16 else (lambda t: t * scale)
     b, l, dim = q.shape
     h, w = hw_shape
     n_group = len(window_sizes)
@@ -194,7 +226,7 @@ def _attention(q, k, v, biases, masks, seed, keep, window_sizes, shifts, gnum_he
         qh, kh, vh = heads(qg), heads(kg), heads(vg)
         bw = qh.shape[0]
         nw = bw // b
-        attn = rnd_grad(rnd(qh * scale) @ kh.transpose(-1, -2)) + biases[g][None]
+        attn = rnd_grad(times_scale(qh) @ kh.transpose(-1, -2)) + biases[g][None]
         if sh > 0:
             attn = (attn.reshape(b, nw, gnum_heads, n, n) + masks[g][None, :, None]).reshape(bw, gnum_heads, n, n)
         attn = torch.softmax(attn, dim=-1)
@@ -217,29 +249,41 @@ def window_attention_block_core_plain(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, k
     with the bf16 kernel's rounding points (module docstring)."""
     primals = (xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b)
     bf16 = check_dtypes(primals, biases) == torch.bfloat16
+    out = block_tokens(primals, biases, masks, seed, keep, window_sizes, shifts, gnum_heads, scale, hw_shape, bf16)
+    return out.to(torch.bfloat16) if bf16 else out
+
+
+def block_tokens(primals, biases, masks, seed, keep, window_sizes, shifts, gnum_heads, scale, hw_shape,
+                 bf16: bool) -> torch.Tensor:
+    """K3's function on its 10 primals before the output's cast: with
+    `bf16`, in float32 on the bf16 values with the bf16 rounding points
+    (module docstring) and the attention's tokens left unrounded, as K5's
+    bf16 form keeps them."""
     if bf16:
-        xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b = (t.float() for t in primals)
+        primals = [t.float() for t in primals]
+    xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b = primals
     rnd, rnd_grad = (_Round.apply, _RoundGrad.apply) if bf16 else (_identity, _identity)
     dim = q_w.shape[0]
     q = rnd(rnd_grad(rnd(layer_norm(xq, qs, qb)) @ q_w.T) + q_b)
     kv = rnd(rnd_grad(rnd(layer_norm(xkv, ks, kb)) @ kv_w.T) + kv_b)
-    out = _attention(q, kv[..., :dim], kv[..., dim:], biases, masks, seed, keep, window_sizes, shifts, gnum_heads,
-                     scale, hw_shape, bf16)
-    return out.to(torch.bfloat16) if bf16 else out
+    return _attention(q, kv[..., :dim], kv[..., dim:], biases, masks, seed, keep, window_sizes, shifts, gnum_heads,
+                      scale, hw_shape, bf16)
 
 
-def check_dtypes(primals, biases) -> torch.dtype:
-    """The io dtype of a K3 call: every primal of one dtype, and the biases
-    float32 for bf16 primals, else of the primals' dtype.  Raises on
-    anything mixed (the kernels cast nothing)."""
+def check_dtypes(primals, biases, names=None, what="window_attention_block_core") -> torch.dtype:
+    """The io dtype of a training core's call: every primal (named by
+    `names`, K3's by default) of one dtype, and the biases float32 for bf16
+    primals, else of the primals' dtype.  Raises on anything mixed (the
+    kernels cast nothing)."""
+    names = names or _PRIMALS
     io = primals[0].dtype
-    for name, t in zip(_PRIMALS, primals):
+    for name, t in zip(names, primals):
         if t.dtype != io:
-            raise TypeError(f"window_attention_block_core: {name} is {t.dtype}, xq {io}: mixed primal dtypes")
+            raise TypeError(f"{what}: {name} is {t.dtype}, {names[0]} {io}: mixed primal dtypes")
     want = torch.float32 if io == torch.bfloat16 else io
     for i, bb in enumerate(biases):
         if bb.dtype != want:
-            raise TypeError(f"window_attention_block_core: bias {i} is {bb.dtype}, {io} primals take {want} biases")
+            raise TypeError(f"{what}: bias {i} is {bb.dtype}, {io} primals take {want} biases")
     return io
 
 
@@ -346,13 +390,6 @@ def _prepare(st: _Static, primals, biases, io=torch.float32):
               "q_w": (dim, dim), "q_b": (dim,), "kv_w": (2 * dim, dim), "kv_b": (2 * dim,)}
     for name, t in zip(_PRIMALS, primals):
         kernels.check_cuda_tensor(name, t, shapes[name], dev, io)
-    if io == torch.bfloat16:
-        if st.gnum_heads > 2:
-            raise ValueError(f"window_attention_train bf16 kernel: {st.gnum_heads} heads a group, it takes 1 or 2 "
-                             "(ROADMAP queue 1, item 1)")
-        if math.frexp(st.scale)[0] != 0.5:
-            raise ValueError(f"window_attention_train bf16 kernel: scale {st.scale}, it takes a power of two "
-                             "(ROADMAP queue 1, item 1)")
     return (b, *st.hw_shape, dim, *pack_tables(st, biases, dev))
 
 

@@ -69,8 +69,10 @@ statistics by flax's half-precision rule (ops/batch_norm.py).  The SR
 images and the distill losses are cast to float32 before the losses, as
 system.py:395-435 does; the HR image stays float32.  The JAX package's
 `amp_scope` ("frozen-only" / "trainable-only", a bisect knob of its TPU
-AMP investigation) is not ported: `train_dtype` is its "full".  K3 ("block") runs on bf16 io; "attention" and
-"full" under `train_dtype` raise (ROADMAP queue 1, item 1).
+AMP investigation) is not ported: `train_dtype` is its "full".  Every
+training core runs on bf16 io: K3 ("block"), K4 ("attention", after the
+bf16 LayerNorm and projections of the JAX package's XLA side) and K5
+("full").
 
 Entry points keep the JAX package's NHWC contract: (B, h, w, C) LR in,
 (B, 2h, 2w, 3) SR out; (B, 2h, 2w, C) HR for training, with C = 4 under
@@ -221,10 +223,6 @@ class DPMNSystem(nn.Module):
             pgrms = [make_pgrm(k, True) for k in range(self.b1)]
             pgrms += [make_pgrm(k, False) for k in range(self.b1, self.b1 + self.b2)]
         self.pgrms = nn.ModuleList(pgrms)
-        cores = {blk.attn.train_core for p in self.pgrms for layer in p.layers for blk in layer.blocks}
-        if train_dtype is not None and cores != {"block"}:
-            raise NotImplementedError(f"train_core {sorted(cores - {'block'})} under train_dtype {train_dtype!r} is "
-                                      "not ported yet: ROADMAP queue 1, item 1 (K4 and K5 on bf16 io)")
         self.cmm = CMM()
         # the frozen PSN by arch (system.py:154-177); the STN is left out, as
         # every PSN applies it in training only

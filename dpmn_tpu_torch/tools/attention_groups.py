@@ -26,7 +26,8 @@ import torch
 PACKAGE = Path(__file__).resolve().parent.parent
 CASES = (((8,), (4,)), ((4,), (2,)), ((2,), (1,)), ((2, 4, 8), (1, 2, 4)))
 
-_QK_BF16 = "      qk_tile_bf16<NT>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq);\n"
+_QK_BF16 = ("      qk_tile_bf16<NT, p_rounded_once<T, BT>()>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq,\n"
+            "                                               a.scale);\n")
 _QK_F32 = "      qk_tile<NT>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq, GCH);\n"
 _PV_BF16 = "      pv_tile_bf16<NT, p_rounded_once<T, BT>()>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);\n"
 _PV_F32 = "      pv_tile<NT, 2>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);\n"

@@ -192,15 +192,17 @@ def test_amp_casts_what_it_names(amp):
 
 
 def test_amp_refuses_what_it_does_not_run():
-    """train_dtype None or "bfloat16"; the "attention" and "full" cores under
-    AMP, and on bf16 tokens, raise naming their ROADMAP item."""
+    """train_dtype None or "bfloat16": "float16" raises; the "attention" and
+    "full" cores build under AMP and run on bf16 tokens with float32 bias
+    tables, giving bf16 out (K4 and K5 on bf16 io; tests/test_torch_amp_cores.py
+    holds them against the JAX package)."""
     with pytest.raises(ValueError, match="float16"):
         _port("float16")
     for core in ("attention", "full"):
-        with pytest.raises(NotImplementedError, match="item 1"):
-            _port(train_core=core)
-        attn = WindowAttention(48, (2, 4, 8), (0, 0, 0), 6, (16, 64), train_core=core).train()
+        system = _port(train_core=core)
+        assert {blk.attn.train_core for p in system.pgrms for layer in p.layers for blk in layer.blocks} == {core}
+        attn = WindowAttention(48, (2, 4, 8), (0, 0, 0), 6, (16, 64), train_core=core).train().to(torch.bfloat16)
         x = torch.zeros(1, 1024, 48, dtype=torch.bfloat16)
         ln = {k: torch.ones(48, dtype=torch.bfloat16) for k in ("qs", "qb", "ks", "kb")}
-        with pytest.raises(NotImplementedError, match="item 1"):
-            attn(x, x, ln)
+        out = attn(x, x, ln)
+        assert out.dtype == torch.bfloat16 and out.shape == x.shape and torch.isfinite(out.float()).all()

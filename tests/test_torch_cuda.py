@@ -420,57 +420,142 @@ def bf16_core_args(prim, biases):
     return [p.detach().bfloat16().requires_grad_() for p in prim[:10]], biases
 
 
+def check_bf16_core_on_card(mod, fn, plain, prim, biases, static, keep, seed=123):
+    """A training core on bf16 io against autograd through its plain version
+    on the card (tests/test_torch_window_attention_*_bf16.py's limits: the
+    output within 2^-7 of max|out|, each gradient within 2^-6 of its largest
+    value); bf16 out and primal gradients, float32 dbias; the bf16 counters
+    move by one each, the float32 ones not."""
+    cot = torch.randn(*prim[0].shape, generator=torch.Generator().manual_seed(9)).to(prim[0].device, torch.bfloat16)
+    counters = (mod.forward_bf16_counter, mod.backward_bf16_counter, mod.forward_counter, mod.backward_counter)
+    before = [c.launches for c in counters]
+    out, grads = run_train_core(fn, prim, biases, static, seed, keep, "faithful", cot)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [before[0] + 1, before[1] + 1, before[2], before[3]]
+    ref, ref_grads = run_train_core(plain, prim, biases, static, seed, keep, "faithful", cot)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2.0**-7 * ref.float().abs().max().item()
+    assert len(grads) == len(ref_grads) == len(prim) + len(biases)
+    for i, (g, r) in enumerate(zip(grads, ref_grads)):
+        assert g.dtype == (torch.bfloat16 if i < len(prim) else torch.float32)
+        assert (g.float() - r.float()).abs().max().item() <= 2.0**-6 * r.float().abs().max().item(), i
+
+
 @pytest.mark.parametrize("batch", [1, 3, 9])
 @pytest.mark.parametrize("width", WIDTHS, ids=lambda wd: f"D{wd[0]}")
 @pytest.mark.parametrize("keep", [1.0, 0.9])
 def test_window_attention_train_kernel_bf16(dev, batch, width, keep):
     """K3 on bf16 io forward and backward against autograd through its plain
-    version on the card (tests/test_torch_window_attention_train_bf16.py's
-    limits: the output within 2^-7 of max|out|, each gradient within 2^-6
-    of its largest value); bf16 out and gradients, float32 dbias; the bf16
-    counters move by one each, the float32 ones not."""
+    version on the card (check_bf16_core_on_card)."""
     dim, windows, heads, shift = width
     prim, biases, static = train_core_inputs(dev, shift, batch, dim=dim, windows=windows, heads=heads)
     prim, biases = bf16_core_args(prim, biases)
-    cot = torch.randn(*prim[0].shape, generator=torch.Generator().manual_seed(9)).to(dev, torch.bfloat16)
-    counters = (WT.forward_bf16_counter, WT.backward_bf16_counter, WT.forward_counter, WT.backward_counter)
-    before = [c.launches for c in counters]
-    out, grads = run_train_core(WT.window_attention_block_core, prim, biases, static, 123, keep, "faithful", cot)
-    torch.cuda.synchronize()
-    assert [c.launches for c in counters] == [before[0] + 1, before[1] + 1, before[2], before[3]]
-    ref, ref_grads = run_train_core(WT.window_attention_block_core_plain, prim, biases, static, 123, keep,
-                                    "faithful", cot)
-    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
-    assert (out.float() - ref.float()).abs().max().item() <= 2.0**-7 * ref.float().abs().max().item()
-    for i, (g, r) in enumerate(zip(grads, ref_grads)):
-        assert g.dtype == (torch.bfloat16 if i < 10 else torch.float32)
-        assert (g.float() - r.float()).abs().max().item() <= 2.0**-6 * r.float().abs().max().item()
+    check_bf16_core_on_card(WT, WT.window_attention_block_core, WT.window_attention_block_core_plain, prim, biases,
+                            static, keep)
+
+
+# a scale that is not a power of two (head dim 12's), and 3 heads a group
+# (D = 96 in two groups of 48: the thread-per-row attention backward)
+BF16_SCALES = [0.25, 12**-0.5]
+BF16_HEADS = [WIDTHS[0], K4_WIDTHS[-1]]
+
+
+@pytest.mark.parametrize("scale", BF16_SCALES)
+@pytest.mark.parametrize("width", BF16_HEADS, ids=lambda wd: f"g{len(wd[1])}h{wd[2] // len(wd[1])}")
+@pytest.mark.parametrize("keep", [1.0, 0.9])
+def test_window_attention_train_kernel_bf16_heads_and_scales(dev, scale, width, keep):
+    """K3 on bf16 io with 2 and 3 heads a group and any scale (q times the
+    bf16-rounded scale, rounded once; dq with the float32 scale)."""
+    dim, windows, heads, shift = width
+    prim, biases, static = train_core_inputs(dev, shift, 3, dim=dim, windows=windows, heads=heads)
+    prim, biases = bf16_core_args(prim, biases)
+    check_bf16_core_on_card(WT, WT.window_attention_block_core, WT.window_attention_block_core_plain, prim, biases,
+                            dict(static, scale=scale), keep)
+
+
+def bf16_qkv(dev, batch, dim, seed=11, kv_views=False):
+    """Random bf16 q, k, v leaves (B, 1024, dim); with kv_views, k and v the
+    halves of one (B, 1024, 2 dim) leaf, as the "attention" core passes
+    them (the leaves returned are then q and kv)."""
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda d: torch.randn(batch, 1024, d, generator=gen).to(dev, torch.bfloat16).requires_grad_()
+    if not kv_views:
+        return [rnd(dim) for _ in range(3)]
+    q, kv = rnd(dim), rnd(2 * dim)
+    return [q, kv[..., :dim], kv[..., dim:]]
+
+
+@pytest.mark.parametrize("batch", [1, 3, 9])
+@pytest.mark.parametrize("width", K4_WIDTHS + WIDTHS[:1], ids=lambda wd: f"D{wd[0]}g{len(wd[1])}")
+@pytest.mark.parametrize("keep", [1.0, 0.9])
+def test_window_attention_core_kernel_bf16(dev, batch, width, keep):
+    """K4 on bf16 io, k and v the halves of one kv tensor (row stride 2D) at
+    D = 96 and contiguous otherwise, against autograd through its plain
+    version (check_bf16_core_on_card)."""
+    dim, windows, heads, shift = width
+    _, biases, static = train_core_inputs(dev, shift, batch, dim=dim, windows=windows, heads=heads)
+    qkv = bf16_qkv(dev, batch, dim, kv_views=dim == 96)
+    check_bf16_core_on_card(WC, WC.window_attention_core, WC.window_attention_core_plain, qkv, biases, static, keep)
+
+
+@pytest.mark.parametrize("scale", BF16_SCALES)
+@pytest.mark.parametrize("width", BF16_HEADS, ids=lambda wd: f"g{len(wd[1])}h{wd[2] // len(wd[1])}")
+def test_window_attention_core_kernel_bf16_heads_and_scales(dev, scale, width):
+    dim, windows, heads, shift = width
+    _, biases, static = train_core_inputs(dev, shift, 3, dim=dim, windows=windows, heads=heads)
+    qkv = bf16_qkv(dev, 3, dim, kv_views=True)
+    check_bf16_core_on_card(WC, WC.window_attention_core, WC.window_attention_core_plain, qkv, biases,
+                            dict(static, scale=scale), 0.9)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 9])
+@pytest.mark.parametrize("width", WIDTHS, ids=lambda wd: f"D{wd[0]}")
+@pytest.mark.parametrize("keep", [1.0, 0.9])
+def test_window_attention_full_kernel_bf16(dev, batch, width, keep):
+    """K5 on bf16 io: all 18 primal gradients (bf16) and the bias gradients
+    (float32) against autograd through its plain version."""
+    dim, windows, heads, shift = width
+    prim, biases, static = train_core_inputs(dev, shift, batch, dim=dim, windows=windows, heads=heads)
+    prim = [p.detach().bfloat16().requires_grad_() for p in prim]
+    check_bf16_core_on_card(WF, WF.window_attention_full_core, WF.window_attention_full_core_plain, prim, biases,
+                            static, keep)
+
+
+@pytest.mark.parametrize("scale", BF16_SCALES)
+@pytest.mark.parametrize("width", BF16_HEADS, ids=lambda wd: f"g{len(wd[1])}h{wd[2] // len(wd[1])}")
+def test_window_attention_full_kernel_bf16_heads_and_scales(dev, scale, width):
+    dim, windows, heads, shift = width
+    prim, biases, static = train_core_inputs(dev, shift, 3, dim=dim, windows=windows, heads=heads)
+    prim = [p.detach().bfloat16().requires_grad_() for p in prim]
+    check_bf16_core_on_card(WF, WF.window_attention_full_core, WF.window_attention_full_core_plain, prim, biases,
+                            dict(static, scale=scale), 0.9)
 
 
 def test_window_attention_train_kernel_bf16_reruns_bit_for_bit_and_refuses(dev):
-    """K3 on bf16 io: forward and every gradient equal across two runs; mixed
-    dtypes, more than 2 heads a group and a scale that is not a power of two
-    raise on the card."""
+    """K3, K4 and K5 on bf16 io: forward and every gradient equal across two
+    runs; mixed dtypes and bf16 biases raise on the card, and K4 refuses k
+    and v of two row strides."""
     prim, biases, static = train_core_inputs(dev, (1, 2, 4), batch=9)
     prim16, biases = bf16_core_args(prim, biases)
     cot = torch.randn(*prim[0].shape, generator=torch.Generator().manual_seed(9)).to(dev, torch.bfloat16)
-    runs = [run_train_core(WT.window_attention_block_core, prim16, biases, static, 123, 0.9, "faithful", cot)
-            for _ in range(2)]
-    assert torch.equal(runs[0][0], runs[1][0]) and all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
-    call = lambda p, b, **kw: WT.window_attention_block_core(*p, b, static["masks"], 0, 1.0, static["window_sizes"],
-                                                             static["shifts"], kw.get("gh", static["gnum_heads"]),
-                                                             kw.get("scale", static["scale"]), static["hw_shape"])
+    full16 = prim16 + [p.detach().bfloat16().requires_grad_() for p in prim[10:]]
+    qkv = bf16_qkv(dev, 9, 96, kv_views=True)
+    for fn, p in ((WT.window_attention_block_core, prim16), (WC.window_attention_core, qkv),
+                  (WF.window_attention_full_core, full16)):
+        runs = [run_train_core(fn, p, biases, static, 123, 0.9, "faithful", cot) for _ in range(2)]
+        assert torch.equal(runs[0][0], runs[1][0]) and all(torch.equal(a, b) for a, b in zip(*[r[1] for r in runs]))
+    tail = (static["masks"], 0, 1.0, static["window_sizes"], static["shifts"], static["gnum_heads"], static["scale"],
+            static["hw_shape"])
     with pytest.raises(TypeError):
-        call(prim16[:6] + prim[6:10], biases)
+        WT.window_attention_block_core(*prim16[:6], *prim[6:10], biases, *tail)
     with pytest.raises(TypeError):
-        call(prim16, [b.bfloat16() for b in biases])
-    with pytest.raises(ValueError):
-        call(prim16, biases, scale=0.3)
-    wide, wbiases, wstatic = train_core_inputs(dev, (0,), 1, dim=96, windows=(8,), heads=6)
-    wide, wbiases = bf16_core_args(wide, wbiases)
-    with pytest.raises(ValueError):  # one group of 6 heads
-        WT.window_attention_block_core(*wide, wbiases, wstatic["masks"], 0, 1.0, wstatic["window_sizes"],
-                                       wstatic["shifts"], wstatic["gnum_heads"], wstatic["scale"], wstatic["hw_shape"])
+        WT.window_attention_block_core(*prim16, [b.bfloat16() for b in biases], *tail)
+    with pytest.raises(TypeError):
+        WF.window_attention_full_core(*full16[:12], *prim[12:], biases, *tail)
+    with pytest.raises(TypeError):
+        WC.window_attention_core(qkv[0], qkv[1], qkv[2].float(), biases, *tail)
+    with pytest.raises(ValueError):  # k a view of stride 2D, v contiguous
+        WC.window_attention_core(qkv[0], qkv[1], qkv[0], biases, *tail)
 
 
 def test_window_kernels_reject_other_widths(dev):
