@@ -126,7 +126,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
      forward (within 1e-6: the card's forward is not bitwise
      reproducible), and the CLI's --test --resume DIR --rec_path DIR on
      them with cv2, yaml and JAX blocked;
- 15. one JSON line with every kernel's numbers, then the final JSON line.
+ 15. the geometries the JAX package runs beyond the flagship's head dim 16
+     (GEOMETRIES): the flagship at --num_heads 3 (head dim 32) and 12
+     (head dim 8), and the JAX package's "mid" and "toy" geometries, each
+     at B = 64: sr_forward, sr_forward_bf16 and the train steps listed
+     there with exact launches, images/s and peak memory, and the card
+     against the CPU on 2 images (SR and ids, each float32 step as phase 6
+     and each bf16 AMP step as phase 8b holds the flagship's); then K1,
+     K3-K5 on both io types, K7 and K2 at each geometry's blocks against
+     their plain versions, with times and bounds;
+ 16. one JSON line with every kernel's numbers, then the final JSON line.
 
 Times are CUDA-event times after warm-up, with the inputs resident in L2
 where they fit.  `ms`, `plain_ms`, `library_ms` and `bound_ms` in the kernels
@@ -315,6 +324,20 @@ def ln_proj_part(t, dim):
     return 4 * (5 * t * dim + 3 * dim * dim + 3 * dim), 0.0, 2 * t * dim * 3 * dim
 
 
+def k1_ops(batch, l, dim, win, bf16=False):
+    """K1's operations a call on `batch` images of l tokens: (on float32
+    operands, on bf16 operands).  The projections (2 l D 3D) take bf16
+    operands in the bf16 form (ln_proj_bf16_kernel); the attention's scores
+    and P v (4 l ch N for a window of N tokens) and SKConv's products
+    (2 l D D + 2 l ch D) take float32 operands in both forms, since the bf16
+    form stores q and kv in float32 and runs the float32 attention
+    (block_forward in csrc/window_attention.cu)."""
+    ch = dim // len(win)
+    proj = batch * 2 * l * dim * 3 * dim
+    rest = batch * (4 * l * ch * sum(ws * ws for ws in win) + 2 * l * dim * dim + 2 * l * ch * dim)
+    return (rest, proj) if bf16 else (rest + proj, 0.0)
+
+
 def attn_fwd_parts(t, dim, win, io_bytes=4):
     """{kernel: part} of the attention forward, one launch for every group:
     q, k, v read and out written; two N-long passes (scores, P v) per token
@@ -402,9 +425,10 @@ def ptxas_functions(report):
 
 def check_hmma(kernels):
     """Each tensor-core sub-kernel holds HMMA (mma.sync) or HGMMA (wgmma)
-    instructions (cuobjdump -sass), and the bf16 attention forward (K7's)
-    and K1's bf16 LN + projection (one an embedding width: 32, 64, 96) bf16
-    m16n8k16 products (HMMA.16816.F32.BF16)."""
+    instructions (cuobjdump -sass), and every bf16 attention forward (K7's,
+    each head dim 8, 16, 32) and K1's bf16 LN + projection (one an embedding
+    width: 16, 32, 48, 64, 80, 96) bf16 m16n8k16 products
+    (HMMA.16816.F32.BF16)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     found, bf16 = {}, {}
     for name in ("window_attention", "window_attention_train", "window_attention_core", "window_attention_full",
@@ -473,7 +497,7 @@ def phase_window_attention(dev):
                     kws[shift] = kw
                     times[shift] = (cuda_ms(lambda: window_attention_block(xq, xkv, **kw)),
                                     cuda_ms(lambda: window_attention_block_plain(xq, xkv, **kw), iters=5))
-    l, n_sum, ch = h * w, 4 + 16 + 64, dim // 3
+    l, ch = h * w, dim // 3
     # the sub-kernels of one forward's 12 calls (6 of each shift set) and
     # the bounds of their parts
     t = B * l
@@ -492,7 +516,7 @@ def phase_window_attention(dev):
         l_ms = 12 * cuda_ms(lib)
     log_split("K1", split, {k: tuple(12 * v for v in p) for k, p in parts.items()},
               ("ln_proj_kernel", l_ms, "F.layer_norm + F.linear of both streams, TF32 off, 12 calls"))
-    flops = B * (2 * l * dim * 3 * dim + 4 * l * ch * n_sum + 2 * l * dim * dim + 2 * l * ch * dim)
+    flops = k1_ops(B, l, dim, (2, 4, 8))[0]
     nbytes = 3 * B * l * dim * 4
     b_ms, b_by = bound_ms(nbytes, flops)
     for shift, (k_ms, p_ms) in times.items():
@@ -764,7 +788,7 @@ def phase_window_attention_bf16(dev):
                     kws[shift] = kw
                     times[shift] = (cuda_ms(lambda: window_attention_block(xq, xkv, **kw)),
                                     cuda_ms(lambda: window_attention_block_plain(xq, xkv, **kw), iters=5))
-    l, n_sum, ch, t = h * w, 4 + 16 + 64, dim // 3, B * h * w
+    l, ch, t = h * w, dim // 3, B * h * w
     split = {}
     with torch.no_grad():
         for kw in kws.values():
@@ -776,8 +800,7 @@ def phase_window_attention_bf16(dev):
              "skconv_gate_kernel": (4 * t // 64 * dim, 0.0, 0.0),
              "skconv_out_kernel": (4 * 2 * t * dim + 2 * (2 * t * dim + dim * ch), 2 * t * dim, 2 * t * ch * dim)}
     log_split("K1 bf16", split, {k: tuple(12 * v for v in p) for k, p in parts.items()})
-    proj = B * 2 * l * dim * 3 * dim  # on bf16 operands
-    flops = B * (4 * l * ch * n_sum + 2 * l * dim * dim + 2 * l * ch * dim)  # float32
+    flops, proj = k1_ops(B, l, dim, (2, 4, 8), bf16=True)  # float32, on bf16 operands
     nbytes = 3 * B * l * dim * 2
     b_ms, b_by = bound_ms(nbytes, flops, 0.0, proj)
     for shift, (k_ms, p_ms) in times.items():
@@ -1044,17 +1067,17 @@ def hold_against_plain(tag, out, ref, grads, ref_grads):
 
 def sdpa_groups(a, b_det, masks, h, w, gen, dev):
     """The attention core of one call as F.scaled_dot_product_attention takes
-    it: per group the window-partitioned q, k, v (B*nW, heads, N, 16) with
-    bias + shift mask as attn_mask, and a cotangent."""
-    args = []
+    it: per group the window-partitioned q, k, v (B*nW, heads, N, head dim)
+    with bias + shift mask as attn_mask, and a cotangent."""
+    args, hd = [], a.dim // len(a.win) // a.gnum_heads
     for g, (ws, sh) in enumerate(zip(a.win, a.shf)):
         n, nw = ws * ws, (h // ws) * (w // ws)
-        qkv = [torch.randn(B * nw, a.gnum_heads, n, 16, generator=gen).to(dev).requires_grad_() for _ in range(3)]
+        qkv = [torch.randn(B * nw, a.gnum_heads, n, hd, generator=gen).to(dev).requires_grad_() for _ in range(3)]
         mask = b_det[g][None].expand(B * nw, -1, -1, -1)
         if sh > 0:
             mask = (b_det[g][None, None] + masks[g][None, :, None]).expand(B, -1, -1, -1, -1).reshape(
                 B * nw, a.gnum_heads, n, n)
-        args.append((qkv, mask.contiguous(), torch.randn(B * nw, a.gnum_heads, n, 16, generator=gen).to(dev)))
+        args.append((qkv, mask.contiguous(), torch.randn(B * nw, a.gnum_heads, n, hd, generator=gen).to(dev)))
     return args
 
 
@@ -1136,15 +1159,17 @@ def phase_k3(dev):
                           worst_fwd, worst_grad, library=False)
 
 
-def bf16_core_case(dev, core, gen, shift, dim=96, windows=(2, 4, 8), heads=6, batch=B):
-    """A training core's bf16 inputs at the flagship's 16x64 grid: its primals
-    as bf16 leaves (K3 its 10, K4 q and the halves of one kv leaf, as the
-    "attention" core hands them over, K5 its 18), float32 bias leaves, the
-    masks and the static arguments."""
+def bf16_core_case(dev, core, gen, shift, dim=96, windows=(2, 4, 8), heads=6, batch=B, hw=(16, 64),
+                   bf=torch.bfloat16):
+    """A training core's bf16 inputs (by default at the flagship's 16x64
+    grid): its primals as bf16 leaves (K3 its 10, K4 q and the halves of one
+    kv leaf, as the "attention" core hands them over, K5 its 18; `bf`
+    float32 gives the float32 core's, K4's q, k, v then contiguous), float32
+    bias leaves, the masks and the static arguments."""
     from dpmn_tpu_torch.models.pgrm import SwinTransformerBlock
     from dpmn_tpu_torch.system import init_weights
 
-    h, w, bf = 16, 64, torch.bfloat16
+    h, w = hw
     blk = SwinTransformerBlock(dim, (h, w), heads, list(windows), list(shift))
     init_weights(blk, seed=6)
     a = blk.attn
@@ -1153,6 +1178,8 @@ def bf16_core_case(dev, core, gen, shift, dim=96, windows=(2, 4, 8), heads=6, ba
     if core == "attention":
         q, kv = leaf(torch.randn(batch, h * w, dim, generator=gen)), leaf(torch.randn(batch, h * w, 2 * dim, generator=gen))
         prim, leaves = [q, kv[..., :dim], kv[..., dim:]], [q, kv]
+        if bf == torch.float32:  # the float32 kernel takes k and v contiguous
+            prim = leaves = [q, leaf(kv[..., :dim].contiguous()), leaf(kv[..., dim:].contiguous())]
     else:
         prim = [leaf(torch.randn(batch, h * w, dim, generator=gen)), leaf(torch.randn(batch, h * w, dim, generator=gen)),
                 leaf(1 + rnd(dim)), leaf(rnd(dim)), leaf(1 + rnd(dim)), leaf(rnd(dim)), leaf(a.q.weight),
@@ -1321,11 +1348,11 @@ TRAIN_LAUNCHES = {
 ZERO_RATES = dict(drop_rate="0,", attn_drop_rate="0,", drop_path_rate="0,")
 
 
-def hold_train_card_vs_cpu(tag, systems, dev, run, n_ids):
+def hold_train_card_vs_cpu(tag, systems, dev, run, n_ids=None):
     """The same weights at rates 0 on the card and on the CPU: run(system)
     gives (loss, the gradients in trainable_parameters() order); raises
-    unless they agree and the students' ids (n_ids glyph renders) are
-    equal.  Float32 gradients at B = 2 are determined only to a few % of a
+    unless they agree and the students' ids (n_ids glyph renders, or as
+    many as the card made) are equal.  Float32 gradients at B = 2 are determined only to a few % of a
     leaf: the CMM's 1x4 bottleneck sees 8 values per channel, and a
     leaky-ReLU input within rounding of 0 changes slope there, which moves
     every gradient upstream (tests/test_torch_train.py); the biases ahead of
@@ -1341,7 +1368,7 @@ def hold_train_card_vs_cpu(tag, systems, dev, run, n_ids):
         norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads)).item()
         res[d] = (loss.item(), norm, [g.cpu() for g in grads], ids)
     (lg, ng, gg, ig), (lc, nc, gc, ic) = res[dev], res["cpu"]
-    ids_ok = len(ig) == len(ic) == n_ids and all(torch.equal(a, b) for a, b in zip(ig, ic))
+    ids_ok = len(ig) == len(ic) == (n_ids or len(ig)) > 0 and all(torch.equal(a, b) for a, b in zip(ig, ic))
     names = [n for n, p in systems["cpu"].named_parameters()
              if any(p is q for q in systems["cpu"].trainable_parameters())]
     worst, worst_name = max((((a - b).norm() / (5e-2 * b.norm() + 1e-4 * nc)).item(), n)
@@ -1389,7 +1416,7 @@ def hook_modules(system, record=None, feed=None):
     return handles
 
 
-def hold_amp_card_vs_cpu(tag, systems, dev, hr, lr, train_core="block"):
+def hold_amp_card_vs_cpu(tag, systems, dev, hr, lr, train_core="block", args=None, cfg=None, n_renders=3):
     """The AMP step on the card and on the CPU, the same weights, rates 0, 2
     images.  The step's loss within rel 1e-2 of the CPU's, as
     tests/test_torch_amp.py holds it against the JAX package (the CPU reads
@@ -1408,10 +1435,13 @@ def hold_amp_card_vs_cpu(tag, systems, dev, hr, lr, train_core="block"):
     by as much as bf16 moves the float32 step, since their rounding errors
     are independent and grow through the cascade (the CPU's own AMP step is
     as far from float32 as from the card's): those readings are logged, not
-    held."""
+    held.  `args` (a function of overrides, by default flagship_args), `cfg`
+    and n_renders (the glyph renders of a step; None: as many as the card's
+    step made) give another geometry's."""
     from dpmn_tpu_torch.config import TrainCfg, flagship_args
     from dpmn_tpu_torch.system import DPMNSystem
 
+    args, cfg = args or flagship_args, cfg or TrainCfg(batch_size=2)
     renders, inputs = [], {}
     hooks = [systems[dev].glyph.register_forward_pre_hook(
         lambda mod, args: renders.append(tuple(t.cpu() for t in args)))]
@@ -1439,8 +1469,7 @@ def hold_amp_card_vs_cpu(tag, systems, dev, hr, lr, train_core="block"):
         return loss, [g.cpu() for g in grads], seen
 
     lc, gc, seen = step(systems["cpu"], False)
-    f32 = {d: DPMNSystem(TrainCfg(batch_size=2), flagship_args(**ZERO_RATES), device=d, seed=0, train_core=train_core)
-           for d in (dev, "cpu")}
+    f32 = {d: DPMNSystem(cfg, args(**ZERO_RATES), device=d, seed=0, train_core=train_core) for d in (dev, "cpu")}
     _, g32, _ = step(f32[dev], False)
     _, gc32, _ = step(f32["cpu"], False)
     local = {"card": step(systems[dev], True)[1], "cpu": step(systems["cpu"], True)[1],
@@ -1475,7 +1504,7 @@ def hold_amp_card_vs_cpu(tag, systems, dev, hr, lr, train_core="block"):
         f"{'fails' if not control_ok else 'PASSES'}); the whole step, logged: card vs CPU {col('step')}, the card's "
         f"AMP vs its float32 {col('step32')}, the CPU's AMP vs its float32 {col('cpu32')}; the CPU's own glyph ids equal the card's in {sum(seen)} of "
         f"{len(seen)} renders; gradients float32 {dtypes}")
-    if not (l_rel <= 1e-2 and amp_ok and not control_ok and dtypes and len(seen) == 3):
+    if not (l_rel <= 1e-2 and amp_ok and not control_ok and dtypes and len(seen) == (n_renders or len(renders))):
         raise AssertionError(f"{tag}: card and CPU disagree on the AMP train path")
 
 
@@ -1736,7 +1765,8 @@ def kernel_entries(tag, name, times, cost, worst_fwd, worst_grad, library):
     """Log the per-call times against the bounds; return the kernels-line
     entries of a training core's forward and backward, per train step (6
     unshifted + 6 shifted calls).  times[shift] = (kernel fwd, kernel bwd,
-    plain fwd, plain bwd[, library fwd, library bwd]) in ms per call."""
+    plain fwd, plain bwd[, library fwd, library bwd]) in ms per call, the
+    unshifted set first."""
     fb_ms, fb_by = bound_ms(cost["fwd_bytes"], cost["fwd_flops"])
     bb_ms, bb_by = bound_ms(cost["bwd_bytes"], cost["bwd_flops"])
     for shift, t in times.items():
@@ -1745,7 +1775,7 @@ def kernel_entries(tag, name, times, cost, worst_fwd, worst_grad, library):
             f"{fb_ms:.4f} ({fb_by}; {cost['fwd_bytes'] / 1e6:.1f} MB, {cost['fwd_flops'] / 1e9:.2f} GFLOP); backward "
             f"kernel_ms {t[1]:.4f} plain_ms {t[3]:.4f} bound_ms {bb_ms:.4f} ({bb_by}; {cost['bwd_bytes'] / 1e6:.1f} MB, "
             f"{cost['bwd_flops'] / 1e9:.2f} GFLOP){lib}")
-    per_step = lambda i: 6 * (times[(0, 0, 0)][i] + times[(1, 2, 4)][i])
+    per_step = lambda i: 6 * sum(t[i] for t in times.values())
     common = {"route": "cuda", "source": f"dpmn_tpu_torch/csrc/{name}.cu"}
     fwd = {"name": f"{name}_forward", **common, "replaces": REPLACES[name][0], "max_abs_err": worst_fwd,
            "ms": per_step(0), "plain_ms": per_step(2), "bound_ms": 12 * fb_ms, "bound_by": fb_by,
@@ -1862,7 +1892,7 @@ def k7_cost(a, dtype, h, w):
     """Bytes and float32 operations of one K7 call at B: K4's forward (q, k,
     v and out, in the io type) plus the bias tables (io type) and shift
     masks (float32) read once."""
-    cost = k4_cost(B, (h, w), 96, a.win)
+    cost = k4_cost(B, (h, w), a.dim, a.win)
     io = torch.tensor([], dtype=dtype).element_size()
     tables = io * sum(b.numel() for b in a.biases()) + 4 * sum(m.numel() for m in a.masks() if m is not None)
     return cost["fwd_bytes"] * io // 4 + tables, cost["fwd_flops"]
@@ -1870,22 +1900,22 @@ def k7_cost(a, dtype, h, w):
 
 def sdpa_windows(a, q, k, v, dtype):
     """One K7 call's attention as F.scaled_dot_product_attention takes it: per
-    group the rolled, window-partitioned q, k, v (B*nW, heads, N, 16) and
-    bias [+ shift mask] as a float attn_mask, in the io type."""
+    group the rolled, window-partitioned q, k, v (B*nW, heads, N, head dim)
+    and bias [+ shift mask] as a float attn_mask, in the io type."""
     from dpmn_tpu_torch.ops.window_attention import _window_partition
 
-    args = []
+    args, ch, (h, w) = [], a.dim // len(a.win), a.hw
     for g, (ws, sh, bias, mask) in enumerate(zip(a.win, a.shf, a.biases(), a.masks())):
         n = ws * ws
 
         def part(t):
-            t = t[..., g * 32:(g + 1) * 32]
+            t = t[..., g * ch:(g + 1) * ch]
             if sh > 0:
                 t = torch.roll(t, (-sh, -sh), dims=(1, 2))
             t = _window_partition(t, ws)
-            return t.reshape(t.shape[0], n, a.gnum_heads, 16).permute(0, 2, 1, 3).contiguous()
+            return t.reshape(t.shape[0], n, a.gnum_heads, ch // a.gnum_heads).permute(0, 2, 1, 3).contiguous()
 
-        bw = B * (16 // ws) * (64 // ws)
+        bw = B * (h // ws) * (w // ws)
         m = bias.detach()[None].expand(bw, -1, -1, -1)
         if sh > 0:
             m = (bias.detach()[None, None] + mask[None, :, None]).expand(B, -1, -1, -1, -1).reshape(bw, -1, n, n)
@@ -2464,6 +2494,429 @@ def phase_reference_checkpoints(dev, card):
     shutil.rmtree(RUN_DIR, ignore_errors=True)
 
 
+# ------------------------------------------------- phase 15: the geometries
+# The geometries the JAX package runs beyond the flagship's head dim 16: the
+# flagship with --num_heads 3 (head dim 32) and 12 (head dim 8, 4 heads a
+# group: the thread-per-row attention backward), and the JAX package's
+# "mid" (embed 48 over windows 2 / 4 / 8: head dim 8; hd_u 4) and "toy"
+# (32x32 images, embed 16 over windows 2 / 4: channel 8) geometries
+# (__graft_entry__.py:180-193; dpmn_tpu_torch.config mid_args, toy_args).
+# Each runs sr_forward and sr_forward_bf16 and the train steps listed.
+GEOMETRIES = {
+    "hd32": dict(args=dict(num_heads="3,3,3,3,3,3,"), image=(32, 128), train=(("block", None), ("block", "bfloat16"))),
+    "hd8": dict(args=dict(num_heads="12,12,12,12,12,12,"), image=(32, 128),
+                train=(("block", None), ("block", "bfloat16"))),
+    "mid": dict(args="mid", image=(32, 128),
+                train=tuple((c, d) for d in (None, "bfloat16") for c in ("block", "attention", "full"))),
+    "toy": dict(args="toy", image=(32, 32), train=(("block", None),)),
+}
+GEOMETRY_STEPS = 2  # timed batches or steps of each run (the flagship's phases time 2 to 4)
+CORE_TAGS = {"block": "K3", "attention": "K4", "full": "K5"}
+
+
+def geometry_args(geo, **overrides):
+    from dpmn_tpu_torch.config import flagship_args, mid_args, toy_args
+
+    a = GEOMETRIES[geo]["args"]
+    if isinstance(a, dict):
+        return flagship_args(**{**a, **overrides})
+    return {"mid": mid_args, "toy": toy_args}[a](**overrides)
+
+
+def geometry_cfg(geo, batch):
+    from dpmn_tpu_torch.config import TrainCfg
+
+    h, w = GEOMETRIES[geo]["image"]
+    return TrainCfg(batch_size=batch, width=w, height=h)
+
+
+def counted_run(tag, fn, **want):
+    """fn() once to warm up, then once with the launch counters from 0;
+    raises unless they are exactly `want`.  Returns (fn()'s result, counts)."""
+    fn()
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = read_counts()
+    check_counts(tag, got, **want)
+    return out, got
+
+
+def timed_runs(fn, n):
+    """(seconds a call of fn(i), i < n, and the peak GiB of the n calls)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n, torch.cuda.max_memory_allocated() / 2**30
+
+
+def geometry_path(dev, card, geo):
+    """The slice's path at one geometry, B = 64, seeded random weights:
+    sr_forward and sr_forward_bf16, then train_step under each (core,
+    dtype) of GEOMETRIES[geo]: the launches of one call exactly (K1 a block,
+    K2 a BiGRU; the core's kernel a block forward and backward, no other
+    training kernel), finite results, images/s and peak memory over
+    GEOMETRY_STEPS calls; the card against the CPU on 2 images: the SR
+    within 1e-4 and the students' ids equal, each float32 step at rates 0
+    within the flagship's limits (hold_train_card_vs_cpu), each AMP step's
+    state float32 after it and the AMP step against the CPU as phase 8b
+    holds the flagship's.  Returns the launch counts of each run,
+    the K2 calls' (N, T, H) and the blocks' geometry."""
+    from dpmn_tpu_torch.models.pgrm import WindowAttention
+    from dpmn_tpu_torch.ops.gru import BiGRU
+    from dpmn_tpu_torch.system import DPMNSystem
+
+    hi, wi = GEOMETRIES[geo]["image"]
+    rng = np.random.RandomState(5)
+    lrs = [rng.rand(B, hi // 2, wi // 2, 4).astype(np.float32) for _ in range(2 + GEOMETRY_STEPS)]
+    t0 = time.perf_counter()
+    system = DPMNSystem(geometry_cfg(geo, B), geometry_args(geo), device=dev, seed=0)
+    blocks = [m for m in system.pgrms.modules() if isinstance(m, WindowAttention)]
+    grus = [m for m in system.modules() if isinstance(m, BiGRU)]
+    a = blocks[0]
+    hd = a.dim // len(a.win) // a.gnum_heads
+    log(f"geometry {geo}: system built in {time.perf_counter() - t0:.1f} s; {hi}x{wi} images, D {a.dim} in windows "
+        f"{a.win} on a {a.hw[0]}x{a.hw[1]} grid, {a.gnum_heads} heads a group of head dim {hd}; {len(blocks)} "
+        f"window-attention blocks, {len(grus)} BiGRUs of hidden sizes {sorted({g.weight_hh_l0.shape[1] for g in grus})}")
+    runs, calls = {}, []
+    hooks = [g.register_forward_pre_hook(
+        lambda m, args, kw: calls.append((args[0].shape[0], kw.get("steps") or args[0].shape[1],
+                                          m.weight_hh_l0.shape[1], "steps" in kw)), with_kwargs=True) for g in grus]
+    want = dict(window_attention_block=len(blocks), gru_bidir=len(grus))
+    sr32, runs["sr_forward"] = counted_run(f"geometry {geo} sr_forward", lambda: system.sr_forward(lrs[1]), **want)
+    for h in hooks:
+        h.remove()
+    calls = calls[len(calls) // 2:]  # the counted forward's
+    if tuple(sr32.shape) != (B, hi, wi, 3) or not torch.isfinite(sr32).all():
+        raise AssertionError(f"geometry {geo}: bad output, shape {tuple(sr32.shape)}")
+    dt, peak = timed_runs(lambda i: system.sr_forward(lrs[2 + i]), GEOMETRY_STEPS)
+    log(f"geometry {geo} sr_forward B={B}: {dt * 1e3:.2f} ms/batch, {B / dt:.1f} images/s on {card}; peak memory "
+        f"{peak:.2f} GiB")
+    sr16, runs["sr_forward_bf16"] = counted_run(f"geometry {geo} sr_forward_bf16",
+                                                lambda: system.sr_forward_bf16(lrs[1]), **want)
+    dt, peak = timed_runs(lambda i: system.sr_forward_bf16(lrs[2 + i]), GEOMETRY_STEPS)
+    mean = (sr16.float() - sr32).abs().mean().item()
+    log(f"geometry {geo} sr_forward_bf16 B={B}: {dt * 1e3:.2f} ms/batch, {B / dt:.1f} images/s; peak memory "
+        f"{peak:.2f} GiB; against float32 SR mean abs {mean:.3e} (tol {SERVE_MEAN_TOL})")
+    if not (torch.isfinite(sr16.float()).all() and mean <= SERVE_MEAN_TOL):
+        raise AssertionError(f"geometry {geo}: bf16 SR off the float32 SR by {mean}")
+    cpu = DPMNSystem(geometry_cfg(geo, 2), geometry_args(geo), device="cpu", seed=0)
+    x2 = lrs[1][:2]
+    sr_c, ids_c = glyph_ids(cpu, lambda: cpu.sr_forward(x2))
+    sr_g, ids_g = glyph_ids(system, lambda: system.sr_forward(x2))
+    err = (sr_c - sr_g.cpu()).abs().max().item()
+    ids_ok = len(ids_c) == len(ids_g) > 0 and all(torch.equal(p, q) for p, q in zip(ids_c, ids_g))
+    log(f"geometry {geo}: card vs CPU on 2 images: SR max_abs_err {err:.3e} (tol 1e-4); the students' ids equal "
+        f"{ids_ok} ({len(ids_g)} renders)")
+    if not (err <= 1e-4 and ids_ok):
+        raise AssertionError(f"geometry {geo}: card and CPU disagree on the eval path")
+    del system, cpu
+    for core, dtype in GEOMETRIES[geo]["train"]:
+        amp = dtype is not None
+        tag = f"geometry {geo} train[{core}{'-amp' if amp else ''}]"
+        name, sfx = BF16_CORES[core][0], "_bf16" if amp else ""
+        s = DPMNSystem(geometry_cfg(geo, B), geometry_args(geo), device=dev, seed=0, train_core=core,
+                       train_dtype=dtype)
+        batches = [(rng.rand(B, hi, wi, 4).astype(np.float32), rng.rand(B, hi // 2, wi // 2, 4).astype(np.float32))
+                   for _ in range(2 + GEOMETRY_STEPS)]
+        step = iter(range(100))
+        m, runs[(core, dtype)] = counted_run(
+            tag, lambda: s.train_step(*batches[1], seed=next(step)), gru_bidir=len(grus),
+            **{f"{name}_forward{sfx}": len(blocks), f"{name}_backward{sfx}": len(blocks)})
+        if not (np.isfinite(m["loss"].item()) and np.isfinite(m["grad_norm"].item())):
+            raise AssertionError(f"{tag}: loss {m['loss'].item()}, grad_norm {m['grad_norm'].item()}")
+        dt, peak = timed_runs(lambda i: s.train_step(*batches[2 + i], seed=10 + i), GEOMETRY_STEPS)
+        log(f"{tag}: train_step B={B} {'bf16 AMP' if amp else 'fp32'} dropout 0.1: {dt * 1e3:.2f} ms/step, "
+            f"{B / dt:.1f} images/s on {card}; peak memory {peak:.2f} GiB")
+        if amp:
+            check_float32_state(tag, s)
+        del s
+        systems = {d: DPMNSystem(geometry_cfg(geo, 2), geometry_args(geo, **ZERO_RATES), device=d, seed=0,
+                                 train_core=core, train_dtype=dtype) for d in (dev, "cpu")}
+        hr, lr = batches[1][0][:2], batches[1][1][:2]
+        if amp:
+            hold_amp_card_vs_cpu(tag, systems, dev, hr, lr, core, args=lambda **kw: geometry_args(geo, **kw),
+                                 cfg=geometry_cfg(geo, 2),
+                                 n_renders=3 if isinstance(GEOMETRIES[geo]["args"], dict) else None)
+        else:
+            hold_train_card_vs_cpu(tag, systems, dev, lambda sy: sy._micro_grads(hr, lr, 0))
+        del systems
+    torch.cuda.empty_cache()
+    shifts = sorted({tuple(b.shf) for b in blocks})
+    return runs, calls, dict(dim=a.dim, hw=a.hw, win=tuple(a.win), heads=a.gnum_heads * len(a.win), shifts=shifts,
+                             blocks=len(blocks))
+
+
+def geometry_k1(dev, geo, g, launches):
+    """K1 on float32 and bf16 io at the geometry's blocks (both shift sets,
+    faithful, B = 64) against its plain version (1e-4; bf16 2^-7 of
+    max|out|); returns the kernels-line entries, timing fields per forward
+    (blocks / 2 calls of each shift set)."""
+    from dpmn_tpu_torch.models.pgrm import SwinTransformerBlock
+    from dpmn_tpu_torch.ops.window_attention import window_attention_block, window_attention_block_plain
+    from dpmn_tpu_torch.system import init_weights
+
+    dim, (h, w), win = g["dim"], g["hw"], g["win"]
+    gen = torch.Generator().manual_seed(21)
+    x32 = [torch.randn(B, h * w, dim, generator=gen).to(dev) for _ in range(2)]
+    entries = []
+    for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        xq, xkv = (x.to(dtype) for x in x32)
+        worst, times = 0.0, []
+        for shift in g["shifts"]:
+            blk = SwinTransformerBlock(dim, (h, w), g["heads"], list(win), list(shift))
+            init_weights(blk, seed=2)
+            with torch.no_grad():
+                for ln in (blk.norm1_q, blk.norm1_kv):
+                    ln.weight.add_(0.1 * torch.randn(dim, generator=gen))
+                    ln.bias.add_(0.1 * torch.randn(dim, generator=gen))
+                for i in range(len(win)):
+                    getattr(blk.attn, f"relative_position_bias_table_{i}").normal_(0, 0.02, generator=gen)
+            kw = blk.to(dev).attn.block_args(blk.ln_params())
+            kw = bf16_block_args(kw) if sfx else kw
+            with torch.no_grad():
+                out = window_attention_block(xq, xkv, **kw)
+                ref = window_attention_block_plain(xq, xkv, **kw)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = BF16_ROUNDING * ref.float().abs().max().item() if sfx else K1_TOL
+                ok = out.dtype == dtype and bool(torch.isfinite(out.float()).all()) and err <= tol
+                log(f"geometry {geo} K1{sfx} shift={shift}: max_abs_err {err:.3e} (tol {tol:.3e}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"geometry {geo}: K1{sfx} disagrees with its plain version: {err}")
+                worst = max(worst, err)
+                times.append((cuda_ms(lambda: window_attention_block(xq, xkv, **kw), iters=5),
+                              cuda_ms(lambda: window_attention_block_plain(xq, xkv, **kw), iters=2)))
+        l = h * w
+        f32, bf = k1_ops(B, l, dim, win, bf16=bool(sfx))
+        b_ms, b_by = bound_ms(3 * B * l * dim * (2 if sfx else 4), f32, 0.0, bf)
+        per = g["blocks"] // 2
+        k_ms, p_ms = (per * sum(t[i] for t in times) for i in (0, 1))
+        log(f"geometry {geo} K1{sfx} B={B}: {k_ms:.4f} ms a forward ({g['blocks']} calls), plain {p_ms:.4f}, "
+            f"bound {per * len(times) * b_ms:.4f} ({b_by})")
+        entries.append({"name": f"window_attention_block{sfx}[{geo}]", "route": "cuda",
+                        "source": "dpmn_tpu_torch/csrc/window_attention.cu",
+                        "replaces": "dpmn_tpu/ops/pallas_window.py:500",
+                        "launches": launches[f"sr_forward{sfx}"]["window_attention_block"], "max_abs_err": worst,
+                        "ms": k_ms, "plain_ms": p_ms, "bound_ms": per * len(times) * b_ms, "bound_by": b_by,
+                        "library_ms": None})
+    return entries
+
+
+def geometry_core(dev, geo, g, core, dtype, launches):
+    """A training core (K3, K4, K5) on float32 or bf16 io at the geometry's
+    blocks, B = 64, both shift sets, keep 1 and 0.9, against autograd
+    through its plain version (hold_against_plain; bf16 hold_bf16_core); K4
+    beside SDPA on the partitioned windows.  Returns its forward and
+    backward kernels-line entries (per train step: blocks / 2 calls of each
+    shift set at keep 0.9) where the geometry's path ran it, else []."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from dpmn_tpu_torch.ops import window_attention_train as wt
+
+    name, fn_name = BF16_CORES[core]
+    mod = importlib.import_module(f"dpmn_tpu_torch.ops.{name}")
+    amp = dtype == torch.bfloat16
+    tag = f"geometry {geo} {CORE_TAGS[core]}{' bf16' if amp else ''}"
+    dim, (h, w) = g["dim"], g["hw"]
+    gen = torch.Generator().manual_seed(31)
+    cot = torch.randn(B, h * w, dim, generator=gen).to(dev, dtype)
+    worst_fwd, worst_grad, times, seed = 0.0, 0.0, [], 77
+    for shift in g["shifts"]:
+        a, prim, leaves, biases, masks, static = bf16_core_case(dev, core, gen, shift, dim, g["win"], g["heads"],
+                                                                batch=B, hw=(h, w), bf=dtype)
+        for keep in (1.0, 0.9):
+            if amp:
+                err, gerr = hold_bf16_core(f"{tag} shift={shift} keep={keep}", mod, fn_name, prim, leaves, biases,
+                                           masks, seed, keep, static, cot)
+            else:
+                run = lambda fn: (lambda out: (out, torch.autograd.grad(out, leaves + biases, cot)))(
+                    fn(*prim, biases, masks, seed, keep, *static))
+                out, grads = run(getattr(mod, fn_name))
+                ref, ref_grads = run(getattr(mod, fn_name + "_plain"))
+                err, gerr = hold_against_plain(f"{tag} shift={shift} keep={keep}", out, ref, grads, ref_grads)
+            worst_fwd, worst_grad = max(worst_fwd, err), max(worst_grad, gerr)
+        keep = 0.9
+        st = wt.make_static(masks, seed, keep, *static)
+        p_det, b_det = [t.detach() for t in prim], [t.detach() for t in biases]
+        kept = mod._forward_cuda(st, p_det, b_det)[1]
+        k_fwd = cuda_ms(lambda: mod._forward_cuda(st, p_det, b_det), iters=5)
+        k_bwd = cuda_ms(lambda: mod._backward_cuda(st, p_det, b_det, cot, kept), iters=5)
+        plain = getattr(mod, fn_name + "_plain")
+        p_fwd = cuda_ms(lambda: plain(*p_det, b_det, masks, seed, keep, *static), iters=2)
+        out = plain(*prim, biases, masks, seed, keep, *static)
+        p_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves + biases, cot, retain_graph=True), iters=2)
+        del out
+        l_fwd = l_bwd = 0.0
+        if core == "attention":
+            sdpa_args = [([t.detach().to(dtype).requires_grad_() for t in qkv_g], m.to(dtype), do.to(dtype))
+                         for qkv_g, m, do in sdpa_groups(a, b_det, masks, h, w, gen, dev)]
+            l_fwd = cuda_ms(lambda: [F.scaled_dot_product_attention(*qkv_g, attn_mask=m, scale=a.scale)
+                                     for qkv_g, m, _ in sdpa_args], iters=5)
+            outs = [F.scaled_dot_product_attention(*qkv_g, attn_mask=m, scale=a.scale) for qkv_g, m, _ in sdpa_args]
+            l_bwd = cuda_ms(lambda: [torch.autograd.grad(o, qkv_g, do, retain_graph=True)
+                                     for o, (qkv_g, _, do) in zip(outs, sdpa_args)], iters=5)
+            del outs
+        times.append((k_fwd, k_bwd, p_fwd, p_bwd, l_fwd, l_bwd))
+        log(f"{tag} B={B} shift={shift} keep=0.9: forward {k_fwd:.4f} ms a call, backward {k_bwd:.4f}; plain "
+            f"forward {p_fwd:.4f}, backward {p_bwd:.4f}" + (f"; SDPA (head dim {dim // len(g['win']) // static[2]}) "
+                                                             f"forward {l_fwd:.4f}, backward {l_bwd:.4f}"
+                                                             if core == "attention" else ""))
+    cost = {"block": k3_cost, "attention": k4_cost, "full": k5_cost}[core](B, (h, w), dim, g["win"])
+    t = B * h * w
+    skconv = 2 * t * dim * dim + 2 * t * (dim // len(g["win"])) * dim if core == "full" else 0.0
+    if amp:
+        fb = bound_ms(cost["fwd_bytes"] / 2, skconv, 0.0, cost["fwd_flops"] - skconv)
+        bb = bound_ms(cost["bwd_bytes"] / 2, 3 * skconv, 0.0, cost["bwd_flops"] - 3 * skconv)
+    else:
+        fb, bb = bound_ms(cost["fwd_bytes"], cost["fwd_flops"]), bound_ms(cost["bwd_bytes"], cost["bwd_flops"])
+    per = g["blocks"] // 2
+    step = lambda i: per * sum(x[i] for x in times)
+    n = per * len(times)
+    log(f"{tag}: a train step's {g['blocks']} calls: forward {step(0):.4f} ms (plain {step(2):.4f}, bound "
+        f"{n * fb[0]:.4f} {fb[1]}), backward {step(1):.4f} ms (plain {step(3):.4f}, bound {n * bb[0]:.4f} {bb[1]})"
+        + (f"; SDPA forward {step(4):.4f}, backward {step(5):.4f}" if core == "attention" else ""))
+    counts = launches.get((core, "bfloat16" if amp else None))
+    if counts is None:
+        return []
+    sfx = "_bf16" if amp else ""
+    common = {"route": "cuda", "source": f"dpmn_tpu_torch/csrc/{name}.cu"}
+    return [{"name": f"{name}_{part}{sfx}[{geo}]", **common, "replaces": REPLACES[name][i],
+             "launches": counts[f"{name}_{part}{sfx}"], "max_abs_err": (worst_fwd, worst_grad)[i], "ms": step(i),
+             "plain_ms": step(2 + i), "bound_ms": n * bd[0], "bound_by": bd[1],
+             "library_ms": step(4 + i) if core == "attention" else None}
+            for i, (part, bd) in enumerate((("forward", fb), ("backward", bb)))]
+
+
+def geometry_k2(dev, geo, calls, launches):
+    """K2 at the (N, T, H) of the geometry's path (gru_encoding's input
+    broadcast along time where its T is the batch) against its plain
+    version (1e-5), torch.nn.GRU timed beside it as phase 3 does; returns
+    its kernels-line entry (per forward) where the hidden sizes are not the
+    flagship's, else None."""
+    from dpmn_tpu_torch.ops.gru import gru_bidir, gru_bidir_plain
+
+    if all(hd in (32, 512) for _, _, hd, _ in calls):
+        return None
+    gen = torch.Generator().manual_seed(41)
+    worst, tot, by = 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}, {"bytes": 0.0,
+                                                                                             "operations": 0.0}
+    for (n, t, hd, bcast), count in sorted({c: calls.count(c) for c in calls}.items()):
+        # bcast: the faithful gru_encoding, one projection at every step
+        xps = [(0.5 * torch.randn(n, 1 if bcast else t, 3 * hd, generator=gen)).to(dev) for _ in range(2)]
+        xps = [x.expand(-1, t, -1) for x in xps] if bcast else xps
+        w_hh = [(torch.rand(3 * hd, hd, generator=gen) * 2 - 1).div(hd**0.5).to(dev) for _ in range(2)]
+        b_hh = [(torch.rand(3 * hd, generator=gen) * 2 - 1).div(hd**0.5).to(dev) for _ in range(2)]
+        args = (*xps, *w_hh, *b_hh)
+        err = (gru_bidir(*args) - gru_bidir_plain(*args)).abs().max().item()
+        if not err <= K2_TOL:
+            raise AssertionError(f"geometry {geo}: K2 at N={n} T={t} H={hd} disagrees with its plain version: {err}")
+        worst = max(worst, err)
+        lib = torch.nn.GRU(3 * hd, hd, batch_first=True, bidirectional=True).to(dev)
+        with torch.no_grad():
+            for d, sfx in enumerate(("l0", "l0_reverse")):
+                getattr(lib, f"weight_ih_{sfx}").copy_(torch.eye(3 * hd))
+                getattr(lib, f"bias_ih_{sfx}").zero_()
+                getattr(lib, f"weight_hh_{sfx}").copy_(w_hh[d])
+                getattr(lib, f"bias_hh_{sfx}").copy_(b_hh[d])
+            x_lib = xps[0].contiguous()
+            k_ms, p_ms, l_ms = (cuda_ms(lambda: gru_bidir(*args)), cuda_ms(lambda: gru_bidir_plain(*args), iters=2),
+                                cuda_ms(lambda: lib(x_lib)))
+        nbytes = 4 * (2 * n * (1 if bcast else t) * 3 * hd + 2 * (3 * hd * hd + 3 * hd) + n * t * 2 * hd)
+        b_ms, b_by = bound_ms(nbytes, 2 * 2 * n * t * 3 * hd * hd)
+        log(f"geometry {geo} K2 N={n} T={t} H={hd} ({count} a forward): max_abs_err {err:.3e} (tol {K2_TOL:g}); "
+            f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} (torch.nn.GRU) bound_ms {b_ms:.4f} "
+            f"({b_by})")
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms), ("bound_ms", b_ms)):
+            tot[key] += count * v
+        by[b_by] += count * b_ms
+    return {"name": f"gru_scan[{geo}]", "route": "cuda", "source": "dpmn_tpu_torch/csrc/gru_scan.cu",
+            "replaces": "dpmn_tpu/ops/pallas_kernels.py:76", "launches": launches["sr_forward"]["gru_bidir"],
+            "max_abs_err": worst, **tot, "bound_by": max(by, key=by.get)}
+
+
+def geometry_k7(dev, geo, g):
+    """K7 at the geometry's blocks (both shift sets, B = 64), float32 then
+    bf16, one counted run of each io type's pair of calls, against its plain
+    version, SDPA on the partitioned windows beside it; returns the
+    kernels-line entries (summed over the pair, as phase 10's)."""
+    import torch.nn.functional as F
+
+    from dpmn_tpu_torch.models.pgrm import WindowAttention
+    from dpmn_tpu_torch.ops.grouped_window_attention import grouped_window_attention, grouped_window_attention_plain
+
+    dim, (h, w) = g["dim"], g["hw"]
+    gen = torch.Generator().manual_seed(51)
+    attns = []
+    for shift in g["shifts"]:
+        a = WindowAttention(dim, list(g["win"]), list(shift), g["heads"], (h, w))
+        with torch.no_grad():
+            for i in range(len(g["win"])):
+                getattr(a, f"relative_position_bias_table_{i}").normal_(0, 0.1, generator=gen)
+        attns.append(a.to(dev))
+    q32, k32, v32 = ((0.5 * torch.randn(B, h, w, dim, generator=gen)).to(dev) for _ in range(3))
+    entries = []
+    for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        calls = [(q, k, v, [b.detach().to(dtype) for b in a.biases()], a.masks(), a.win, a.shf, a.gnum_heads,
+                  a.scale) for a in attns]
+        outs, launches = counted_run(f"geometry {geo} K7 {dtype}", lambda: [grouped_window_attention(*c) for c in calls],
+                                     grouped_window_attention=len(calls))
+        worst, tot, bound = 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}, {"bytes": 0.0, "operations": 0.0}
+        for a, args, out in zip(attns, calls, outs):
+            ref = grouped_window_attention_plain(*args)
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = K7_TOL if dtype == torch.float32 else BF16_ROUNDING * ref.float().abs().max().item()
+            if not (bool(torch.isfinite(out.float()).all()) and out.dtype == dtype and err <= tol):
+                raise AssertionError(f"geometry {geo}: K7 {dtype} disagrees with its plain version: {err}")
+            worst = max(worst, err)
+            sdpa = sdpa_windows(a, q, k, v, dtype)
+            nbytes, flops = k7_cost(a, dtype, h, w)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            k_ms, p_ms, l_ms = (cuda_ms(lambda: grouped_window_attention(*args), iters=5),
+                                cuda_ms(lambda: grouped_window_attention_plain(*args), iters=2),
+                                cuda_ms(lambda: [F.scaled_dot_product_attention(qg, kg, vg, attn_mask=m, scale=a.scale)
+                                                 for qg, kg, vg, m in sdpa], iters=5))
+            log(f"geometry {geo} K7 {dtype} B={B} shift={tuple(a.shf)}: max_abs_err {err:.3e} (tol {tol:.3e}) ok; "
+                f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} (SDPA on the partitioned windows) "
+                f"bound_ms {b_ms:.4f} ({b_by})")
+            for key, t in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms)):
+                tot[key] += t
+            bound[b_by] += b_ms
+        entries.append(standalone_entry("grouped_window_attention", worst, launches["grouped_window_attention"],
+                                        tot["ms"], tot["plain_ms"], bound, tot["library_ms"], f"{sfx}[{geo}]"))
+    return entries
+
+
+def phase_geometries(dev, card):
+    """Phase 15: each geometry's path (geometry_path), then each kernel at
+    its blocks against its plain version with its times and bounds (K1, the
+    three training cores on both io types, K7, and K2 at hidden sizes other
+    than the flagship's).  Returns the kernels-line entries of the kernels
+    each path ran (and K7's)."""
+    entries = []
+    for geo in GEOMETRIES:
+        t0 = time.perf_counter()
+        launches, calls, g = geometry_path(dev, card, geo)
+        entries += geometry_k1(dev, geo, g, launches)
+        k2 = geometry_k2(dev, geo, calls, launches)
+        entries += [k2] if k2 else []
+        for core in ("block", "attention", "full"):
+            for dtype in (torch.float32, torch.bfloat16):
+                entries += geometry_core(dev, geo, g, core, dtype, launches)
+        entries += geometry_k7(dev, geo, g)
+        torch.cuda.empty_cache()
+        log(f"geometry {geo}: phase done in {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the machine with the card", file=sys.stderr)
@@ -2502,6 +2955,7 @@ def main():
     phase_driver(dev, card)
     phase_psns(dev, card)
     phase_reference_checkpoints(dev, card)
+    entries += phase_geometries(dev, card)
     log(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

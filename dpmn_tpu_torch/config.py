@@ -171,6 +171,27 @@ def flagship_args(**overrides) -> Args:
     return Args(**base)
 
 
+# The JAX package's two small geometries (__graft_entry__.py:180-193), on the
+# flagship's flags: one SRB of 4 hidden units, 1 + 1 PGRMs.  "mid" runs the
+# real 32x128 image at embed 48, 6 heads over windows 2 / 4 / 8 (head dim
+# 8); "toy" a 32x32 image (TrainCfg(width=32, height=32)) at embed 16, 2
+# heads over windows 2 / 4 (head dim 8).
+_SMALL = dict(stu_iter_b1=1, stu_iter_b2=1, srb=1, hd_u=4, patch_size="2,", depths="1,", mlp_ratio="4,",
+              drop_rate="0.1,", attn_drop_rate="0.1,", drop_path_rate="0.1,")
+
+
+def mid_args(**overrides) -> Args:
+    """The "mid" geometry: embed 48, windows 2 / 4 / 8, 6 heads."""
+    return flagship_args(**{**_SMALL, "embed_dim": "48,", "num_heads": "6,", "window_size": "2,4,8,",
+                            "window_num": 3, **overrides})
+
+
+def toy_args(**overrides) -> Args:
+    """The "toy" geometry: embed 16, windows 2 / 4, 2 heads (32x32 images)."""
+    return flagship_args(**{**_SMALL, "embed_dim": "16,", "num_heads": "2,", "window_size": "2,4,",
+                            "window_num": 2, **overrides})
+
+
 # ------------------------------------------------------------------ YAML
 
 _BOOLS = {**dict.fromkeys(("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"), True),

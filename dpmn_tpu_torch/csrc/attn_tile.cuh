@@ -14,8 +14,9 @@
 // 8-byte load.
 //
 // bf16 (K7's bf16 io): mma.sync m16n8k16 on bf16 operands with float32
-// accumulation, fed by ldmatrix.  S over the head's 16 channels is one k16
-// step an 8-key tile (products of bf16 values are exact in float32).  The
+// accumulation, fed by ldmatrix.  S over a head's 16 channels is one k16
+// step an 8-key tile (products of bf16 values are exact in float32), over
+// 32 channels two, over 8 one m16n8k8 step.  The
 // S accumulators of 8-key tiles 2 kk and 2 kk + 1 are, element for element,
 // the A fragment of P V's k16 step kk, so P stays in registers unpermuted; P
 // is float32 after the softmax and goes in as hi = bf16(p) plus lo = bf16(p
@@ -28,7 +29,9 @@
 // columns g8); bf16 q, k and v rows at ch + 8 elements, an odd number of 16
 // bytes (40 elements, 80 bytes, at ch = 32), so the eight 16-byte rows of
 // every ldmatrix phase fall on disjoint bank groups.  A staged row is
-// 16-byte aligned for cp.async and ldmatrix.
+// 16-byte aligned for cp.async and ldmatrix.  Where a group's channels are
+// an odd multiple of 8 (head dim 8), the stride is ch + 16, which keeps both
+// rules (window_common.cuh fwd_ldq).
 //
 // The build hash of every csrc/*.cu covers this header (ops/kernels.py).
 
@@ -123,6 +126,18 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
                : "r"(addr));
 }
 
+// ldmatrix of two 8x8 bf16 matrices (lanes 0-15 give the row addresses),
+// plain or transposed.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
 // d += a . b on bf16 operands, float32 accumulation (m16n8k16; the fragment
 // coordinates of tc_common.cuh's m16n8k8 with each register holding two
 // adjacent k-indices: a0 (g8, 2 t4..+1), a1 (g8 + 8, ..), a2 (g8, 2 t4 +
@@ -132,6 +147,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same at k8 (m16n8k8): a0 (g8, 2 t4..+1), a1 (g8 + 8, ..); b (k 2
+// t4..+1, n g8).
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 // (x, y) = hi + lo as two bf16 pairs: hi rounded to nearest, lo the
@@ -153,37 +176,71 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// s[j] += the warp's 16 query rows . keys 8 j + (0..7) over one head's 16
-// channels, bf16 in shared memory: row r of Q at Q[r * ldq], key n of K at
-// K[n * ldk] (ld* an odd number of 16-byte units).  NT even.  SCALE_Q: the
-// rows of Q times qscale (a bf16 value), rounded to bf16, in registers.
-template <int NT, bool SCALE_Q = false>
+// s[j] += the warp's 16 query rows . keys 8 j + (0..7) over one head's HD
+// channels (8, 16 or 32), bf16 in shared memory: row r of Q at Q[r * ldq],
+// key n of K at K[n * ldk] (ld* an odd number of 16-byte units).  NT even.
+// SCALE_Q: the rows of Q times qscale (a bf16 value), rounded to bf16, in
+// registers.
+template <int NT, bool SCALE_Q = false, int HD = 16>
 __device__ __forceinline__ void qk_tile_bf16(float (&s)[NT][4], const __nv_bfloat16* Q, int ldq,
                                              const __nv_bfloat16* K, int ldk, float qscale = 1.f) {
   const int lane = threadIdx.x & 31, r8 = lane & 7, hi8 = (lane >> 3) & 1, quad = lane >> 4;
-  uint32_t a[4];  // rows 0-7 / 8-15 x channels 0-7 / 8-15
-  ldmatrix_x4(a, Q + (r8 + 8 * hi8) * ldq + 8 * quad);
-  if constexpr (SCALE_Q) {
+  if constexpr (HD == 8) {  // one k8 step: rows 0-7 / 8-15, keys 8 j .. + 7 / 8 j + 8 .. + 15
+    uint32_t a[2];
+    ldmatrix_x2(a, Q + (r8 + 8 * hi8) * ldq);
+    if constexpr (SCALE_Q) {
 #pragma unroll
-    for (int m = 0; m < 4; ++m) a[m] = scale_bf16x2(a[m], qscale);
-  }
+      for (int m = 0; m < 2; ++m) a[m] = scale_bf16x2(a[m], qscale);
+    }
 #pragma unroll
-  for (int j = 0; j < NT; j += 2) {
-    uint32_t b[4];  // keys 8 j .. + 7 x channels 0-7, 8-15, then keys 8 j + 8 .. + 15
-    ldmatrix_x4(b, K + (8 * j + r8 + 8 * quad) * ldk + 8 * hi8);
-    mma_bf16(s[j], a, b[0], b[1]);
-    mma_bf16(s[j + 1], a, b[2], b[3]);
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t b[2];
+      ldmatrix_x2(b, K + (8 * j + r8 + 8 * hi8) * ldk);
+      mma_bf16_k8(s[j], a, b[0]);
+      mma_bf16_k8(s[j + 1], a, b[1]);
+    }
+  } else if constexpr (HD == 16) {  // the loop's k16 step, written out: head dim 16's machine code as before
+    uint32_t a[4];  // rows 0-7 / 8-15 x channels 0-7 / 8-15
+    ldmatrix_x4(a, Q + (r8 + 8 * hi8) * ldq + 8 * quad);
+    if constexpr (SCALE_Q) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) a[m] = scale_bf16x2(a[m], qscale);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t b[4];  // keys 8 j .. + 7 x channels 0-7, 8-15, then keys 8 j + 8 .. + 15
+      ldmatrix_x4(b, K + (8 * j + r8 + 8 * quad) * ldk + 8 * hi8);
+      mma_bf16(s[j], a, b[0], b[1]);
+      mma_bf16(s[j + 1], a, b[2], b[3]);
+    }
+  } else {  // two k16 steps
+#pragma unroll
+    for (int k0 = 0; k0 < HD; k0 += 16) {
+      uint32_t a[4];  // rows 0-7 / 8-15 x channels k0 + 0-7 / 8-15
+      ldmatrix_x4(a, Q + (r8 + 8 * hi8) * ldq + k0 + 8 * quad);
+      if constexpr (SCALE_Q) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) a[m] = scale_bf16x2(a[m], qscale);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t b[4];  // keys 8 j .. + 7 x channels k0 + 0-7, 8-15, then keys 8 j + 8 .. + 15
+        ldmatrix_x4(b, K + (8 * j + r8 + 8 * quad) * ldk + k0 + 8 * hi8);
+        mma_bf16(s[j], a, b[0], b[1]);
+        mma_bf16(s[j + 1], a, b[2], b[3]);
+      }
+    }
   }
 }
 
 // o[c] += P . V for the warp's 16 rows and one head's output columns 8 c +
-// (0..7), c < 2: p in qk_tile_bf16's accumulator layout over NT x 8 keys
-// (float32, split into bf16 hi + lo; with ONCE, K3's bf16 form, rounded to
-// bf16 once: hi alone), key n of V at V[n * ldv] in shared memory (bf16,
+// (0..7), c < HD / 8: p in qk_tile_bf16's accumulator layout over NT x 8
+// keys (float32, split into bf16 hi + lo; with ONCE, K3's bf16 form, rounded
+// to bf16 once: hi alone), key n of V at V[n * ldv] in shared memory (bf16,
 // read transposed).
-template <int NT, bool ONCE = false>
-__device__ __forceinline__ void pv_tile_bf16(float (&o)[2][4], const float (&p)[NT][4], const __nv_bfloat16* V,
-                                             int ldv) {
+template <int NT, bool ONCE = false, int HD = 16>
+__device__ __forceinline__ void pv_tile_bf16(float (&o)[HD / 8][4], const float (&p)[NT][4],
+                                             const __nv_bfloat16* V, int ldv) {
   const int lane = threadIdx.x & 31, r8 = lane & 7, hi8 = (lane >> 3) & 1, quad = lane >> 4;
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
@@ -192,14 +249,33 @@ __device__ __forceinline__ void pv_tile_bf16(float (&o)[2][4], const float (&p)[
     split_bf16(p[2 * kk][2], p[2 * kk][3], hi[1], lo[1]);          // row g8 + 8
     split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], hi[2], lo[2]);  // row g8, keys 8 + 2 t4, ..
     split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], hi[3], lo[3]);
-    uint32_t b[4];  // keys 0-7 / 8-15 of the step x columns 0-7, then 8-15
-    ldmatrix_x4_trans(b, V + (16 * kk + r8 + 8 * hi8) * ldv + 8 * quad);
-    if constexpr (!ONCE) {
-      mma_bf16(o[0], lo, b[0], b[1]);
-      mma_bf16(o[1], lo, b[2], b[3]);
+    if constexpr (HD == 8) {
+      uint32_t b[2];  // keys 0-7 / 8-15 of the step x columns 0-7
+      ldmatrix_x2_trans(b, V + (16 * kk + r8 + 8 * hi8) * ldv);
+      if constexpr (!ONCE) mma_bf16(o[0], lo, b[0], b[1]);
+      mma_bf16(o[0], hi, b[0], b[1]);
+    } else if constexpr (HD == 16) {  // one pass of the loop below, written out (as qk_tile_bf16's)
+      uint32_t b[4];  // keys 0-7 / 8-15 of the step x columns 0-7, then 8-15
+      ldmatrix_x4_trans(b, V + (16 * kk + r8 + 8 * hi8) * ldv + 8 * quad);
+      if constexpr (!ONCE) {
+        mma_bf16(o[0], lo, b[0], b[1]);
+        mma_bf16(o[1], lo, b[2], b[3]);
+      }
+      mma_bf16(o[0], hi, b[0], b[1]);
+      mma_bf16(o[1], hi, b[2], b[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < HD / 8; c += 2) {
+        uint32_t b[4];  // keys 0-7 / 8-15 of the step x columns 8 c + 0-7, then 8 c + 8-15
+        ldmatrix_x4_trans(b, V + (16 * kk + r8 + 8 * hi8) * ldv + 8 * c + 8 * quad);
+        if constexpr (!ONCE) {
+          mma_bf16(o[c], lo, b[0], b[1]);
+          mma_bf16(o[c + 1], lo, b[2], b[3]);
+        }
+        mma_bf16(o[c], hi, b[0], b[1]);
+        mma_bf16(o[c + 1], hi, b[2], b[3]);
+      }
     }
-    mma_bf16(o[0], hi, b[0], b[1]);
-    mma_bf16(o[1], hi, b[2], b[3]);
   }
 }
 

@@ -34,7 +34,7 @@ template <typename T>
 static int grouped_forward(const void* q, const void* k, const void* v, const void* const* biases,
                            const float* const* masks, void* out, int B, int H, int W, int D, int n_group,
                            const int* ws, const int* shifts, int gh, float scale, void* stream) {
-  if (n_group < 1 || n_group > MAX_ATTN_GROUPS || D / n_group != gh * GCH)
+  if (n_group < 1 || n_group > MAX_ATTN_GROUPS || !head_dim(D, n_group, gh))
     return static_cast<int>(cudaErrorInvalidValue);
   const T* bias[MAX_ATTN_GROUPS];
   for (int g = 0; g < n_group; ++g) bias[g] = static_cast<const T*>(biases[g]);
@@ -50,7 +50,7 @@ static int grouped_forward(const void* q, const void* k, const void* v, const vo
 // table where shifts[g] > 0 (else not read).  ws and shifts are host arrays
 // of n_group ints.  bf16 != 0 selects bf16 io (the pointers then hold
 // __nv_bfloat16).  Needs windows of 2, 4 or 8 dividing H and W, at most
-// MAX_ATTN_GROUPS groups and a head dim (D / n_group / gh) of GCH = 16; the
+// MAX_ATTN_GROUPS groups and a head dim (D / n_group / gh) of 8, 16 or 32; the
 // Python wrapper checks these.  Returns cudaGetLastError() after the launch.
 extern "C" int grouped_window_attention_forward(const void* q, const void* k, const void* v,
                                                 const void* const* biases, const float* const* masks, void* out,

@@ -16,16 +16,19 @@
 //
 // What bounds it on an H100: the recurrence is serial in T, so the time is a
 // chain of T dependent steps, each an (N x H) . (H x 3H) product.  Two
-// regimes behind one entry point:
-//   * H = 32 (the SRB sweeps, N = 1024-4096): bound by bytes in total and by
+// regimes behind one entry point (any H from 1 to 512):
+//   * H = 32 (the SRB sweeps, N = 1024-4096; and H < 32, lanes j >= H idle,
+//     w_hh zero past H, `PART`): bound by bytes in total and by
 //     latency per step.  One warp per sequence; lane j keeps rows j, H+j and
 //     2H+j of w_hh in registers (96 floats, staged once per block through
 //     padded shared memory); h_{t-1} is broadcast from a per-warp double
 //     buffer in shared memory (one __syncwarp per step); gi runs AHEAD steps
 //     ahead of use through a cp.async ring, so no step waits on global
 //     memory.  blockIdx.y is the direction.
-//   * any other multiple of 32 up to 512 (gru_encoding: N = 64, T = B = 64,
-//     H = 512): bound by operations, and w_hh (3 MB a direction) fits in no
+//   * any H above 32 up to 512 (gru_encoding: N = 64, T = B = 64, H = 512;
+//     where H is not a multiple of 8, `PART`: the last CTA's units past H
+//     and the k-steps' rows past H read as zeros, so their h stays exactly
+//     0): bound by operations, and w_hh (3 MB a direction) fits in no
 //     SM.  One cooperative launch over ndir x H/8 CTAs: CTA p of direction d
 //     owns hidden units [8p, 8p + 8), so the gate math of its units is
 //     local.  Its r, z and n rows of w_hh (24 x H) stay on chip for the
@@ -90,16 +93,27 @@ constexpr int SMALL_H = 32;     // lane j owns hidden unit j
 constexpr int SMALL_WARPS = 4;  // warps per block, one sequence each
 constexpr int AHEAD = 4;        // steps of gi in flight ahead of use
 
+// PART: a.H < 32 hidden units, lane j < a.H owning unit j; w_hh staged as
+// 3 x 32 rows of 32 with zeros past a.H, the idle lanes' h held at 0.
+template <bool PART = false>
 __global__ void __launch_bounds__(SMALL_WARPS * 32) gru_small_kernel(Args a) {
   constexpr int H = SMALL_H, G = 3 * H, WS = H + 1, NSLOT = AHEAD + 1;
   __shared__ float wsm[G * WS];                          // w_hh, rows padded: conflict-free reads
   __shared__ __align__(16) float hs[SMALL_WARPS][2][H];  // h_{t-1}, double-buffered per warp
   __shared__ float gs[SMALL_WARPS][NSLOT][G];            // the gi ring
   const Dir dir = blockIdx.y ? a.dir[1] : a.dir[0];
-  for (int idx = threadIdx.x; idx < G * H; idx += SMALL_WARPS * 32)
-    wsm[(idx / H) * WS + idx % H] = __ldg(dir.w + idx);
+  const int hn = PART ? a.H : H;  // the hidden units
+  for (int idx = threadIdx.x; idx < G * H; idx += SMALL_WARPS * 32) {
+    if constexpr (PART) {
+      const int row = idx / H, k = idx % H, j = row % H;
+      wsm[row * WS + k] = j < hn && k < hn ? __ldg(dir.w + ((row / H) * hn + j) * hn + k) : 0.f;
+    } else {
+      wsm[(idx / H) * WS + idx % H] = __ldg(dir.w + idx);
+    }
+  }
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool on = !PART || lane < hn;
   const int n = blockIdx.x * SMALL_WARPS + warp;
   if (n >= a.N) return;  // the whole warp: no block-wide barrier follows
   float wr[H], wz[H], wn[H];
@@ -109,16 +123,17 @@ __global__ void __launch_bounds__(SMALL_WARPS * 32) gru_small_kernel(Args a) {
     wz[k] = wsm[(H + lane) * WS + k];
     wn[k] = wsm[(2 * H + lane) * WS + k];
   }
-  const float br = __ldg(dir.b + lane), bz = __ldg(dir.b + H + lane), bn = __ldg(dir.b + 2 * H + lane);
+  const float br = on ? __ldg(dir.b + lane) : 0.f, bz = on ? __ldg(dir.b + hn + lane) : 0.f,
+              bn = on ? __ldg(dir.b + 2 * hn + lane) : 0.f;
   const int T = a.T;
   const float* xp = dir.xp + (int64_t)n * a.sn + lane;
-  const int64_t ostep = (int64_t)a.ndir * H;
-  float* out = a.out + (int64_t)n * T * ostep + blockIdx.y * H + lane;
+  const int64_t ostep = (int64_t)a.ndir * hn;
+  float* out = a.out + (int64_t)n * T * ostep + blockIdx.y * hn + lane;
   auto prefetch = [&](int step) {  // this lane's gi of `step` into its slot; one group per step
-    if (step < T) {
+    if (step < T && on) {
       const float* gi = xp + (int64_t)(dir.reverse ? T - 1 - step : step) * a.st;
 #pragma unroll
-      for (int g = 0; g < 3; ++g) cp_async4(&gs[warp][step % NSLOT][g * H + lane], gi + g * H);
+      for (int g = 0; g < 3; ++g) cp_async4(&gs[warp][step % NSLOT][g * H + lane], gi + g * hn);
     }
     cp_async_commit();
   };
@@ -132,7 +147,7 @@ __global__ void __launch_bounds__(SMALL_WARPS * 32) gru_small_kernel(Args a) {
     const float gr = slot[0], gz = slot[H], gn = slot[2 * H];
     prefetch(step + AHEAD);  // into the slot read one step ago
     float* hb = hs[warp][step & 1];
-    hb[lane] = h;
+    hb[lane] = on ? h : 0.f;
     __syncwarp();
     float ar = br, az = bz, an = bn;
 #pragma unroll
@@ -152,7 +167,7 @@ __global__ void __launch_bounds__(SMALL_WARPS * 32) gru_small_kernel(Args a) {
       an = fmaf(hv.w, wn[k + 3], an);
     }
     h = gru_cell(gr, gz, gn, ar, az, an, h);
-    out[t * ostep] = h;
+    if (on) out[t * ostep] = h;
   }
   cp_async_wait(0);
 }
@@ -170,17 +185,20 @@ constexpr int LMAX_H = 8 * LKS * LWARPS;
 
 size_t large_smem_bytes(int H) { return sizeof(float) * ((size_t)H * LNCP + (size_t)LWARPS * LNC * LG); }
 
+// PART: H not a multiple of 8, run as Hp = H rounded up to 8 (hs, hbuf and
+// the k-steps over Hp rows; units and rows past H zero).
+template <bool PART = false>
 __global__ void __launch_bounds__(LTHREADS, 1) gru_large_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float sm[];
-  const int H = a.H, P = H / LU;
+  const int H = a.H, Hp = PART ? (H + 7) / 8 * 8 : H, P = Hp / LU;
   const int d = blockIdx.x / P, p = blockIdx.x % P;
   const Dir dir = d ? a.dir[1] : a.dir[0];
-  float* hs = sm;              // [H][LNCP]  h_{t-1}, each warp its K-slice
-  float* red = hs + H * LNCP;  // [LWARPS][LNC][LG]  partial products
+  float* hs = sm;               // [Hp][LNCP]  h_{t-1}, each warp its K-slice
+  float* red = hs + Hp * LNCP;  // [LWARPS][LNC][LG]  partial products
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g8 = lane >> 2, t4 = lane & 3;  // the mma fragment coordinates
-  const int ks_all = H / 8, ks0 = warp * ks_all / LWARPS, nks = (warp + 1) * ks_all / LWARPS - ks0;
+  const int ks_all = Hp / 8, ks0 = warp * ks_all / LWARPS, nks = (warp + 1) * ks_all / LWARPS - ks0;
   // B fragments of this warp's k-steps: column n = gate * 8 + unit of the
   // CTA's 24 rows of w_hh, split into tf32 hi / lo, held for the whole launch
   uint32_t bh[LKS][3][2], bl[LKS][3][2];
@@ -188,21 +206,23 @@ __global__ void __launch_bounds__(LTHREADS, 1) gru_large_kernel(Args a) {
   for (int i = 0; i < LKS; ++i) {
     if (i < nks) {
       const int k = (ks0 + i) * 8 + t4;
+      const bool unit = !PART || p * LU + g8 < H;
 #pragma unroll
       for (int gate = 0; gate < 3; ++gate) {
         const float* row = dir.w + ((int64_t)gate * H + p * LU + g8) * H;
-        split_tf32(__ldg(row + k), bh[i][gate][0], bl[i][gate][0]);
-        split_tf32(__ldg(row + k + 4), bh[i][gate][1], bl[i][gate][1]);
+        split_tf32(unit && (!PART || k < H) ? __ldg(row + k) : 0.f, bh[i][gate][0], bl[i][gate][0]);
+        split_tf32(unit && (!PART || k + 4 < H) ? __ldg(row + k + 4) : 0.f, bh[i][gate][1], bl[i][gate][1]);
       }
     }
   }
   // the gate threads: unit j of the CTA, chunk rows m0 and m0 + LNC / 2
   const int j = threadIdx.x % LU, m0 = threadIdx.x / LU;
+  const bool mine = !PART || p * LU + j < H;  // a unit of the H (else its h stays 0)
   float bias[3];
 #pragma unroll
-  for (int gate = 0; gate < 3; ++gate) bias[gate] = dir.b[gate * H + p * LU + j];
+  for (int gate = 0; gate < 3; ++gate) bias[gate] = mine ? dir.b[gate * H + p * LU + j] : 0.f;
   const int64_t ocols = (int64_t)a.ndir * H;
-  const int64_t hdir = (int64_t)H * LNC;  // one direction's h in the ping-pong buffer
+  const int64_t hdir = (int64_t)Hp * LNC;  // one direction's h in the ping-pong buffer
   int pp = 0;  // the half of hbuf that holds h_{t-1}
   for (int c0 = 0; c0 < a.N; c0 += LNC) {  // every CTA runs every chunk and step: no early exit
     float hold[2] = {0.0f, 0.0f};
@@ -214,8 +234,9 @@ __global__ void __launch_bounds__(LTHREADS, 1) gru_large_kernel(Args a) {
         const int n = c0 + m0 + r * (LNC / 2);
 #pragma unroll
         for (int gate = 0; gate < 3; ++gate)
-          gi[r][gate] =
-              n < a.N ? __ldg(dir.xp + (int64_t)n * a.sn + (int64_t)t * a.st + gate * H + p * LU + j) : 0.0f;
+          gi[r][gate] = n < a.N && mine
+                            ? __ldg(dir.xp + (int64_t)n * a.sn + (int64_t)t * a.st + gate * H + p * LU + j)
+                            : 0.0f;
       }
       if (step > 0) {
         // h_{t-1}[k][m] of this warp's k-steps from L2, one cp.async group
@@ -288,7 +309,7 @@ __global__ void __launch_bounds__(LTHREADS, 1) gru_large_kernel(Args a) {
         const float hn = gru_cell(gi[r][0], gi[r][1], gi[r][2], gh[0], gh[1], gh[2], hold[r]);
         hold[r] = hn;
         const int n = c0 + m;
-        if (n < a.N) a.out[((int64_t)n * a.T + t) * ocols + d * H + p * LU + j] = hn;
+        if (n < a.N && mine) a.out[((int64_t)n * a.T + t) * ocols + d * H + p * LU + j] = hn;
         a.hbuf[(int64_t)((pp ^ 1) * a.ndir + d) * hdir + (p * LU + j) * LNC + m] = hn;
       }
       pp ^= 1;
@@ -304,17 +325,17 @@ __global__ void __launch_bounds__(LTHREADS, 1) gru_large_kernel(Args a) {
 // (3H, H) and b_hh_d (3H), and writes out[:, :, d*H : (d+1)*H] of out
 // (N, T, ndir * H); with ndir = 2 direction 0 runs forward and direction 1
 // reversed, with ndir = 1 the one direction follows `reverse`.  All float32
-// on the device of `stream`.  H = 32 takes the register regime; any other
-// multiple of 32 up to 512 the cooperative one, which needs `hbuf`,
-// 2 * ndir * H * 64 floats of scratch, and its ndir * H / 8 CTAs
-// co-resident (else it returns cudaErrorCooperativeLaunchTooLarge and
+// on the device of `stream`.  H up to 32 takes the register regime; any H
+// above 32 up to 512 the cooperative one, which needs `hbuf`, 2 * ndir * Hp
+// * 64 floats of scratch (Hp = H rounded up to 8), and its ndir * Hp / 8
+// CTAs co-resident (else it returns cudaErrorCooperativeLaunchTooLarge and
 // launches nothing).  Returns the first CUDA error of the launch, 0 when
 // there is none.
 extern "C" int gru_scan_forward(const float* xp0, const float* xp1, const float* w0, const float* w1,
                                 const float* b0, const float* b1, float* out, float* hbuf, int N, int T, int H,
                                 int ndir, int reverse, long long sn, long long st, void* stream) {
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (H % 32 != 0 || H <= 0 || H > LMAX_H || N <= 0 || T <= 0 || ndir < 1 || ndir > 2)
+  if (H <= 0 || H > LMAX_H || N <= 0 || T <= 0 || ndir < 1 || ndir > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.dir[0] = Dir{xp0, w0, b0, ndir == 2 ? 0 : (reverse != 0)};
@@ -327,26 +348,31 @@ extern "C" int gru_scan_forward(const float* xp0, const float* xp1, const float*
   a.ndir = ndir;
   a.sn = sn;
   a.st = st;
-  if (H == SMALL_H) {
-    gru_small_kernel<<<dim3((N + SMALL_WARPS - 1) / SMALL_WARPS, ndir), SMALL_WARPS * 32, 0, cs>>>(a);
+  if (H <= SMALL_H) {
+    const dim3 grid((N + SMALL_WARPS - 1) / SMALL_WARPS, ndir);
+    if (H == SMALL_H)
+      gru_small_kernel<<<grid, SMALL_WARPS * 32, 0, cs>>>(a);
+    else
+      gru_small_kernel<true><<<grid, SMALL_WARPS * 32, 0, cs>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   if (hbuf == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = large_smem_bytes(H);
-  cudaError_t err = cudaFuncSetAttribute(gru_large_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int Hp = (H + 7) / 8 * 8;
+  const size_t smem = large_smem_bytes(Hp);
+  auto kern = H == Hp ? gru_large_kernel<false> : gru_large_kernel<true>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gru_large_kernel, LTHREADS, smem)) !=
-      cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, LTHREADS, smem)) != cudaSuccess)
     return static_cast<int>(err);
-  const int blocks = ndir * (H / LU);
+  const int blocks = ndir * (Hp / LU);
   if (blocks > per_sm * sms) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(gru_large_kernel), dim3(blocks), dim3(LTHREADS),
-                                    params, smem, cs);
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(blocks), dim3(LTHREADS), params, smem,
+                                    cs);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

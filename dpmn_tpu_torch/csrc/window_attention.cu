@@ -65,8 +65,8 @@
 // null (then no LN and no residual).  Scratch the caller allocates, float32:
 // qbuf (B, L, D), kvbuf (B, L, 2D), attn and feats (B, L, D), partial
 // (B, L/64, D), gate (B, n_group, ch).  ws and shifts are host arrays of
-// n_group ints.  Needs L % 64 == 0, D % 32 == 0 with D <= 96, windows of 2,
-// 4 or 8 dividing H and W, and a head dim (ch / gh) of GCH = 16; the Python
+// n_group ints.  Needs L % 64 == 0, D a multiple of 16 up to 96, windows of
+// 2, 4 or 8 dividing H and W, and a head dim (ch / gh) of 8, 16 or 32; the Python
 // wrapper checks these.  T is the io type of xq, xkv, the LN parameters, the
 // weights and out: float, or bf16 (the LN result rounded to bf16 and the
 // projections on bf16 tensor cores; q, kv, the attention and SKConv's sums in
@@ -83,7 +83,7 @@ int block_forward(const T* xq, const T* xkv, const T* ln_qs, const T* ln_qb, con
   const int L = H * W, ntok = B * L, ch = D / n_group;
   const int do_ln = ln_qs != nullptr;
   cudaError_t err;
-  if (ch != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
 
   err = launch_ln_proj(xq, xkv, ln_qs, ln_qb, ln_ks, ln_kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, D, do_ln, st);
   if (err != cudaSuccess) return static_cast<int>(err);

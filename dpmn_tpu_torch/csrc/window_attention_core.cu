@@ -86,15 +86,15 @@ struct CoreBf16Work {
 // (gh, N_g, N_g), concatenated; mask: per shifted group (nW_g, N_g, N_g),
 // concatenated.  ws and shifts are host arrays of n_group ints.  With drop,
 // entries whose hash clears thresh are kept and scaled by inv_keep.  Needs
-// D % 32 == 0 with D <= 96, windows of 2, 4 or 8 dividing H and W, and a
-// head dim of GCH = 16; the Python wrapper checks these.  Returns
+// D a multiple of 16 up to 96, windows of 2, 4 or 8 dividing H and W, and a
+// head dim of 8, 16 or 32; the Python wrapper checks these.  Returns
 // cudaGetLastError() after the last launch (or the first failing one).
 extern "C" int window_attention_core_forward(const float* q, const float* k, const float* v, const float* bias,
                                              const float* mask, float* out, int B, int H, int W, int D,
                                              int n_group, const int* ws, const int* shifts, int gh, float scale,
                                              uint32_t seed, uint32_t thresh, float inv_keep, int drop,
                                              void* stream) {
-  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_attn_groups_any(q, k, v, D, bias, mask, out, B, H, W, D, n_group, ws, shifts, gh,
                                                  scale, 0, seed, thresh, inv_keep, drop,
                                                  static_cast<cudaStream_t>(stream)));
@@ -114,7 +114,7 @@ extern "C" int window_attention_core_backward(const float* q, const float* k, co
                                               int n_group, const int* ws, const int* shifts, int gh, float scale,
                                               uint32_t seed, uint32_t thresh, float inv_keep, int drop,
                                               void* stream) {
-  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_attn_bwd_groups_any(q, k, v, D, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B,
                                                      H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep,
                                                      drop, static_cast<cudaStream_t>(stream)));
@@ -128,7 +128,7 @@ extern "C" int window_attention_core_forward_bf16(const bf16* q, const bf16* k, 
                                                   int n_group, const int* ws, const int* shifts, int gh, float scale,
                                                   uint32_t seed, uint32_t thresh, float inv_keep, int drop,
                                                   void* stream) {
-  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_attn_groups_any(q, k, v, kvs, bias, mask, out, B, H, W, D, n_group, ws, shifts, gh,
                                                  scale, 0, seed, thresh, inv_keep, drop,
                                                  static_cast<cudaStream_t>(stream)));
@@ -150,7 +150,7 @@ extern "C" int window_attention_core_backward_bf16(const bf16* q, const bf16* k,
                                                    float scale, uint32_t seed, uint32_t thresh, float inv_keep,
                                                    int drop, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t ntok = (int64_t)B * H * W;
   const CoreBf16Work r(work, B, H, W, D, n_group, ws, gh);
   cudaError_t err;

@@ -84,13 +84,14 @@ __device__ __forceinline__ float gelu_erf_grad(float x) {
 // The warp layout of a transposed product dW (R x c) = dy^T x over a tile's
 // TOK tokens, as wgrad_kernel's: warp w owns the m-tiles of rows [(w / 4)
 // R/2, (w / 4 + 1) R/2) and the n-tiles of columns [(w % 4) P, (w % 4 + 1)
-// P), P = 8 ceil(c / 32); R in {32, 64, 96}, c a multiple of 8 up to 96.
+// P), P = 8 ceil(c / 32); R a multiple of 16 up to 96 (R / 16 m-tiles, the
+// first warp row taking the odd one), c a multiple of 8 up to 96.
 struct WgradWarp {
   int mt, m0, nt, n0;
   __device__ static WgradWarp make(int R, int c) {
-    const int warp = threadIdx.x >> 5, ct = c / 8, per = (ct + 3) / 4;
-    return WgradWarp{R / 32, (warp >> 2) * (R / 32) * 16, min(per, max(0, ct - (warp & 3) * per)),
-                     (warp & 3) * per * 8};
+    const int warp = threadIdx.x >> 5, ct = c / 8, per = (ct + 3) / 4, first = (R / 16 + 1) / 2;
+    return WgradWarp{(warp >> 2) ? R / 16 - first : first, (warp >> 2) * first * 16,
+                     min(per, max(0, ct - (warp & 3) * per)), (warp & 3) * per * 8};
   }
 };
 
@@ -223,7 +224,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                         const float* __restrict__ gate, const float* __restrict__ dgap,
                         const float* __restrict__ dfv, const float* __restrict__ pw, const float* __restrict__ pb,
                         float* __restrict__ dtok, float* __restrict__ part, int L, int ch, int ntile) {
-  constexpr int S = D + 4, NT = D / 32;
+  constexpr int S = D + 4, NT = col_tiles<D>();
   extern __shared__ __align__(16) float sm[];
   float* w = sm;
   float* wt = w + D * S;
@@ -245,12 +246,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   stage_rows(w, pw, D, D, S);
   stage_cols(wt, pw, D, D, S);
   const TileWarp tw = TileWarp::make<NT>();
+  const int nt = tiles_below<D>(tw.n0, D);
   const WgradWarp ww = WgradWarp::make(D, D);
   float bias[NT][2];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) bias[j][e] = pb[tw.n0 + 8 * j + 2 * tw.t4 + e];
+    for (int e = 0; e < 2; ++e) bias[j][e] = j < nt ? pb[tw.n0 + 8 * j + 2 * tw.t4 + e] : 0.f;
   float wacc[3][3][4];
   zero_acc(wacc);
   float bacc = 0.f;
@@ -267,7 +269,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float* dgt = gt + D;
     float acc[2][NT][4];
     zero_acc(acc);
-    mma_tile<false, false, 2, NT>(acc, tt, S, tw.m0, w, S, tw.n0, D);
+    mma_tile<false, false, 2, NT>(acc, tt, S, tw.m0, w, S, tw.n0, D, 2, nt);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -277,6 +279,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
+            if (j >= nt) continue;
             const int o = tw.n0 + 8 * j + 2 * tw.t4 + e;
             dfs[r * S + o] = fmaf(dgt[o], gelu_erf_grad(acc[i][j][2 * h + e] + bias[j][e]), dt[r * S + o]);
           }
@@ -285,7 +288,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (threadIdx.x < D)
       for (int r = 0; r < TOK; ++r) bacc += dfs[r * S + threadIdx.x];
     zero_acc(acc);
-    mma_tile<false, false, 2, NT>(acc, dfs, S, tw.m0, wt, S, tw.n0, D);
+    mma_tile<false, false, 2, NT>(acc, dfs, S, tw.m0, wt, S, tw.n0, D, 2, nt);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -293,6 +296,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int64_t t = t0 + tw.m0 + 16 * i + tw.g8 + 8 * h;
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
+          if (j >= nt) continue;
           const int m = tw.n0 + 8 * j + 2 * tw.t4;  // m and m + 1 lie in one group (ch is even)
           const float2 f = *reinterpret_cast<const float2*>(dfv + t * ch + m % ch);
           *reinterpret_cast<float2*>(dtok + t * D + m) =
@@ -433,9 +437,9 @@ cudaError_t full_forward(const float* xq, const float* xkv, const float* const* 
 // xq, xkv, out (B, L, D) with L = H*W.  bias: per group (gh, N_g, N_g),
 // concatenated; mask: per shifted group (nW_g, N_g, N_g), concatenated.  ws
 // and shifts are host arrays of n_group ints.  With drop, entries whose hash
-// clears thresh are kept and scaled by inv_keep.  Needs L % 64 == 0, D % 32
-// == 0 with D <= 96, windows of 2, 4 or 8 dividing H and W, and a head dim
-// of GCH = 16; the Python wrapper checks these.  Each entry point returns
+// clears thresh are kept and scaled by inv_keep.  Needs L % 64 == 0, D a
+// multiple of 16 up to 96, windows of 2, 4 or 8 dividing H and W, and a head
+// dim (D / n_group / gh) of 8, 16 or 32; the Python wrapper checks these.  Each entry point returns
 // cudaGetLastError() after its last launch (or the first failing one).
 
 // The floats of the forward's scratch.
@@ -456,7 +460,7 @@ extern "C" int window_attention_full_forward(const float* xq, const float* xkv, 
                                              int n_group, const int* ws, const int* shifts, int gh, int dz,
                                              float scale, uint32_t seed, uint32_t thresh, float inv_keep, int drop,
                                              void* stream) {
-  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(full_forward(xq, xkv, wt, bias, mask, scratch, Kept{tok, partial, gate}, out, B, H, W, D,
                                        n_group, ws, shifts, gh, dz, scale, seed, thresh, inv_keep, drop,
                                        static_cast<cudaStream_t>(stream)));
@@ -529,14 +533,17 @@ cudaError_t launch_skconv_bwd_d(const float* dout, const Kept& k, const float* c
 
 // SKConv's backward: pass A (+ the fixed-order sum of the dWph partials),
 // the gate backward, the fc weight gradients, pass B (+ the dWp sum); dt
-// into r.dtok.  D in {32, 64, 96}, ch a multiple of 8.
+// into r.dtok.  D a multiple of 16 up to 96, ch a multiple of 8.
 cudaError_t launch_skconv_bwd(const float* dout, const Kept& k, const float* const* wt, const BwdBufs& r,
                               float* g_fc, float* g_p, float* g_ph, int B, int L, int D, int n_group, int dz, int grid,
                               cudaStream_t st) {
   if (!aligned16(dout) || !aligned16(k.tok) || (D / n_group) % 8 != 0) return cudaErrorInvalidValue;
   switch (D) {
+    case 16: return launch_skconv_bwd_d<16>(dout, k, wt, r, g_fc, g_p, g_ph, B, L, n_group, dz, grid, st);
     case 32: return launch_skconv_bwd_d<32>(dout, k, wt, r, g_fc, g_p, g_ph, B, L, n_group, dz, grid, st);
+    case 48: return launch_skconv_bwd_d<48>(dout, k, wt, r, g_fc, g_p, g_ph, B, L, n_group, dz, grid, st);
     case 64: return launch_skconv_bwd_d<64>(dout, k, wt, r, g_fc, g_p, g_ph, B, L, n_group, dz, grid, st);
+    case 80: return launch_skconv_bwd_d<80>(dout, k, wt, r, g_fc, g_p, g_ph, B, L, n_group, dz, grid, st);
     case 96: return launch_skconv_bwd_d<96>(dout, k, wt, r, g_fc, g_p, g_ph, B, L, n_group, dz, grid, st);
     default: return cudaErrorInvalidValue;
   }
@@ -567,7 +574,7 @@ extern "C" int window_attention_full_backward(const float* xq, const float* xkv,
                                               const int* shifts, int gh, int dz, float scale, uint32_t seed,
                                               uint32_t thresh, float inv_keep, int drop, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
   const int L = H * W, ntok = B * L;
   int grid = 0;
   cudaError_t err = persistent_grid(ntok / TOK, &grid);
@@ -654,7 +661,7 @@ extern "C" int window_attention_full_forward_bf16(const bf16* xq, const bf16* xk
                                                   int dz, float scale, uint32_t seed, uint32_t thresh,
                                                   float inv_keep, int drop, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
   const int L = H * W;
   const size_t T = (size_t)B * L;
   Carver c{scratch};
@@ -696,7 +703,7 @@ extern "C" int window_attention_full_backward_bf16(const bf16* xq, const bf16* x
                                                    const int* shifts, int gh, int dz, float scale, uint32_t seed,
                                                    uint32_t thresh, float inv_keep, int drop, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
   const int L = H * W, ntok = B * L;
   const int64_t nd = (int64_t)ntok * D;
   int grid = 0;

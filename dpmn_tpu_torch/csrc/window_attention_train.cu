@@ -109,9 +109,9 @@ struct Bf16BwdWork {
 // (gh, N_g, N_g), concatenated; mask: per shifted group (nW_g, N_g, N_g),
 // concatenated.  Scratch: qbuf (B, L, D), kvbuf (B, L, 2D).  ws and shifts
 // are host arrays of n_group ints.  With drop, entries whose hash clears
-// thresh are kept and scaled by inv_keep.  Needs L % 64 == 0, D % 32 == 0
-// with D <= 96, windows of 2, 4 or 8 dividing H and W, and a head dim of
-// GCH = 16; the Python wrapper checks these.  Returns cudaGetLastError()
+// thresh are kept and scaled by inv_keep.  Needs L % 64 == 0, D a multiple
+// of 16 up to 96, windows of 2, 4 or 8 dividing H and W, and a head dim of
+// 8, 16 or 32; the Python wrapper checks these.  Returns cudaGetLastError()
 // after the last launch (or the first failing one).
 extern "C" int window_attention_train_forward(
     const float* xq, const float* xkv, const float* qs, const float* qb, const float* ks, const float* kb,
@@ -120,7 +120,7 @@ extern "C" int window_attention_train_forward(
     const int* ws, const int* shifts, int gh, float scale, uint32_t seed, uint32_t thresh, float inv_keep,
     int drop, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = launch_ln_proj(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, B * H * W, D, 1, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_attn_groups_any(qbuf, kvbuf, kvbuf + D, 2 * D, bias, mask, out, B, H, W, D, n_group, ws, shifts, gh,
@@ -151,7 +151,7 @@ extern "C" int window_attention_train_backward(
     float inv_keep, int drop, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ntok = B * H * W;
-  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = launch_ln_proj(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, D, 1, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_attn_bwd_groups_any(qbuf, kvbuf, kvbuf + D, 2 * D, dout, bias, mask, dqbuf, dkvbuf, dkvbuf + D,
@@ -170,7 +170,7 @@ extern "C" int window_attention_train_forward_bf16(
     bf16* kvbuf, bf16* out, int B, int H, int W, int D, int n_group, const int* ws, const int* shifts, int gh,
     float scale, uint32_t seed, uint32_t thresh, float inv_keep, int drop, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = launch_ln_proj(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, B * H * W, D, 1, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_attn_groups_any(static_cast<const bf16*>(qbuf), static_cast<const bf16*>(kvbuf),
@@ -198,7 +198,7 @@ extern "C" int window_attention_train_backward_bf16(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ntok = B * H * W;
   const int64_t nd = (int64_t)ntok * D;
-  if (D / n_group != gh * GCH) return static_cast<int>(cudaErrorInvalidValue);
+  if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
   const Bf16BwdWork r(work, B, H, W, D, n_group, ws, gh);
   // the parameters, inputs and dout widened to float32
   float* const qsf = r.pf;

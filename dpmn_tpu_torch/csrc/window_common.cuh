@@ -27,30 +27,32 @@ namespace {
 
 // Loads and stores of the attention's io type, computing in float32 (for
 // float the plain loads and stores): one element, two adjacent ones, a
-// head's row of GCH values (as 16-byte pieces where `vec`), and 4 adjacent
-// values.
+// head's row of HD values (8, 16 or 32; as 16-byte pieces where `vec`), and
+// 4 adjacent values.
 __device__ __forceinline__ float ldg_one(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldg_one(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
 __device__ __forceinline__ float2 ldg_pair(const float* p) { return __ldg(reinterpret_cast<const float2*>(p)); }
 __device__ __forceinline__ float2 ldg_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
 }
-__device__ __forceinline__ void load_row16(float (&x)[16], const float* p, int vec) {
+template <int HD>
+__device__ __forceinline__ void load_row(float (&x)[HD], const float* p, int vec) {
   if (vec) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < HD / 4; ++c) {
       const float4 t = __ldg(reinterpret_cast<const float4*>(p) + c);
       x[4 * c] = t.x, x[4 * c + 1] = t.y, x[4 * c + 2] = t.z, x[4 * c + 3] = t.w;
     }
   } else {
 #pragma unroll
-    for (int d = 0; d < 16; ++d) x[d] = __ldg(p + d);
+    for (int d = 0; d < HD; ++d) x[d] = __ldg(p + d);
   }
 }
-__device__ __forceinline__ void load_row16(float (&x)[16], const __nv_bfloat16* p, int vec) {
+template <int HD>
+__device__ __forceinline__ void load_row(float (&x)[HD], const __nv_bfloat16* p, int vec) {
   if (vec) {
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < HD / 8; ++c) {
       const uint4 t = __ldg(reinterpret_cast<const uint4*>(p) + c);
       const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
 #pragma unroll
@@ -61,7 +63,7 @@ __device__ __forceinline__ void load_row16(float (&x)[16], const __nv_bfloat16* 
     }
   } else {
 #pragma unroll
-    for (int d = 0; d < 16; ++d) x[d] = __bfloat162float(p[d]);
+    for (int d = 0; d < HD; ++d) x[d] = __bfloat162float(p[d]);
   }
 }
 __device__ __forceinline__ void store4(float* p, float4 x, int vec) {
@@ -81,10 +83,10 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x, int vec) {
     p[0] = a.x, p[1] = a.y, p[2] = b.x, p[3] = b.y;
   }
 }
-template <typename T>
-__device__ __forceinline__ void store_row16(T* p, const float (&x)[16], int vec) {
+template <typename T, int HD>
+__device__ __forceinline__ void store_row(T* p, const float (&x)[HD], int vec) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c) store4(p + 4 * c, make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2], x[4 * c + 3]), vec);
+  for (int c = 0; c < HD / 4; ++c) store4(p + 4 * c, make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2], x[4 * c + 3]), vec);
 }
 
 // A value of the io type as float32 and back (round to nearest even), and
@@ -108,9 +110,21 @@ __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(_
 
 constexpr int TOK = 64;      // tokens per tile of the token-tile kernels
 constexpr int THREADS = 256;  // 8 warps
-constexpr int GCH = 16;       // the head dim the path gives (32 channels per group over 2 heads)
 constexpr int LNP_WARPS = 12;  // ln_proj: warps 0-3 own the q columns, 4-11 the kv columns
 constexpr int LNP_THREADS = 32 * LNP_WARPS;
+
+// The n8-tiles of output columns of the D-wide products (D a multiple of 16
+// up to 96): each warp of a column group owns NT = ceil(D / 32) tiles from
+// its first column n0; where D is not a multiple of 32 (16, 48, 80) the
+// warps near the end of the columns [.., end) own fewer, or none.
+template <int D>
+__host__ __device__ constexpr int col_tiles() {
+  return (D + 31) / 32;
+}
+template <int D>
+__device__ __forceinline__ int tiles_below(int n0, int end) {
+  return D % 32 == 0 ? col_tiles<D>() : max(0, min(col_tiles<D>(), (end - n0) / 8));
+}
 
 // Stage a weight W (rows x k, row-major in global memory, float32 or bf16)
 // into shared memory as float32 [rows][ld] (ld = k + 4: conflict-free B
@@ -192,8 +206,10 @@ __device__ __forceinline__ void ln_rows_inplace(T* tile, int ld, int r0, int ste
 // computed (two stages), are normalized in place (do_ln), and the product
 // runs on the tensor cores (mma_tile, 3xTF32): warp w owns the tile's 4
 // m-tiles and the D/32 n-tiles of output columns [w D/4, (w + 1) D/4),
-// which are q columns for w < 4 and kv columns after.  Shared: w [3D][D + 4],
-// xs [2 stages][2 streams][TOK][D + 4].
+// which are q columns for w < 4 and kv columns after (D = 16, 48, 80: the
+// ceil(D/32) tiles from column 8 ceil(D/32) w of q, or of kv for warp w + 4,
+// cut at the end of the columns: col_tiles).  Shared: w [3D][D + 4], xs [2
+// stages][2 streams][TOK][D + 4].
 template <int D>
 __global__ void __launch_bounds__(LNP_THREADS, 1)
     ln_proj_kernel(const float* __restrict__ xq, const float* __restrict__ xkv, const float* __restrict__ qs,
@@ -201,7 +217,7 @@ __global__ void __launch_bounds__(LNP_THREADS, 1)
                    const float* __restrict__ qw, const float* __restrict__ qbias, const float* __restrict__ kvw,
                    const float* __restrict__ kvbias, float* __restrict__ qout, float* __restrict__ kvout, int ntok,
                    int do_ln) {
-  constexpr int S = D + 4, NT = D / 32;
+  constexpr int S = D + 4, NT = col_tiles<D>();
   extern __shared__ __align__(16) float sm[];
   float* w = sm;
   float* xs = w + 3 * D * S;
@@ -227,14 +243,16 @@ __global__ void __launch_bounds__(LNP_THREADS, 1)
     lbk[m] = on ? kb[k] : 0.f;
   }
   const bool is_q = warp < 4;
-  const int n0 = warp * NT * 8;  // the warp's first column of the 3D outputs
+  // the warp's first column of the 3D outputs, and its n-tiles
+  const int n0 = D % 32 == 0 || is_q ? warp * NT * 8 : D + (warp - 4) * NT * 8;
+  const int nt = tiles_below<D>(n0, is_q ? D : 3 * D);
   float bias[NT][2];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int o = n0 + 8 * j + 2 * t4 + e;
-      bias[j][e] = is_q ? qbias[o] : kvbias[o - D];
+      bias[j][e] = j < nt ? (is_q ? qbias[o] : kvbias[o - D]) : 0.f;
     }
   int stage = 0;
   for (int tile = blockIdx.x; tile < ntile; tile += gridDim.x, stage ^= 1) {
@@ -250,7 +268,7 @@ __global__ void __launch_bounds__(LNP_THREADS, 1)
     }
     float acc[4][NT][4];
     zero_acc(acc);
-    mma_tile<false, false, 4, NT>(acc, xt + (is_q ? 0 : TOK * S), S, 0, w, S, n0, D);
+    mma_tile<false, false, 4, NT>(acc, xt + (is_q ? 0 : TOK * S), S, 0, w, S, n0, D, 4, nt);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -259,6 +277,7 @@ __global__ void __launch_bounds__(LNP_THREADS, 1)
         if (t >= ntok) continue;
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
+          if (j >= nt) continue;
           const int o = n0 + 8 * j + 2 * t4;
           const float2 val = make_float2(acc[i][j][2 * h] + bias[j][0], acc[i][j][2 * h + 1] + bias[j][1]);
           if (is_q)
@@ -274,8 +293,7 @@ __global__ void __launch_bounds__(LNP_THREADS, 1)
 // bf16 io pieces of the LN + projection kernel: 16 bytes by cp.async (zero
 // bytes where not `valid`), the tile of TOK bf16 tokens into shared memory
 // [TOK][ld] (c % 8 == 0, rows 16-byte aligned), a bf16 weight's rows into
-// shared memory [rows][ld] as they are (k % 8 == 0, w 16-byte aligned), and
-// ldmatrix of two 8x8 bf16 matrices (lanes 0-15 give the row addresses).
+// shared memory [rows][ld] as they are (k % 8 == 0, w 16-byte aligned).
 __device__ __forceinline__ void cp_async16_zfill_bytes(void* smem, const void* gmem, bool valid) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem), "r"(valid ? 16 : 0)
@@ -297,10 +315,6 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat
     const int r = e / k8, c = (e % k8) * 8;
     *reinterpret_cast<uint4*>(dst + r * ld + c) = __ldg(reinterpret_cast<const uint4*>(w + (int64_t)r * k + c));
   }
-}
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
 }
 
 // ln_proj_kernel for bf16 io (the JAX kernel on bf16 inputs,
@@ -324,7 +338,7 @@ __global__ void __launch_bounds__(LNP_THREADS, 1)
                         const __nv_bfloat16* __restrict__ qw, const __nv_bfloat16* __restrict__ qbias,
                         const __nv_bfloat16* __restrict__ kvw, const __nv_bfloat16* __restrict__ kvbias,
                         OT* __restrict__ qout, OT* __restrict__ kvout, int ntok, int do_ln) {
-  constexpr int S = D + 8, NT = D / 32;
+  constexpr int S = D + 8, NT = col_tiles<D>();
   extern __shared__ __align__(16) unsigned char lnp_smem[];
   __nv_bfloat16* w = reinterpret_cast<__nv_bfloat16*>(lnp_smem);
   __nv_bfloat16* xs = w + 3 * D * S;
@@ -351,14 +365,16 @@ __global__ void __launch_bounds__(LNP_THREADS, 1)
     lbk[m] = on ? to_f(kb[k]) : 0.f;
   }
   const bool is_q = warp < 4;
-  const int n0 = warp * NT * 8;  // the warp's first column of the 3D outputs
+  // the warp's first column of the 3D outputs, and its n-tiles
+  const int n0 = D % 32 == 0 || is_q ? warp * NT * 8 : D + (warp - 4) * NT * 8;
+  const int nt = tiles_below<D>(n0, is_q ? D : 3 * D);
   float bias[NT][2];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int o = n0 + 8 * j + 2 * t4 + e;
-      bias[j][e] = to_f(is_q ? qbias[o] : kvbias[o - D]);
+      bias[j][e] = j < nt ? to_f(is_q ? qbias[o] : kvbias[o - D]) : 0.f;
     }
   int stage = 0;
   for (int tile = blockIdx.x; tile < ntile; tile += gridDim.x, stage ^= 1) {
@@ -380,11 +396,11 @@ __global__ void __launch_bounds__(LNP_THREADS, 1)
       uint32_t bf[NT][2];  // the n8 tiles' B fragments: weight rows n0 + 8 j .., columns k0 .. k0 + 15
 #pragma unroll
       for (int j = 0; j < NT; j += 2) {
-        if (j + 1 < NT) {
+        if (j + 1 < nt) {
           uint32_t r[4];
           ldmatrix_x4(r, w + (n0 + 8 * j + r8 + 8 * quad) * S + k0 + 8 * hi8);
           bf[j][0] = r[0], bf[j][1] = r[1], bf[j + 1][0] = r[2], bf[j + 1][1] = r[3];
-        } else {
+        } else if (j < nt) {
           uint32_t r[2];
           ldmatrix_x2(r, w + (n0 + 8 * j + r8) * S + k0 + 8 * hi8);
           bf[j][0] = r[0], bf[j][1] = r[1];
@@ -395,7 +411,8 @@ __global__ void __launch_bounds__(LNP_THREADS, 1)
         uint32_t a[4];  // token rows 16 i .. + 15 x columns k0 .. k0 + 15
         ldmatrix_x4(a, A + (16 * i + r8 + 8 * hi8) * S + k0 + 8 * quad);
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a, bf[j][0], bf[j][1]);
+        for (int j = 0; j < NT; ++j)
+          if (j < nt) mma_bf16(acc[i][j], a, bf[j][0], bf[j][1]);
       }
     }
 #pragma unroll
@@ -406,6 +423,7 @@ __global__ void __launch_bounds__(LNP_THREADS, 1)
         if (t >= ntok) continue;
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
+          if (j >= nt) continue;
           const int o = n0 + 8 * j + 2 * t4;
           const float2 val = make_float2(acc[i][j][2 * h] + bias[j][0], acc[i][j][2 * h + 1] + bias[j][1]);
           if (is_q)
@@ -457,6 +475,16 @@ __device__ __forceinline__ int window_token_c(int widx, int j, int nwc, int sh, 
   return r * W + c;
 }
 
+// The shift mask of an unshifted group at head dims other than 16: zeros
+// (the largest window's N x N), which add nothing, in place of a null
+// pointer.  With null, the 4x4 backward at head dims 8 and 32 faulted
+// (illegal address) on unshifted blocks with bf16 rounding or dropout; the
+// cause is not known.  The null-mask build of a faulting instance
+// (window_attn_bwd_tc_kernel<16, 1, true, true, 8>) issues every mask load
+// under the pointer's check, so the loads are not hoisted there.  Head dim
+// 16 keeps null.
+__device__ float zero_mask[64 * 64];
+
 // Persistent grids: one CTA per SM, or per tile where there are fewer.
 inline cudaError_t persistent_grid(int ntile, int* grid) {
   int sms = 0;
@@ -470,14 +498,21 @@ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 
 
 // The tensor-core attention forward's step (windows a CTA computes at once:
 // its 8 warps take the windows' gh x N/16 row tiles) and the row strides of
-// its shared slots, in elements of the io type (attn_tile.cuh).
+// its shared slots, in elements of the io type (attn_tile.cuh), for a group
+// of ch = gh HD channels: ch + 8 (8 mod 16), or ch + 16 where ch is an odd
+// multiple of 8 (head dim 8).
 __host__ __device__ inline int fwd_windows_a_step(int n, int gh) {
   const int tiles = gh * (n / 16);
   return tiles >= 8 ? 1 : 8 / tiles;
 }
-__host__ __device__ inline int fwd_ldq(int ch) { return ch + 8; }
-template <typename T>
-__host__ __device__ inline int fwd_ldv(int ch) { return ch + (sizeof(T) == 4 ? 4 : 8); }
+template <int HD>
+__host__ __device__ inline int fwd_ldq(int ch) {
+  return HD % 16 == 0 || ch % 16 == 0 ? ch + 8 : ch + 16;
+}
+template <typename T, int HD>
+__host__ __device__ inline int fwd_ldv(int ch) {
+  return sizeof(T) == 4 ? ch + 4 : fwd_ldq<HD>(ch);
+}
 
 // One channel group of an attention-forward launch: its window and shift,
 // its tables and the first of its units in the launch's work list.
@@ -487,7 +522,7 @@ struct AttnGroup {
   const float* mask;  // (nW, N, N) where sh > 0
   int g, ws, sh, unit0;
 };
-constexpr int MAX_ATTN_GROUPS = 6;  // D <= 96 in groups of 16 gh >= 16 channels
+constexpr int MAX_ATTN_GROUPS = 6;  // the windows of a block (the JAX package's paths give 1 to 3)
 
 // The arguments of one attention-forward launch (a __grid_constant__
 // kernel parameter).  grp holds the groups in work-list order: 8x8, then
@@ -519,36 +554,36 @@ __host__ __device__ constexpr bool p_rounded_once() {
 // A 2x2-window unit on the CUDA cores: a thread per (window, head, query
 // row), THREADS rows a unit; its q row and the window's k and v rows read as
 // 16-byte pieces (the 4 threads of a window and head share them through
-// L1), the 4 scores, softmax, dropout and the 16 outputs in registers.
-template <bool DROP, typename T, typename BT, typename OT>
+// L1), the 4 scores, softmax, dropout and the HD outputs in registers.
+template <bool DROP, int HD, typename T, typename BT, typename OT>
 __device__ __forceinline__ void attn_unit4(const AttnArgs<T, BT, OT>& a, const AttnGroup<T, BT>& gr, int unit) {
-  const int ch = a.gh * GCH, L = a.H * a.W;
+  const int ch = a.gh * HD, L = a.H * a.W;
   const int nwc = a.W / 2, nw = (a.H / 2) * nwc;
   const int t = unit * THREADS + threadIdx.x;
   if (t >= a.B * nw * a.gh * 4) return;
   const int i = t & 3, hd = (t >> 2) % a.gh, u = t / (4 * a.gh);
   const int b = u / nw, widx = u - b * nw;
   const int64_t base = (int64_t)b * L;
-  const int col = gr.g * ch + hd * GCH;
+  const int col = gr.g * ch + hd * HD;
   int tok[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) tok[j] = window_token_c<2>(widx, j, nwc, gr.sh, a.H, a.W);
-  float qv[GCH], s[4];
-  load_row16(qv, a.q + (base + tok[i]) * a.D + col, a.vec);
+  float qv[HD], s[4];
+  load_row(qv, a.q + (base + tok[i]) * a.D + col, a.vec);
   if constexpr (p_rounded_once<T, BT>()) {
 #pragma unroll
-    for (int d = 0; d < GCH; ++d) qv[d] = round_bf16(qv[d] * a.scale);
+    for (int d = 0; d < HD; ++d) qv[d] = round_bf16(qv[d] * a.scale);
   }
   const BT* brow = gr.bias + (hd * 4 + i) * 4;
-  const float* mrow = gr.sh > 0 ? gr.mask + ((int64_t)widx * 4 + i) * 4 : nullptr;
+  const float* mrow = gr.sh > 0 ? gr.mask + ((int64_t)widx * 4 + i) * 4 : (HD == 16 ? nullptr : zero_mask);
   float mx = -INFINITY;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    float kv[GCH];
-    load_row16(kv, a.k + (base + tok[j]) * a.kvs + col, a.vec);
+    float kv[HD];
+    load_row(kv, a.k + (base + tok[j]) * a.kvs + col, a.vec);
     float acc = 0.f;
 #pragma unroll
-    for (int d = 0; d < GCH; ++d) acc = fmaf(qv[d], kv[d], acc);
+    for (int d = 0; d < HD; ++d) acc = fmaf(qv[d], kv[d], acc);
     if constexpr (p_rounded_once<T, BT>())
       acc += ldg_one(brow + j);
     else
@@ -565,20 +600,20 @@ __device__ __forceinline__ void attn_unit4(const AttnArgs<T, BT, OT>& a, const A
   }
   const float inv = 1.0f / den;
   const uint32_t rkey = DROP ? dropout_row_key(a.seed, b, gr.g, hd, widx, i) : 0u;
-  float o[GCH];
+  float o[HD];
 #pragma unroll
-  for (int d = 0; d < GCH; ++d) o[d] = 0.f;
+  for (int d = 0; d < HD; ++d) o[d] = 0.f;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     float p = s[j] * inv;
     if (DROP) p = (hash_step(rkey, j) & 0x7fffffffu) < a.thresh ? p * a.inv_keep : 0.f;
     if constexpr (p_rounded_once<T, BT>()) p = round_bf16(p);
-    float vv[GCH];
-    load_row16(vv, a.v + (base + tok[j]) * a.kvs + col, a.vec);
+    float vv[HD];
+    load_row(vv, a.v + (base + tok[j]) * a.kvs + col, a.vec);
 #pragma unroll
-    for (int d = 0; d < GCH; ++d) o[d] = fmaf(p, vv[d], o[d]);
+    for (int d = 0; d < HD; ++d) o[d] = fmaf(p, vv[d], o[d]);
   }
-  store_row16(a.out + (base + (a.corrected ? tok[i] : widx * 4 + i)) * a.D + col, o, a.vec);
+  store_row(a.out + (base + (a.corrected ? tok[i] : widx * 4 + i)) * a.D + col, o, a.vec);
 }
 
 // Stage step `step` of a 4x4 (N = 16) or 8x8 (N = 64) group, its wps
@@ -586,13 +621,13 @@ __device__ __forceinline__ void attn_unit4(const AttnArgs<T, BT, OT>& a, const A
 // cp.async group: 16-byte pieces (cp.async) where `vec`, else elements; a
 // thread takes (row, piece) pairs, the same piece of q, k, v.  Slot
 // (elements of T): q, k [N][ldq], v [N][ldv].
-template <int N, typename T, typename BT, typename OT>
+template <int N, int HD, typename T, typename BT, typename OT>
 __device__ __forceinline__ void attn_stage(const AttnArgs<T, BT, OT>& a, const AttnGroup<T, BT>& gr, int step,
                                            T* dst0) {
   constexpr int WS = N == 16 ? 4 : 8;
-  const int ch = a.gh * GCH, L = a.H * a.W;
+  const int ch = a.gh * HD, L = a.H * a.W;
   const int nwc = a.W / WS, nw = (a.H / WS) * nwc, units = a.B * nw;
-  const int wps = fwd_windows_a_step(N, a.gh), ldq = fwd_ldq(ch), ldv = fwd_ldv<T>(ch);
+  const int wps = fwd_windows_a_step(N, a.gh), ldq = fwd_ldq<HD>(ch), ldv = fwd_ldv<T, HD>(ch);
   const int slot = N * (2 * ldq + ldv);
   const int per = a.vec ? ch * (int)sizeof(T) / 16 : ch;  // pieces of a row
   const int each = a.vec ? 16 / (int)sizeof(T) : 1;       // elements of a piece
@@ -625,16 +660,17 @@ __device__ __forceinline__ void attn_stage(const AttnArgs<T, BT, OT>& a, const A
 // bf16 m16n8k16 for bf16), the bias and mask read straight into the score
 // registers (8-byte loads, a quad per 32-byte sector), the softmax and the
 // dropout in registers, and each output row written in 16-byte pieces (a
-// lane pair swaps halves so that each lane holds 4 adjacent columns).
-template <int N, bool DROP, typename T, typename BT, typename OT>
+// lane pair swaps halves so that each lane holds 4 adjacent columns of a
+// 16-column pair of tiles; at head dim 8, 2 columns a lane).
+template <int N, bool DROP, int HD, typename T, typename BT, typename OT>
 __device__ __forceinline__ void attn_step_tc(const AttnArgs<T, BT, OT>& a, const AttnGroup<T, BT>& gr, int step,
                                              const T* sb) {
-  constexpr int WS = N == 16 ? 4 : 8, MT = N / 16, NT = N / 8;
+  constexpr int WS = N == 16 ? 4 : 8, MT = N / 16, NT = N / 8, CT = HD / 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
-  const int ch = a.gh * GCH, L = a.H * a.W;
+  const int ch = a.gh * HD, L = a.H * a.W;
   const int nwc = a.W / WS, nw = (a.H / WS) * nwc, units = a.B * nw;
   const int tasks = a.gh * MT, wps = fwd_windows_a_step(N, a.gh);
-  const int ldq = fwd_ldq(ch), ldv = fwd_ldv<T>(ch), slot = N * (2 * ldq + ldv);
+  const int ldq = fwd_ldq<HD>(ch), ldv = fwd_ldv<T, HD>(ch), slot = N * (2 * ldq + ldv);
   for (int task = warp; task < wps * tasks; task += THREADS / 32) {
     const int lw = task / tasks, hd = (task % tasks) / MT, mi = task % MT;
     const int u = step * wps + lw;
@@ -643,12 +679,12 @@ __device__ __forceinline__ void attn_step_tc(const AttnArgs<T, BT, OT>& a, const
     const T* Qs = sb + lw * slot;
     float s[NT][4] = {};
     if constexpr (sizeof(T) == 2)
-      qk_tile_bf16<NT, p_rounded_once<T, BT>()>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq,
-                                               a.scale);
+      qk_tile_bf16<NT, p_rounded_once<T, BT>(), HD>(s, Qs + 16 * mi * ldq + hd * HD, ldq, Qs + N * ldq + hd * HD,
+                                                   ldq, a.scale);
     else
-      qk_tile<NT>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq, GCH);
+      qk_tile<NT>(s, Qs + 16 * mi * ldq + hd * HD, ldq, Qs + N * ldq + hd * HD, ldq, HD);
     const BT* bh = gr.bias + hd * N * N;
-    const float* mw = gr.sh > 0 ? gr.mask + (int64_t)widx * N * N : nullptr;
+    const float* mw = gr.sh > 0 ? gr.mask + (int64_t)widx * N * N : (HD == 16 ? nullptr : zero_mask);
     const int i0 = 16 * mi + g8;
 #pragma unroll
     for (int jn = 0; jn < NT; ++jn)
@@ -684,36 +720,49 @@ __device__ __forceinline__ void attn_step_tc(const AttnArgs<T, BT, OT>& a, const
           }
       }
     }
-    float o[2][4] = {};
+    float o[CT][4] = {};
     if constexpr (sizeof(T) == 2)
-      pv_tile_bf16<NT, p_rounded_once<T, BT>()>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);
+      pv_tile_bf16<NT, p_rounded_once<T, BT>(), HD>(o, s, Qs + 2 * N * ldq + hd * HD, ldv);
     else
-      pv_tile<NT, 2>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);
+      pv_tile<NT, CT>(o, s, Qs + 2 * N * ldq + hd * HD, ldv);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int i = i0 + 8 * r;
       const int row = a.corrected ? window_token_c<WS>(widx, i, nwc, gr.sh, a.H, a.W) : widx * N + i;
-      OT* orow = a.out + ((int64_t)b * L + row) * a.D + gr.g * ch + hd * GCH;
-      // lane t4 holds columns 2 t4, 2 t4 + 1 of both 8-column tiles; after
-      // the swap an even lane holds columns 2 t4 .. 2 t4 + 3 of tile 0, an
-      // odd lane columns 2 t4 + 6 .. 2 t4 + 9 (tile 1)
-      const bool odd = t4 & 1;
-      const float sx = odd ? o[0][2 * r] : o[1][2 * r], sy = odd ? o[0][2 * r + 1] : o[1][2 * r + 1];
-      const float rx = __shfl_xor_sync(0xffffffffu, sx, 1), ry = __shfl_xor_sync(0xffffffffu, sy, 1);
-      const float4 val = odd ? make_float4(rx, ry, o[1][2 * r], o[1][2 * r + 1])
-                             : make_float4(o[0][2 * r], o[0][2 * r + 1], rx, ry);
-      store4(orow + (odd ? 2 * t4 + 6 : 2 * t4), val, a.vec);
+      OT* orow = a.out + ((int64_t)b * L + row) * a.D + gr.g * ch + hd * HD;
+      if constexpr (HD == 8) {  // lane t4 holds columns 2 t4, 2 t4 + 1
+        OT* p = orow + 2 * t4;
+        if (a.vec) {
+          st2(p, make_float2(o[0][2 * r], o[0][2 * r + 1]));
+        } else {
+          from_f(p[0], o[0][2 * r]);
+          from_f(p[1], o[0][2 * r + 1]);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < CT; c += 2) {
+          // lane t4 holds columns 2 t4, 2 t4 + 1 of tiles c and c + 1;
+          // after the swap an even lane holds columns 2 t4 .. 2 t4 + 3 of
+          // tile c, an odd lane columns 2 t4 + 6 .. 2 t4 + 9 (tile c + 1)
+          const bool odd = t4 & 1;
+          const float sx = odd ? o[c][2 * r] : o[c + 1][2 * r], sy = odd ? o[c][2 * r + 1] : o[c + 1][2 * r + 1];
+          const float rx = __shfl_xor_sync(0xffffffffu, sx, 1), ry = __shfl_xor_sync(0xffffffffu, sy, 1);
+          const float4 val = odd ? make_float4(rx, ry, o[c + 1][2 * r], o[c + 1][2 * r + 1])
+                                 : make_float4(o[c][2 * r], o[c][2 * r + 1], rx, ry);
+          store4(orow + 8 * c + (odd ? 2 * t4 + 6 : 2 * t4), val, a.vec);
+        }
+      }
     }
   }
 }
 
-template <typename T, typename BT, typename OT>
+template <int HD, typename T, typename BT, typename OT>
 __device__ __forceinline__ void attn_stage_any(const AttnArgs<T, BT, OT>& a, const AttnGroup<T, BT>& gr, int unit,
                                                T* dst) {
   if (gr.ws == 8)
-    attn_stage<64>(a, gr, unit - gr.unit0, dst);
+    attn_stage<64, HD>(a, gr, unit - gr.unit0, dst);
   else
-    attn_stage<16>(a, gr, unit - gr.unit0, dst);
+    attn_stage<16, HD>(a, gr, unit - gr.unit0, dst);
 }
 
 // The windowed attention forward of every channel group in one launch, the
@@ -733,15 +782,17 @@ __device__ __forceinline__ void attn_stage_any(const AttnArgs<T, BT, OT>& a, con
 // Persistent CTAs of 8 warps walk one work list of units, blockIdx.x, +
 // gridDim.x, ...: first the steps of the 8x8 groups, then of the 4x4 groups
 // (a step is `wps` consecutive windows whose q, k, v rows, the group's ch =
-// 16 gh channels of each token, land in a shared slot by cp.async while the
+// HD gh channels of each token, land in a shared slot by cp.async while the
 // previous step is computed, two buffers of buf_elems), then the 2x2 units
 // on the CUDA cores, which need no shared memory and fill the tails.  The
 // dispatch is per unit, so the groups share one launch and one tail.  At
 // least 2 CTAs an SM in float32 (up to 128 registers a thread), 3 in K7's
 // bf16 (up to 80, no spill; faster than 2 on an H100 SXM, where 4 spill:
-// tools/attention_groups.py `ctas2`), 2 in K3's bf16 form (it spills at 80).
-template <bool DROP, typename T, typename BT = T, typename OT = T>
-__global__ void __launch_bounds__(THREADS, sizeof(T) == 2 && sizeof(BT) == 2 ? 3 : 2)
+// tools/attention_groups.py `ctas2`), 2 in K3's bf16 form (it spills at 80)
+// and at head dims 8 and 32 (K7's bf16 spills at 80 there too).  HD: the
+// head dim, 8, 16 or 32.
+template <bool DROP, typename T, typename BT = T, typename OT = T, int HD = 16>
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 2 && sizeof(BT) == 2 && HD == 16 ? 3 : 2)
     window_attn_fwd_kernel(const __grid_constant__ AttnArgs<T, BT, OT> a) {
   extern __shared__ __align__(16) unsigned char fwd_smem[];
   T* sm = reinterpret_cast<T*>(fwd_smem);
@@ -753,23 +804,23 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 && sizeof(BT) == 2 ? 3
   };
   if (blockIdx.x < a.n_units) {
     s = group_of(blockIdx.x);
-    if (a.grp[s].ws != 2) attn_stage_any(a, a.grp[s], blockIdx.x, sm);
+    if (a.grp[s].ws != 2) attn_stage_any<HD>(a, a.grp[s], blockIdx.x, sm);
   }
   for (int u = blockIdx.x; u < a.n_units; u += gridDim.x) {
     const AttnGroup<T, BT>& gr = a.grp[s];
     const int next = u + gridDim.x;
     const int sn = next < a.n_units ? group_of(next) : s;
     if (gr.ws == 2) {  // the rest of this CTA's units are 2x2 units too
-      attn_unit4<DROP>(a, gr, u - gr.unit0);
+      attn_unit4<DROP, HD>(a, gr, u - gr.unit0);
     } else {
       const bool ahead = next < a.n_units && a.grp[sn].ws != 2;
-      if (ahead) attn_stage_any(a, a.grp[sn], next, sm + (buf ^ 1) * a.buf_elems);
+      if (ahead) attn_stage_any<HD>(a, a.grp[sn], next, sm + (buf ^ 1) * a.buf_elems);
       cp_async_wait(ahead ? 1 : 0);
       __syncthreads();  // this step's rows are in shared memory
       if (gr.ws == 8)
-        attn_step_tc<64, DROP>(a, gr, u - gr.unit0, sm + buf * a.buf_elems);
+        attn_step_tc<64, DROP, HD>(a, gr, u - gr.unit0, sm + buf * a.buf_elems);
       else
-        attn_step_tc<16, DROP>(a, gr, u - gr.unit0, sm + buf * a.buf_elems);
+        attn_step_tc<16, DROP, HD>(a, gr, u - gr.unit0, sm + buf * a.buf_elems);
       __syncthreads();  // every warp is done with this buffer before it is refilled
       buf ^= 1;
     }
@@ -777,22 +828,19 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 && sizeof(BT) == 2 ? 3
   }
 }
 
-// Launch the forward attention of every group, one launch: biases[g] and
-// masks[g] are group g's tables (masks[g] read only where shifts[g] > 0).
-// Windows of 2, 4 or 8 dividing H and W, at most MAX_ATTN_GROUPS groups.
-template <bool DROP, typename T, typename BT = T, typename OT = T>
-cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const BT* const* biases,
-                        const float* const* masks, OT* out, int B, int H, int W, int D, int n_group, const int* ws,
-                        const int* shifts, int gh, float scale, int corrected, uint32_t seed, uint32_t thresh,
-                        float inv_keep, cudaStream_t st) {
-  if (n_group < 1 || n_group > MAX_ATTN_GROUPS) return cudaErrorInvalidValue;
+// launch_attn at head dim HD.
+template <bool DROP, int HD, typename T, typename BT, typename OT>
+cudaError_t launch_attn_hd(const T* q, const T* k, const T* v, int kvs, const BT* const* biases,
+                           const float* const* masks, OT* out, int B, int H, int W, int D, int n_group,
+                           const int* ws, const int* shifts, int gh, float scale, int corrected, uint32_t seed,
+                           uint32_t thresh, float inv_keep, cudaStream_t st) {
   AttnArgs<T, BT, OT> a;
   a.q = q, a.k = k, a.v = v, a.out = out;
   a.kvs = kvs, a.B = B, a.H = H, a.W = W, a.D = D, a.gh = gh, a.corrected = corrected;
   a.vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
   a.scale = p_rounded_once<T, BT>() ? __bfloat162float(__float2bfloat16_rn(scale)) : scale;
   a.inv_keep = inv_keep, a.seed = seed, a.thresh = thresh;
-  const int ch = gh * GCH;
+  const int ch = gh * HD;
   int n = 0, units = 0, buf_elems = 0;
   const int order[3] = {8, 4, 2};
   for (const int want : order)
@@ -804,7 +852,7 @@ cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const BT* c
       if (want == 2) {
         units += (B * nw * gh * 4 + THREADS - 1) / THREADS;
       } else {
-        const int wps = fwd_windows_a_step(nn, gh), slot = wps * nn * (2 * fwd_ldq(ch) + fwd_ldv<T>(ch));
+        const int wps = fwd_windows_a_step(nn, gh), slot = wps * nn * (2 * fwd_ldq<HD>(ch) + fwd_ldv<T, HD>(ch));
         units += (B * nw + wps - 1) / wps;
         buf_elems = buf_elems > slot ? buf_elems : slot;
       }
@@ -812,7 +860,7 @@ cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const BT* c
   if (n != n_group) return cudaErrorInvalidValue;  // a window other than 2, 4 or 8
   a.n_group = n, a.n_units = units, a.buf_elems = buf_elems;
   const size_t smem = (size_t)2 * buf_elems * sizeof(T);
-  auto kern = window_attn_fwd_kernel<DROP, T, BT, OT>;
+  auto kern = window_attn_fwd_kernel<DROP, T, BT, OT, HD>;
   static GridCap cache;
   int cap = 0;
   const cudaError_t err = persistent_cap(cache, kern, THREADS, smem, &cap);
@@ -821,6 +869,32 @@ cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const BT* c
   if (grid == 0) return cudaSuccess;
   kern<<<grid, THREADS, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+// The head dim of a block's groups: D / n_group channels a group over gh
+// heads; 8, 16 or 32 (else 0).
+inline int head_dim(int D, int n_group, int gh) {
+  if (n_group < 1 || gh < 1 || D % n_group != 0 || (D / n_group) % gh != 0) return 0;
+  const int hd = D / n_group / gh;
+  return hd == 8 || hd == 16 || hd == 32 ? hd : 0;
+}
+
+// Launch the forward attention of every group, one launch: biases[g] and
+// masks[g] are group g's tables (masks[g] read only where shifts[g] > 0).
+// Windows of 2, 4 or 8 dividing H and W, at most MAX_ATTN_GROUPS groups of
+// D / n_group channels, gh heads of 8, 16 or 32 channels each.
+template <bool DROP, typename T, typename BT = T, typename OT = T>
+cudaError_t launch_attn(const T* q, const T* k, const T* v, int kvs, const BT* const* biases,
+                        const float* const* masks, OT* out, int B, int H, int W, int D, int n_group, const int* ws,
+                        const int* shifts, int gh, float scale, int corrected, uint32_t seed, uint32_t thresh,
+                        float inv_keep, cudaStream_t st) {
+  if (n_group < 1 || n_group > MAX_ATTN_GROUPS) return cudaErrorInvalidValue;
+  switch (head_dim(D, n_group, gh)) {
+    case 8: return launch_attn_hd<DROP, 8>(q, k, v, kvs, biases, masks, out, B, H, W, D, n_group, ws, shifts, gh, scale, corrected, seed, thresh, inv_keep, st);
+    case 16: return launch_attn_hd<DROP, 16>(q, k, v, kvs, biases, masks, out, B, H, W, D, n_group, ws, shifts, gh, scale, corrected, seed, thresh, inv_keep, st);
+    case 32: return launch_attn_hd<DROP, 32>(q, k, v, kvs, biases, masks, out, B, H, W, D, n_group, ws, shifts, gh, scale, corrected, seed, thresh, inv_keep, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // launch_attn on the per-group tables concatenated (masks of shifted groups
@@ -874,15 +948,19 @@ cudaError_t launch_ln_proj_d(const float* xq, const float* xkv, const float* qs,
 }
 
 // LN (when do_ln) + the q / kv projections of ntok tokens: qbuf (ntok, D),
-// kvbuf (ntok, 2D).  D in {32, 64, 96}; xq and xkv 16-byte aligned.
+// kvbuf (ntok, 2D).  D a multiple of 16 up to 96; xq and xkv 16-byte
+// aligned.
 inline cudaError_t launch_ln_proj(const float* xq, const float* xkv, const float* qs, const float* qb,
                                   const float* ks, const float* kb, const float* q_w, const float* q_b,
                                   const float* kv_w, const float* kv_b, float* qbuf, float* kvbuf, int ntok,
                                   int D, int do_ln, cudaStream_t st) {
   if (!aligned16(xq) || !aligned16(xkv)) return cudaErrorMisalignedAddress;
   switch (D) {
+    case 16: return launch_ln_proj_d<16>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
     case 32: return launch_ln_proj_d<32>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
+    case 48: return launch_ln_proj_d<48>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
     case 64: return launch_ln_proj_d<64>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
+    case 80: return launch_ln_proj_d<80>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
     case 96: return launch_ln_proj_d<96>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
     default: return cudaErrorInvalidValue;
   }
@@ -906,7 +984,8 @@ cudaError_t launch_ln_proj_bf16_d(const __nv_bfloat16* xq, const __nv_bfloat16* 
 }
 
 // launch_ln_proj for bf16 io: q and kv come out as OT, float32 (K1) or
-// bf16 (K3).  D in {32, 64, 96}; xq, xkv, q_w and kv_w 16-byte aligned.
+// bf16 (K3).  D a multiple of 16 up to 96; xq, xkv, q_w and kv_w 16-byte
+// aligned.
 template <typename OT>
 inline cudaError_t launch_ln_proj(const __nv_bfloat16* xq, const __nv_bfloat16* xkv, const __nv_bfloat16* qs,
                                   const __nv_bfloat16* qb, const __nv_bfloat16* ks, const __nv_bfloat16* kb,
@@ -915,8 +994,11 @@ inline cudaError_t launch_ln_proj(const __nv_bfloat16* xq, const __nv_bfloat16* 
                                   cudaStream_t st) {
   if (!aligned16(xq) || !aligned16(xkv) || !aligned16(q_w) || !aligned16(kv_w)) return cudaErrorMisalignedAddress;
   switch (D) {
+    case 16: return launch_ln_proj_bf16_d<16>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
     case 32: return launch_ln_proj_bf16_d<32>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
+    case 48: return launch_ln_proj_bf16_d<48>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
     case 64: return launch_ln_proj_bf16_d<64>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
+    case 80: return launch_ln_proj_bf16_d<80>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
     case 96: return launch_ln_proj_bf16_d<96>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
     default: return cudaErrorInvalidValue;
   }
@@ -931,7 +1013,9 @@ __device__ __forceinline__ float gelu_erf(float x) {
 
 // The warp layout of the D-wide token-tile products on 8 warps: warp w
 // owns m-tiles 2 (w / 4) and 2 (w / 4) + 1 of the TOK-token tile and the
-// D/32 n-tiles of output columns [(w % 4) D/4, (w % 4 + 1) D/4).
+// D/32 n-tiles of output columns [(w % 4) D/4, (w % 4 + 1) D/4) (D = 16,
+// 48, 80: NT = ceil(D/32) tiles from column (w % 4) 8 NT, cut at D,
+// tiles_below).
 struct TileWarp {
   int mg, m0, n0, g8, t4;
   template <int NT>
@@ -952,7 +1036,7 @@ template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     skconv_proj_kernel(const float* __restrict__ attn, const T* __restrict__ pw, const T* __restrict__ pb,
                        float* __restrict__ feats, float* __restrict__ partial, int ntile) {
-  constexpr int S = D + 4, NT = D / 32;
+  constexpr int S = D + 4, NT = col_tiles<D>();
   extern __shared__ __align__(16) float sm[];
   float* w = sm;
   float* xs = w + D * S;
@@ -964,11 +1048,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   stage_rows(w, pw, D, D, S);
   const TileWarp tw = TileWarp::make<NT>();
+  const int nt = tiles_below<D>(tw.n0, D);
   float bias[NT][2];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) bias[j][e] = to_f(pb[tw.n0 + 8 * j + 2 * tw.t4 + e]);
+    for (int e = 0; e < 2; ++e) bias[j][e] = j < nt ? to_f(pb[tw.n0 + 8 * j + 2 * tw.t4 + e]) : 0.f;
   int stage = 0;
   for (int tile = blockIdx.x; tile < ntile; tile += gridDim.x, stage ^= 1) {
     const int next = tile + gridDim.x;
@@ -980,7 +1065,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     __syncthreads();
     float acc[2][NT][4];
     zero_acc(acc);
-    mma_tile<false, false, 2, NT>(acc, xs + stage * TOK * S, S, tw.m0, w, S, tw.n0, D);
+    mma_tile<false, false, 2, NT>(acc, xs + stage * TOK * S, S, tw.m0, w, S, tw.n0, D, 2, nt);
     float gs[NT][2];
 #pragma unroll
     for (int j = 0; j < NT; ++j) gs[j][0] = gs[j][1] = 0.f;
@@ -991,6 +1076,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int64_t t = (int64_t)tile * TOK + tw.m0 + 16 * i + tw.g8 + 8 * h;
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
+          if (j >= nt) continue;
           const float f0 = acc[i][j][2 * h] + bias[j][0], f1 = acc[i][j][2 * h + 1] + bias[j][1];
           *reinterpret_cast<float2*>(feats + t * D + tw.n0 + 8 * j + 2 * tw.t4) = make_float2(f0, f1);
           gs[j][0] += gelu_erf(f0);
@@ -1003,7 +1089,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int e = 0; e < 2; ++e) {
 #pragma unroll
         for (int off = 4; off < 32; off <<= 1) gs[j][e] += __shfl_xor_sync(0xffffffffu, gs[j][e], off);
-        if (tw.g8 == 0) red[tw.mg * D + tw.n0 + 8 * j + 2 * tw.t4 + e] = gs[j][e];
+        if (tw.g8 == 0 && j < nt) red[tw.mg * D + tw.n0 + 8 * j + 2 * tw.t4 + e] = gs[j][e];
       }
     __syncthreads();
     for (int o = threadIdx.x; o < D; o += blockDim.x) partial[(int64_t)tile * D + o] = red[o] + red[D + o];
@@ -1076,7 +1162,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     skconv_out_kernel(const float* __restrict__ attn, const float* __restrict__ feats, const float* __restrict__ gate,
                       const T* __restrict__ phw, const T* __restrict__ phb, const T* __restrict__ xkv,
                       T* __restrict__ out, int L, int n_group, int ch, int ntile, int residual) {
-  constexpr int S = D + 4, NT = D / 32;
+  constexpr int S = D + 4, NT = col_tiles<D>();
   const int SC = ch + 4;
   extern __shared__ __align__(16) float sm[];
   float* w = sm;
@@ -1089,11 +1175,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   stage_rows(w, phw, D, ch, SC);
   const TileWarp tw = TileWarp::make<NT>();
+  const int nt = tiles_below<D>(tw.n0, D);
   float bias[NT][2];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) bias[j][e] = to_f(phb[tw.n0 + 8 * j + 2 * tw.t4 + e]);
+    for (int e = 0; e < 2; ++e) bias[j][e] = j < nt ? to_f(phb[tw.n0 + 8 * j + 2 * tw.t4 + e]) : 0.f;
   int stage = 0;
   for (int tile = blockIdx.x; tile < ntile; tile += gridDim.x, stage ^= 1) {
     const int next = tile + gridDim.x;
@@ -1114,7 +1201,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     __syncthreads();
     float acc[2][NT][4];
     zero_acc(acc);
-    mma_tile<false, false, 2, NT>(acc, fv, SC, tw.m0, w, SC, tw.n0, ch);
+    mma_tile<false, false, 2, NT>(acc, fv, SC, tw.m0, w, SC, tw.n0, ch, 2, nt);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -1122,6 +1209,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int64_t t = (int64_t)tile * TOK + tw.m0 + 16 * i + tw.g8 + 8 * h;
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
+          if (j >= nt) continue;
           const int64_t off = t * D + tw.n0 + 8 * j + 2 * tw.t4;
           const float2 f = *reinterpret_cast<const float2*>(feats + off);
           float2 sk = make_float2(f.x + (acc[i][j][2 * h] + bias[j][0]), f.y + (acc[i][j][2 * h + 1] + bias[j][1]));
@@ -1166,7 +1254,8 @@ cudaError_t launch_skconv_d(const float* attn, const T* proj_w, const T* proj_b,
 // gate, (c3) out = [xkv +] feats + proj_head(sum_g gate_g * attn_g).  The
 // tokens attn are float32; T is the type of the weights, xkv and out.
 // Scratch: feats (B, L, D), partial (B, L/64, D), gate (B, n_group, ch).
-// D in {32, 64, 96}, L % 64 == 0, ch = D / n_group a multiple of 8.
+// D a multiple of 16 up to 96, L % 64 == 0, ch = D / n_group a multiple of
+// 8.
 template <typename T>
 cudaError_t launch_skconv_t(const float* attn, const T* proj_w, const T* proj_b, const T* fc1_w, const T* fc1_b,
                             const T* fc2_w, const T* fc2_b, const T* ph_w, const T* ph_b, const T* xkv,
@@ -1174,8 +1263,11 @@ cudaError_t launch_skconv_t(const float* attn, const T* proj_w, const T* proj_b,
                             int dz, int residual, cudaStream_t st) {
   if (!aligned16(attn) || (D / n_group) % 8 != 0) return cudaErrorInvalidValue;
   switch (D) {
+    case 16: return launch_skconv_d<16>(attn, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, xkv, feats, partial, gate, out, B, L, n_group, dz, residual, st);
     case 32: return launch_skconv_d<32>(attn, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, xkv, feats, partial, gate, out, B, L, n_group, dz, residual, st);
+    case 48: return launch_skconv_d<48>(attn, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, xkv, feats, partial, gate, out, B, L, n_group, dz, residual, st);
     case 64: return launch_skconv_d<64>(attn, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, xkv, feats, partial, gate, out, B, L, n_group, dz, residual, st);
+    case 80: return launch_skconv_d<80>(attn, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, xkv, feats, partial, gate, out, B, L, n_group, dz, residual, st);
     case 96: return launch_skconv_d<96>(attn, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w, ph_b, xkv, feats, partial, gate, out, B, L, n_group, dz, residual, st);
     default: return cudaErrorInvalidValue;
   }

@@ -84,8 +84,9 @@ constexpr int TOKC = 512;
 // scaled q, k, v and dout of the wpb windows [wpb][N][ch] each; dS and P*M
 // [wpb][gh][N][N + 1] (padded rows); the block's dbias sum [gh][N][N].
 // BF16: q arrives scaled (module comment); dS and P*M rounded to bf16 before
-// their products (dbias sums the unrounded dS).
-template <int N, bool DROP, bool BF16 = false>
+// their products (dbias sums the unrounded dS).  HD: the head dim, 8, 16 or
+// 32.
+template <int N, bool DROP, bool BF16 = false, int HD = 16>
 __global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                        const float* __restrict__ v, int kvs, const float* __restrict__ dout,
                                        const float* __restrict__ bias, const float* __restrict__ mask,
@@ -95,7 +96,7 @@ __global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float*
                                        uint32_t seed, uint32_t thresh, float inv_keep) {
   extern __shared__ float sm[];
   constexpr int NP = N + 1;
-  const int ch = gh * GCH, L = H * W;
+  const int ch = gh * HD, L = H * W;
   const int nwc = W / ws, nw = (H / ws) * nwc;
   const int b = blockIdx.y;
   const int wspan = wpb * N * ch, nb = gh * N * N;
@@ -134,23 +135,24 @@ __global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float*
     float* pdrow = pd_ + ((lw * gh + hd) * N + r) * NP;
     // row pass: thread row r is query i
     if (valid) {
-      const float* kw = ks_ + lw * N * ch + hd * GCH;
-      const float* vw = vs_ + lw * N * ch + hd * GCH;
-      float qv[GCH], dov[GCH];
+      const float* kw = ks_ + lw * N * ch + hd * HD;
+      const float* vw = vs_ + lw * N * ch + hd * HD;
+      float qv[HD], dov[HD];
 #pragma unroll
-      for (int d = 0; d < GCH; ++d) {
-        qv[d] = qs_[(lw * N + r) * ch + hd * GCH + d];
-        dov[d] = dos_[(lw * N + r) * ch + hd * GCH + d];
+      for (int d = 0; d < HD; ++d) {
+        qv[d] = qs_[(lw * N + r) * ch + hd * HD + d];
+        dov[d] = dos_[(lw * N + r) * ch + hd * HD + d];
       }
       const float* brow = bias + (hd * N + r) * N;
-      const float* mrow = sh > 0 ? mask + ((int64_t)widx * N + r) * N : nullptr;
+      const float* mrow =
+          sh > 0 ? mask + ((int64_t)widx * N + r) * N : (HD == 16 ? nullptr : zero_mask);
       float s[N];
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         float acc = 0.f;
 #pragma unroll
-        for (int d = 0; d < GCH; ++d) acc = fmaf(qv[d], kw[j * ch + d], acc);
+        for (int d = 0; d < HD; ++d) acc = fmaf(qv[d], kw[j * ch + d], acc);
         acc += __ldg(brow + j);
         if (mrow) acc += __ldg(mrow + j);
         s[j] = acc;
@@ -170,7 +172,7 @@ __global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float*
         s[j] = p;
         float dp = 0.f;
 #pragma unroll
-        for (int d = 0; d < GCH; ++d) dp = fmaf(dov[d], vw[j * ch + d], dp);
+        for (int d = 0; d < HD; ++d) dp = fmaf(dov[d], vw[j * ch + d], dp);
         float pm = p;
         if (DROP) {
           const float m = (hash_step(rkey, j) & 0x7fffffffu) < thresh ? inv_keep : 0.f;
@@ -181,43 +183,43 @@ __global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float*
         dsrow[j] = dp;
         rowsum = fmaf(dp, p, rowsum);
       }
-      float dqv[GCH];
+      float dqv[HD];
 #pragma unroll
-      for (int d = 0; d < GCH; ++d) dqv[d] = 0.f;
+      for (int d = 0; d < HD; ++d) dqv[d] = 0.f;
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         const float dsv = s[j] * (dsrow[j] - rowsum);
         dsrow[j] = dsv;
 #pragma unroll
-        for (int d = 0; d < GCH; ++d) dqv[d] = fmaf(BF16 ? round_bf16(dsv) : dsv, kw[j * ch + d], dqv[d]);
+        for (int d = 0; d < HD; ++d) dqv[d] = fmaf(BF16 ? round_bf16(dsv) : dsv, kw[j * ch + d], dqv[d]);
       }
-      float* dqrow = dq + (base + window_token(widx, r, ws, nwc, sh, H, W)) * D + g * ch + hd * GCH;
+      float* dqrow = dq + (base + window_token(widx, r, ws, nwc, sh, H, W)) * D + g * ch + hd * HD;
 #pragma unroll
-      for (int d = 0; d < GCH; ++d) dqrow[d] = dqv[d] * scale;
+      for (int d = 0; d < HD; ++d) dqrow[d] = dqv[d] * scale;
     } else {
       for (int j = 0; j < N; ++j) dsrow[j] = pdrow[j] = 0.f;
     }
     __syncthreads();
     // column pass: thread row r is key j
     if (valid) {
-      const float* qw = qs_ + lw * N * ch + hd * GCH;
-      const float* dow = dos_ + lw * N * ch + hd * GCH;
+      const float* qw = qs_ + lw * N * ch + hd * HD;
+      const float* dow = dos_ + lw * N * ch + hd * HD;
       const float* dsb = ds_ + (lw * gh + hd) * N * NP;
       const float* pdb = pd_ + (lw * gh + hd) * N * NP;
-      float dkv_[GCH], dvv[GCH];
+      float dkv_[HD], dvv[HD];
 #pragma unroll
-      for (int d = 0; d < GCH; ++d) dkv_[d] = dvv[d] = 0.f;
+      for (int d = 0; d < HD; ++d) dkv_[d] = dvv[d] = 0.f;
       for (int i = 0; i < N; ++i) {
         const float a = BF16 ? round_bf16(dsb[i * NP + r]) : dsb[i * NP + r], pm = pdb[i * NP + r];
 #pragma unroll
-        for (int d = 0; d < GCH; ++d) {
+        for (int d = 0; d < HD; ++d) {
           dkv_[d] = fmaf(a, qw[i * ch + d], dkv_[d]);
           dvv[d] = fmaf(pm, dow[i * ch + d], dvv[d]);
         }
       }
-      const int64_t off = (base + window_token(widx, r, ws, nwc, sh, H, W)) * kvs + g * ch + hd * GCH;
+      const int64_t off = (base + window_token(widx, r, ws, nwc, sh, H, W)) * kvs + g * ch + hd * HD;
 #pragma unroll
-      for (int d = 0; d < GCH; ++d) {
+      for (int d = 0; d < HD; ++d) {
         dk[off + d] = dkv_[d];
         dv[off + d] = dvv[d];
       }
@@ -255,16 +257,17 @@ __host__ __device__ inline int bwd4_windows(int gh) { return gh >= 32 ? 1 : 32 /
 // least 4 blocks an SM with dropout (registers up to 128 a thread: 4 %
 // faster than 3 on an H100 SXM at 700 W), 3 without (it spills at 128).
 // BF16: q arrives scaled (module comment); dS and PM rounded to bf16 before
-// their products.
-template <bool DROP, bool BF16 = false>
-__global__ void __launch_bounds__(128, DROP ? 4 : 3)
+// their products.  HD: the head dim, 8, 16 or 32 (2 blocks an SM at 32,
+// whose rows take twice the registers).
+template <bool DROP, bool BF16 = false, int HD = 16>
+__global__ void __launch_bounds__(128, HD > 16 ? 2 : DROP ? 4 : 3)
     window_attn_bwd4_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                             int kvs, const float* __restrict__ dout, const float* __restrict__ bias,
                             const float* __restrict__ mask, float* __restrict__ dq, float* __restrict__ dk,
                             float* __restrict__ dv, float* __restrict__ dbias_part, int H, int W, int D, int g,
                             int gh, int sh, float scale, uint32_t seed, uint32_t thresh, float inv_keep, int vec) {
   extern __shared__ __align__(16) float sm[];
-  const int ch = gh * GCH, ld = ch + 4, L = H * W, nwc = W / 2, nw = (H / 2) * nwc, b = blockIdx.y;
+  const int ch = gh * HD, ld = ch + 4, L = H * W, nwc = W / 2, nw = (H / 2) * nwc, b = blockIdx.y;
   const int wb = bwd4_windows(gh), w0 = blockIdx.x * wb, span = wb * 4 * ld;
   const int64_t base = (int64_t)b * L;
   const int per = vec ? ch / 4 : ch, each = vec ? 4 : 1;  // pieces of a row, elements of a piece
@@ -302,32 +305,33 @@ __global__ void __launch_bounds__(128, DROP ? 4 : 3)
   const int64_t tok_r = base + (valid ? window_token_c<2>(widx, r, nwc, sh, H, W) : 0);
   const int quad = (threadIdx.x & 31) & ~3;  // the lanes of this window and head: quad .. quad + 3
   const unsigned qmask = 0xfu << quad;
-  const float* Qw = sm + l * 4 * ld + hd * GCH;  // row j at + j ld
+  const float* Qw = sm + l * 4 * ld + hd * HD;  // row j at + j ld
   const float* Kw = Qw + span;
   const float* Vw = Kw + span;
   const float* Ow = Vw + span;
-  auto row16 = [&](const float* p, float (&x)[GCH]) {
+  auto row16 = [&](const float* p, float (&x)[HD]) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < HD / 4; ++c) {
       const float4 t = *reinterpret_cast<const float4*>(p + 4 * c);
       x[4 * c] = t.x, x[4 * c + 1] = t.y, x[4 * c + 2] = t.z, x[4 * c + 3] = t.w;
     }
   };
   // row pass: query r
-  float qr[GCH], dor[GCH], s[4], dp[4];
+  float qr[HD], dor[HD], s[4], dp[4];
   row16(Qw + r * ld, qr);
   row16(Ow + r * ld, dor);
   const float* brow = bias + (hd * 4 + r) * 4;
-  const float* mrow = sh > 0 && valid ? mask + ((int64_t)widx * 4 + r) * 4 : nullptr;
+  const float* mrow =
+      sh > 0 && valid ? mask + ((int64_t)widx * 4 + r) * 4 : (HD == 16 ? nullptr : zero_mask);
   float mx = -INFINITY;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    float kv[GCH], vv[GCH];
+    float kv[HD], vv[HD];
     row16(Kw + j * ld, kv);
     row16(Vw + j * ld, vv);
     float acc = 0.f, dacc = 0.f;
 #pragma unroll
-    for (int d = 0; d < GCH; ++d) {
+    for (int d = 0; d < HD; ++d) {
       acc = fmaf(qr[d], kv[d], acc);
       dacc = fmaf(dor[d], vv[d], dacc);
     }
@@ -371,46 +375,46 @@ __global__ void __launch_bounds__(128, DROP ? 4 : 3)
       pm[j] = round_bf16(pm[j]);
     }
   }
-  float acc[GCH];
+  float acc[HD];
 #pragma unroll
-  for (int d = 0; d < GCH; ++d) acc[d] = 0.f;
+  for (int d = 0; d < HD; ++d) acc[d] = 0.f;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    float kv[GCH];
+    float kv[HD];
     row16(Kw + j * ld, kv);
 #pragma unroll
-    for (int d = 0; d < GCH; ++d) acc[d] = fmaf(dsr[j], kv[d], acc[d]);
+    for (int d = 0; d < HD; ++d) acc[d] = fmaf(dsr[j], kv[d], acc[d]);
   }
 #pragma unroll
-  for (int d = 0; d < GCH; ++d) acc[d] *= scale;
-  if (valid) store_row16(dq + tok_r * D + g * ch + hd * GCH, acc, vec);
+  for (int d = 0; d < HD; ++d) acc[d] *= scale;
+  if (valid) store_row(dq + tok_r * D + g * ch + hd * HD, acc, vec);
   // column pass: key r; round t brings row i = (r + t) & 3 of dS and PM
-  float dka[GCH], dva[GCH];
+  float dka[HD], dva[HD];
 #pragma unroll
-  for (int d = 0; d < GCH; ++d) dka[d] = dva[d] = 0.f;
+  for (int d = 0; d < HD; ++d) dka[d] = dva[d] = 0.f;
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     const int want = (r - t) & 3, i = (r + t) & 3;  // the column this lane sends; the row it takes
     const float sd = want == 0 ? dsr[0] : want == 1 ? dsr[1] : want == 2 ? dsr[2] : dsr[3];
     const float sp = want == 0 ? pm[0] : want == 1 ? pm[1] : want == 2 ? pm[2] : pm[3];
     const float a = __shfl_sync(qmask, sd, quad + i), pmv = __shfl_sync(qmask, sp, quad + i);
-    float qi[GCH], oi[GCH];
+    float qi[HD], oi[HD];
     row16(Qw + i * ld, qi);
     row16(Ow + i * ld, oi);
 #pragma unroll
-    for (int d = 0; d < GCH; ++d) {
+    for (int d = 0; d < HD; ++d) {
       dka[d] = fmaf(a, qi[d], dka[d]);
       dva[d] = fmaf(pmv, oi[d], dva[d]);
     }
   }
   if constexpr (!BF16) {
 #pragma unroll
-    for (int d = 0; d < GCH; ++d) dka[d] *= scale;
+    for (int d = 0; d < HD; ++d) dka[d] *= scale;
   }
   if (valid) {
-    const int64_t off = tok_r * kvs + g * ch + hd * GCH;
-    store_row16(dk + off, dka, vec);
-    store_row16(dv + off, dva, vec);
+    const int64_t off = tok_r * kvs + g * ch + hd * HD;
+    store_row(dk + off, dka, vec);
+    store_row(dv + off, dva, vec);
   }
   // dbias: the windows' dS rows in order
   __syncthreads();  // every thread is done with the staged rows
@@ -427,8 +431,8 @@ __global__ void __launch_bounds__(128, DROP ? 4 : 3)
 }
 
 // Attention backward of one group on the tensor cores, for windows of N =
-// 16 or 64 tokens and GH = 1 or 2 heads of 16 channels (the flagship's 4x4
-// and 8x8 windows).  Block (chunk, image) walks `wchunk` windows, WPS =
+// 16 or 64 tokens and GH = 1 or 2 heads of HD = 8, 16 or 32 channels (the
+// flagship's 4x4 and 8x8 windows).  Block (chunk, image) walks `wchunk` windows, WPS =
 // 128 / (N GH) at a time, one slot of shared memory each; warp (slot, head
 // hd, m-tile mi) owns query rows [16 mi, 16 mi + 16) of its head, then key
 // rows [16 mi, 16 mi + 16).  Per window, staged once by cp.async: q, k, v in
@@ -444,7 +448,7 @@ __global__ void __launch_bounds__(128, DROP ? 4 : 3)
 // block's partial (dbias_part [block][gh][N][N]).  Shared per slot: q, k, v,
 // dout [N][CH + 4]; dS, PM [GH][N][N + 4].  BF16: q arrives scaled (module
 // comment); dS and PM shared rounded to bf16 (dbias sums the unrounded dS).
-template <int N, int GH, bool DROP, bool BF16 = false>
+template <int N, int GH, bool DROP, bool BF16 = false, int HD = 16>
 __global__ void __launch_bounds__(THREADS)
     window_attn_bwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                               int kvs, const float* __restrict__ dout, const float* __restrict__ bias,
@@ -452,7 +456,9 @@ __global__ void __launch_bounds__(THREADS)
                               float* __restrict__ dv, float* __restrict__ dbias_part, int H, int W, int D, int g,
                               int ws, int sh, int wchunk, float scale, uint32_t seed, uint32_t thresh,
                               float inv_keep) {
-  constexpr int CH = GCH * GH, SQ = CH + 4, SN = N + 4, MT = N / 16, NTN = N / 8;
+  // CT: the output column tiles of one product pass (head dim 32 in two
+  // passes of 16 columns, which keeps its registers from spilling)
+  constexpr int CH = HD * GH, SQ = CH + 4, SN = N + 4, MT = N / 16, NTN = N / 8, CT = HD < 16 ? HD / 8 : 2;
   constexpr int WPW = GH * MT, WPS = (THREADS / 32) / WPW, SLOT = 4 * N * SQ + 2 * GH * N * SN;
   extern __shared__ __align__(16) float sm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
@@ -494,9 +500,9 @@ __global__ void __launch_bounds__(THREADS)
       float s[1][NTN][4], dp[1][NTN][4];
       zero_acc(s);
       zero_acc(dp);
-      mma_tile<false, false, 1, NTN>(s, Qs + hd * GCH, SQ, 16 * mi, Ks + hd * GCH, SQ, 0, GCH);
-      mma_tile<false, false, 1, NTN>(dp, Os + hd * GCH, SQ, 16 * mi, Vs + hd * GCH, SQ, 0, GCH);
-      const float* mw = sh > 0 ? mask + (int64_t)widx * N * N : nullptr;
+      mma_tile<false, false, 1, NTN>(s, Qs + hd * HD, SQ, 16 * mi, Ks + hd * HD, SQ, 0, HD);
+      mma_tile<false, false, 1, NTN>(dp, Os + hd * HD, SQ, 16 * mi, Vs + hd * HD, SQ, 0, HD);
+      const float* mw = sh > 0 ? mask + (int64_t)widx * N * N : (HD == 16 ? nullptr : zero_mask);
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int jn = 0; jn < NTN; ++jn)
@@ -572,30 +578,70 @@ __global__ void __launch_bounds__(THREADS)
               BF16 ? make_float2(round_bf16(d0), round_bf16(d1)) : make_float2(d0, d1);
         }
       __syncwarp();
-      float a[1][2][4];
-      zero_acc(a);
-      mma_tile<false, true, 1, 2>(a, dSs, SN, 16 * mi, Ks + hd * GCH, SQ, 0, N);
+      if constexpr (HD == 32) {  // dQ in two passes of 16 columns
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int64_t tok = base + window_token(widx, i0 + 8 * r, ws, nwc, sh, H, W);
+        for (int c0 = 0; c0 < HD; c0 += 16) {
+          float a[1][CT][4];
+          zero_acc(a);
+          mma_tile<false, true, 1, CT>(a, dSs, SN, 16 * mi, Ks + hd * HD + c0, SQ, 0, N);
 #pragma unroll
-        for (int jn = 0; jn < 2; ++jn)
-          *reinterpret_cast<float2*>(dq + tok * D + g * CH + hd * GCH + 8 * jn + 2 * t4) =
-              make_float2(a[0][jn][2 * r] * scale, a[0][jn][2 * r + 1] * scale);
+          for (int r = 0; r < 2; ++r) {
+            const int64_t tok = base + window_token(widx, i0 + 8 * r, ws, nwc, sh, H, W);
+#pragma unroll
+            for (int jn = 0; jn < CT; ++jn)
+              *reinterpret_cast<float2*>(dq + tok * D + g * CH + hd * HD + c0 + 8 * jn + 2 * t4) =
+                  make_float2(a[0][jn][2 * r] * scale, a[0][jn][2 * r + 1] * scale);
+          }
+        }
+      } else {  // one pass, as head dim 16's machine code has it
+        float a[1][CT][4];
+        zero_acc(a);
+        mma_tile<false, true, 1, CT>(a, dSs, SN, 16 * mi, Ks + hd * HD, SQ, 0, N);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int64_t tok = base + window_token(widx, i0 + 8 * r, ws, nwc, sh, H, W);
+#pragma unroll
+          for (int jn = 0; jn < CT; ++jn)
+            *reinterpret_cast<float2*>(dq + tok * D + g * CH + hd * HD + 8 * jn + 2 * t4) =
+                make_float2(a[0][jn][2 * r] * scale, a[0][jn][2 * r + 1] * scale);
+        }
       }
     }
     __syncthreads();  // dS and PM of every head complete
-    if (valid) {
-      float a[1][2][4], c[1][2][4];
+    if constexpr (HD == 32) {  // dK and dV in two passes of 16 columns
+#pragma unroll
+      for (int c0 = 0; c0 < HD; c0 += 16) {
+        if (!valid) break;
+        float a[1][CT][4], c[1][CT][4];
+        zero_acc(a);
+        zero_acc(c);
+        mma_tile<true, true, 1, CT>(a, dSs, SN, 16 * mi, Qs + hd * HD + c0, SQ, 0, N);
+        mma_tile<true, true, 1, CT>(c, PMs, SN, 16 * mi, Os + hd * HD + c0, SQ, 0, N);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int64_t off =
+              (base + window_token(widx, i0 + 8 * r, ws, nwc, sh, H, W)) * kvs + g * CH + hd * HD + c0;
+#pragma unroll
+          for (int jn = 0; jn < CT; ++jn) {
+            *reinterpret_cast<float2*>(dk + off + 8 * jn + 2 * t4) =
+                BF16 ? make_float2(a[0][jn][2 * r], a[0][jn][2 * r + 1])
+                     : make_float2(a[0][jn][2 * r] * scale, a[0][jn][2 * r + 1] * scale);
+            *reinterpret_cast<float2*>(dv + off + 8 * jn + 2 * t4) =
+                make_float2(c[0][jn][2 * r], c[0][jn][2 * r + 1]);
+          }
+        }
+      }
+    } else if (valid) {
+      float a[1][CT][4], c[1][CT][4];
       zero_acc(a);
       zero_acc(c);
-      mma_tile<true, true, 1, 2>(a, dSs, SN, 16 * mi, Qs + hd * GCH, SQ, 0, N);
-      mma_tile<true, true, 1, 2>(c, PMs, SN, 16 * mi, Os + hd * GCH, SQ, 0, N);
+      mma_tile<true, true, 1, CT>(a, dSs, SN, 16 * mi, Qs + hd * HD, SQ, 0, N);
+      mma_tile<true, true, 1, CT>(c, PMs, SN, 16 * mi, Os + hd * HD, SQ, 0, N);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int64_t off = (base + window_token(widx, i0 + 8 * r, ws, nwc, sh, H, W)) * kvs + g * CH + hd * GCH;
+        const int64_t off = (base + window_token(widx, i0 + 8 * r, ws, nwc, sh, H, W)) * kvs + g * CH + hd * HD;
 #pragma unroll
-        for (int jn = 0; jn < 2; ++jn) {
+        for (int jn = 0; jn < CT; ++jn) {
           *reinterpret_cast<float2*>(dk + off + 8 * jn + 2 * t4) =
               BF16 ? make_float2(a[0][jn][2 * r], a[0][jn][2 * r + 1])
                    : make_float2(a[0][jn][2 * r] * scale, a[0][jn][2 * r + 1] * scale);
@@ -631,12 +677,14 @@ __global__ void __launch_bounds__(THREADS)
 // (lnpart [tile][2][C], fixed order: a warp's 8 tokens in turn, then the 8
 // warps).  Shared: wt [C][O + 4], dys [2][TOK][O + 4], dxs [TOK][C + 4],
 // red [8][2][C].  T is dx's type: bf16 also rounds each dy tile to bf16
-// before the product.
+// before the product.  C a multiple of 16 up to 96 (C = 16, 48, 80: the
+// warps' n-tiles cut at C, tiles_below, and lane channels past C idle).
 template <int C, int O, typename T = float>
 __global__ void __launch_bounds__(THREADS, 1)
     proj_ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ lns, const float* __restrict__ w,
                        const float* __restrict__ dy, T* __restrict__ dx, float* __restrict__ lnpart, int ntile) {
-  constexpr int SO = O + 4, SC = C + 4, NT = C / 32, NM = C / 32;
+  constexpr int SO = O + 4, SC = C + 4, NT = col_tiles<C>(), NM = col_tiles<C>();
+  constexpr bool FULL = C % 32 == 0;  // every lane's channels lane + 32 m, m < NM, are of the C
   extern __shared__ __align__(16) float sm[];
   float* wt = sm;
   float* dys = wt + C * SO;
@@ -649,10 +697,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   for (int idx = threadIdx.x; idx < O * C; idx += blockDim.x) wt[(idx % C) * SO + idx / C] = __ldg(w + idx);
   const TileWarp tw = TileWarp::make<NT>();
+  const int nt = tiles_below<C>(tw.n0, C);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float sc[3];
 #pragma unroll
-  for (int m = 0; m < 3; ++m) sc[m] = m < NM ? lns[lane + 32 * m] : 0.f;
+  for (int m = 0; m < 3; ++m)
+    sc[m] = (FULL ? m < NM : m < NM && lane + 32 * m < C) ? lns[lane + 32 * m] : 0.f;
   int stage = 0;
   for (int tile = blockIdx.x; tile < ntile; tile += gridDim.x, stage ^= 1) {
     const int next = tile + gridDim.x;
@@ -672,14 +722,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     float acc[2][NT][4];
     zero_acc(acc);
-    mma_tile<false, false, 2, NT>(acc, dys + stage * TOK * SO, SO, tw.m0, wt, SO, tw.n0, O);
+    mma_tile<false, false, 2, NT>(acc, dys + stage * TOK * SO, SO, tw.m0, wt, SO, tw.n0, O, 2, nt);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
-          *reinterpret_cast<float2*>(dxs + (tw.m0 + 16 * i + tw.g8 + 8 * h) * SC + tw.n0 + 8 * j + 2 * tw.t4) =
+          if (j < nt)
+            *reinterpret_cast<float2*>(dxs + (tw.m0 + 16 * i + tw.g8 + 8 * h) * SC + tw.n0 + 8 * j + 2 * tw.t4) =
               make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
     __syncthreads();
     // the LN backward of the warp's 8 tokens, 4 side by side (each token's
@@ -695,8 +746,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         mean[a] = rstd[a] = 0.f;
 #pragma unroll
         for (int m = 0; m < 3; ++m) {
-          v[a][m] = m < NM ? x[((int64_t)tile * TOK + lt) * C + lane + 32 * m] : 0.f;
-          dxl[a][m] = m < NM ? dxs[lt * SC + lane + 32 * m] : 0.f;
+          const bool on = FULL ? m < NM : m < NM && lane + 32 * m < C;
+          v[a][m] = on ? x[((int64_t)tile * TOK + lt) * C + lane + 32 * m] : 0.f;
+          dxl[a][m] = on ? dxs[lt * SC + lane + 32 * m] : 0.f;
           mean[a] += v[a][m];
           rstd[a] += v[a][m] * v[a][m];
         }
@@ -712,7 +764,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int m = 0; m < 3; ++m) {
           xh[a][m] = dxh[a][m] = 0.f;
-          if (m < NM) {
+          if (FULL ? m < NM : m < NM && lane + 32 * m < C) {
             xh[a][m] = (v[a][m] - mean[a]) * rstd[a];
             dxh[a][m] = dxl[a][m] * sc[m];
             s1[a] += dxh[a][m];
@@ -728,7 +780,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const float m1 = s1[a] / C, m2 = s2[a] / C;
 #pragma unroll
         for (int m = 0; m < 3; ++m)
-          if (m < NM) {
+          if (FULL ? m < NM : m < NM && lane + 32 * m < C) {
             from_f(dx[t * C + lane + 32 * m], rstd[a] * (dxh[a][m] - m1 - xh[a][m] * m2));
             gsc[m] = fmaf(dxl[a][m], xh[a][m], gsc[m]);
             gbi[m] += dxl[a][m];
@@ -737,7 +789,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 #pragma unroll
     for (int m = 0; m < 3; ++m)
-      if (m < NM) {
+      if (FULL ? m < NM : m < NM && lane + 32 * m < C) {
         red[(warp * 2) * C + lane + 32 * m] = gsc[m];
         red[(warp * 2 + 1) * C + lane + 32 * m] = gbi[m];
       }
@@ -762,8 +814,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 // 64, 96}, c a multiple of 16 up to 96.  Shared: dys [2][TOK][R + 8], xs
 // [2][TOK][c + 8] (row strides 8 or 24 mod 32: conflict-free fragments).
 // BF16: after db's sums, the dy sub-tile and the recomputed LN are rounded
-// to bf16 for the product.
-template <bool BF16 = false>
+// to bf16 for the product.  R16: R an odd multiple of 16 (16, 48, 80), its
+// R / 16 m-tiles split ceil / floor between the two warp rows.
+template <bool BF16 = false, bool R16 = false>
 __global__ void __launch_bounds__(THREADS, 2)
     wgrad_kernel(const float* __restrict__ x, const float* __restrict__ lns, const float* __restrict__ lnb,
                  const float* __restrict__ dy, float* __restrict__ part, int ntok, int c, int O, int R) {
@@ -773,7 +826,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   float* xs = dys + 2 * TOK * SR;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
   const int o0 = blockIdx.y * R;
-  const int mt = R / 32, m0 = (warp >> 2) * mt * 16;
+  const int mt = R16 ? ((warp >> 2) ? R / 32 : R / 32 + 1) : R / 32, m0 = (warp >> 2) * (R16 ? R / 32 + 1 : mt) * 16;
   const int ct = c / 8, per = (ct + 3) / 4, n0 = (warp & 3) * per * 8;
   const int nt = min(per, max(0, ct - (warp & 3) * per));
   float lsc[3], lbi[3];
@@ -875,7 +928,7 @@ inline int attn_bwd_chunks(int n, int gh, int nw) {
   return (nw + 4 * wpb - 1) / (4 * wpb);
 }
 
-template <int N, bool DROP, bool BF16>
+template <int N, bool DROP, bool BF16, int HD>
 cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int kvs, const float* dout,
                             const float* bias, const float* mask, float* dq, float* dk, float* dv, float* dbias_part,
                             float* dbias, int B, int H, int W, int D, int g, int gh, int ws, int sh, float scale,
@@ -887,11 +940,11 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
     const int vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) && aligned16(dq) &&
                     aligned16(dk) && aligned16(dv);
     const int wb = bwd4_windows(gh);
-    const size_t smem4 = (size_t)4 * wb * 4 * (gh * GCH + 4) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(window_attn_bwd4_kernel<DROP, BF16>,
+    const size_t smem4 = (size_t)4 * wb * 4 * (gh * HD + 4) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(window_attn_bwd4_kernel<DROP, BF16, HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem4);
     if (err != cudaSuccess) return err;
-    window_attn_bwd4_kernel<DROP, BF16><<<dim3(nchunk, B), wb * gh * 4, smem4, st>>>(
+    window_attn_bwd4_kernel<DROP, BF16, HD><<<dim3(nchunk, B), wb * gh * 4, smem4, st>>>(
         q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, H, W, D, g, gh, sh, scale, seed, thresh, inv_keep,
         vec);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -900,8 +953,9 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
     // the tensor-core kernel (wpb windows a step, as below) where its
     // cp.async rows are 16-byte aligned
     if ((gh == 1 || gh == 2) && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)) {
-      auto kern = gh == 1 ? window_attn_bwd_tc_kernel<N, 1, DROP, BF16> : window_attn_bwd_tc_kernel<N, 2, DROP, BF16>;
-      const size_t smem_tc = (size_t)wpb * (4 * N * (gh * GCH + 4) + 2 * gh * N * (N + 4)) * sizeof(float);
+      auto kern = gh == 1 ? window_attn_bwd_tc_kernel<N, 1, DROP, BF16, HD>
+                          : window_attn_bwd_tc_kernel<N, 2, DROP, BF16, HD>;
+      const size_t smem_tc = (size_t)wpb * (4 * N * (gh * HD + 4) + 2 * gh * N * (N + 4)) * sizeof(float);
       cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_tc);
       if (err != cudaSuccess) return err;
       kern<<<dim3(nchunk, B), THREADS, smem_tc, st>>>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, H, W,
@@ -912,10 +966,10 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
     // more than 2 heads or unaligned rows: a thread per row
     const int threads = wpb * gh * N;
     const size_t smem =
-        (size_t)(4 * wpb * N * gh * GCH + 2 * wpb * gh * N * (N + 1) + gh * N * N) * sizeof(float);
-    cudaFuncSetAttribute(window_attn_bwd_kernel<N, DROP, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (size_t)(4 * wpb * N * gh * HD + 2 * wpb * gh * N * (N + 1) + gh * N * N) * sizeof(float);
+    cudaFuncSetAttribute(window_attn_bwd_kernel<N, DROP, BF16, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-    window_attn_bwd_kernel<N, DROP, BF16><<<dim3(nchunk, B), threads, smem, st>>>(
+    window_attn_bwd_kernel<N, DROP, BF16, HD><<<dim3(nchunk, B), threads, smem, st>>>(
         q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, H, W, D, g, gh, ws, sh, wpb, 4 * wpb, scale, seed,
         thresh, inv_keep);
     cudaError_t err = cudaGetLastError();
@@ -927,21 +981,21 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
 // The attention backward of every group.  dbias_part holds, per group, B *
 // attn_bwd_chunks rows of gh * N^2 floats (attn_bwd_part_floats); dbias is
 // laid out as the concatenated bias.
-template <bool DROP, bool BF16>
-cudaError_t launch_attn_bwd_groups(const float* q, const float* k, const float* v, int kvs, const float* dout,
-                                   const float* bias, const float* mask, float* dq, float* dk, float* dv,
-                                   float* dbias_part, float* dbias, int B, int H, int W, int D, int n_group,
-                                   const int* ws, const int* shifts, int gh, float scale, uint32_t seed,
-                                   uint32_t thresh, float inv_keep, cudaStream_t st) {
+template <bool DROP, bool BF16, int HD>
+cudaError_t launch_attn_bwd_groups_hd(const float* q, const float* k, const float* v, int kvs, const float* dout,
+                                      const float* bias, const float* mask, float* dq, float* dk, float* dv,
+                                      float* dbias_part, float* dbias, int B, int H, int W, int D, int n_group,
+                                      const int* ws, const int* shifts, int gh, float scale, uint32_t seed,
+                                      uint32_t thresh, float inv_keep, cudaStream_t st) {
   size_t boff = 0, moff = 0, poff = 0;
   for (int g = 0; g < n_group; ++g) {
     const int n = ws[g] * ws[g], sh = shifts[g];
     const float* mg = sh > 0 ? mask + moff : nullptr;
     cudaError_t err;
     switch (ws[g]) {
-      case 2: err = launch_attn_bwd<4, DROP, BF16>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 2, sh, scale, seed, thresh, inv_keep, st); break;
-      case 4: err = launch_attn_bwd<16, DROP, BF16>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 4, sh, scale, seed, thresh, inv_keep, st); break;
-      case 8: err = launch_attn_bwd<64, DROP, BF16>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 8, sh, scale, seed, thresh, inv_keep, st); break;
+      case 2: err = launch_attn_bwd<4, DROP, BF16, HD>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 2, sh, scale, seed, thresh, inv_keep, st); break;
+      case 4: err = launch_attn_bwd<16, DROP, BF16, HD>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 4, sh, scale, seed, thresh, inv_keep, st); break;
+      case 8: err = launch_attn_bwd<64, DROP, BF16, HD>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 8, sh, scale, seed, thresh, inv_keep, st); break;
       default: err = cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return err;
@@ -951,6 +1005,22 @@ cudaError_t launch_attn_bwd_groups(const float* q, const float* k, const float* 
     if (sh > 0) moff += (size_t)nw * n * n;
   }
   return cudaSuccess;
+}
+
+// The attention backward of every group, at the head dim D / n_group / gh
+// (8, 16 or 32).
+template <bool DROP, bool BF16>
+cudaError_t launch_attn_bwd_groups(const float* q, const float* k, const float* v, int kvs, const float* dout,
+                                   const float* bias, const float* mask, float* dq, float* dk, float* dv,
+                                   float* dbias_part, float* dbias, int B, int H, int W, int D, int n_group,
+                                   const int* ws, const int* shifts, int gh, float scale, uint32_t seed,
+                                   uint32_t thresh, float inv_keep, cudaStream_t st) {
+  switch (head_dim(D, n_group, gh)) {
+    case 8: return launch_attn_bwd_groups_hd<DROP, BF16, 8>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
+    case 16: return launch_attn_bwd_groups_hd<DROP, BF16, 16>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
+    case 32: return launch_attn_bwd_groups_hd<DROP, BF16, 32>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <bool BF16 = false>
@@ -979,18 +1049,19 @@ inline size_t attn_bwd_part_floats(int B, int H, int W, int n_group, const int* 
 // Weight gradients of a projection, y = x_in W^T + b with W (O, c), summed
 // over ntok tokens: wgrad_kernel per chunk of TOKC tokens into part (ceil(ntok
 // / TOKC) rows of O*c + O), then the fixed-order sum into g = [dW | db].
-// O must be a multiple of D (the rows one block owns, D in {32, 64, 96}); c
-// a multiple of 16 up to 96; x and dy 16-byte aligned.
+// O must be a multiple of D (the rows one block owns, D a multiple of 16 up
+// to 96); c a multiple of 16 up to 96; x and dy 16-byte aligned.
 template <bool BF16>
 cudaError_t launch_wgrad(const float* x, const float* lns, const float* lnb, const float* dy, float* part,
                                 float* g, int ntok, int c, int O, int D, cudaStream_t st) {
-  if (!aligned16(x) || !aligned16(dy) || c % 16 != 0 || c > 96 || D % 32 != 0 || D > 96 || O % D != 0)
+  if (!aligned16(x) || !aligned16(dy) || c % 16 != 0 || c > 96 || D % 16 != 0 || D > 96 || O % D != 0)
     return cudaErrorInvalidValue;
   const int nchunk = (ntok + TOKC - 1) / TOKC;
   const size_t smem = (size_t)2 * TOK * (D + 8 + c + 8) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kern = D % 32 == 0 ? wgrad_kernel<BF16> : wgrad_kernel<BF16, true>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  wgrad_kernel<BF16><<<dim3(nchunk, O / D), THREADS, smem, st>>>(x, lns, lnb, dy, part, ntok, c, O, D);
+  kern<<<dim3(nchunk, O / D), THREADS, smem, st>>>(x, lns, lnb, dy, part, ntok, c, O, D);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_sum_rows(part, g, nchunk, O * c + O, st);
 }
@@ -1013,10 +1084,16 @@ inline cudaError_t launch_proj_ln_bwd_any(const float* x, const float* lns, cons
                                           T* dx, float* lnpart, int ntok, int D, int k, cudaStream_t st) {
   if (!aligned16(dy)) return cudaErrorMisalignedAddress;
   switch (D * 2 + k - 1) {
+    case 32: return launch_proj_ln_bwd<16, 16>(x, lns, w, dy, dx, lnpart, ntok, st);
+    case 33: return launch_proj_ln_bwd<16, 32>(x, lns, w, dy, dx, lnpart, ntok, st);
     case 64: return launch_proj_ln_bwd<32, 32>(x, lns, w, dy, dx, lnpart, ntok, st);
     case 65: return launch_proj_ln_bwd<32, 64>(x, lns, w, dy, dx, lnpart, ntok, st);
+    case 96: return launch_proj_ln_bwd<48, 48>(x, lns, w, dy, dx, lnpart, ntok, st);
+    case 97: return launch_proj_ln_bwd<48, 96>(x, lns, w, dy, dx, lnpart, ntok, st);
     case 128: return launch_proj_ln_bwd<64, 64>(x, lns, w, dy, dx, lnpart, ntok, st);
     case 129: return launch_proj_ln_bwd<64, 128>(x, lns, w, dy, dx, lnpart, ntok, st);
+    case 160: return launch_proj_ln_bwd<80, 80>(x, lns, w, dy, dx, lnpart, ntok, st);
+    case 161: return launch_proj_ln_bwd<80, 160>(x, lns, w, dy, dx, lnpart, ntok, st);
     case 192: return launch_proj_ln_bwd<96, 96>(x, lns, w, dy, dx, lnpart, ntok, st);
     case 193: return launch_proj_ln_bwd<96, 192>(x, lns, w, dy, dx, lnpart, ntok, st);
     default: return cudaErrorInvalidValue;

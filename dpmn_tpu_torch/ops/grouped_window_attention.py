@@ -58,7 +58,7 @@ def _geometry(window_sizes, shifts, gnum_heads, scale, h, w, dim):
     key = (window_sizes, shifts, gnum_heads, h, w, dim)
     if key not in _geometries:
         st = WT.make_static((), 0, 1.0, window_sizes, shifts, gnum_heads, scale, (h, w))
-        WT.check_geometry("grouped_window_attention", st, h * w, dim)
+        WT.check_geometry("grouped_window_attention", st, h * w, dim, backward=False)
         n = len(st.window_sizes)
         if len(st.shifts) != n:
             raise ValueError(f"grouped_window_attention: {n} windows and {len(st.shifts)} shifts")
@@ -82,7 +82,8 @@ def grouped_window_attention(q, k, v, biases: Sequence[torch.Tensor], masks: Seq
     `grouped_window_attention_plain`.  On the card q, k, v and the biases are
     contiguous and of one io type (float32 or bf16), the masks float32, in
     the geometry the training kernels take (ops/window_attention_train.py
-    `check_geometry`: head dim 16, windows 2, 4 or 8 dividing the grid).
+    `check_geometry`: head dims 8, 16 and 32, windows 2, 4 or 8 dividing
+    the grid).
     It raises on anything else, and if autograd would need a gradient."""
     if q.device.type == "cpu":
         return grouped_window_attention_plain(q, k, v, biases, masks, window_sizes, shifts, gnum_heads, scale)

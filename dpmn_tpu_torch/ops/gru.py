@@ -20,13 +20,13 @@ import torch
 import torch.nn as nn
 
 from . import kernels
+from .geometry import check_gru_hidden
 
 
 gru_scan_counter = kernels.LaunchCounter()
 gru_bidir_counter = kernels.LaunchCounter()
 
 SEQ_CHUNK = 64  # sequences per chunk of the kernel's cooperative regime (LNC in csrc/gru_scan.cu)
-MAX_HIDDEN = 512  # the largest H of the cooperative regime (LMAX_H in csrc/gru_scan.cu)
 
 
 def gru_scan_plain(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
@@ -64,8 +64,9 @@ def _launch(xps, w_hhs, b_hhs, reverse: bool) -> torch.Tensor:
         raise ValueError(f"gru kernel: x_proj must be (N, T, 3H), got {tuple(x.shape)}")
     n, t_len, g = x.shape
     hdim = g // 3
-    if g != 3 * hdim or hdim % 32 != 0 or hdim > MAX_HIDDEN:
-        raise ValueError(f"gru kernel needs 3H columns with H a multiple of 32 up to {MAX_HIDDEN}, got {g}")
+    if g != 3 * hdim:
+        raise ValueError(f"gru kernel: x_proj has {g} columns, not 3H")
+    check_gru_hidden(hdim)
     dev = x.device
     for i, xp in enumerate(xps):
         kernels.check_cuda_tensor(f"x_proj[{i}]", xp, (n, t_len, g), dev, contiguous=False)
@@ -78,8 +79,9 @@ def _launch(xps, w_hhs, b_hhs, reverse: bool) -> torch.Tensor:
     kernels.refuse_autograd("gru_scan", (*xps, *w_hhs, *b_hhs))
     ndir = len(xps)
     out = torch.empty(n, t_len, ndir * hdim, device=dev, dtype=torch.float32)
-    # the cooperative regime's ping-pong h, [2][ndir][H][SEQ_CHUNK]
-    hbuf = None if hdim == 32 else torch.empty(2 * ndir * hdim * SEQ_CHUNK, device=dev, dtype=torch.float32)
+    # the cooperative regime's ping-pong h, [2][ndir][H rounded up to 8][SEQ_CHUNK]
+    hbuf = (None if hdim <= 32 else
+            torch.empty(2 * ndir * (-(-hdim // 8) * 8) * SEQ_CHUNK, device=dev, dtype=torch.float32))
     fn = kernels.bind("gru_scan", "gru_scan_forward",
                       [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
     second = 1 if ndir == 2 else 0

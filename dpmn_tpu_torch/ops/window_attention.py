@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from . import kernels
+from .geometry import check_window_geometry
 
 
 window_attention_counter = kernels.LaunchCounter()
@@ -154,15 +155,8 @@ def window_attention_block(xq, xkv, weights: dict, biases, masks, window_sizes, 
     h, w = hw_shape
     n_group = len(window_sizes)
     channel = dim // n_group
-    gch = channel // gnum_heads
     dz = weights["fc1_w"].shape[0]
-    if l != h * w or l % 64 != 0 or dim % 32 != 0 or dim > 96 or channel * n_group != dim:
-        raise ValueError(f"window_attention kernel: unsupported geometry L={l} ({h}x{w}) D={dim} groups={n_group}")
-    if gch != 16 or gch * gnum_heads != channel:
-        raise ValueError(f"window_attention kernel: head dim {channel}/{gnum_heads}, the kernel takes 16")
-    for ws in window_sizes:
-        if ws not in (2, 4, 8) or h % ws or w % ws:
-            raise ValueError(f"window_attention kernel: window {ws} on a {h}x{w} grid")
+    check_window_geometry("window_attention", (h, w), l, dim, window_sizes, gnum_heads)
     dev, io = xq.device, xq.dtype
     if io not in (torch.float32, torch.bfloat16):
         raise ValueError(f"window_attention kernel: io dtype {io}, the kernel takes float32 or bfloat16")

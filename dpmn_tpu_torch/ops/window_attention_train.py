@@ -45,7 +45,7 @@ backward.  q * scale is `scale_q`: JAX multiplies the bf16 q by a Python
 float, which it rounds to bf16 first (a weakly typed scalar), so the product
 is round_bf16(q * bf16(scale)), while dq = (dS K) * scale takes the float32
 scale (:114).  Any scale and any number of heads a group, in the kernels as
-in the plain version; the card takes head dim 16 only (`check_geometry`).
+in the plain version; the card takes head dims 8, 16 and 32 (`check_geometry`).
 """
 
 from __future__ import annotations
@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from . import kernels
+from .geometry import check_window_geometry
 from .window_attention import _window_partition, layer_norm
 
 forward_counter = kernels.LaunchCounter()
@@ -334,20 +335,12 @@ def make_static(masks, seed, keep, window_sizes, shifts, gnum_heads, scale, hw_s
 _PRIMALS = ("xq", "xkv", "qs", "qb", "ks", "kb", "q_w", "q_b", "kv_w", "kv_b")
 
 
-def check_geometry(what: str, st: _Static, l: int, dim: int) -> None:
-    """Raise on a geometry the training kernels do not take: L = H*W a
-    multiple of 64, D a multiple of 32 up to 96, head dim 16, windows 2, 4
-    or 8 dividing the grid."""
-    h, w = st.hw_shape
-    n_group = len(st.window_sizes)
-    channel = dim // n_group
-    if l != h * w or l % 64 != 0 or dim % 32 != 0 or dim > 96 or channel * n_group != dim:
-        raise ValueError(f"{what} kernel: unsupported geometry L={l} ({h}x{w}) D={dim} groups={n_group}")
-    if channel != 16 * st.gnum_heads:
-        raise ValueError(f"{what} kernel: head dim {channel}/{st.gnum_heads}, the kernel takes 16")
-    for ws in st.window_sizes:
-        if ws not in (2, 4, 8) or h % ws or w % ws:
-            raise ValueError(f"{what} kernel: window {ws} on a {h}x{w} grid")
+def check_geometry(what: str, st: _Static, l: int, dim: int, backward: bool = True) -> None:
+    """Raise on a geometry the window-attention kernels do not take
+    (ops/geometry.py `check_window_geometry`: D a multiple of 16 up to 96,
+    head dims 8, 16 and 32, windows 2, 4 or 8 dividing the grid; with
+    `backward`, the attention backward's block within the card)."""
+    check_window_geometry(what, st.hw_shape, l, dim, st.window_sizes, st.gnum_heads, backward)
 
 
 def pack_tables(st: _Static, biases, dev, bias_dtype=torch.float32):

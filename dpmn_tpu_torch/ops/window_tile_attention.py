@@ -40,6 +40,14 @@ def window_tile_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return torch.softmax(scores, dim=-1) @ v
 
 
+def check_tile_geometry(w: int, n: int, c: int) -> None:
+    """Raise ValueError unless the kernel takes W windows of N tokens of C
+    channels (any head dim up to 64: C is one head's channels)."""
+    if not (1 <= n <= MAX_N and 1 <= c <= MAX_C and w >= 1):
+        raise ValueError(f"window_tile_attention kernel: N={n}, C={c}; it takes 1 <= N <= {MAX_N}, "
+                         f"1 <= C <= {MAX_C}")
+
+
 def window_tile_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The tiles: the CUDA kernel for CUDA tensors, the plain version for CPU
@@ -52,9 +60,7 @@ def window_tile_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bia
     if q.dim() != 3:
         raise ValueError(f"window_tile_attention: expected q of shape (W, N, C), got {tuple(q.shape)}")
     w, n, c = q.shape
-    if not (1 <= n <= MAX_N and 1 <= c <= MAX_C and w >= 1):
-        raise ValueError(f"window_tile_attention kernel: N={n}, C={c}; it takes 1 <= N <= {MAX_N}, "
-                         f"1 <= C <= {MAX_C}")
+    check_tile_geometry(w, n, c)
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
         kernels.check_cuda_tensor(name, t, (w, n, c), dev)

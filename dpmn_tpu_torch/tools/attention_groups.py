@@ -26,29 +26,29 @@ import torch
 PACKAGE = Path(__file__).resolve().parent.parent
 CASES = (((8,), (4,)), ((4,), (2,)), ((2,), (1,)), ((2, 4, 8), (1, 2, 4)))
 
-_QK_BF16 = ("      qk_tile_bf16<NT, p_rounded_once<T, BT>()>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq,\n"
-            "                                               a.scale);\n")
-_QK_F32 = "      qk_tile<NT>(s, Qs + 16 * mi * ldq + hd * GCH, ldq, Qs + N * ldq + hd * GCH, ldq, GCH);\n"
-_PV_BF16 = "      pv_tile_bf16<NT, p_rounded_once<T, BT>()>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);\n"
-_PV_F32 = "      pv_tile<NT, 2>(o, s, Qs + 2 * N * ldq + hd * GCH, ldv);\n"
-_PV_NONE = ("      for (int e = 0; e < 4; ++e) o[0][e] = s[e][e] + s[NT - 1][e], o[1][e] = s[e + 1][e] * s[2][e];\n")
+_QK_BF16 = ("      qk_tile_bf16<NT, p_rounded_once<T, BT>(), HD>(s, Qs + 16 * mi * ldq + hd * HD, ldq, Qs + N * ldq + hd * HD,\n"
+            "                                                   ldq, a.scale);\n")
+_QK_F32 = "      qk_tile<NT>(s, Qs + 16 * mi * ldq + hd * HD, ldq, Qs + N * ldq + hd * HD, ldq, HD);\n"
+_PV_BF16 = "      pv_tile_bf16<NT, p_rounded_once<T, BT>(), HD>(o, s, Qs + 2 * N * ldq + hd * HD, ldv);\n"
+_PV_F32 = "      pv_tile<NT, CT>(o, s, Qs + 2 * N * ldq + hd * HD, ldv);\n"
+_PV_NONE = ("      for (int e = 0; e < 4; ++e) o[0][e] = s[e][e] + s[NT - 1][e], o[CT - 1][e] += s[e + 1][e] * s[2][e];\n")
 # variant: [(source under csrc/, text, replacement)], each text found exactly once
 ABLATIONS = {
     "stage": [("window_common.cuh",
-               "      if (ahead) attn_stage_any(a, a.grp[sn], next, sm + (buf ^ 1) * a.buf_elems);\n", "")],
+               "      if (ahead) attn_stage_any<HD>(a, a.grp[sn], next, sm + (buf ^ 1) * a.buf_elems);\n", "")],
     "wait": [("window_common.cuh", "      cp_async_wait(ahead ? 1 : 0);\n", "")],
     "compute": [("window_common.cuh",
-                 "      if (gr.ws == 8)\n        attn_step_tc<64, DROP>(a, gr, u - gr.unit0, sm + buf * a.buf_elems);\n"
-                 "      else\n        attn_step_tc<16, DROP>(a, gr, u - gr.unit0, sm + buf * a.buf_elems);\n", "")],
+                 "      if (gr.ws == 8)\n        attn_step_tc<64, DROP, HD>(a, gr, u - gr.unit0, sm + buf * a.buf_elems);\n"
+                 "      else\n        attn_step_tc<16, DROP, HD>(a, gr, u - gr.unit0, sm + buf * a.buf_elems);\n", "")],
     "qk": [("window_common.cuh", _QK_BF16, "      s[0][0] = __bfloat162float(Qs[lane]);\n"),
            ("window_common.cuh", _QK_F32, "      s[0][0] = Qs[lane];\n")],
     "softmax": [("window_common.cuh", "    softmax_rows<true>(s);\n", "")],
     "pv": [("window_common.cuh", _PV_BF16, _PV_NONE), ("window_common.cuh", _PV_F32, _PV_NONE)],
     "bias": [("window_common.cuh", "        float2 add = ldg_pair(bh + off);\n        if (mw) {",
               "        float2 add = make_float2(0.f, 0.f);\n        if (false) {")],
-    "store": [("window_common.cuh", "      store4(orow + (odd ? 2 * t4 + 6 : 2 * t4), val, a.vec);",
-               "      if (val.x == 12345.f) store4(orow + (odd ? 2 * t4 + 6 : 2 * t4), val, a.vec);")],
-    "ctas2": [("window_common.cuh", "__launch_bounds__(THREADS, sizeof(T) == 2 && sizeof(BT) == 2 ? 3 : 2)",
+    "store": [("window_common.cuh", "          store4(orow + 8 * c + (odd ? 2 * t4 + 6 : 2 * t4), val, a.vec);",
+               "          if (val.x == 12345.f) store4(orow + 8 * c + (odd ? 2 * t4 + 6 : 2 * t4), val, a.vec);")],
+    "ctas2": [("window_common.cuh", "__launch_bounds__(THREADS, sizeof(T) == 2 && sizeof(BT) == 2 && HD == 16 ? 3 : 2)",
                "__launch_bounds__(THREADS, 2)")],
 }
 

@@ -68,8 +68,11 @@ def test_window_attention_kernel(dev, shift, faithful, with_ln):
 
 # the SRB sweeps at B = 16 and 64 (H = 32, the register regime), the
 # faithful gru_encoding and more sequences than one chunk (H = 512), smaller
-# H of the cooperative regime
-GRU_SHAPES = [(300, 16, 32), (1024, 64, 32), (64, 64, 512), (600, 3, 512), (40, 9, 64), (64, 5, 128)]
+# H of the cooperative regime; H below 32 (idle lanes: the mid and toy
+# geometries' SRBs at hd_u 4), above 32 but not a multiple of 32, and not of
+# 8 (37: the last CTA's units masked)
+GRU_SHAPES = [(300, 16, 32), (1024, 64, 32), (64, 64, 512), (600, 3, 512), (40, 9, 64), (64, 5, 128),
+              (70, 7, 1), (1024, 16, 4), (130, 9, 20), (40, 9, 48), (64, 5, 96), (90, 6, 37)]
 
 
 def gru_inputs(dev, n, t, h, stride0=False, seed=0):
@@ -130,8 +133,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         gru_scan(x.double(), w.double(), b.double())
     with pytest.raises(ValueError):
         gru_scan(x, w.T.contiguous().T, b)  # not contiguous
-    with pytest.raises(ValueError):
-        gru_scan(torch.randn(4, 6, 30, device=dev), torch.randn(30, 10, device=dev), torch.randn(30, device=dev))
+    with pytest.raises(ValueError):  # 3H columns with H beyond 512
+        gru_scan(torch.randn(2, 3, 1539, device=dev), torch.randn(1539, 513, device=dev),
+                 torch.randn(1539, device=dev))
+    with pytest.raises(ValueError):  # x_proj's columns not 3 w_hh's
+        gru_scan(torch.randn(4, 6, 31, device=dev), torch.randn(30, 10, device=dev), torch.randn(30, device=dev))
     with pytest.raises(ValueError):
         gru_bidir(x.double(), x.double(), w.double(), w.double(), b.double(), b.double())
     with pytest.raises(ValueError):
@@ -140,16 +146,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         gru_bidir(x, x[:, :, :].transpose(0, 1).contiguous().transpose(0, 1), w, w, b, b)  # other strides
     with pytest.raises(ValueError):
         x30 = torch.randn(4, 6, 30, device=dev)
-        w30 = torch.randn(30, 10, device=dev)
+        w30 = torch.randn(30, 11, device=dev)
         gru_bidir(x30, x30, w30, w30, torch.randn(30, device=dev), torch.randn(30, device=dev))
     blk = SwinTransformerBlock(96, (16, 64), 6, [2, 4, 8], [0, 0, 0]).to(dev)
     kw = blk.attn.block_args(blk.ln_params())
     with pytest.raises(ValueError):
         window_attention_block(torch.randn(2, 1000, 96, device=dev), torch.randn(2, 1000, 96, device=dev), **kw)
     x = torch.randn(2, 1024, 96, device=dev)
-    for heads in (3, 12):  # head dims 32 and 8
-        blk = SwinTransformerBlock(96, (16, 64), heads, [2, 4, 8], [0, 0, 0]).to(dev)
-        with pytest.raises(ValueError):
+    for heads, windows in ((4, [4, 8]), (1, [8])):  # head dims 24 and 96
+        blk = SwinTransformerBlock(96, (16, 64), heads, windows, [0] * len(windows)).to(dev)
+        with pytest.raises(ValueError, match="head dims 8, 16, 32"), torch.no_grad():
             window_attention_block(x, x, **blk.attn.block_args(blk.ln_params()))
 
 
@@ -559,14 +565,116 @@ def test_window_attention_train_kernel_bf16_reruns_bit_for_bit_and_refuses(dev):
 
 
 def test_window_kernels_reject_other_widths(dev):
-    """D = 128 (beyond the kernels' 96) raises in K1 and K3."""
-    xq, xkv, kw = k1_inputs(dev, 1, 128, (2, 4, 8, 4), 8, (0, 0, 0, 0))
-    with pytest.raises(ValueError), torch.no_grad():
-        window_attention_block(xq, xkv, **kw)
-    prim, biases, static = train_core_inputs(dev, (0, 0, 0, 0), 1, dim=128, windows=(2, 4, 8, 4), heads=8)
-    with pytest.raises(ValueError):
-        WT.window_attention_block_core(*prim[:10], biases, static["masks"], 0, 1.0, static["window_sizes"],
-                                       static["shifts"], static["gnum_heads"], static["scale"], static["hw_shape"])
+    """D = 128 (beyond the kernels' 96) and head dim 24 (D = 96 in two
+    groups of 2 heads) raise in K1 and K3, naming the limit."""
+    for dim, windows, heads, limit in ((128, (2, 4, 8, 4), 8, "up to 96"), (96, (4, 8), 4, "head dims 8, 16, 32")):
+        zeros = (0,) * len(windows)
+        xq, xkv, kw = k1_inputs(dev, 1, dim, windows, heads, zeros)
+        with pytest.raises(ValueError, match=limit), torch.no_grad():
+            window_attention_block(xq, xkv, **kw)
+        prim, biases, static = train_core_inputs(dev, zeros, 1, dim=dim, windows=windows, heads=heads)
+        with pytest.raises(ValueError, match=limit):
+            WT.window_attention_block_core(*prim[:10], biases, static["masks"], 0, 1.0, static["window_sizes"],
+                                           static["shifts"], static["gnum_heads"], static["scale"],
+                                           static["hw_shape"])
+
+
+# the geometries beyond head dim 16 (dim, windows, heads, shifts): head dim
+# 32 (3 heads at D = 96, 2 at D = 64), head dim 8 with 4 heads a group (the
+# flagship's --num_heads 12: the thread-per-row attention backward), and D =
+# 48, 16, 80 at head dim 8 (the mid and toy geometries' blocks; D = 80 in 5
+# groups of 16)
+GEOM_WIDTHS = [(96, (2, 4, 8), 3, (1, 2, 4)), (64, (2, 8), 2, (1, 4)), (96, (2, 4, 8), 12, (1, 2, 4)),
+               (48, (2, 4, 8), 6, (1, 2, 4)), (16, (2, 4), 2, (1, 2)), (80, (2, 4, 8, 4, 8), 10, (1, 2, 4, 2, 4))]
+GEOM_IDS = [f"D{d}hd{d // h}" for d, _, h, _ in GEOM_WIDTHS]
+GEOM_CASES = [(b, sh) for b in (1, 3) for sh in ("unshifted", "shifted")]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def geometry(width, shifted):
+    dim, windows, heads, shift = width
+    return dim, windows, heads, shift if shifted == "shifted" else (0,) * len(windows)
+
+
+@pytest.mark.parametrize("batch,shifted", GEOM_CASES)
+@pytest.mark.parametrize("width", GEOM_WIDTHS, ids=GEOM_IDS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_window_attention_kernel_geometries(dev, batch, shifted, width, dtype):
+    """K1 at head dims 8 and 32 and D = 16, 48, 80 against its plain
+    version: float32 at 1e-4, bf16 io at 2^-7 of max|out|."""
+    dim, windows, heads, shift = geometry(width, shifted)
+    xq, xkv, kw = k1_inputs(dev, batch, dim, windows, heads, shift)
+    if dtype == torch.bfloat16:
+        xq, xkv, kw = xq.bfloat16(), xkv.bfloat16(), bf16_block_args(kw)
+    before = window_attention_counter.launches
+    with torch.no_grad():
+        out = window_attention_block(xq, xkv, **kw)
+        ref = window_attention_block_plain(xq, xkv, **kw)
+    torch.cuda.synchronize()
+    assert window_attention_counter.launches == before + 1 and out.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("batch,shifted", GEOM_CASES)
+@pytest.mark.parametrize("width", GEOM_WIDTHS, ids=GEOM_IDS)
+@pytest.mark.parametrize("keep", [1.0, 0.9])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("core", ["block", "attention", "full"])
+def test_training_cores_geometries(dev, batch, shifted, width, keep, dtype, core):
+    """K3, K4 and K5 forward and backward at head dims 8 and 32 and D = 16,
+    48, 80 against autograd through their plain versions: float32 as
+    check_core_on_card, bf16 io as check_bf16_core_on_card (K4's k and v
+    the halves of one kv tensor)."""
+    dim, windows, heads, shift = geometry(width, shifted)
+    prim, biases, static = train_core_inputs(dev, shift, batch, dim=dim, windows=windows, heads=heads)
+    mod, fn, plain = {"block": (WT, WT.window_attention_block_core, WT.window_attention_block_core_plain),
+                      "attention": (WC, WC.window_attention_core, WC.window_attention_core_plain),
+                      "full": (WF, WF.window_attention_full_core, WF.window_attention_full_core_plain)}[core]
+    if core == "attention":
+        gen = torch.Generator().manual_seed(11)
+        prim = ([torch.randn(batch, 1024, dim, generator=gen).to(dev).requires_grad_() for _ in range(3)]
+                if dtype == torch.float32 else bf16_qkv(dev, batch, dim, kv_views=True))
+    elif core == "block":
+        prim = prim[:10]
+    if dtype == torch.float32:
+        check_core_on_card(mod, fn, plain, prim, biases, static, keep, "faithful")
+    else:
+        if core != "attention":
+            prim = [p.detach().bfloat16().requires_grad_() for p in prim]
+        check_bf16_core_on_card(mod, fn, plain, prim, biases, static, keep)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("width", GEOM_WIDTHS, ids=GEOM_IDS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_grouped_window_attention_kernel_geometries(dev, batch, width, dtype):
+    """K7 at head dims 8 and 32 and D = 16, 48, 80 (check_k7)."""
+    check_k7(*k7_inputs(dev, batch, width, dtype))
+
+
+@pytest.mark.parametrize("width", [GEOM_WIDTHS[0], GEOM_WIDTHS[2]], ids=["hd32", "hd8"])
+def test_window_kernels_rerun_bit_for_bit_at_new_head_dims(dev, width):
+    """K1, and K3, K4 and K5 forward and every gradient, equal across two
+    runs at head dims 32 and 8, float32 and bf16 io."""
+    dim, windows, heads, shift = width
+    xq, xkv, kw = k1_inputs(dev, 3, dim, windows, heads, shift)
+    with torch.no_grad():
+        assert torch.equal(window_attention_block(xq, xkv, **kw), window_attention_block(xq, xkv, **kw))
+        kw16 = bf16_block_args(kw)
+        assert torch.equal(window_attention_block(xq.bfloat16(), xkv.bfloat16(), **kw16),
+                           window_attention_block(xq.bfloat16(), xkv.bfloat16(), **kw16))
+    prim, biases, static = train_core_inputs(dev, shift, 3, dim=dim, windows=windows, heads=heads)
+    gen = torch.Generator().manual_seed(9)
+    qkv = [torch.randn(3, 1024, dim, generator=gen).to(dev).requires_grad_() for _ in range(3)]
+    prim16 = [p.detach().bfloat16().requires_grad_() for p in prim]
+    for fn, p in ((WT.window_attention_block_core, prim[:10]), (WC.window_attention_core, qkv),
+                  (WF.window_attention_full_core, prim), (WT.window_attention_block_core, prim16[:10]),
+                  (WC.window_attention_core, bf16_qkv(dev, 3, dim, kv_views=True)),
+                  (WF.window_attention_full_core, prim16)):
+        cot = torch.randn(*p[0].shape, generator=gen).to(dev, p[0].dtype)
+        runs = [run_train_core(fn, p, biases, static, 123, 0.9, "faithful", cot) for _ in range(2)]
+        assert torch.equal(runs[0][0], runs[1][0]) and all(torch.equal(a, b) for a, b in zip(*[r[1] for r in runs]))
 
 
 def test_training_cores_reject_what_the_kernels_do_not_take(dev):

@@ -27,7 +27,7 @@ from dpmn_tpu_torch.weights import module_from_jax
 from test_torch_helpers import init_variables
 
 
-@pytest.mark.parametrize("n,t,h", [(12, 7, 8), (10, 16, 32)])
+@pytest.mark.parametrize("n,t,h", [(12, 7, 8), (10, 16, 32), (5, 6, 4), (6, 5, 48)])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_scan_matches_pallas_and_lax(n, t, h, reverse):
     rng = np.random.RandomState(n + t)

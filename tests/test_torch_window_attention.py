@@ -37,32 +37,35 @@ def test_static_tables_match():
             np.testing.assert_array_equal(TP._shift_attn_mask(H, W, ws, sh), P._shift_attn_mask(H, W, ws, sh))
 
 
-@pytest.mark.parametrize("shift", SHIFTS)
-@pytest.mark.parametrize("layout", ["faithful", "corrected"])
-@pytest.mark.parametrize("with_ln", [True, False])
-def test_plain_matches_pallas_interpret(shift, layout, with_ln):
+def _check_against_pallas(b, h, w, c, heads, win, shift, layout, with_ln):
+    """The plain block (through its dispatching wrapper) against the Pallas
+    kernel in interpret mode on one geometry: b images on an h x w grid at
+    dim c, `heads` heads over the windows `win`."""
     rng = np.random.RandomState(11)
-    xq, xkv = _inputs(3)
-    sk = {"proj": (C, C), "fc1": (C, 16), "fc2": (16, C), "ph": (32, C)}
-    jw = {"q_kernel": rng.randn(C, C) / np.sqrt(C), "kv_kernel": rng.randn(C, 2 * C) / np.sqrt(C)}
-    jw["q_bias"], jw["kv_bias"] = 0.1 * rng.randn(C), 0.1 * rng.randn(2 * C)
+    xr = np.random.RandomState(3)
+    xq, xkv = (xr.rand(b, h * w, c).astype(np.float32) for _ in range(2))
+    gh, ch = heads // len(win), c // len(win)
+    dz, scale = max(c // 6, 1), (ch // gh) ** -0.5
+    sk = {"proj": (c, c), "fc1": (c, dz), "fc2": (dz, c), "ph": (ch, c)}
+    jw = {"q_kernel": rng.randn(c, c) / np.sqrt(c), "kv_kernel": rng.randn(c, 2 * c) / np.sqrt(c)}
+    jw["q_bias"], jw["kv_bias"] = 0.1 * rng.randn(c), 0.1 * rng.randn(2 * c)
     for name, shape in sk.items():
         jw[f"{name}_kernel"] = rng.randn(*shape) / np.sqrt(shape[0])
         jw[f"{name}_bias"] = 0.1 * rng.randn(shape[1])
     jw = {k: np.asarray(v, np.float32) for k, v in jw.items()}
-    ln = {k: np.asarray((1.0 if k.endswith("s") else 0.0) + 0.1 * rng.randn(C), np.float32)
+    ln = {k: np.asarray((1.0 if k.endswith("s") else 0.0) + 0.1 * rng.randn(c), np.float32)
           for k in ("qs", "qb", "ks", "kb")} if with_ln else None
     biases, masks = [], []
-    for ws, sh in zip(WIN, shift):
+    for ws, sh in zip(win, shift):
         n = ws * ws
-        table = np.asarray(0.1 * rng.randn((2 * ws - 1) ** 2, 2), np.float32)
-        biases.append(table[P._relative_position_index(ws).reshape(-1)].reshape(n, n, 2).transpose(2, 0, 1))
-        masks.append(P._shift_attn_mask(H, W, ws, sh) if sh > 0 else None)
+        table = np.asarray(0.1 * rng.randn((2 * ws - 1) ** 2, gh), np.float32)
+        biases.append(table[P._relative_position_index(ws).reshape(-1)].reshape(n, n, gh).transpose(2, 0, 1))
+        masks.append(P._shift_attn_mask(h, w, ws, sh) if sh > 0 else None)
 
     ref = PW.fused_window_attention_block(
         jnp.asarray(xq), jnp.asarray(xkv), {k: jnp.asarray(v) for k, v in jw.items()},
-        [jnp.asarray(b) for b in biases], [None if m is None else jnp.asarray(m) for m in masks],
-        WIN, shift, 2, 16**-0.5, (H, W),
+        [jnp.asarray(bb) for bb in biases], [None if m is None else jnp.asarray(m) for m in masks],
+        win, shift, gh, scale, (h, w),
         ln_params=None if ln is None else {k: jnp.asarray(v) for k, v in ln.items()},
         layout=layout, interpret=True,
     )
@@ -73,12 +76,26 @@ def test_plain_matches_pallas_interpret(shift, layout, with_ln):
                "fc2_b": t(jw["fc2_bias"]), "ph_w": t(jw["ph_kernel"].T), "ph_b": t(jw["ph_bias"])}
     before = window_attention_counter.launches
     out = window_attention_block(
-        t(xq), t(xkv), weights, [t(b) for b in biases], [None if m is None else t(m) for m in masks],
-        WIN, shift, 2, 16**-0.5, (H, W), ln=None if ln is None else {k: t(v) for k, v in ln.items()},
+        t(xq), t(xkv), weights, [t(bb) for bb in biases], [None if m is None else t(m) for m in masks],
+        win, shift, gh, scale, (h, w), ln=None if ln is None else {k: t(v) for k, v in ln.items()},
         layout=layout,
     )
     assert window_attention_counter.launches == before  # a CPU tensor never launches the kernel
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("shift", SHIFTS)
+@pytest.mark.parametrize("layout", ["faithful", "corrected"])
+@pytest.mark.parametrize("with_ln", [True, False])
+def test_plain_matches_pallas_interpret(shift, layout, with_ln):
+    _check_against_pallas(B, H, W, C, 6, WIN, shift, layout, with_ln)
+
+
+# head dim 32 (3 heads over 3 windows at dim 96) and dim 16 (2 heads over
+# windows 2 / 4: channel 8, head dim 8), on an 8x16 grid, one image
+@pytest.mark.parametrize("c,heads,win", [(96, 3, (2, 4, 8)), (16, 2, (2, 4))], ids=["hd32", "d16"])
+def test_plain_matches_pallas_interpret_other_geometries(c, heads, win):
+    _check_against_pallas(1, 8, 16, c, heads, win, (1, 2, 4)[:len(win)], "faithful", True)
 
 
 @pytest.mark.parametrize("shift", SHIFTS)

@@ -6,7 +6,9 @@ both sides.
 
 Geometries: the flagship 16x64 grid at dim 96 with 6 heads, and the 8x32 grid
 at dim 48 of tests/test_pallas_train.py (head dim 8, the ws=8 group clamped
-to the grid with shift 0); B = 2, both shift sets, keep = 1.  Tolerances are
+to the grid with shift 0); B = 2, both shift sets, keep = 1; and, shifted,
+the 8x16 grid at head dim 32 and at dim 16, one image
+(test_torch_window_attention_train).  Tolerances are
 the JAX package's own for this kernel (tests/test_pallas_train.py:264-273):
 output rtol = atol = 2e-5, dq, dk, dv and dbias rtol = atol = 5e-4.  With
 dropout on, the Function equals autograd through the plain version, and K4
@@ -25,7 +27,7 @@ from dpmn_tpu.ops.pallas_window import build_packed_bias
 from dpmn_tpu_torch.ops import window_attention_core as WC
 from dpmn_tpu_torch.ops import window_attention_train as WT
 from dpmn_tpu_torch.ops.window_attention import layer_norm
-from test_torch_window_attention_train import B, GEOMETRIES, SHIFTS, _case_inputs
+from test_torch_window_attention_train import BASE_GEOMETRIES, NEW_GEOMETRIES, SHIFTS, _case_inputs
 
 
 def _qkv_inputs(geom, shift, seed=5):
@@ -48,10 +50,10 @@ def _jax_case(geom, shift):
 
     def f(q, k, v, *biases):
         packed = build_packed_bias(list(biases), masks, d["win"], h * w)
-        out = PWT.window_attention_core(*(t.reshape(B, h, w, c) for t in (q, k, v)), packed,
+        out = PWT.window_attention_core(*(t.reshape(-1, h, w, c) for t in (q, k, v)), packed,
                                         jnp.zeros((1,), jnp.int32), tuple(d["win"]), tuple(d["shf"]), d["gh"],
                                         d["scale"], 1.0, True)
-        return out.reshape(B, h * w, c)
+        return out.reshape(q.shape[0], h * w, c)
 
     out, vjp = jax.vjp(f, *[jnp.asarray(t) for t in d["qkv"]], *[jnp.asarray(b) for b in d["biases"]])
     return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(d["cot"]))]
@@ -68,12 +70,13 @@ def _run(d, fn, seed=0, keep=1.0):
 
 def _check_against_jax(out, grads, ref_out, ref_grads):
     np.testing.assert_allclose(out.numpy(), ref_out, rtol=2e-5, atol=2e-5)
-    assert len(grads) == len(ref_grads) == 6
-    for name, a, b in zip(["dq", "dk", "dv", "dbias_0", "dbias_1", "dbias_2"], grads, ref_grads):
+    names = ["dq", "dk", "dv"] + [f"dbias_{i}" for i in range(len(ref_grads) - 3)]
+    assert len(grads) == len(ref_grads)
+    for name, a, b in zip(names, grads, ref_grads):
         np.testing.assert_allclose(a, b, rtol=5e-4, atol=5e-4, err_msg=name)
 
 
-CASES = [(g, s) for g in GEOMETRIES for s in SHIFTS]
+CASES = [(g, s) for g in BASE_GEOMETRIES for s in SHIFTS] + [(g, SHIFTS[1]) for g in NEW_GEOMETRIES]
 
 
 @pytest.mark.parametrize("geom,shift", CASES)

@@ -6,7 +6,9 @@ build_packed_bias under jax.vjp so the bias gradient arrives per group as
 
 Geometries: the flagship 16x64 grid at dim 96 with 6 heads, and the 8x32 grid
 at dim 48 (head dim 8, the ws=8 group clamped to the grid with shift 0); B =
-2, both shift sets, the faithful layout (the only one K5 takes), keep = 1.
+2, both shift sets, the faithful layout (the only one K5 takes), keep = 1;
+and, shifted, the 8x16 grid at head dim 32 and at dim 16 (SKConv's channel
+8) of test_torch_window_attention_train, one image.
 Tolerances are the JAX package's own for its fused training kernels
 (tests/test_pallas_train.py:173-182): output rtol = atol = 2e-5, all 18
 primal gradients and the bias gradients rtol 2e-3, atol 2e-4.  With dropout
@@ -24,7 +26,7 @@ from dpmn_tpu.ops import pallas_window_train as PWT
 from dpmn_tpu.ops.pallas_window import build_packed_bias
 from dpmn_tpu_torch.ops import window_attention_full as WF
 from dpmn_tpu_torch.ops import window_attention_train as WT
-from test_torch_window_attention_train import B, GEOMETRIES, GRAD_NAMES, SHIFTS, _case_inputs
+from test_torch_window_attention_train import BASE_GEOMETRIES, GRAD_NAMES, NEW_GEOMETRIES, SHIFTS, _case_inputs
 
 # SKConv's Dense_0..3 (flax kernels (in, out)), after K3's ten primals
 SK_NAMES = ["pk", "pb", "f1k", "f1b", "f2k", "f2b", "phk", "phb"]
@@ -37,7 +39,8 @@ def _full_inputs(geom, shift, seed=5):
     d = _case_inputs(geom, shift, seed)
     x = d["x"]
     c = x["xq"].shape[-1]
-    ch, dz = c // 3, c // 6
+    ch = c // len(d["win"])
+    dz = ch // 2
     rng = np.random.RandomState(seed + 200)
     f32 = lambda a: np.asarray(a, np.float32)
     for name, (fan_in, fan_out) in (("pk", (c, c)), ("f1k", (c, dz)), ("f2k", (dz, c)), ("phk", (ch, c))):
@@ -62,7 +65,7 @@ def _jax_case(geom, shift):
         prim, biases = args[:18], args[18:]
         packed = build_packed_bias(list(biases), masks, d["win"], h * w)
         return PWT.window_attention_full_core(
-            prim[0].reshape(B, h, w, c), prim[1].reshape(B, h, w, c), *prim[2:], packed, jnp.zeros((1,), jnp.int32),
+            prim[0].reshape(-1, h, w, c), prim[1].reshape(-1, h, w, c), *prim[2:], packed, jnp.zeros((1,), jnp.int32),
             tuple(d["win"]), tuple(d["shf"]), d["gh"], d["scale"], 1.0, (h, w), True)
 
     out, vjp = jax.vjp(f, *[jnp.asarray(x[k]) for k in JAX_ORDER], *[jnp.asarray(b) for b in d["biases"]])
@@ -82,13 +85,13 @@ def _run(d, fn, seed=0, keep=1.0):
 def _check_against_jax(out, grads, ref_out, ref_grads):
     np.testing.assert_allclose(out.numpy(), ref_out, rtol=2e-5, atol=2e-5)
     names = GRAD_NAMES + ["proj_w", "proj_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b", "ph_w", "ph_b"]
-    names += [f"bias_{i}" for i in range(3)]
-    assert len(grads) == len(ref_grads) == len(names) == 21
+    names += [f"bias_{i}" for i in range(len(ref_grads) - 18)]
+    assert len(grads) == len(ref_grads) == len(names)
     for name, a, b in zip(names, grads, ref_grads):
         np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-4, err_msg=name)
 
 
-CASES = [(g, s) for g in GEOMETRIES for s in SHIFTS]
+CASES = [(g, s) for g in BASE_GEOMETRIES for s in SHIFTS] + [(g, SHIFTS[1]) for g in NEW_GEOMETRIES]
 
 
 @pytest.mark.parametrize("geom,shift", CASES)

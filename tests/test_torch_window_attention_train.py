@@ -6,7 +6,10 @@ gradient arrives per group as (heads, N, N) on both sides.
 Geometries: the flagship 16x64 grid at dim 96 with 6 heads, and the 8x32 grid
 at dim 48 of tests/test_pallas_train.py (head dim 8, the ws=8 group clamped
 to the grid with shift 0); B = 2, both shift sets, both layouts (for
-`corrected` the relayout runs after the core on both sides), keep = 1.
+`corrected` the relayout runs after the core on both sides), keep = 1.  On
+an 8x16 grid, one image, shifted and faithful only: head dim 32 (dim 96, 3
+heads over windows 2 / 4 / 8) and dim 16 (2 heads over windows 2 / 4, head
+dim 8).
 Tolerances are the JAX package's own for this kernel: output rtol = atol =
 2e-5, gradients rtol 2e-3, atol 2e-4 (tests/test_pallas_train.py:173-182).
 The dropout hash is checked on its own: determinism, rate, scale, the
@@ -25,17 +28,20 @@ from dpmn_tpu.ops import pallas_window_train as PWT
 from dpmn_tpu.ops.pallas_window import build_packed_bias
 from dpmn_tpu_torch.ops import window_attention_train as WT
 
-B = 2
-GEOMETRIES = {"16x64": (16, 64, 96), "8x32": (8, 32, 48)}
-HEADS = 6
+B = 2  # images a case; one at NEW_GEOMETRIES
+# (grid h, w, dim, heads, windows)
+GEOMETRIES = {"16x64": (16, 64, 96, 6, (2, 4, 8)), "8x32": (8, 32, 48, 6, (2, 4, 8)),
+              "8x16-hd32": (8, 16, 96, 3, (2, 4, 8)), "8x16-d16": (8, 16, 16, 2, (2, 4))}
+BASE_GEOMETRIES = ("16x64", "8x32")  # every shift set and layout
+NEW_GEOMETRIES = ("8x16-hd32", "8x16-d16")  # one shift set, faithful
 SHIFTS = [(0, 0, 0), (1, 2, 4)]
 GRAD_NAMES = ["xq", "xkv", "qs", "qb", "ks", "kb", "q_w", "q_b", "kv_w", "kv_b"]
 
 
-def _windows(h, w, shift):
+def _windows(h, w, shift, windows=(2, 4, 8)):
     """The window / shift after WindowAttention's min-resolution clamp."""
     win, shf = [], []
-    for ws, sh in zip((2, 4, 8), shift):
+    for ws, sh in zip(windows, shift):
         clamp = min(h, w) <= ws
         win.append(min(h, w) if clamp else ws)
         shf.append(0 if clamp else sh)
@@ -43,12 +49,13 @@ def _windows(h, w, shift):
 
 
 def _case_inputs(geom, shift, seed=5):
-    h, w, c = GEOMETRIES[geom]
-    win, shf = _windows(h, w, shift)
-    gh = HEADS // 3
+    h, w, c, heads, windows = GEOMETRIES[geom]
+    win, shf = _windows(h, w, shift, windows)
+    gh = heads // len(win)
+    b = 1 if geom in NEW_GEOMETRIES else B
     rng = np.random.RandomState(seed)
     f32 = lambda a: np.asarray(a, np.float32)
-    x = {"xq": f32(rng.randn(B, h * w, c) * 0.5), "xkv": f32(rng.randn(B, h * w, c) * 0.5)}
+    x = {"xq": f32(rng.randn(b, h * w, c) * 0.5), "xkv": f32(rng.randn(b, h * w, c) * 0.5)}
     for k in ("qs", "ks"):
         x[k] = f32(1.0 + 0.1 * rng.randn(c))
     for k in ("qb", "kb"):
@@ -64,8 +71,8 @@ def _case_inputs(geom, shift, seed=5):
         biases.append(np.ascontiguousarray(table[_relative_position_index(ws).reshape(-1)].reshape(n, n, gh)
                                            .transpose(2, 0, 1)))
     masks = [_shift_attn_mask(h, w, ws, sh) if sh > 0 else None for ws, sh in zip(win, shf)]
-    cot = f32(rng.randn(B, h * w, c))
-    scale = (c // 3 // gh) ** -0.5
+    cot = f32(rng.randn(b, h * w, c))
+    scale = (c // len(win) // gh) ** -0.5
     return dict(x=x, biases=biases, masks=masks, cot=cot, win=win, shf=shf, gh=gh, scale=scale, hw=(h, w))
 
 
@@ -80,11 +87,11 @@ def _jax_case(geom, shift, layout):
     def f(xq, xkv, qs, qb, ks, kb, wq, bq, wkv, bkv, *biases):
         packed = build_packed_bias(list(biases), masks, d["win"], h * w)
         out = PWT.window_attention_block_core(
-            xq.reshape(B, h, w, c), xkv.reshape(B, h, w, c), qs, qb, ks, kb, wq, bq, wkv, bkv, packed,
+            xq.reshape(-1, h, w, c), xkv.reshape(-1, h, w, c), qs, qb, ks, kb, wq, bq, wkv, bkv, packed,
             jnp.zeros((1,), jnp.int32), tuple(d["win"]), tuple(d["shf"]), d["gh"], d["scale"], 1.0, (h, w), True)
         if layout == "corrected":
-            out = _corrected_relayout(out, d["win"], d["shf"], 3)
-        return out.reshape(B, h * w, -1)
+            out = _corrected_relayout(out, d["win"], d["shf"], len(d["win"]))
+        return out.reshape(xq.shape[0], h * w, -1)
 
     args = [jnp.asarray(x[k]) for k in ("xq", "xkv", "qs", "qb", "ks", "kb", "wq", "bq", "wkv", "bkv")]
     out, vjp = jax.vjp(f, *args, *[jnp.asarray(b) for b in d["biases"]])
@@ -115,12 +122,13 @@ def _run_port(d, layout, fn, seed=0, keep=1.0):
 def _check_against_jax(out, grads, ref_out, ref_grads):
     np.testing.assert_allclose(out.numpy(), ref_out, rtol=2e-5, atol=2e-5)
     names = GRAD_NAMES + [f"bias_{i}" for i in range(len(ref_grads) - 10)]
-    assert len(grads) == len(ref_grads) == 13
+    assert len(grads) == len(ref_grads) == len(names)
     for name, a, b in zip(names, grads, ref_grads):
         np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-4, err_msg=name)
 
 
-CASES = [(g, s, lay) for g in GEOMETRIES for s in SHIFTS for lay in ("faithful", "corrected")]
+CASES = ([(g, s, lay) for g in BASE_GEOMETRIES for s in SHIFTS for lay in ("faithful", "corrected")]
+         + [(g, SHIFTS[1], "faithful") for g in NEW_GEOMETRIES])
 
 
 @pytest.mark.parametrize("geom,shift,layout", CASES)
