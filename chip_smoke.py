@@ -170,11 +170,24 @@ FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12  # dense, on the tensor cores
 BF16_FLOP_PER_S = 989e12  # dense, on the tensor cores
 # the sub-kernels whose products run on the tensor cores (3xTF32, or bf16
-# for K1's bf16 LN + projection): mma.sync (HMMA in their machine code),
-# K6's on wgmma (HGMMA)
+# for K1's bf16 LN + projection and K3's and K5's bf16 backward): mma.sync
+# (HMMA in their machine code), K6's on wgmma (HGMMA)
 TC_KERNELS = ("ln_proj_kernel", "ln_proj_bf16_kernel", "skconv_proj_kernel", "skconv_out_kernel", "proj_ln_bwd_kernel", "wgrad_kernel",
               "window_attn_bwd_tc_kernel", "skconv_bwd_a_kernel", "skconv_bwd_b_kernel", "mlp_convs_kernel",
-              "window_attn_fwd_kernel", "tile_attn_tc_kernel")
+              "window_attn_fwd_kernel", "tile_attn_tc_kernel", "window_attn_bwd_tc_bf16_kernel",
+              "proj_ln_bwd_bf16_kernel", "wgrad_bf16_kernel")
+# the bf16 backwards' product kernels: bf16 m16n8k16 and no TF32 product in
+# their machine code (K3's and K5's libraries)
+BF16_BWD_KERNELS = ("window_attn_bwd_tc_bf16_kernel", "proj_ln_bwd_bf16_kernel", "wgrad_bf16_kernel")
+# the widening and narrowing passes the bf16 backwards of K3 and K5 no
+# longer launch (K4's bf16 backward keeps them)
+WIDENING_KERNELS = ("convert_kernel", "bf16_rows_kernel")
+# kernel launches of one bf16 backward call at the flagship geometry (three
+# window groups): K3 the LN + projection, each group's attention backward
+# and dbias sum, the two projections' dx, LN sums, dW and dW sums; K5 adds
+# SKConv's six (pass A, its dW sum, the gate, the fc gradients, pass B, its
+# dW sum)
+BF16_BWD_LAUNCHES = {"block": 15, "full": 21}
 B = 64
 K1_TOL = 1e-4  # max abs error: float32, other summation orders over <= 96-term sums
 K2_TOL = 1e-5  # max abs error of a tanh-bounded state after <= 64 float32 steps
@@ -428,9 +441,12 @@ def check_hmma(kernels):
     instructions (cuobjdump -sass), and every bf16 attention forward (K7's,
     each head dim 8, 16, 32) and K1's bf16 LN + projection (one an embedding
     width: 16, 32, 48, 64, 80, 96) bf16 m16n8k16 products
-    (HMMA.16816.F32.BF16)."""
+    (HMMA.16816.F32.BF16); every instance of the bf16 backwards' product
+    kernels (BF16_BWD_KERNELS) holds bf16 m16n8k16 products and no TF32
+    product (no 3xTF32 split on bf16 operands), and K3's and K5's libraries
+    hold no widening or narrowing pass (WIDENING_KERNELS)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    found, bf16 = {}, {}
+    found, bf16, bf16_bwd, widening = {}, {}, {}, []
     for name in ("window_attention", "window_attention_train", "window_attention_core", "window_attention_full",
                  "grouped_window_attention", "window_tile_attention", "gru_scan", "mlp_convs"):
         sass = subprocess.run([tool, "-sass", str(kernels._target(name))], capture_output=True, text=True,
@@ -438,6 +454,10 @@ def check_hmma(kernels):
         funcs = re.split(r"\n\s*Function : ", sass)[1:]
         names = demangle([f.split(None, 1)[0] for f in funcs])
         for func, body in zip(names, funcs):
+            if name in ("window_attention_train", "window_attention_full") and base_name(func) in WIDENING_KERNELS:
+                widening.append(f"{name}: {func}")
+            if base_name(func) in BF16_BWD_KERNELS:
+                bf16_bwd[f"{name}: {func}"] = (body.count("HMMA.16816.F32.BF16"), body.count("TF32"))
             if base_name(func) in TC_KERNELS + ("gru_large_kernel",):
                 found[f"{name}: {func}"] = (body.count("HMMA"), body.count("HGMMA"))
                 if base_name(func) == "ln_proj_bf16_kernel" or (base_name(func) == "window_attn_fwd_kernel"
@@ -450,11 +470,14 @@ def check_hmma(kernels):
     for lib, rows in by_lib.items():
         log(f"  sass {lib}: HMMA instructions: {', '.join(rows)}")
     log(f"  sass bf16 m16n8k16 products (HMMA.16816.F32.BF16): {bf16}")
+    log(f"  sass bf16 backwards (HMMA.16816.F32.BF16, TF32 instructions): {bf16_bwd}")
     missing = [f for f, n in found.items() if sum(n) == 0]
     absent = [k for k in TC_KERNELS if not any(base_name(f.split(": ", 1)[1]) == k for f in found)]
-    if missing or absent or len(bf16) < 4 or not all(bf16.values()):
+    tf32 = [f for f, (n16, n32) in bf16_bwd.items() if n16 == 0 or n32]
+    if missing or absent or len(bf16) < 4 or not all(bf16.values()) or tf32 or widening:
         raise AssertionError(f"no HMMA or HGMMA in {missing}; tensor-core kernels not found: {absent}; bf16 "
-                             f"m16n8k16 products: {bf16}")
+                             f"m16n8k16 products: {bf16}; bf16 backward kernels without bf16 products or with "
+                             f"TF32 ones: {tf32}; widening passes in K3's / K5's libraries: {widening}")
 
 
 def phase_window_attention(dev):
@@ -1230,7 +1253,10 @@ def phase_core_bf16(dev, core):
     flagship geometry, both shift sets, keep 1 and 0.9 (hold_bf16_core); K3
     also with 3 heads a group (two groups of 48 channels) and with a scale
     that is not a power of two, at B = 9.  Times a call beside the float32
-    kernel on the same values, and for K4 beside SDPA on bf16.  Returns the
+    kernel on the same values, and for K4 beside SDPA on bf16.  K3's and
+    K5's backward are also split by sub-kernel (torch.profiler), each part
+    beside its bound, with their launches a call held to BF16_BWD_LAUNCHES
+    and no widening pass among them.  Returns the
     kernels-line entries of its two entry points (per AMP train step: 6
     unshifted + 6 shifted calls, keep 0.9; the bound from bf16 bytes, the
     products on bf16 operands at the bf16 tensor-core peak and SKConv's
@@ -1248,7 +1274,7 @@ def phase_core_bf16(dev, core):
     gen = torch.Generator().manual_seed(5)
     bf = torch.bfloat16
     cot = torch.randn(B, h * w, dim, generator=gen).to(dev, bf)
-    worst_fwd, worst_grad, times = 0.0, 0.0, {}
+    worst_fwd, worst_grad, times, split_bwd = 0.0, 0.0, {}, {}
     if core == "block":
         # 3 heads a group (the thread-per-row attention backward), and a scale
         # that is not a power of two (head dim 12's), against the plain version
@@ -1295,6 +1321,11 @@ def phase_core_bf16(dev, core):
             del outs
             lib = f"; SDPA on bf16 forward {l_fwd:.4f}, backward {l_bwd:.4f}"
         times[shift] = (k_fwd, k_bwd, p_fwd, p_bwd, l_fwd, l_bwd)
+        if core in BF16_BWD_LAUNCHES:
+            call = lambda: mod._backward_cuda(st, p_det, b_det, cot, kept)
+            split = kernel_split(call)
+            check_bf16_bwd_launches(f"{tag} backward shift={shift}", name, call, split, BF16_BWD_LAUNCHES[core])
+            add_split(split_bwd, split, 6)
         log(f"{tag} B={B} shift={shift} keep=0.9: forward {k_fwd:.4f} ms a call (float32 kernel on the same values "
             f"{f_fwd:.4f}), backward {k_bwd:.4f} (float32 {f_bwd:.4f}); plain forward {p_fwd:.4f}, backward "
             f"{p_bwd:.4f}{lib}")
@@ -1309,6 +1340,9 @@ def phase_core_bf16(dev, core):
         f"{(cost['fwd_flops'] - skconv) / 1e9:.2f} GFLOP on bf16 operands, {skconv / 1e9:.2f} in float32), backward "
         f"{bb_ms:.4f} ({bb_by}; {cost['bwd_bytes'] / 2e6:.1f} MB, {(cost['bwd_flops'] - 3 * skconv) / 1e9:.2f} GFLOP "
         f"on bf16 operands, {3 * skconv / 1e9:.2f} in float32)")
+    if core in BF16_BWD_LAUNCHES:
+        log_split(f"{tag} backward", split_bwd, {k: tuple(12 * v for v in p)
+                                                 for k, p in bf16_bwd_parts(core, t, dim, win, h, w).items()})
     per_step = lambda i: 6 * (times[(0, 0, 0)][i] + times[(1, 2, 4)][i])
     common = {"route": "cuda", "source": f"dpmn_tpu_torch/csrc/{name}.cu"}
     fwd = {"name": f"{name}_forward_bf16", **common, "replaces": REPLACES[name][0], "max_abs_err": worst_fwd,
@@ -1318,6 +1352,81 @@ def phase_core_bf16(dev, core):
            "ms": per_step(1), "plain_ms": per_step(3), "bound_ms": 12 * bb_ms, "bound_by": bb_by,
            "library_ms": per_step(5) if core == "attention" else None}
     return fwd, bwd
+
+
+def port_kernel_names():
+    """The names of the port's CUDA kernels (`*_kernel` in csrc/), so that a
+    profiler split can tell them from PyTorch's own launches."""
+    csrc = Path(__file__).resolve().parent / "dpmn_tpu_torch" / "csrc"
+    return {n for f in csrc.glob("*.cu*") for n in re.findall(r"\b(\w+_kernel)\b", f.read_text())}
+
+
+def check_bf16_bwd_launches(tag, lib, call, split, want):
+    """One bf16 backward call() launches `want` kernels of the library `lib`
+    (its own host-side count, <lib>_kernel_launches: the wrapper's PyTorch
+    ops not counted), and none of the split's kernels (torch.profiler) is a
+    widening or narrowing pass.  The profiler is not asked for the count: it
+    drops some of a profile's device events in some runs."""
+    import ctypes
+
+    from dpmn_tpu_torch.ops import kernels
+
+    count = kernels.bind(lib, f"{lib}_kernel_launches", [], ctypes.c_ulonglong)
+    torch.cuda.synchronize()
+    before = count()
+    call()
+    torch.cuda.synchronize()
+    launches = count() - before
+    widening = [k for k in split if k.split("<")[0] in WIDENING_KERNELS]
+    ours = port_kernel_names()
+    recorded = sum(n for k, (_, n) in split.items() if k.split("<")[0] in ours)
+    log(f"{tag}: {launches} launches a call (want {want}; the profiler recorded {recorded:g} of the port's "
+        f"kernels a call{'' if split else ', no split'}), widening passes {widening or 'none'}")
+    if launches != want or widening:
+        raise AssertionError(f"{tag}: {launches} launches a call, want {want}; widening passes {widening}")
+
+
+def bf16_bwd_parts(core, t, dim, win, h, w):
+    """{sub-kernel: (bytes, CUDA-core operations, 3xTF32 operations, bf16
+    operations)} of one K3 ("block") or K5 ("full") bf16 backward call on t
+    tokens: q and kv recomputed in bf16 (ln_proj_bf16_kernel); per group the
+    attention backward reading bf16 q, k, v, dout and writing float32 dq,
+    dk, dv (the 2x2 windows' on the CUDA cores, the others' products on bf16
+    tensor cores); the projection backward and the weight gradients reading
+    bf16 x and weights and float32 dq / dkv, dx in bf16, the products on
+    bf16; the partial rows' sums (their outputs bf16); for K5 SKConv's
+    passes on bf16 dout, their products at 3xTF32 (the tokens' gradient
+    stored in bf16)."""
+    ch = dim // len(win)
+    batch = t // (h * w)
+    wparts = -(-t // 512) * (3 * dim * dim + 3 * dim)
+    parts, partials = {}, 0
+    for ws in win:
+        n = ws * ws
+        floats = batch * attn_bwd_chunks(n, 2, (h // ws) * (w // ws)) * 2 * n * n
+        partials += floats
+        flops = 5 * 2 * t * ch * n
+        key = "window_attn_bwd4_kernel" if n == 4 else f"window_attn_bwd_tc_bf16_kernel<{n},"
+        parts[key] = (2 * 4 * t * ch + 4 * (3 * t * ch + floats), flops if n == 4 else 0.0, 0.0,
+                      0.0 if n == 4 else flops)
+    out = {"ln_proj_bf16_kernel": (2 * (5 * t * dim + 3 * dim * dim + 3 * dim), 0.0, 0.0, 2 * t * dim * 3 * dim),
+           **parts,
+           "proj_ln_bwd_bf16_kernel": (2 * 2 * t * dim + 4 * 3 * t * dim + 2 * 2 * t * dim + 4 * t // 64 * 4 * dim,
+                                       0.0, 0.0, 2 * t * 3 * dim * dim),
+           "wgrad_bf16_kernel": (2 * 2 * t * dim + 4 * 3 * t * dim + 4 * wparts, 0.0, 0.0, 2 * t * 3 * dim * dim),
+           "sum_rows_kernel": (4 * (partials + wparts + t // 64 * 4 * dim), partials + wparts, 0.0, 0.0)}
+    if core == "full":
+        grid = min(132, t // 64)
+        parts_wgrad = grid * (dim * dim + dim + dim * ch + dim)
+        io = 4 * t * dim
+        out.update({"skconv_bwd_a_kernel": (io / 2 + io + 4 * t * ch + 4 * (t // 64 + grid) * dim,
+                                            4 * t * dim, 2 * 2 * t * dim * ch, 0.0),
+                    "skconv_gate_bwd_kernel": (4 * (t // 64 * 2 * dim), 0.0, 0.0, 0.0),
+                    "skconv_bwd_b_kernel": (io / 2 + io + io / 2 + 4 * t * ch + 4 * grid * dim * dim,
+                                            4 * t * dim, 3 * 2 * t * dim * dim, 0.0)})
+        b, c_, _, _ = out["sum_rows_kernel"]
+        out["sum_rows_kernel"] = (b + 4 * parts_wgrad, c_ + parts_wgrad, 0.0, 0.0)
+    return out
 
 
 def attn_bwd_chunks(n, gh, nw):

@@ -279,6 +279,64 @@ __device__ __forceinline__ void pv_tile_bf16(float (&o)[HD / 8][4], const float 
   }
 }
 
+// A warp's tile of C (+)= A . B over K (a multiple of 16) on bf16 m16n8k16
+// with float32 accumulation, A (M x K) and B (K x N) bf16 in shared memory,
+// fed by ldmatrix: element (m, k) of A at A[m * lda + k], or at A[k * lda +
+// m] when AT (read transposed); element (k, n) of B at B[n * ldb + k], or at
+// B[k * ldb + n] when BT.  So <false, true> is tokens x outputs = dy . W
+// with W in torch layout, and <true, true> the transposed forms dW = dy^T .
+// x over a tile of tokens and dK = dS^T . q over a window's queries.  The
+// warp owns the m16-tiles at rows m0 + 16 i (i < mt) and the n8-tiles at
+// columns n0 + 8 j (j < nt), mt <= MT and nt <= NT; the B fragments of an
+// n-tile pair come from one ldmatrix.x4 (a last odd tile from .x2) and serve
+// every m-tile.  Row strides an odd number of 16-byte units (conflict-free
+// ldmatrix phases), every row address 16-byte aligned, m0 and n0 multiples
+// of 8.  The fragment coordinates are mma_bf16's.
+template <bool AT, bool BT, int MT, int NT>
+__device__ __forceinline__ void mma_tile_bf16(float (&acc)[MT][NT][4], const __nv_bfloat16* A, int lda, int m0,
+                                              const __nv_bfloat16* Bm, int ldb, int n0, int K, int mt = MT,
+                                              int nt = NT) {
+  const int lane = threadIdx.x & 31, r8 = lane & 7, hi8 = (lane >> 3) & 1, quad = lane >> 4;
+#pragma unroll
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t bf[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      const int n = n0 + 8 * j;
+      if (j + 1 < nt) {  // n-tiles j, j + 1 x k halves
+        uint32_t r[4];
+        if constexpr (BT)
+          ldmatrix_x4_trans(r, Bm + (k0 + r8 + 8 * hi8) * ldb + n + 8 * quad);
+        else
+          ldmatrix_x4(r, Bm + (n + r8 + 8 * quad) * ldb + k0 + 8 * hi8);
+        bf[j][0] = r[0], bf[j][1] = r[1];
+        if (j + 1 < NT) bf[j + 1][0] = r[2], bf[j + 1][1] = r[3];
+      } else if (j < nt) {
+        uint32_t r[2];
+        if constexpr (BT)
+          ldmatrix_x2_trans(r, Bm + (k0 + r8 + 8 * hi8) * ldb + n);
+        else
+          ldmatrix_x2(r, Bm + (n + r8) * ldb + k0 + 8 * hi8);
+        bf[j][0] = r[0], bf[j][1] = r[1];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      if (i < mt) {
+        const int m = m0 + 16 * i;
+        uint32_t a[4];  // rows m .. + 7 / + 8 .. + 15 x k halves
+        if constexpr (AT)
+          ldmatrix_x4_trans(a, A + (k0 + r8 + 8 * quad) * lda + m + 8 * hi8);
+        else
+          ldmatrix_x4(a, A + (m + r8 + 8 * hi8) * lda + k0 + 8 * quad);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          if (j < nt) mma_bf16(acc[i][j], a, bf[j][0], bf[j][1]);
+      }
+    }
+  }
+}
+
 // The max and the sum over the 4 lanes of a quad (one row of a tile).
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));

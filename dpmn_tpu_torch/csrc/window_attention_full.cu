@@ -63,9 +63,16 @@
 // (ln_proj_bf16_kernel storing q / kv in bf16), the attention forward on
 // bf16 rows writing float32 tokens (window_attn_fwd_kernel<DROP, bf16,
 // float, float>) and SKConv on bf16 weights in float32 sums
-// (launch_skconv_t<bf16>, K1's bf16 tail without the residual); the
-// backward widens its bf16 inputs and weights once and runs the float32
-// kernels, with BF16 rounding in the attention and projection backward.
+// (launch_skconv_t<bf16>, K1's bf16 tail without the residual).  The
+// backward reads every bf16 tensor as it is (21 launches at three window
+// groups): q and kv recomputed in bf16 (ln_proj_bf16_kernel); SKConv's
+// backward in float32 (its products at 3xTF32) on dout and the weights
+// widened as they are staged, the tokens' gradient stored rounded to bf16
+// (skconv_bwd_b_kernel<D, bf16>) and the fc / proj / proj_head gradients
+// rounded once by the kernels that finish their sums; then K3's bf16
+// attention and projection backward (window_train_common.cuh: products on
+// bf16 m16n8k16, dxq, dxkv and the LN, q and kv gradients written as bf16).
+// No float32 copy of xq, xkv, dout, q, kv or the weights is made.
 // Bound at B = 64, flagship geometry: forward 37.7 MB of bf16 (xq, xkv,
 // out) = 11 us, and 4.33 GFLOP on bf16 operands at 989 TFLOP/s plus SKConv's
 // 1.61 in float32 at 67 = 28 us; backward 62.9 MB = 19 us, and 12.98 GFLOP
@@ -113,9 +120,39 @@ __device__ __forceinline__ void store_wgrad_part(float* __restrict__ p, const fl
   if (threadIdx.x >= b0 && threadIdx.x < b0 + R) p[R * c + threadIdx.x - b0] = bacc;
 }
 
-// Stage W (rows x k, row-major) transposed into shared memory as [k][ld].
-__device__ __forceinline__ void stage_cols(float* dst, const float* __restrict__ w, int rows, int k, int ld) {
-  for (int idx = threadIdx.x; idx < rows * k; idx += blockDim.x) dst[(idx % k) * ld + idx / k] = __ldg(w + idx);
+// Stage W (rows x k, row-major, float32 or bf16) transposed into shared
+// memory as float32 [k][ld].
+template <typename T>
+__device__ __forceinline__ void stage_cols(float* dst, const T* __restrict__ w, int rows, int k, int ld) {
+  for (int idx = threadIdx.x; idx < rows * k; idx += blockDim.x) dst[(idx % k) * ld + idx / k] = ldg_one(w + idx);
+}
+
+// load_tile for bf16 rows widened to float32 as they land: plain 16-byte
+// loads, each stored as two float4 (rows past ntok are zero).  c % 8 == 0;
+// rows 16-byte aligned.
+__device__ __forceinline__ void load_tile_widen(float* dst, int ld, const __nv_bfloat16* __restrict__ x, int64_t t0,
+                                                int ntok, int c, int64_t row_stride) {
+  const int c8 = c / 8;
+  for (int e = threadIdx.x; e < TOK * c8; e += blockDim.x) {
+    const int r = e / c8, k = (e % c8) * 8;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (t0 + r < ntok) u = __ldg(reinterpret_cast<const uint4*>(x + (t0 + r) * row_stride + k));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+    const float2 c2 = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+    *reinterpret_cast<float4*>(dst + r * ld + k) = make_float4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<float4*>(dst + r * ld + k + 4) = make_float4(c2.x, c2.y, d.x, d.y);
+  }
+}
+
+// A tile of dout (float32 by cp.async, bf16 widened as it lands).
+__device__ __forceinline__ void load_dout_tile(float* dst, int ld, const float* __restrict__ x, int64_t t0, int ntok,
+                                               int c) {
+  load_tile(dst, ld, x, t0, ntok, c, c);
+}
+__device__ __forceinline__ void load_dout_tile(float* dst, int ld, const __nv_bfloat16* __restrict__ x, int64_t t0,
+                                               int ntok, int c) {
+  load_tile_widen(dst, ld, x, t0, ntok, c, c);
 }
 
 // SKConv backward, pass A, on persistent CTAs over the tiles of TOK tokens
@@ -130,11 +167,12 @@ __device__ __forceinline__ void stage_cols(float* dst, const float* __restrict__
 //         ch) | dbph (D)] at the end.
 // Shared: wt [ch][D + 4], dos, ts [2][TOK][D + 4], fvs [TOK][ch + 8] (token-
 // major B operand), dfs [TOK][ch + 4], gs [2][D] (the tile's gate, with
-// the tile by cp.async).
-template <int D>
+// the tile by cp.async).  T: the type of dout and Wph (bf16: widened to
+// float32 as they are staged, the arithmetic float32 as the JAX kernel's).
+template <int D, typename T = float>
 __global__ void __launch_bounds__(THREADS, 1)
-    skconv_bwd_a_kernel(const float* __restrict__ dout, const float* __restrict__ tok,
-                        const float* __restrict__ gate, const float* __restrict__ phw, float* __restrict__ dfv,
+    skconv_bwd_a_kernel(const T* __restrict__ dout, const float* __restrict__ tok,
+                        const float* __restrict__ gate, const T* __restrict__ phw, float* __restrict__ dfv,
                         float* __restrict__ dwpart, float* __restrict__ part, int L, int ch, int ntile) {
   constexpr int S = D + 4;
   const int SF = ch + 8, SD = ch + 4;
@@ -147,7 +185,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* gs = dfs + TOK * SD;
   const int ntok = ntile * TOK;
   auto load = [&](int tile, int stage) {
-    load_tile(dos + stage * TOK * S, S, dout, (int64_t)tile * TOK, ntok, D, D);
+    load_dout_tile(dos + stage * TOK * S, S, dout, (int64_t)tile * TOK, ntok, D);
     load_tile(ts + stage * TOK * S, S, tok, (int64_t)tile * TOK, ntok, D, D);
     if (threadIdx.x < D / 4)
       cp_async16(gs + stage * D + 4 * threadIdx.x, gate + (int64_t)tile * TOK / L * D + 4 * threadIdx.x);
@@ -218,12 +256,15 @@ __global__ void __launch_bounds__(THREADS, 1)
 // Wp (D, D) staged once as it is (the feats product) and transposed (dt).
 // Shared: w, wt [D][D + 4], ts, dos [2][TOK][D + 4], dfs [TOK][D + 4], gs
 // [2][2][D] (the tile's gate and GAP gradient, with the tile by cp.async).
-template <int D>
+// T: the type of dout, Wp, bp and dt (bf16: dout and the weights widened
+// as they are staged, dt rounded once as it is stored, the JAX kernel's
+// cast of the tokens' gradient before the attention backward).
+template <int D, typename T = float>
 __global__ void __launch_bounds__(THREADS, 1)
-    skconv_bwd_b_kernel(const float* __restrict__ dout, const float* __restrict__ tok,
+    skconv_bwd_b_kernel(const T* __restrict__ dout, const float* __restrict__ tok,
                         const float* __restrict__ gate, const float* __restrict__ dgap,
-                        const float* __restrict__ dfv, const float* __restrict__ pw, const float* __restrict__ pb,
-                        float* __restrict__ dtok, float* __restrict__ part, int L, int ch, int ntile) {
+                        const float* __restrict__ dfv, const T* __restrict__ pw, const T* __restrict__ pb,
+                        T* __restrict__ dtok, float* __restrict__ part, int L, int ch, int ntile) {
   constexpr int S = D + 4, NT = col_tiles<D>();
   extern __shared__ __align__(16) float sm[];
   float* w = sm;
@@ -235,7 +276,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int ntok = ntile * TOK;
   auto load = [&](int tile, int stage) {
     load_tile(ts + stage * TOK * S, S, tok, (int64_t)tile * TOK, ntok, D, D);
-    load_tile(dos + stage * TOK * S, S, dout, (int64_t)tile * TOK, ntok, D, D);
+    load_dout_tile(dos + stage * TOK * S, S, dout, (int64_t)tile * TOK, ntok, D);
     const int64_t row = (int64_t)tile * TOK / L * D;
     if (threadIdx.x < D / 4) cp_async16(gs + stage * 2 * D + 4 * threadIdx.x, gate + row + 4 * threadIdx.x);
     else if (threadIdx.x < D / 2)
@@ -252,7 +293,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) bias[j][e] = j < nt ? pb[tw.n0 + 8 * j + 2 * tw.t4 + e] : 0.f;
+    for (int e = 0; e < 2; ++e) bias[j][e] = j < nt ? to_f(pb[tw.n0 + 8 * j + 2 * tw.t4 + e]) : 0.f;
   float wacc[3][3][4];
   zero_acc(wacc);
   float bacc = 0.f;
@@ -299,8 +340,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           if (j >= nt) continue;
           const int m = tw.n0 + 8 * j + 2 * tw.t4;  // m and m + 1 lie in one group (ch is even)
           const float2 f = *reinterpret_cast<const float2*>(dfv + t * ch + m % ch);
-          *reinterpret_cast<float2*>(dtok + t * D + m) =
-              make_float2(fmaf(f.x, gt[m], acc[i][j][2 * h]), fmaf(f.y, gt[m + 1], acc[i][j][2 * h + 1]));
+          st2(dtok + t * D + m,
+              make_float2(fmaf(f.x, gt[m], acc[i][j][2 * h]), fmaf(f.y, gt[m + 1], acc[i][j][2 * h + 1])));
         }
       }
     mma_tile<true, true, 3, 3>(wacc, dfs, S, ww.m0, tt, S, ww.n0, TOK, ww.mt, ww.nt);
@@ -315,10 +356,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 // groups), dz = da fc2_w, du = dz * gelu'(u), ds = du fc1_w.  Writes per
 // image da (B, D), z and du (B, dz), s (B, D) for the fc weight gradients,
 // and dgap = ds / L (B, D).  Shared: s [D], u, z [dz], w [D], dw [D], da
-// [D], du [dz].
+// [D], du [dz].  T: the fc weights' type (bf16 widened as read).
+template <typename T = float>
 __global__ void skconv_gate_bwd_kernel(const float* __restrict__ partial, const float* __restrict__ dwpart,
-                                       const float* __restrict__ f1w, const float* __restrict__ f1b,
-                                       const float* __restrict__ f2w, const float* __restrict__ f2b,
+                                       const T* __restrict__ f1w, const T* __restrict__ f1b,
+                                       const T* __restrict__ f2w, const T* __restrict__ f2b,
                                        float* __restrict__ da_out, float* __restrict__ z_out,
                                        float* __restrict__ du_out, float* __restrict__ s_out,
                                        float* __restrict__ dgap, int L, int D, int dz, int n_group, int ch) {
@@ -349,7 +391,7 @@ __global__ void skconv_gate_bwd_kernel(const float* __restrict__ partial, const 
   __syncthreads();
   for (int k = threadIdx.x; k < dz; k += blockDim.x) {
     float acc = 0.f;
-    for (int m = 0; m < D; ++m) acc = fmaf(da[m], f2w[m * dz + k], acc);
+    for (int m = 0; m < D; ++m) acc = fmaf(da[m], to_f(f2w[m * dz + k]), acc);
     du[k] = acc * gelu_erf_grad(u[k]);
     du_out[(int64_t)b * dz + k] = du[k];
     z_out[(int64_t)b * dz + k] = z[k];
@@ -357,17 +399,19 @@ __global__ void skconv_gate_bwd_kernel(const float* __restrict__ partial, const 
   __syncthreads();
   for (int i = threadIdx.x; i < D; i += blockDim.x) {
     float acc = 0.f;
-    for (int k = 0; k < dz; ++k) acc = fmaf(du[k], f1w[k * D + i], acc);
+    for (int k = 0; k < dz; ++k) acc = fmaf(du[k], to_f(f1w[k * D + i]), acc);
     dgap[(int64_t)b * D + i] = acc / L;
   }
 }
 
 // SKConv backward (3): the fc weight gradients, one thread per output
 // summing over the B images in order.  g = [dfc1_w (dz, D) | dfc1_b (dz) |
-// dfc2_w (D, dz) | dfc2_b (D)], torch layouts.
+// dfc2_w (D, dz) | dfc2_b (D)], torch layouts, of type T (bf16: rounded
+// once as stored).
+template <typename T = float>
 __global__ void skconv_fc_wgrad_kernel(const float* __restrict__ da, const float* __restrict__ z,
                                        const float* __restrict__ du, const float* __restrict__ s,
-                                       float* __restrict__ g, int B, int D, int dz) {
+                                       T* __restrict__ g, int B, int D, int dz) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   const int n1w = dz * D, n1 = n1w + dz, n2w = n1 + D * dz, n2 = n2w + D;
   if (e >= n2) return;
@@ -383,7 +427,7 @@ __global__ void skconv_fc_wgrad_kernel(const float* __restrict__ da, const float
   } else {
     for (int b = 0; b < B; ++b) acc += da[b * D + (e - n2w)];
   }
-  g[e] = acc;
+  from_f(g[e], acc);
 }
 
 
@@ -442,6 +486,10 @@ cudaError_t full_forward(const float* xq, const float* xkv, const float* const* 
 // dim (D / n_group / gh) of 8, 16 or 32; the Python wrapper checks these.  Each entry point returns
 // cudaGetLastError() after its last launch (or the first failing one).
 
+// The kernels this library has launched since it was loaded
+// (kernel_launches, window_common.cuh).
+extern "C" unsigned long long window_attention_full_kernel_launches() { return kernel_launches; }
+
 // The floats of the forward's scratch.
 extern "C" size_t window_attention_full_forward_scratch(int B, int H, int W, int D) {
   const size_t T = (size_t)B * H * W;
@@ -474,12 +522,15 @@ struct BwdBufs {
 };
 
 // `grid`: the CTAs of the persistent token passes, one partial row each.
-BwdBufs carve_bwd(Carver& c, int B, int H, int W, int D, int n_group, const int* ws, int gh, int dz, int grid) {
+// `io`: the bytes of an element of q, kv and the tokens' gradient (4, or 2
+// for the bf16 backward, whose pieces hold bf16 values).
+BwdBufs carve_bwd(Carver& c, int B, int H, int W, int D, int n_group, const int* ws, int gh, int dz, int grid,
+                  int io = 4) {
   const int L = H * W, ch = D / n_group;
   const size_t T = (size_t)B * L, S = (T + TOKC - 1) / TOKC;
   BwdBufs r;
-  r.qbuf = c.take(T * D);
-  r.kvbuf = c.take(T * 2 * D);
+  r.qbuf = c.take(T * D * io / 4);
+  r.kvbuf = c.take(T * 2 * D * io / 4);
   r.dfv = c.take(T * ch);
   r.dwpart = c.take(T / TOK * D);
   r.da = c.take((size_t)B * D);
@@ -487,7 +538,7 @@ BwdBufs carve_bwd(Carver& c, int B, int H, int W, int D, int n_group, const int*
   r.du = c.take((size_t)B * dz);
   r.s = c.take((size_t)B * D);
   r.dgap = c.take((size_t)B * D);
-  r.dtok = c.take(T * D);
+  r.dtok = c.take(T * D * io / 4);
   r.dq = c.take(T * D);
   r.dkv = c.take(T * 2 * D);
   r.dbias_part = c.take(attn_bwd_part_floats(B, H, W, n_group, ws, gh));
@@ -500,43 +551,48 @@ BwdBufs carve_bwd(Carver& c, int B, int H, int W, int D, int n_group, const int*
   return r;
 }
 
-template <int D>
-cudaError_t launch_skconv_bwd_d(const float* dout, const Kept& k, const float* const* wt, const BwdBufs& r,
-                                float* g_fc, float* g_p, float* g_ph, int B, int L, int n_group, int dz, int grid,
-                                cudaStream_t st) {
+template <int D, typename T>
+cudaError_t launch_skconv_bwd_d(const T* dout, const Kept& k, const T* const* wt, const BwdBufs& r, T* g_fc,
+                                T* g_p, T* g_ph, int B, int L, int n_group, int dz, int grid, cudaStream_t st) {
   const int ntile = B * L / TOK, ch = D / n_group;
   const size_t smem_a =
       (size_t)(ch * (D + 4) + 4 * TOK * (D + 4) + TOK * (ch + 8) + TOK * (ch + 4) + 2 * D) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(skconv_bwd_a_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(skconv_bwd_a_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_a);
   if (err != cudaSuccess) return err;
-  skconv_bwd_a_kernel<D><<<grid, THREADS, smem_a, st>>>(dout, k.tok, k.gate, wt[14], r.dfv, r.dwpart, r.part_ph, L,
-                                                        ch, ntile);
+  ++kernel_launches;
+  skconv_bwd_a_kernel<D, T><<<grid, THREADS, smem_a, st>>>(dout, k.tok, k.gate, wt[14], r.dfv, r.dwpart, r.part_ph,
+                                                           L, ch, ntile);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = launch_sum_rows(r.part_ph, g_ph, grid, D * ch + D, st)) != cudaSuccess) return err;
   const size_t smem_g = (size_t)(4 * D + 3 * dz) * sizeof(float);
-  skconv_gate_bwd_kernel<<<B, 128, smem_g, st>>>(k.partial, r.dwpart, wt[10], wt[11], wt[12], wt[13], r.da, r.z,
-                                                 r.du, r.s, r.dgap, L, D, dz, n_group, ch);
+  ++kernel_launches;
+  skconv_gate_bwd_kernel<T><<<B, 128, smem_g, st>>>(k.partial, r.dwpart, wt[10], wt[11], wt[12], wt[13], r.da,
+                                                    r.z, r.du, r.s, r.dgap, L, D, dz, n_group, ch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int n_fc = 2 * dz * D + dz + D;
-  skconv_fc_wgrad_kernel<<<(n_fc + 255) / 256, 256, 0, st>>>(r.da, r.z, r.du, r.s, g_fc, B, D, dz);
+  ++kernel_launches;
+  skconv_fc_wgrad_kernel<T><<<(n_fc + 255) / 256, 256, 0, st>>>(r.da, r.z, r.du, r.s, g_fc, B, D, dz);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t smem_b = (size_t)(2 * D * (D + 4) + 5 * TOK * (D + 4) + 4 * D) * sizeof(float);
-  if ((err = cudaFuncSetAttribute(skconv_bwd_b_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if ((err = cudaFuncSetAttribute(skconv_bwd_b_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_b)) != cudaSuccess)
     return err;
-  skconv_bwd_b_kernel<D><<<grid, THREADS, smem_b, st>>>(dout, k.tok, k.gate, r.dgap, r.dfv, wt[8], wt[9], r.dtok,
-                                                        r.part_p, L, ch, ntile);
+  ++kernel_launches;
+  skconv_bwd_b_kernel<D, T><<<grid, THREADS, smem_b, st>>>(dout, k.tok, k.gate, r.dgap, r.dfv, wt[8], wt[9],
+                                                           reinterpret_cast<T*>(r.dtok), r.part_p, L, ch, ntile);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_sum_rows(r.part_p, g_p, grid, D * D + D, st);
 }
 
 // SKConv's backward: pass A (+ the fixed-order sum of the dWph partials),
 // the gate backward, the fc weight gradients, pass B (+ the dWp sum); dt
-// into r.dtok.  D a multiple of 16 up to 96, ch a multiple of 8.
-cudaError_t launch_skconv_bwd(const float* dout, const Kept& k, const float* const* wt, const BwdBufs& r,
-                              float* g_fc, float* g_p, float* g_ph, int B, int L, int D, int n_group, int dz, int grid,
-                              cudaStream_t st) {
+// into r.dtok.  D a multiple of 16 up to 96, ch a multiple of 8.  T: the
+// type of dout, the weights, their gradients and dt (float32, or bf16 with
+// float32 arithmetic).
+template <typename T>
+cudaError_t launch_skconv_bwd(const T* dout, const Kept& k, const T* const* wt, const BwdBufs& r, T* g_fc, T* g_p,
+                              T* g_ph, int B, int L, int D, int n_group, int dz, int grid, cudaStream_t st) {
   if (!aligned16(dout) || !aligned16(k.tok) || (D / n_group) % 8 != 0) return cudaErrorInvalidValue;
   switch (D) {
     case 16: return launch_skconv_bwd_d<16>(dout, k, wt, r, g_fc, g_p, g_ph, B, L, n_group, dz, grid, st);
@@ -608,40 +664,6 @@ extern "C" int window_attention_full_backward(const float* xq, const float* xkv,
                                              g_ln_q, g_ln_kv, ntok, D, st));
 }
 
-namespace {
-
-// The element counts of the 16 weights, in wt's order.
-void weight_sizes(int D, int dz, int ch, int64_t (&n)[16]) {
-  const int64_t sizes[16] = {D, D, D, D, (int64_t)D * D, D, 2LL * D * D, 2 * D, (int64_t)D * D, D,
-                             (int64_t)dz * D, dz, (int64_t)D * dz, D, (int64_t)D * ch, D};
-  for (int i = 0; i < 16; ++i) n[i] = sizes[i];
-}
-
-// The bf16 backward's scratch besides carve_bwd's: q and kv recomputed in
-// bf16; xq, xkv and dout widened; the 16 weights widened, each on its own
-// 128-byte boundary; their float32 gradients, laid out as gw.
-struct Bf16Extra {
-  bf16 *qh, *kvh;
-  float *xqf, *xkvf, *doutf, *gwf;
-  float* wtf[16];
-  int64_t n[16], n_w;
-};
-
-Bf16Extra carve_bf16(Carver& c, int B, int H, int W, int D, int n_group, int dz) {
-  const size_t T = (size_t)B * H * W;
-  Bf16Extra e;
-  e.qh = reinterpret_cast<bf16*>(c.take(T * D / 2));
-  e.kvh = reinterpret_cast<bf16*>(c.take(T * D));
-  e.xqf = c.take(T * D), e.xkvf = c.take(T * D), e.doutf = c.take(T * D);
-  weight_sizes(D, dz, D / n_group, e.n);
-  e.n_w = 0;
-  for (int i = 0; i < 16; ++i) e.wtf[i] = c.take(e.n[i]), e.n_w += e.n[i];
-  e.gwf = c.take(e.n_w);
-  return e;
-}
-
-}  // namespace
-
 // The bf16 forward: the arguments of window_attention_full_forward with xq,
 // xkv, the 16 weights of wt and out bf16 (bias, mask, tok, partial, gate
 // float32) and scratch of window_attention_full_forward_bf16_scratch floats.
@@ -680,21 +702,27 @@ extern "C" int window_attention_full_forward_bf16(const bf16* xq, const bf16* xk
                                           gate, out, B, L, D, n_group, dz, 0, st));
 }
 
-// The floats of the bf16 backward's scratch (on the current device).
+// The floats of the bf16 backward's scratch (on the current device):
+// carve_bwd's pieces with q, kv and the tokens' gradient in bf16.
 extern "C" size_t window_attention_full_backward_bf16_scratch(int B, int H, int W, int D, int n_group,
                                                               const int* ws, int gh, int dz) {
   int grid = 0;
   if (persistent_grid(B * H * W / TOK, &grid) != cudaSuccess) return 0;
   Carver c{nullptr};
-  carve_bwd(c, B, H, W, D, n_group, ws, gh, dz, grid);
-  carve_bf16(c, B, H, W, D, n_group, dz);
+  carve_bwd(c, B, H, W, D, n_group, ws, gh, dz, grid, sizeof(bf16));
   return c.n;
 }
 
 // The bf16 backward: the arguments of window_attention_full_backward with
 // xq, xkv, the weights of wt, dout, dxq, dxkv and gw bf16 (bias, mask, tok,
 // partial, gate and dbias float32) and scratch of
-// window_attention_full_backward_bf16_scratch floats.
+// window_attention_full_backward_bf16_scratch floats.  Every kernel reads
+// its bf16 operands as they are and writes its bf16 results itself: q and
+// kv recomputed in bf16, SKConv's backward in float32 on dout and the
+// weights widened as staged, the tokens' gradient stored rounded to bf16,
+// the bf16 attention and projection backward, and each weight gradient
+// rounded once by the kernel that finishes its sum (21 launches at three
+// window groups).
 extern "C" int window_attention_full_backward_bf16(const bf16* xq, const bf16* xkv, const bf16* const* wt,
                                                    const float* bias, const float* mask, const bf16* dout,
                                                    const float* tok, const float* partial, const float* gate,
@@ -705,47 +733,35 @@ extern "C" int window_attention_full_backward_bf16(const bf16* xq, const bf16* x
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
   const int L = H * W, ntok = B * L;
-  const int64_t nd = (int64_t)ntok * D;
   int grid = 0;
   cudaError_t err = persistent_grid(ntok / TOK, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   Carver c{scratch};
-  const BwdBufs r = carve_bwd(c, B, H, W, D, n_group, ws, gh, dz, grid);
-  const Bf16Extra e = carve_bf16(c, B, H, W, D, n_group, dz);
+  const BwdBufs r = carve_bwd(c, B, H, W, D, n_group, ws, gh, dz, grid, sizeof(bf16));
+  bf16* const qh = reinterpret_cast<bf16*>(r.qbuf);
+  bf16* const kvh = reinterpret_cast<bf16*>(r.kvbuf);
   const Kept k{const_cast<float*>(tok), const_cast<float*>(partial), const_cast<float*>(gate)};
-  // the weights, the inputs and dout widened
-  for (int i = 0; i < 16; ++i)
-    if ((err = convert(wt[i], e.wtf[i], e.n[i], st)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = convert(xq, e.xqf, nd, st)) != cudaSuccess || (err = convert(xkv, e.xkvf, nd, st)) != cudaSuccess ||
-      (err = convert(dout, e.doutf, nd, st)) != cudaSuccess)
-    return static_cast<int>(err);
-  // q and kv recomputed as the forward rounds them, then widened (q times the
-  // bf16 scale, as the forward's attention scales it)
-  if ((err = launch_ln_proj(xq, xkv, wt[0], wt[1], wt[2], wt[3], wt[4], wt[5], wt[6], wt[7], e.qh, e.kvh, ntok, D, 1,
+  // offsets of the 16 gradients in gw
+  bf16* g_ln_q = gw;
+  bf16* g_ln_kv = g_ln_q + 2 * D;
+  bf16* g_q = g_ln_kv + 2 * D;
+  bf16* g_kv = g_q + D * D + D;
+  bf16* g_p = g_kv + 2 * D * D + 2 * D;
+  bf16* g_fc = g_p + D * D + D;
+  bf16* g_ph = g_fc + 2 * dz * D + dz + D;
+  // q and kv recomputed as the forward rounds them (the attention backward
+  // scales q as the forward does)
+  if ((err = launch_ln_proj(xq, xkv, wt[0], wt[1], wt[2], wt[3], wt[4], wt[5], wt[6], wt[7], qh, kvh, ntok, D, 1,
                             st)) != cudaSuccess ||
-      (err = bf16_rows(e.qh, D, r.qbuf, D, ntok, D, bf16_scale(scale), st)) != cudaSuccess ||
-      (err = convert(e.kvh, r.kvbuf, 2 * nd, st)) != cudaSuccess)
+      (err = launch_skconv_bwd(dout, k, wt, r, g_fc, g_p, g_ph, B, L, D, n_group, dz, grid, st)) != cudaSuccess)
     return static_cast<int>(err);
-  // offsets of the 16 float32 gradients in gwf, as in gw
-  float* g_ln_q = e.gwf;
-  float* g_ln_kv = g_ln_q + 2 * D;
-  float* g_q = g_ln_kv + 2 * D;
-  float* g_kv = g_q + D * D + D;
-  float* g_p = g_kv + 2 * D * D + 2 * D;
-  float* g_fc = g_p + D * D + D;
-  float* g_ph = g_fc + 2 * dz * D + dz + D;
-  // SKConv's backward in float32, then the tokens' gradient rounded to bf16
-  if ((err = launch_skconv_bwd(e.doutf, k, e.wtf, r, g_fc, g_p, g_ph, B, L, D, n_group, dz, grid, st)) !=
-          cudaSuccess ||
-      (err = bf16_rows(r.dtok, D, r.dtok, D, ntok, D, 1.f, st)) != cudaSuccess)
-    return static_cast<int>(err);
-  err = launch_attn_bwd_groups_any<true>(r.qbuf, r.kvbuf, r.kvbuf + D, 2 * D, r.dtok, bias, mask, r.dq, r.dkv,
-                                         r.dkv + D, r.dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale,
-                                         seed, thresh, inv_keep, drop, st);
+  err = launch_attn_bwd_groups_any<true>(static_cast<const bf16*>(qh), static_cast<const bf16*>(kvh),
+                                         static_cast<const bf16*>(kvh + D), 2 * D,
+                                         static_cast<const bf16*>(reinterpret_cast<bf16*>(r.dtok)), bias, mask, r.dq,
+                                         r.dkv, r.dkv + D, r.dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh,
+                                         scale, seed, thresh, inv_keep, drop, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_ln_proj_bwd(e.xqf, e.xkvf, e.wtf[0], e.wtf[1], e.wtf[2], e.wtf[3], e.wtf[4], e.wtf[6], r.dq, r.dkv,
-                           r.wpart_q, r.wpart_kv, r.lnpart_q, r.lnpart_kv, dxq, dxkv, g_q, g_kv, g_ln_q, g_ln_kv, ntok,
-                           D, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(convert(static_cast<const float*>(e.gwf), gw, e.n_w, st));
+  return static_cast<int>(launch_ln_proj_bwd(xq, xkv, wt[0], wt[1], wt[2], wt[3], wt[4], wt[6], r.dq, r.dkv,
+                                                  r.wpart_q, r.wpart_kv, r.lnpart_q, r.lnpart_kv, dxq, dxkv, g_q, g_kv,
+                                                  g_ln_q, g_ln_kv, ntok, D, st));
 }

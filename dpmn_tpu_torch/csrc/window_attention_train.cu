@@ -61,10 +61,24 @@
 // backward rounded once.  The forward runs K1's bf16 LN + projection
 // (ln_proj_bf16_kernel, bf16 m16n8k16) writing q / kv in bf16 and the
 // attention forward on bf16 io with the float32 bias
-// (window_attn_fwd_kernel<DROP, bf16, float>); the backward widens its bf16
-// inputs to float32 once (convert_kernel; q times the bf16 scale,
-// bf16_rows) and runs the float32 kernels with their BF16 rounding
-// (window_train_common.cuh).
+// (window_attn_fwd_kernel<DROP, bf16, float>).  The backward reads every
+// bf16 tensor as it is and runs its products on bf16 m16n8k16 with float32
+// accumulation (a product of two bf16 values is exact in float32, so one
+// pass computes what 3xTF32 computed on widened copies, up to the order of
+// the sums); it makes no float32 copy of xq, xkv, dout, q or kv and no
+// widening or narrowing pass.  Its launches at three window groups (15):
+//   ln_proj_bf16_kernel: q, kv recomputed in bf16                     1
+//   per group: window_attn_bwd_tc_bf16_kernel (4x4, 8x8 windows;
+//     window_attn_bwd4_kernel for 2x2, widening its rows as staged)
+//     writing float32 dq, dkv, then sum_rows_kernel for dbias         2 x 3
+//   per projection (q, kv): proj_ln_bwd_bf16_kernel (dx in bf16, the LN
+//     partials), sum_rows_kernel<bf16> (dscale, dbias),
+//     wgrad_bf16_kernel, sum_rows_kernel<bf16> (dW, db)               4 x 2
+// Bound at B = 64, flagship geometry: 62.9 MB of bf16 (xq, xkv, dout, dxq,
+// dxkv) = 18.8 us at 3.35 TB/s, against 12.63 GFLOP on bf16 operands =
+// 12.8 us at 989 TFLOP/s: 0.019 ms a call, bound by bytes.  dq and dkv
+// (float32, 75.5 MB, written once and read twice) and the recomputed q / kv
+// still round-trip through device memory.
 
 #include "window_train_common.cuh"
 
@@ -72,13 +86,13 @@ using bf16 = __nv_bfloat16;
 
 namespace {
 
-// The float32 scratch of the bf16 backward, carved from one buffer, every
-// piece a multiple of 4 floats (16-byte aligned).
+// The scratch of the bf16 backward, carved from one float buffer, every
+// piece a multiple of 4 floats (16-byte aligned): q and kv recomputed in
+// bf16, the attention backward's dq and dkv in float32 (unrounded, for the
+// bias sums), the dbias, weight-gradient and LN partial rows.
 struct Bf16BwdWork {
-  float *qf, *kvf, *doutf, *xqf, *xkvf, *dq, *dkv, *dbias_part, *wpart_q, *wpart_kv, *lnpart_q, *lnpart_kv;
-  float* pf;  // the widened parameters [qs | qb | ks | kb | q_w | q_b | kv_w | kv_b]
-  float* gf;  // the float32 gradients [gq | gkv | gln_q | gln_kv]
-  bf16 *qh, *kvh;  // q and kv in bf16, as the forward computes them
+  bf16 *qh, *kvh;
+  float *dq, *dkv, *dbias_part, *wpart_q, *wpart_kv, *lnpart_q, *lnpart_kv;
   size_t floats;
 
   Bf16BwdWork(float* base, int B, int H, int W, int D, int n_group, const int* ws, int gh) {
@@ -91,13 +105,10 @@ struct Bf16BwdWork {
     };
     qh = reinterpret_cast<bf16*>(take((nd + 1) / 2));
     kvh = reinterpret_cast<bf16*>(take(nd));
-    qf = take(nd), kvf = take(2 * nd), doutf = take(nd), xqf = take(nd), xkvf = take(nd);
     dq = take(nd), dkv = take(2 * nd);
     dbias_part = take(attn_bwd_part_floats(B, H, W, n_group, ws, gh));
     wpart_q = take(nchunk * (D * D + D)), wpart_kv = take(nchunk * (2 * D * D + 2 * D));
     lnpart_q = take(ntok / TOK * 2 * D), lnpart_kv = take(ntok / TOK * 2 * D);
-    pf = take(7 * D + 3 * D * D);
-    gf = take(3 * D * D + 7 * D);
     floats = off;
   }
 };
@@ -185,6 +196,10 @@ extern "C" size_t window_attention_train_backward_bf16_work(int B, int H, int W,
   return Bf16BwdWork(nullptr, B, H, W, D, n_group, ws, gh).floats;
 }
 
+// The kernels this library has launched since it was loaded
+// (kernel_launches, window_common.cuh).
+extern "C" unsigned long long window_attention_train_kernel_launches() { return kernel_launches; }
+
 // The bf16 backward: the forward's inputs, dout (B, L, D) bf16 and `work`
 // (window_attention_train_backward_bf16_work floats); outputs dxq, dxkv
 // (B, L, D), gq = [dWq | dbq], gkv = [dWkv | dbkv], gln_q = [dqs | dqb],
@@ -197,44 +212,18 @@ extern "C" int window_attention_train_backward_bf16(
     float inv_keep, int drop, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ntok = B * H * W;
-  const int64_t nd = (int64_t)ntok * D;
   if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
   const Bf16BwdWork r(work, B, H, W, D, n_group, ws, gh);
-  // the parameters, inputs and dout widened to float32
-  float* const qsf = r.pf;
-  float* const qbf = qsf + D;
-  float* const ksf = qbf + D;
-  float* const kbf = ksf + D;
-  float* const q_wf = kbf + D;
-  float* const kv_wf = q_wf + D * D + D;
-  const bf16* srcs[8] = {qs, qb, ks, kb, q_w, q_b, kv_w, kv_b};
-  float* dsts[8] = {qsf, qbf, ksf, kbf, q_wf, q_wf + D * D, kv_wf, kv_wf + 2 * D * D};
-  const int64_t sizes[8] = {D, D, D, D, (int64_t)D * D, D, 2LL * D * D, 2 * D};
-  cudaError_t err = cudaSuccess;
-  for (int i = 0; i < 8 && err == cudaSuccess; ++i) err = convert(srcs[i], dsts[i], sizes[i], st);
-  if (err != cudaSuccess || (err = convert(xq, r.xqf, nd, st)) != cudaSuccess ||
-      (err = convert(xkv, r.xkvf, nd, st)) != cudaSuccess || (err = convert(dout, r.doutf, nd, st)) != cudaSuccess)
-    return static_cast<int>(err);
-  // q and kv recomputed as the forward rounds them, then widened (q times
-  // the bf16 scale, as the forward's attention scales it)
-  if ((err = launch_ln_proj(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, r.qh, r.kvh, ntok, D, 1, st)) !=
-          cudaSuccess ||
-      (err = bf16_rows(r.qh, D, r.qf, D, ntok, D, bf16_scale(scale), st)) != cudaSuccess ||
-      (err = convert(r.kvh, r.kvf, 2 * nd, st)) != cudaSuccess)
-    return static_cast<int>(err);
-  err = launch_attn_bwd_groups_any<true>(r.qf, r.kvf, r.kvf + D, 2 * D, r.doutf, bias, mask, r.dq, r.dkv, r.dkv + D,
-                                         r.dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh,
-                                         inv_keep, drop, st);
+  // q and kv recomputed as the forward rounds them; the attention backward
+  // scales q as the forward does
+  cudaError_t err = launch_ln_proj(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, r.qh, r.kvh, ntok, D, 1, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  float* const gqf = r.gf;
-  float* const gkvf = gqf + D * D + D;
-  float* const glnqf = gkvf + 2 * D * D + 2 * D;
-  float* const glnkvf = glnqf + 2 * D;
-  err = launch_ln_proj_bwd(r.xqf, r.xkvf, qsf, qbf, ksf, kbf, q_wf, kv_wf, r.dq, r.dkv, r.wpart_q, r.wpart_kv,
-                           r.lnpart_q, r.lnpart_kv, dxq, dxkv, gqf, gkvf, glnqf, glnkvf, ntok, D, st);
-  if (err != cudaSuccess || (err = convert(gqf, gq, (int64_t)D * D + D, st)) != cudaSuccess ||
-      (err = convert(gkvf, gkv, 2LL * D * D + 2 * D, st)) != cudaSuccess ||
-      (err = convert(glnqf, gln_q, 2 * D, st)) != cudaSuccess)
-    return static_cast<int>(err);
-  return static_cast<int>(convert(glnkvf, gln_kv, 2 * D, st));
+  err = launch_attn_bwd_groups_any<true>(static_cast<const bf16*>(r.qh), static_cast<const bf16*>(r.kvh),
+                                         static_cast<const bf16*>(r.kvh + D), 2 * D, dout, bias, mask, r.dq, r.dkv,
+                                         r.dkv + D, r.dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale,
+                                         seed, thresh, inv_keep, drop, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_ln_proj_bwd(xq, xkv, qs, qb, ks, kb, q_w, kv_w, r.dq, r.dkv, r.wpart_q,
+                                                  r.wpart_kv, r.lnpart_q, r.lnpart_kv, dxq, dxkv, gq, gkv, gln_q,
+                                                  gln_kv, ntok, D, st));
 }

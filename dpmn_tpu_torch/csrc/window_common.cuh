@@ -25,6 +25,12 @@
 
 namespace {
 
+// Host-side count of the kernels this library's launchers (this header's,
+// window_train_common.cuh's, window_attention_full.cu's) have launched: one
+// added where each launches.  K3's and K5's libraries export it, so that a
+// caller counts one call's launches without a profiler.
+unsigned long long kernel_launches = 0;
+
 // Loads and stores of the attention's io type, computing in float32 (for
 // float the plain loads and stores): one element, two adjacent ones, a
 // head's row of HD values (8, 16 or 32; as 16-byte pieces where `vec`), and
@@ -475,15 +481,13 @@ __device__ __forceinline__ int window_token_c(int widx, int j, int nwc, int sh, 
   return r * W + c;
 }
 
-// The shift mask of an unshifted group at head dims other than 16: zeros
-// (the largest window's N x N), which add nothing, in place of a null
-// pointer.  With null, the 4x4 backward at head dims 8 and 32 faulted
-// (illegal address) on unshifted blocks with bf16 rounding or dropout; the
-// cause is not known.  The null-mask build of a faulting instance
-// (window_attn_bwd_tc_kernel<16, 1, true, true, 8>) issues every mask load
-// under the pointer's check, so the loads are not hoisted there.  Head dim
-// 16 keeps null.
-__device__ float zero_mask[64 * 64];
+// The shift mask is read under a test of the group's shift (sh > 0, a
+// kernel argument), never of the mask pointer: an unshifted group's pointer
+// is null, and a test of a pointer that is null or mask + offset (`p = sh >
+// 0 ? mask + off : nullptr; if (p) ...`) was taken on unshifted blocks in
+// some instances of nvcc's -O3 machine code, which then read near address 0
+// (CUDA error 700; ROADMAP §3).  Every forward and backward attention kernel
+// tests the shift; a pointer formed from a null mask is never tested or read.
 
 // Persistent grids: one CTA per SM, or per tile where there are fewer.
 inline cudaError_t persistent_grid(int ntile, int* grid) {
@@ -575,7 +579,6 @@ __device__ __forceinline__ void attn_unit4(const AttnArgs<T, BT, OT>& a, const A
     for (int d = 0; d < HD; ++d) qv[d] = round_bf16(qv[d] * a.scale);
   }
   const BT* brow = gr.bias + (hd * 4 + i) * 4;
-  const float* mrow = gr.sh > 0 ? gr.mask + ((int64_t)widx * 4 + i) * 4 : (HD == 16 ? nullptr : zero_mask);
   float mx = -INFINITY;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -588,7 +591,7 @@ __device__ __forceinline__ void attn_unit4(const AttnArgs<T, BT, OT>& a, const A
       acc += ldg_one(brow + j);
     else
       acc = acc * a.scale + ldg_one(brow + j);
-    if (mrow) acc += __ldg(mrow + j);
+    if (gr.sh > 0) acc += __ldg(gr.mask + ((int64_t)widx * 4 + i) * 4 + j);
     s[j] = acc;
     mx = fmaxf(mx, acc);
   }
@@ -684,7 +687,7 @@ __device__ __forceinline__ void attn_step_tc(const AttnArgs<T, BT, OT>& a, const
     else
       qk_tile<NT>(s, Qs + 16 * mi * ldq + hd * HD, ldq, Qs + N * ldq + hd * HD, ldq, HD);
     const BT* bh = gr.bias + hd * N * N;
-    const float* mw = gr.sh > 0 ? gr.mask + (int64_t)widx * N * N : (HD == 16 ? nullptr : zero_mask);
+    const float* mw = gr.sh > 0 ? gr.mask + (int64_t)widx * N * N : nullptr;
     const int i0 = 16 * mi + g8;
 #pragma unroll
     for (int jn = 0; jn < NT; ++jn)
@@ -692,7 +695,7 @@ __device__ __forceinline__ void attn_step_tc(const AttnArgs<T, BT, OT>& a, const
       for (int r = 0; r < 2; ++r) {
         const int off = (i0 + 8 * r) * N + 8 * jn + 2 * t4;
         float2 add = ldg_pair(bh + off);
-        if (mw) {
+        if (gr.sh > 0) {
           const float2 mm = __ldg(reinterpret_cast<const float2*>(mw + off));
           add.x += mm.x;
           add.y += mm.y;
@@ -867,6 +870,7 @@ cudaError_t launch_attn_hd(const T* q, const T* k, const T* v, int kvs, const BT
   if (err != cudaSuccess) return err;
   const int grid = units < cap ? units : cap;
   if (grid == 0) return cudaSuccess;
+  ++kernel_launches;
   kern<<<grid, THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
@@ -942,6 +946,7 @@ cudaError_t launch_ln_proj_d(const float* xq, const float* xkv, const float* qs,
   int grid = 0;
   if (err != cudaSuccess || (err = persistent_grid((ntok + TOK - 1) / TOK, &grid)) != cudaSuccess) return err;
   if (grid == 0) return cudaSuccess;
+  ++kernel_launches;
   ln_proj_kernel<D><<<grid, LNP_THREADS, smem, st>>>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf,
                                                      ntok, do_ln);
   return cudaGetLastError();
@@ -978,6 +983,7 @@ cudaError_t launch_ln_proj_bf16_d(const __nv_bfloat16* xq, const __nv_bfloat16* 
   int grid = 0;
   if (err != cudaSuccess || (err = persistent_grid((ntok + TOK - 1) / TOK, &grid)) != cudaSuccess) return err;
   if (grid == 0) return cudaSuccess;
+  ++kernel_launches;
   ln_proj_bf16_kernel<D, OT><<<grid, LNP_THREADS, smem, st>>>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf,
                                                               kvbuf, ntok, do_ln);
   return cudaGetLastError();
@@ -1236,15 +1242,18 @@ cudaError_t launch_skconv_d(const float* attn, const T* proj_w, const T* proj_b,
   if ((err = cudaFuncSetAttribute(skconv_proj_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_c1)) != cudaSuccess)
     return err;
+  ++kernel_launches;
   skconv_proj_kernel<D, T><<<grid, THREADS, smem_c1, st>>>(attn, proj_w, proj_b, feats, partial, ntile);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t smem_c2 = (size_t)(D + 2 * dz + n_group * ch) * sizeof(float);
+  ++kernel_launches;
   skconv_gate_kernel<T><<<B, 128, smem_c2, st>>>(partial, fc1_w, fc1_b, fc2_w, fc2_b, gate, L, D, dz, n_group, ch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t smem_c3 = (size_t)(D * (ch + 4) + 2 * TOK * (D + 4) + TOK * (ch + 4)) * sizeof(float);
   if ((err = cudaFuncSetAttribute(skconv_out_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_c3)) != cudaSuccess)
     return err;
+  ++kernel_launches;
   skconv_out_kernel<D, T><<<grid, THREADS, smem_c3, st>>>(attn, feats, gate, ph_w, ph_b, xkv, out, L, n_group, ch,
                                                           ntile, residual);
   return cudaGetLastError();

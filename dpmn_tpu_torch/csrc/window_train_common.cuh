@@ -7,18 +7,23 @@
 // per-block partials (sum_rows_kernel) that every cross-block sum goes
 // through: no float atomics, so reruns agree bit for bit.
 //
-// The training cores' bf16 forms (K3, K4, K5) run these float32 kernels on
-// bf16 values widened to float32 (a bf16 value is exact in TF32, so the
-// 3xTF32 products of two of them are exact), with BF16 set where the JAX
-// kernel rounds a float32 intermediate to its io dtype
-// (dpmn_tpu/ops/pallas_window_train.py): the attention backward takes q
-// already scaled as the forward scales it, round_bf16(q * bf16(scale))
-// (:208, :835; the caller widens it so, `bf16_rows`), so the scores and dK
-// take no further scale while dQ takes the float32 scale (:114), and rounds
-// P*M before dV and dS before dQ / dK (:103, :111; dbias sums the unrounded
-// dS); the projection backward rounds dq / dkv before dx_ln and dW
-// (:488-502; db sums them unrounded) and the recomputed LN before dW
-// (:430-431), and dx leaves as bf16 (:511-512).
+// K4's bf16 form runs the float32 attention backward on bf16 values widened
+// to float32 (a bf16 value is exact in TF32, so the 3xTF32 products of two
+// of them are exact), with BF16 set where the JAX kernel rounds a float32
+// intermediate to its io dtype (dpmn_tpu/ops/pallas_window_train.py): the
+// attention backward takes q already scaled as the forward scales it,
+// round_bf16(q * bf16(scale)) (:208, :835; the caller widens it so,
+// `bf16_rows`), so the scores and dK take no further scale while dQ takes
+// the float32 scale (:114), and rounds P*M before dV and dS before dQ / dK
+// (:103, :111; dbias sums the unrounded dS).  K3's and K5's bf16 forms read
+// bf16 as it is: window_attn_bwd_tc_bf16_kernel (the 4x4 and 8x8 windows'
+// products on bf16 m16n8k16, q scaled as it is staged), the 2x2 and
+// thread-per-row kernels with T = bf16 (rows widened and q scaled as they
+// are staged, float32 arithmetic), and the projection backward
+// (proj_ln_bwd_bf16_kernel, wgrad_bf16_kernel) rounding dq / dkv before
+// dx_ln and dW (:488-502; db sums them unrounded) and the recomputed LN
+// before dW (:430-431) on bf16 m16n8k16, dx and the parameter gradients
+// written as bf16 by the kernels that finish them (:511-512).
 //
 // The build hash of every csrc/*.cu covers this header (ops/kernels.py).
 
@@ -40,6 +45,7 @@ template <typename S, typename D>
 cudaError_t convert(const S* src, D* dst, int64_t n, cudaStream_t st) {
   if (n <= 0) return cudaSuccess;
   const int64_t blocks = (n + THREADS - 1) / THREADS;
+  ++kernel_launches;
   convert_kernel<<<(int)(blocks < 4096 ? blocks : 4096), THREADS, 0, st>>>(src, dst, n);
   return cudaGetLastError();
 }
@@ -60,6 +66,7 @@ cudaError_t bf16_rows(const S* src, int64_t ss, D* dst, int64_t ds, int64_t rows
                       cudaStream_t st) {
   if (rows <= 0) return cudaSuccess;
   const int64_t blocks = (rows + 7) / 8;
+  ++kernel_launches;
   bf16_rows_kernel<<<(int)(blocks < 4096 ? blocks : 4096), dim3(32, 8), 0, st>>>(src, ss, dst, ds, rows, cols, mul);
   return cudaGetLastError();
 }
@@ -85,10 +92,11 @@ constexpr int TOKC = 512;
 // [wpb][gh][N][N + 1] (padded rows); the block's dbias sum [gh][N][N].
 // BF16: q arrives scaled (module comment); dS and P*M rounded to bf16 before
 // their products (dbias sums the unrounded dS).  HD: the head dim, 8, 16 or
-// 32.
-template <int N, bool DROP, bool BF16 = false, int HD = 16>
-__global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                       const float* __restrict__ v, int kvs, const float* __restrict__ dout,
+// 32.  T: the type of q, k, v and dout; bf16 (with BF16) widens the rows
+// and scales q as they are staged.
+template <int N, bool DROP, bool BF16 = false, int HD = 16, typename T = float>
+__global__ void window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                       const T* __restrict__ v, int kvs, const T* __restrict__ dout,
                                        const float* __restrict__ bias, const float* __restrict__ mask,
                                        float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
                                        float* __restrict__ dbias_part, int H, int W,
@@ -118,10 +126,17 @@ __global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float*
       float qv = 0.f, kval = 0.f, vval = 0.f, dov = 0.f;
       if (widx < w_end) {
         const int64_t tok = base + window_token(widx, j, ws, nwc, sh, H, W);
-        qv = BF16 ? q[tok * D + g * ch + c] : q[tok * D + g * ch + c] * scale;
-        kval = k[tok * kvs + g * ch + c];
-        vval = v[tok * kvs + g * ch + c];
-        dov = dout[(base + (int64_t)widx * N + j) * D + g * ch + c];
+        if constexpr (sizeof(T) == 2) {  // bf16 rows widened, q scaled as the forward scales it
+          qv = round_bf16(to_f(q[tok * D + g * ch + c]) * __bfloat162float(__float2bfloat16_rn(scale)));
+          kval = to_f(k[tok * kvs + g * ch + c]);
+          vval = to_f(v[tok * kvs + g * ch + c]);
+          dov = to_f(dout[(base + (int64_t)widx * N + j) * D + g * ch + c]);
+        } else {
+          qv = BF16 ? q[tok * D + g * ch + c] : q[tok * D + g * ch + c] * scale;
+          kval = k[tok * kvs + g * ch + c];
+          vval = v[tok * kvs + g * ch + c];
+          dov = dout[(base + (int64_t)widx * N + j) * D + g * ch + c];
+        }
       }
       qs_[e] = qv;
       ks_[e] = kval;
@@ -144,8 +159,7 @@ __global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float*
         dov[d] = dos_[(lw * N + r) * ch + hd * HD + d];
       }
       const float* brow = bias + (hd * N + r) * N;
-      const float* mrow =
-          sh > 0 ? mask + ((int64_t)widx * N + r) * N : (HD == 16 ? nullptr : zero_mask);
+      const float* mrow = sh > 0 ? mask + ((int64_t)widx * N + r) * N : nullptr;
       float s[N];
       float mx = -INFINITY;
 #pragma unroll
@@ -154,7 +168,7 @@ __global__ void window_attn_bwd_kernel(const float* __restrict__ q, const float*
 #pragma unroll
         for (int d = 0; d < HD; ++d) acc = fmaf(qv[d], kw[j * ch + d], acc);
         acc += __ldg(brow + j);
-        if (mrow) acc += __ldg(mrow + j);
+        if (sh > 0) acc += __ldg(mrow + j);
         s[j] = acc;
         mx = fmaxf(mx, acc);
       }
@@ -258,11 +272,14 @@ __host__ __device__ inline int bwd4_windows(int gh) { return gh >= 32 ? 1 : 32 /
 // faster than 3 on an H100 SXM at 700 W), 3 without (it spills at 128).
 // BF16: q arrives scaled (module comment); dS and PM rounded to bf16 before
 // their products.  HD: the head dim, 8, 16 or 32 (2 blocks an SM at 32,
-// whose rows take twice the registers).
-template <bool DROP, bool BF16 = false, int HD = 16>
+// whose rows take twice the registers).  T: the type of q, k, v and dout;
+// bf16 (K3's and K5's bf16 backward, with BF16) widens the rows as they are
+// staged and scales q there, so the kernel computes as on float32 rows
+// holding those values.
+template <bool DROP, bool BF16 = false, int HD = 16, typename T = float>
 __global__ void __launch_bounds__(128, HD > 16 ? 2 : DROP ? 4 : 3)
-    window_attn_bwd4_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                            int kvs, const float* __restrict__ dout, const float* __restrict__ bias,
+    window_attn_bwd4_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                            int kvs, const T* __restrict__ dout, const float* __restrict__ bias,
                             const float* __restrict__ mask, float* __restrict__ dq, float* __restrict__ dk,
                             float* __restrict__ dv, float* __restrict__ dbias_part, int H, int W, int D, int g,
                             int gh, int sh, float scale, uint32_t seed, uint32_t thresh, float inv_keep, int vec) {
@@ -280,11 +297,19 @@ __global__ void __launch_bounds__(128, HD > 16 ? 2 : DROP ? 4 : 3)
       continue;
     }
     const int64_t tok = base + window_token_c<2>(widx, j, nwc, sh, H, W), raw = base + widx * 4 + j;
-    const float* qs = q + tok * D + g * ch + c;
-    const float* ks = k + tok * kvs + g * ch + c;
-    const float* vs = v + tok * kvs + g * ch + c;
-    const float* os = dout + raw * D + g * ch + c;
-    if (vec) {
+    const T* qs = q + tok * D + g * ch + c;
+    const T* ks = k + tok * kvs + g * ch + c;
+    const T* vs = v + tok * kvs + g * ch + c;
+    const T* os = dout + raw * D + g * ch + c;
+    if constexpr (sizeof(T) == 2) {  // bf16 rows widened as they land, q scaled as the forward scales it
+      const float qscale = __bfloat162float(__float2bfloat16_rn(scale));
+      for (int m = 0; m < each; ++m) {
+        dst[m] = round_bf16(ldg_one(qs + m) * qscale);
+        dst[span + m] = ldg_one(ks + m);
+        dst[2 * span + m] = ldg_one(vs + m);
+        dst[3 * span + m] = ldg_one(os + m);
+      }
+    } else if (vec) {
       cp_async16(dst, qs);
       cp_async16(dst + span, ks);
       cp_async16(dst + 2 * span, vs);
@@ -321,8 +346,7 @@ __global__ void __launch_bounds__(128, HD > 16 ? 2 : DROP ? 4 : 3)
   row16(Qw + r * ld, qr);
   row16(Ow + r * ld, dor);
   const float* brow = bias + (hd * 4 + r) * 4;
-  const float* mrow =
-      sh > 0 && valid ? mask + ((int64_t)widx * 4 + r) * 4 : (HD == 16 ? nullptr : zero_mask);
+  const float* mrow = sh > 0 && valid ? mask + ((int64_t)widx * 4 + r) * 4 : nullptr;
   float mx = -INFINITY;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -339,7 +363,7 @@ __global__ void __launch_bounds__(128, HD > 16 ? 2 : DROP ? 4 : 3)
       acc += __ldg(brow + j);
     else
       acc = acc * scale + __ldg(brow + j);
-    if (mrow) acc += __ldg(mrow + j);
+    if (sh > 0 && valid) acc += __ldg(mrow + j);
     s[j] = acc;
     dp[j] = dacc;
     mx = fmaxf(mx, acc);
@@ -502,7 +526,7 @@ __global__ void __launch_bounds__(THREADS)
       zero_acc(dp);
       mma_tile<false, false, 1, NTN>(s, Qs + hd * HD, SQ, 16 * mi, Ks + hd * HD, SQ, 0, HD);
       mma_tile<false, false, 1, NTN>(dp, Os + hd * HD, SQ, 16 * mi, Vs + hd * HD, SQ, 0, HD);
-      const float* mw = sh > 0 ? mask + (int64_t)widx * N * N : (HD == 16 ? nullptr : zero_mask);
+      const float* mw = sh > 0 ? mask + (int64_t)widx * N * N : nullptr;
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int jn = 0; jn < NTN; ++jn)
@@ -512,7 +536,7 @@ __global__ void __launch_bounds__(THREADS)
           const float2 bb = __ldg(reinterpret_cast<const float2*>(bh + off));
           float s0 = BF16 ? s[0][jn][2 * r] + bb.x : s[0][jn][2 * r] * scale + bb.x;
           float s1 = BF16 ? s[0][jn][2 * r + 1] + bb.y : s[0][jn][2 * r + 1] * scale + bb.y;
-          if (mw) {
+          if (sh > 0) {  // the shift, not the pointer, is tested (window_common.cuh)
             const float2 mm = __ldg(reinterpret_cast<const float2*>(mw + off));
             s0 += mm.x;
             s1 += mm.y;
@@ -668,6 +692,212 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// window_attn_bwd_tc_kernel for bf16 io (K3's and K5's bf16 backward): q,
+// k, v and dout bf16 rows read from device memory as they are, staged per
+// slot as bf16 [N][LD] (LD = fwd_ldq<HD>(CH), the forward's strides), q
+// times the bf16-rounded scale and rounded to bf16 in place by the thread
+// that staged it, as the forward scales it (attn_tile.cuh scale_bf16x2).
+// Every product on bf16 m16n8k16 (m16n8k8 for S and dPM at head dim 8) with
+// float32 accumulation, fed by ldmatrix (products of bf16 values are exact
+// in float32, so one pass computes what 3xTF32 did on the widened values):
+//   S = qs k^T + bias [+ mask], dPM = dO v^T   qk_tile_bf16 (the warp's rows)
+//   P = softmax(S); M the dropout mask; dP = dPM * M; PM = P * M;
+//   dS = P (dP - rowsum(dP P))                 (registers, quad sums)
+//   dQ = scale round(dS) k                     pv_tile_bf16<ONCE>, dS from registers
+//   dK = round(dS)^T qs, dV = round(PM)^T dO    mma_tile_bf16<true, true> (the warp's keys)
+// with round(dS) and round(PM) shared per head as bf16 [N][N + 8]; dbias
+// sums the unrounded dS in registers, the slots added in order as in the
+// float32 kernel; dq, dk, dv float32 (the projection backward's bias sums
+// take them unrounded).  Blocks, slots and warps as window_attn_bwd_tc_kernel.
+// Shared per slot (bf16): q, k, v, dout [N][LD]; dS, PM [GH][N][N + 8].
+// Registers: up to 128 a thread for the 4x4 windows (2 CTAs an SM), up to
+// 255 for the 8x8 (whose 8 key tiles a row take more; left to itself ptxas
+// holds some instances to 80 or 128 and spills).
+template <int N, int GH, bool DROP, int HD>
+__global__ void __launch_bounds__(THREADS, N == 16 ? 2 : 1)
+    window_attn_bwd_tc_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                                   const __nv_bfloat16* __restrict__ v, int kvs,
+                                   const __nv_bfloat16* __restrict__ dout, const float* __restrict__ bias,
+                                   const float* __restrict__ mask, float* __restrict__ dq, float* __restrict__ dk,
+                                   float* __restrict__ dv, float* __restrict__ dbias_part, int H, int W, int D, int g,
+                                   int ws, int sh, int wchunk, float scale, uint32_t seed, uint32_t thresh,
+                                   float inv_keep) {
+  using bf16 = __nv_bfloat16;
+  constexpr int CH = HD * GH, LD = HD % 16 == 0 || CH % 16 == 0 ? CH + 8 : CH + 16, SN = N + 8, MT = N / 16;
+  constexpr int NTN = N / 8, CT = HD / 8, WPW = GH * MT, WPS = (THREADS / 32) / WPW;
+  constexpr int SLOT = 4 * N * LD + 2 * GH * N * SN, PIECES = CH / 8;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  bf16* const sm = reinterpret_cast<bf16*>(bwd_smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int lw = warp / WPW, hd = (warp % WPW) / MT, mi = (warp % WPW) % MT;
+  const bf16* Qs = sm + lw * SLOT;
+  const bf16* Ks = Qs + N * LD;
+  const bf16* Vs = Ks + N * LD;
+  const bf16* Os = Vs + N * LD;
+  bf16* dSs = sm + lw * SLOT + 4 * N * LD + hd * N * SN;  // this warp's head
+  bf16* PMs = dSs + GH * N * SN;
+  const int L = H * W, nwc = W / ws, nw = (H / ws) * nwc, b = blockIdx.y;
+  const int64_t base = (int64_t)b * L;
+  const int w_begin = blockIdx.x * wchunk, w_end = min(nw, w_begin + wchunk);
+  const float* bh = bias + hd * N * N;
+  const float qscale = __bfloat162float(__float2bfloat16_rn(scale));
+  const int i0 = 16 * mi + g8;  // this thread's rows i0 and i0 + 8 of the warp's m-tile
+  float dbacc[NTN][4];
+#pragma unroll
+  for (int jn = 0; jn < NTN; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dbacc[jn][e] = 0.f;
+  for (int w0 = w_begin; w0 < w_end; w0 += WPS) {
+    for (int e = threadIdx.x; e < WPS * N * PIECES; e += THREADS) {
+      const int l = e / (N * PIECES), j = (e / PIECES) % N, c = (e % PIECES) * 8;
+      const int widx = w0 + l;
+      if (widx >= w_end) continue;
+      bf16* sl = sm + l * SLOT + j * LD + c;
+      const int64_t tok = base + window_token(widx, j, ws, nwc, sh, H, W);
+      cp_async16_bytes(sl, q + tok * D + g * CH + c);
+      cp_async16_bytes(sl + N * LD, k + tok * kvs + g * CH + c);
+      cp_async16_bytes(sl + 2 * N * LD, v + tok * kvs + g * CH + c);
+      cp_async16_bytes(sl + 3 * N * LD, dout + (base + (int64_t)widx * N + j) * D + g * CH + c);
+    }
+    cp_async_commit();
+    cp_async_wait(0);
+    // q times the bf16 scale, rounded, by the thread that staged the piece
+    for (int e = threadIdx.x; e < WPS * N * PIECES; e += THREADS) {
+      const int l = e / (N * PIECES), j = (e / PIECES) % N, c = (e % PIECES) * 8;
+      if (w0 + l >= w_end) continue;
+      uint4* p = reinterpret_cast<uint4*>(sm + l * SLOT + j * LD + c);
+      uint4 x = *p;
+      x.x = scale_bf16x2(x.x, qscale), x.y = scale_bf16x2(x.y, qscale);
+      x.z = scale_bf16x2(x.z, qscale), x.w = scale_bf16x2(x.w, qscale);
+      *p = x;
+    }
+    __syncthreads();
+    const int widx = w0 + lw;
+    const bool valid = widx < w_end;
+    if (valid) {
+      float s[NTN][4] = {}, dp[NTN][4] = {};
+      qk_tile_bf16<NTN, false, HD>(s, Qs + 16 * mi * LD + hd * HD, LD, Ks + hd * HD, LD);
+      qk_tile_bf16<NTN, false, HD>(dp, Os + 16 * mi * LD + hd * HD, LD, Vs + hd * HD, LD);
+      const float* mw = sh > 0 ? mask + (int64_t)widx * N * N : nullptr;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int jn = 0; jn < NTN; ++jn)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int off = (i0 + 8 * r) * N + 8 * jn + 2 * t4;
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(bh + off));
+          float s0 = s[jn][2 * r] + bb.x, s1 = s[jn][2 * r + 1] + bb.y;
+          if (sh > 0) {
+            const float2 mm = __ldg(reinterpret_cast<const float2*>(mw + off));
+            s0 += mm.x;
+            s1 += mm.y;
+          }
+          s[jn][2 * r] = s0;
+          s[jn][2 * r + 1] = s1;
+          mx[r] = fmaxf(mx[r], fmaxf(s0, s1));
+        }
+      float den[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) mx[r] = quad_max(mx[r]);
+#pragma unroll
+      for (int jn = 0; jn < NTN; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[jn][e] = expf(s[jn][e] - mx[e >> 1]);
+          den[e >> 1] += s[jn][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) den[r] = quad_sum(den[r]);
+      uint32_t rkey[2] = {0u, 0u};
+      if (DROP) {
+        rkey[0] = dropout_row_key(seed, b, g, hd, widx, i0);
+        rkey[1] = dropout_row_key(seed, b, g, hd, widx, i0 + 8);
+      }
+#pragma unroll
+      for (int jn = 0; jn < NTN; ++jn)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float pm[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 8 * jn + 2 * t4 + e;
+            const float p = s[jn][2 * r + e] / den[r];
+            float d = dp[jn][2 * r + e];
+            pm[e] = p;
+            if (DROP) {
+              const float m = (hash_step(rkey[r], j) & 0x7fffffffu) < thresh ? inv_keep : 0.f;
+              d *= m;
+              pm[e] = p * m;
+            }
+            s[jn][2 * r + e] = p;
+            dp[jn][2 * r + e] = d;
+            rs[r] = fmaf(d, p, rs[r]);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(PMs + (i0 + 8 * r) * SN + 8 * jn + 2 * t4) =
+              __floats2bfloat162_rn(pm[0], pm[1]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) rs[r] = quad_sum(rs[r]);
+#pragma unroll
+      for (int jn = 0; jn < NTN; ++jn)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float d0 = s[jn][2 * r] * (dp[jn][2 * r] - rs[r]);
+          const float d1 = s[jn][2 * r + 1] * (dp[jn][2 * r + 1] - rs[r]);
+          dbacc[jn][2 * r] += d0;
+          dbacc[jn][2 * r + 1] += d1;
+          s[jn][2 * r] = d0;  // s holds dS from here
+          s[jn][2 * r + 1] = d1;
+          *reinterpret_cast<__nv_bfloat162*>(dSs + (i0 + 8 * r) * SN + 8 * jn + 2 * t4) =
+              __floats2bfloat162_rn(d0, d1);
+        }
+      float a[CT][4] = {};
+      pv_tile_bf16<NTN, true, HD>(a, s, Ks + hd * HD, LD);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int64_t tok = base + window_token(widx, i0 + 8 * r, ws, nwc, sh, H, W);
+#pragma unroll
+        for (int c = 0; c < CT; ++c)
+          *reinterpret_cast<float2*>(dq + tok * D + g * CH + hd * HD + 8 * c + 2 * t4) =
+              make_float2(a[c][2 * r] * scale, a[c][2 * r + 1] * scale);
+      }
+    }
+    __syncthreads();  // dS and PM of every head complete
+    if (valid) {
+      float a[1][CT][4], c[1][CT][4];
+      zero_acc(a);
+      zero_acc(c);
+      mma_tile_bf16<true, true, 1, CT>(a, dSs, SN, 16 * mi, Qs + hd * HD, LD, 0, N);
+      mma_tile_bf16<true, true, 1, CT>(c, PMs, SN, 16 * mi, Os + hd * HD, LD, 0, N);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int64_t off = (base + window_token(widx, i0 + 8 * r, ws, nwc, sh, H, W)) * kvs + g * CH + hd * HD;
+#pragma unroll
+        for (int jn = 0; jn < CT; ++jn) {
+          *reinterpret_cast<float2*>(dk + off + 8 * jn + 2 * t4) = make_float2(a[0][jn][2 * r], a[0][jn][2 * r + 1]);
+          *reinterpret_cast<float2*>(dv + off + 8 * jn + 2 * t4) = make_float2(c[0][jn][2 * r], c[0][jn][2 * r + 1]);
+        }
+      }
+    }
+    __syncthreads();  // the slots are refilled next
+  }
+  // dbias: the slots' sums in order
+  float* part = dbias_part + ((int64_t)b * gridDim.x + blockIdx.x) * GH * N * N;
+  float* red = reinterpret_cast<float*>(bwd_smem);  // [WPS][GH][N][N]
+#pragma unroll
+  for (int jn = 0; jn < NTN; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[((lw * GH + hd) * N + i0 + 8 * (e >> 1)) * N + 8 * jn + 2 * t4 + (e & 1)] = dbacc[jn][e];
+  __syncthreads();
+  for (int e = threadIdx.x; e < GH * N * N; e += THREADS) {
+    float acc = 0.f;
+#pragma unroll
+    for (int l = 0; l < WPS; ++l) acc += red[l * GH * N * N + e];
+    part[e] = acc;
+  }
+}
+
 // dx of one LN + projection pair, on persistent CTAs: dx_ln = dy W (W (O,
 // C) in torch layout, staged transposed once per CTA) on the tensor cores
 // (mma_tile, 3xTF32) per tile of TOK tokens (dy tiles by cp.async, two
@@ -676,13 +906,12 @@ __global__ void __launch_bounds__(THREADS)
 // dxhat = dx_ln * scale; and the tile's sums of dx_ln * xhat and dx_ln
 // (lnpart [tile][2][C], fixed order: a warp's 8 tokens in turn, then the 8
 // warps).  Shared: wt [C][O + 4], dys [2][TOK][O + 4], dxs [TOK][C + 4],
-// red [8][2][C].  T is dx's type: bf16 also rounds each dy tile to bf16
-// before the product.  C a multiple of 16 up to 96 (C = 16, 48, 80: the
+// red [8][2][C].  C a multiple of 16 up to 96 (C = 16, 48, 80: the
 // warps' n-tiles cut at C, tiles_below, and lane channels past C idle).
-template <int C, int O, typename T = float>
+template <int C, int O>
 __global__ void __launch_bounds__(THREADS, 1)
     proj_ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ lns, const float* __restrict__ w,
-                       const float* __restrict__ dy, T* __restrict__ dx, float* __restrict__ lnpart, int ntile) {
+                       const float* __restrict__ dy, float* __restrict__ dx, float* __restrict__ lnpart, int ntile) {
   constexpr int SO = O + 4, SC = C + 4, NT = col_tiles<C>(), NM = col_tiles<C>();
   constexpr bool FULL = C % 32 == 0;  // every lane's channels lane + 32 m, m < NM, are of the C
   extern __shared__ __align__(16) float sm[];
@@ -712,14 +941,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     cp_async_wait(next < ntile ? 1 : 0);
     __syncthreads();
-    if constexpr (sizeof(T) == 2) {
-      float* dyt = dys + stage * TOK * SO;
-      for (int e = threadIdx.x; e < TOK * O; e += blockDim.x) {
-        float& v = dyt[(e / O) * SO + e % O];
-        v = round_bf16(v);
-      }
-      __syncthreads();
-    }
     float acc[2][NT][4];
     zero_acc(acc);
     mma_tile<false, false, 2, NT>(acc, dys + stage * TOK * SO, SO, tw.m0, wt, SO, tw.n0, O, 2, nt);
@@ -813,10 +1034,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 // = 8 ceil(c / 32).  db[o] sums the sub-tiles' rows in order.  R in {32,
 // 64, 96}, c a multiple of 16 up to 96.  Shared: dys [2][TOK][R + 8], xs
 // [2][TOK][c + 8] (row strides 8 or 24 mod 32: conflict-free fragments).
-// BF16: after db's sums, the dy sub-tile and the recomputed LN are rounded
-// to bf16 for the product.  R16: R an odd multiple of 16 (16, 48, 80), its
-// R / 16 m-tiles split ceil / floor between the two warp rows.
-template <bool BF16 = false, bool R16 = false>
+// R16: R an odd multiple of 16 (16, 48, 80), its R / 16 m-tiles split ceil
+// / floor between the two warp rows.
+template <bool R16 = false>
 __global__ void __launch_bounds__(THREADS, 2)
     wgrad_kernel(const float* __restrict__ x, const float* __restrict__ lns, const float* __restrict__ lnb,
                  const float* __restrict__ dy, float* __restrict__ part, int ntok, int c, int O, int R) {
@@ -862,20 +1082,217 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
     if (threadIdx.x < R)
       for (int r = 0; r < TOK; ++r) bacc += dyt[r * SR + threadIdx.x];
-    if constexpr (BF16) {
-      __syncthreads();  // db has read the unrounded sub-tile
-      for (int e = threadIdx.x; e < TOK * R; e += THREADS) {
-        float& v = dyt[(e / R) * SR + e % R];
-        v = round_bf16(v);
-      }
-      if (lns != nullptr)
-        for (int e = threadIdx.x; e < TOK * c; e += THREADS) {
-          float& v = xt[(e / c) * SX + e % c];
-          v = round_bf16(v);
-        }
-      __syncthreads();
-    }
     mma_tile<true, true, 3, 3>(acc, dyt, SR, m0, xt, SX, n0, TOK, mt, nt);
+    __syncthreads();
+  }
+  float* p = part + (int64_t)blockIdx.x * (O * c + O);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      if (i < mt && j < nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = o0 + m0 + 16 * i + g8 + 8 * h, col = n0 + 8 * j + 2 * t4;
+          *reinterpret_cast<float2*>(p + (int64_t)o * c + col) = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        }
+  if (threadIdx.x < R) p[O * c + o0 + threadIdx.x] = bacc;
+}
+
+// proj_ln_bwd_kernel for bf16 io (K3's and K5's bf16 backward): x, the LN
+// scale and W bf16 as they are, dy float32 (dq or dkv, unrounded).  W (O, C)
+// is staged once per CTA as it lies, [O][C + 8] bf16; each dy tile lands by
+// cp.async (two stages), is rounded to bf16 into [TOK][O + 8] (the JAX
+// kernel's cast before the product), and dx_ln = dy W runs on bf16
+// m16n8k16 (mma_tile_bf16<false, true>) into shared memory; the LN
+// backward, its sums and dx (rounded to bf16 once) as proj_ln_bwd_kernel,
+// x widened as it is read.  Shared: wb [O][C + 8] bf16, dys [2][TOK][O + 4]
+// float32, dyb [TOK][O + 8] bf16, dxs [TOK][C + 4], red [8][2][C] float32.
+template <int C, int O>
+__global__ void __launch_bounds__(THREADS, 1)
+    proj_ln_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ lns,
+                            const __nv_bfloat16* __restrict__ w, const float* __restrict__ dy,
+                            __nv_bfloat16* __restrict__ dx, float* __restrict__ lnpart, int ntile) {
+  using bf16 = __nv_bfloat16;
+  constexpr int SW = C + 8, SO = O + 4, SB = O + 8, SC = C + 4, NT = col_tiles<C>(), NM = col_tiles<C>();
+  constexpr bool FULL = C % 32 == 0;  // every lane's channels lane + 32 m, m < NM, are of the C
+  extern __shared__ __align__(16) unsigned char pbwd_smem[];
+  bf16* wb = reinterpret_cast<bf16*>(pbwd_smem);
+  float* dys = reinterpret_cast<float*>(wb + O * SW);
+  bf16* dyb = reinterpret_cast<bf16*>(dys + 2 * TOK * SO);
+  float* dxs = reinterpret_cast<float*>(dyb + TOK * SB);
+  float* red = dxs + TOK * SC;
+  const int ntok = ntile * TOK;
+  if (blockIdx.x < ntile) {
+    load_tile(dys, SO, dy, (int64_t)blockIdx.x * TOK, ntok, O, O);
+    cp_async_commit();
+  }
+  stage_rows(wb, w, O, C, SW);
+  const TileWarp tw = TileWarp::make<NT>();
+  const int nt = tiles_below<C>(tw.n0, C);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float sc[3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m)
+    sc[m] = (FULL ? m < NM : m < NM && lane + 32 * m < C) ? to_f(lns[lane + 32 * m]) : 0.f;
+  int stage = 0;
+  for (int tile = blockIdx.x; tile < ntile; tile += gridDim.x, stage ^= 1) {
+    const int next = tile + gridDim.x;
+    if (next < ntile) {
+      load_tile(dys + (stage ^ 1) * TOK * SO, SO, dy, (int64_t)next * TOK, ntok, O, O);
+      cp_async_commit();
+    }
+    cp_async_wait(next < ntile ? 1 : 0);
+    __syncthreads();
+    const float* dyt = dys + stage * TOK * SO;
+    for (int e = threadIdx.x; e < TOK * O / 2; e += blockDim.x) {
+      const int r = e / (O / 2), c2 = 2 * (e % (O / 2));
+      const float2 f = *reinterpret_cast<const float2*>(dyt + r * SO + c2);
+      *reinterpret_cast<__nv_bfloat162*>(dyb + r * SB + c2) = __floats2bfloat162_rn(f.x, f.y);
+    }
+    __syncthreads();
+    float acc[2][NT][4];
+    zero_acc(acc);
+    mma_tile_bf16<false, true, 2, NT>(acc, dyb, SB, tw.m0, wb, SW, tw.n0, O, 2, nt);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          if (j < nt)
+            *reinterpret_cast<float2*>(dxs + (tw.m0 + 16 * i + tw.g8 + 8 * h) * SC + tw.n0 + 8 * j + 2 * tw.t4) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+    __syncthreads();
+    // the LN backward of the warp's 8 tokens, as proj_ln_bwd_kernel
+    float gsc[3] = {0.f, 0.f, 0.f}, gbi[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int a0 = 0; a0 < 8; a0 += 4) {
+      float v[4][3], dxl[4][3], mean[4], rstd[4], s1[4], s2[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int lt = warp * 8 + a0 + a;
+        mean[a] = rstd[a] = 0.f;
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          const bool on = FULL ? m < NM : m < NM && lane + 32 * m < C;
+          v[a][m] = on ? to_f(x[((int64_t)tile * TOK + lt) * C + lane + 32 * m]) : 0.f;
+          dxl[a][m] = on ? dxs[lt * SC + lane + 32 * m] : 0.f;
+          mean[a] += v[a][m];
+          rstd[a] += v[a][m] * v[a][m];
+        }
+      }
+      warp_sums(mean);
+      warp_sums(rstd);
+      float xh[4][3], dxh[4][3];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        mean[a] /= C;
+        rstd[a] = 1.0f / sqrtf(fmaxf(rstd[a] / C - mean[a] * mean[a], 0.f) + 1e-6f);
+        s1[a] = s2[a] = 0.f;
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          xh[a][m] = dxh[a][m] = 0.f;
+          if (FULL ? m < NM : m < NM && lane + 32 * m < C) {
+            xh[a][m] = (v[a][m] - mean[a]) * rstd[a];
+            dxh[a][m] = dxl[a][m] * sc[m];
+            s1[a] += dxh[a][m];
+            s2[a] += dxh[a][m] * xh[a][m];
+          }
+        }
+      }
+      warp_sums(s1);
+      warp_sums(s2);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int64_t t = (int64_t)tile * TOK + warp * 8 + a0 + a;
+        const float m1 = s1[a] / C, m2 = s2[a] / C;
+#pragma unroll
+        for (int m = 0; m < 3; ++m)
+          if (FULL ? m < NM : m < NM && lane + 32 * m < C) {
+            dx[t * C + lane + 32 * m] = __float2bfloat16_rn(rstd[a] * (dxh[a][m] - m1 - xh[a][m] * m2));
+            gsc[m] = fmaf(dxl[a][m], xh[a][m], gsc[m]);
+            gbi[m] += dxl[a][m];
+          }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+      if (FULL ? m < NM : m < NM && lane + 32 * m < C) {
+        red[(warp * 2) * C + lane + 32 * m] = gsc[m];
+        red[(warp * 2 + 1) * C + lane + 32 * m] = gbi[m];
+      }
+    __syncthreads();
+    for (int e = threadIdx.x; e < 2 * C; e += blockDim.x) {
+      float s = 0.f;
+      for (int w8 = 0; w8 < 8; ++w8) s += red[(w8 * 2 + e / C) * C + e % C];
+      lnpart[(int64_t)tile * 2 * C + e] = s;
+    }
+  }
+}
+
+// wgrad_kernel for bf16 io (K3's and K5's bf16 backward): x and the LN
+// parameters bf16, dy float32 (unrounded).  x sub-tiles land as bf16 by
+// cp.async and are normalized in place (ln_rows_inplace on the bf16 tile:
+// float32 statistics, the result rounded to bf16, the JAX kernel's cast of
+// the recomputed LN); db sums the unrounded dy sub-tile, which is then
+// rounded to bf16 into [TOK][R + 8]; dW += dy^T x_ln on bf16 m16n8k16, both
+// operands token-major and read transposed (mma_tile_bf16<true, true>).
+// Blocks, chunks, warps and partial rows as wgrad_kernel.  Shared: dys
+// [2][TOK][R + 4] float32, xs [2][TOK][c + 8] bf16, dyb [TOK][R + 8] bf16.
+template <bool R16 = false>
+__global__ void __launch_bounds__(THREADS, 2)
+    wgrad_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ lns,
+                      const __nv_bfloat16* __restrict__ lnb, const float* __restrict__ dy, float* __restrict__ part,
+                      int ntok, int c, int O, int R) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const int SR = R + 4, SX = c + 8, SB = R + 8;
+  float* dys = reinterpret_cast<float*>(wg_smem);
+  bf16* xs = reinterpret_cast<bf16*>(dys + 2 * TOK * SR);
+  bf16* dyb = xs + 2 * TOK * SX;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int o0 = blockIdx.y * R;
+  const int mt = R16 ? ((warp >> 2) ? R / 32 : R / 32 + 1) : R / 32, m0 = (warp >> 2) * (R16 ? R / 32 + 1 : mt) * 16;
+  const int ct = c / 8, per = (ct + 3) / 4, n0 = (warp & 3) * per * 8;
+  const int nt = min(per, max(0, ct - (warp & 3) * per));
+  float lsc[3], lbi[3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const bool on = lane + 32 * m < c;
+    lsc[m] = on ? to_f(lns[lane + 32 * m]) : 0.f;
+    lbi[m] = on ? to_f(lnb[lane + 32 * m]) : 0.f;
+  }
+  const int64_t tbeg = (int64_t)blockIdx.x * TOKC;
+  const int64_t tend = tbeg + TOKC < ntok ? tbeg + TOKC : (int64_t)ntok;
+  auto load = [&](int64_t t0, int stage) {
+    load_tile(dys + stage * TOK * SR, SR, dy + o0, t0, (int)tend, R, O);
+    load_tile(xs + stage * TOK * SX, SX, x, t0, (int)tend, c, c);
+    cp_async_commit();
+  };
+  float acc[3][3][4];
+  zero_acc(acc);
+  float bacc = 0.f;
+  load(tbeg, 0);
+  int stage = 0;
+  for (int64_t t0 = tbeg; t0 < tend; t0 += TOK, stage ^= 1) {
+    const bool more = t0 + TOK < tend;
+    if (more) load(t0 + TOK, stage ^ 1);
+    cp_async_wait(more ? 1 : 0);
+    __syncthreads();
+    const float* dyt = dys + stage * TOK * SR;
+    bf16* xt = xs + stage * TOK * SX;
+    for (int r0 = warp; r0 < TOK; r0 += 4 * (THREADS / 32))  // 4 rows side by side
+      ln_rows_inplace<4>(xt, SX, r0, THREADS / 32, TOK, c, lsc, lbi);
+    if (threadIdx.x < R)
+      for (int r = 0; r < TOK; ++r) bacc += dyt[r * SR + threadIdx.x];
+    for (int e = threadIdx.x; e < TOK * R / 2; e += THREADS) {
+      const int r = e / (R / 2), c2 = 2 * (e % (R / 2));
+      const float2 f = *reinterpret_cast<const float2*>(dyt + r * SR + c2);
+      *reinterpret_cast<__nv_bfloat162*>(dyb + r * SB + c2) = __floats2bfloat162_rn(f.x, f.y);
+    }
+    __syncthreads();
+    mma_tile_bf16<true, true, 3, 3>(acc, dyb, SB, m0, xt, SX, n0, TOK, mt, nt);
     __syncthreads();
   }
   float* p = part + (int64_t)blockIdx.x * (O * c + O);
@@ -896,9 +1313,11 @@ __global__ void __launch_bounds__(THREADS, 2)
 // (32 columns x SUM_GROUPS row groups), thread (column, g) adds rows g, g +
 // SUM_GROUPS, ... in turn, then the group sums are added in order.  32 row
 // groups keep a tall, narrow partial (the 2x2 windows' dbias: 1024 rows of
-// 32 at B = 64) from resting on one block's few threads.
+// 32 at B = 64) from resting on one block's few threads.  T: out's type
+// (bf16: the sum rounded once as it is stored).
 constexpr int SUM_GROUPS = 32;
-__global__ void sum_rows_kernel(const float* __restrict__ part, float* __restrict__ out, int rows, int cols) {
+template <typename T = float>
+__global__ void sum_rows_kernel(const float* __restrict__ part, T* __restrict__ out, int rows, int cols) {
   __shared__ float red[SUM_GROUPS][33];
   const int e = blockIdx.x * 32 + threadIdx.x, g = threadIdx.y;
   float s = 0.f;
@@ -910,11 +1329,13 @@ __global__ void sum_rows_kernel(const float* __restrict__ part, float* __restric
     float t = 0.f;
 #pragma unroll
     for (int k = 0; k < SUM_GROUPS; ++k) t += red[k][threadIdx.x];
-    out[e] = t;
+    from_f(out[e], t);
   }
 }
 
-cudaError_t launch_sum_rows(const float* part, float* out, int rows, int cols, cudaStream_t st) {
+template <typename T>
+cudaError_t launch_sum_rows(const float* part, T* out, int rows, int cols, cudaStream_t st) {
+  ++kernel_launches;
   sum_rows_kernel<<<(cols + 31) / 32, dim3(32, SUM_GROUPS), 0, st>>>(part, out, rows, cols);
   return cudaGetLastError();
 }
@@ -928,8 +1349,8 @@ inline int attn_bwd_chunks(int n, int gh, int nw) {
   return (nw + 4 * wpb - 1) / (4 * wpb);
 }
 
-template <int N, bool DROP, bool BF16, int HD>
-cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int kvs, const float* dout,
+template <int N, bool DROP, bool BF16, int HD, typename T = float>
+cudaError_t launch_attn_bwd(const T* q, const T* k, const T* v, int kvs, const T* dout,
                             const float* bias, const float* mask, float* dq, float* dk, float* dv, float* dbias_part,
                             float* dbias, int B, int H, int W, int D, int g, int gh, int ws, int sh, float scale,
                             uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t st) {
@@ -941,10 +1362,11 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
                     aligned16(dk) && aligned16(dv);
     const int wb = bwd4_windows(gh);
     const size_t smem4 = (size_t)4 * wb * 4 * (gh * HD + 4) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(window_attn_bwd4_kernel<DROP, BF16, HD>,
+    cudaError_t err = cudaFuncSetAttribute(window_attn_bwd4_kernel<DROP, BF16, HD, T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem4);
     if (err != cudaSuccess) return err;
-    window_attn_bwd4_kernel<DROP, BF16, HD><<<dim3(nchunk, B), wb * gh * 4, smem4, st>>>(
+    ++kernel_launches;
+    window_attn_bwd4_kernel<DROP, BF16, HD, T><<<dim3(nchunk, B), wb * gh * 4, smem4, st>>>(
         q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, H, W, D, g, gh, sh, scale, seed, thresh, inv_keep,
         vec);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -952,12 +1374,27 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
   } else {
     // the tensor-core kernel (wpb windows a step, as below) where its
     // cp.async rows are 16-byte aligned
-    if ((gh == 1 || gh == 2) && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)) {
+    if constexpr (sizeof(T) == 2) {
+      if ((gh == 1 || gh == 2) && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)) {
+        auto kern = gh == 1 ? window_attn_bwd_tc_bf16_kernel<N, 1, DROP, HD>
+                            : window_attn_bwd_tc_bf16_kernel<N, 2, DROP, HD>;
+        const size_t smem_tc =
+            (size_t)wpb * (4 * N * fwd_ldq<HD>(gh * HD) + 2 * gh * N * (N + 8)) * sizeof(__nv_bfloat16);
+        cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_tc);
+        if (err != cudaSuccess) return err;
+        ++kernel_launches;
+        kern<<<dim3(nchunk, B), THREADS, smem_tc, st>>>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, H,
+                                                       W, D, g, ws, sh, 4 * wpb, scale, seed, thresh, inv_keep);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+        return launch_sum_rows(dbias_part, dbias, B * nchunk, gh * N * N, st);
+      }
+    } else if ((gh == 1 || gh == 2) && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)) {
       auto kern = gh == 1 ? window_attn_bwd_tc_kernel<N, 1, DROP, BF16, HD>
                           : window_attn_bwd_tc_kernel<N, 2, DROP, BF16, HD>;
       const size_t smem_tc = (size_t)wpb * (4 * N * (gh * HD + 4) + 2 * gh * N * (N + 4)) * sizeof(float);
       cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_tc);
       if (err != cudaSuccess) return err;
+      ++kernel_launches;
       kern<<<dim3(nchunk, B), THREADS, smem_tc, st>>>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, H, W,
                                                      D, g, ws, sh, 4 * wpb, scale, seed, thresh, inv_keep);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -967,9 +1404,10 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
     const int threads = wpb * gh * N;
     const size_t smem =
         (size_t)(4 * wpb * N * gh * HD + 2 * wpb * gh * N * (N + 1) + gh * N * N) * sizeof(float);
-    cudaFuncSetAttribute(window_attn_bwd_kernel<N, DROP, BF16, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(window_attn_bwd_kernel<N, DROP, BF16, HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-    window_attn_bwd_kernel<N, DROP, BF16, HD><<<dim3(nchunk, B), threads, smem, st>>>(
+    ++kernel_launches;
+    window_attn_bwd_kernel<N, DROP, BF16, HD, T><<<dim3(nchunk, B), threads, smem, st>>>(
         q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, H, W, D, g, gh, ws, sh, wpb, 4 * wpb, scale, seed,
         thresh, inv_keep);
     cudaError_t err = cudaGetLastError();
@@ -981,8 +1419,8 @@ cudaError_t launch_attn_bwd(const float* q, const float* k, const float* v, int 
 // The attention backward of every group.  dbias_part holds, per group, B *
 // attn_bwd_chunks rows of gh * N^2 floats (attn_bwd_part_floats); dbias is
 // laid out as the concatenated bias.
-template <bool DROP, bool BF16, int HD>
-cudaError_t launch_attn_bwd_groups_hd(const float* q, const float* k, const float* v, int kvs, const float* dout,
+template <bool DROP, bool BF16, int HD, typename T>
+cudaError_t launch_attn_bwd_groups_hd(const T* q, const T* k, const T* v, int kvs, const T* dout,
                                       const float* bias, const float* mask, float* dq, float* dk, float* dv,
                                       float* dbias_part, float* dbias, int B, int H, int W, int D, int n_group,
                                       const int* ws, const int* shifts, int gh, float scale, uint32_t seed,
@@ -993,9 +1431,9 @@ cudaError_t launch_attn_bwd_groups_hd(const float* q, const float* k, const floa
     const float* mg = sh > 0 ? mask + moff : nullptr;
     cudaError_t err;
     switch (ws[g]) {
-      case 2: err = launch_attn_bwd<4, DROP, BF16, HD>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 2, sh, scale, seed, thresh, inv_keep, st); break;
-      case 4: err = launch_attn_bwd<16, DROP, BF16, HD>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 4, sh, scale, seed, thresh, inv_keep, st); break;
-      case 8: err = launch_attn_bwd<64, DROP, BF16, HD>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 8, sh, scale, seed, thresh, inv_keep, st); break;
+      case 2: err = launch_attn_bwd<4, DROP, BF16, HD, T>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 2, sh, scale, seed, thresh, inv_keep, st); break;
+      case 4: err = launch_attn_bwd<16, DROP, BF16, HD, T>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 4, sh, scale, seed, thresh, inv_keep, st); break;
+      case 8: err = launch_attn_bwd<64, DROP, BF16, HD, T>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 8, sh, scale, seed, thresh, inv_keep, st); break;
       default: err = cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return err;
@@ -1009,30 +1447,30 @@ cudaError_t launch_attn_bwd_groups_hd(const float* q, const float* k, const floa
 
 // The attention backward of every group, at the head dim D / n_group / gh
 // (8, 16 or 32).
-template <bool DROP, bool BF16>
-cudaError_t launch_attn_bwd_groups(const float* q, const float* k, const float* v, int kvs, const float* dout,
+template <bool DROP, bool BF16, typename T>
+cudaError_t launch_attn_bwd_groups(const T* q, const T* k, const T* v, int kvs, const T* dout,
                                    const float* bias, const float* mask, float* dq, float* dk, float* dv,
                                    float* dbias_part, float* dbias, int B, int H, int W, int D, int n_group,
                                    const int* ws, const int* shifts, int gh, float scale, uint32_t seed,
                                    uint32_t thresh, float inv_keep, cudaStream_t st) {
   switch (head_dim(D, n_group, gh)) {
-    case 8: return launch_attn_bwd_groups_hd<DROP, BF16, 8>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
-    case 16: return launch_attn_bwd_groups_hd<DROP, BF16, 16>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
-    case 32: return launch_attn_bwd_groups_hd<DROP, BF16, 32>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
+    case 8: return launch_attn_bwd_groups_hd<DROP, BF16, 8, T>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
+    case 16: return launch_attn_bwd_groups_hd<DROP, BF16, 16, T>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
+    case 32: return launch_attn_bwd_groups_hd<DROP, BF16, 32, T>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool BF16 = false>
-inline cudaError_t launch_attn_bwd_groups_any(const float* q, const float* k, const float* v, int kvs,
-                                              const float* dout, const float* bias, const float* mask, float* dq,
+template <bool BF16 = false, typename T = float>
+inline cudaError_t launch_attn_bwd_groups_any(const T* q, const T* k, const T* v, int kvs,
+                                              const T* dout, const float* bias, const float* mask, float* dq,
                                               float* dk, float* dv, float* dbias_part, float* dbias, int B, int H,
                                               int W, int D, int n_group, const int* ws, const int* shifts, int gh,
                                               float scale, uint32_t seed, uint32_t thresh, float inv_keep, int drop,
                                               cudaStream_t st) {
-  return drop ? launch_attn_bwd_groups<true, BF16>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W,
+  return drop ? launch_attn_bwd_groups<true, BF16, T>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W,
                                              D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st)
-              : launch_attn_bwd_groups<false, BF16>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W,
+              : launch_attn_bwd_groups<false, BF16, T>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W,
                                               D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
 }
 
@@ -1047,42 +1485,68 @@ inline size_t attn_bwd_part_floats(int B, int H, int W, int n_group, const int* 
 }
 
 // Weight gradients of a projection, y = x_in W^T + b with W (O, c), summed
-// over ntok tokens: wgrad_kernel per chunk of TOKC tokens into part (ceil(ntok
-// / TOKC) rows of O*c + O), then the fixed-order sum into g = [dW | db].
-// O must be a multiple of D (the rows one block owns, D a multiple of 16 up
-// to 96); c a multiple of 16 up to 96; x and dy 16-byte aligned.
-template <bool BF16>
-cudaError_t launch_wgrad(const float* x, const float* lns, const float* lnb, const float* dy, float* part,
-                                float* g, int ntok, int c, int O, int D, cudaStream_t st) {
+// over ntok tokens: a kernel per chunk of TOKC tokens into part (ceil(ntok /
+// TOKC) rows of O*c + O), then the fixed-order sum into g = [dW | db].  X:
+// the type of x, the LN parameters and g, float32 (wgrad_kernel) or bf16
+// (wgrad_bf16_kernel; g rounded once), dy float32 either way.  O must be a
+// multiple of D (the rows one block owns, D a multiple of 16 up to 96); c a
+// multiple of 16 up to 96; x and dy 16-byte aligned.
+template <typename X>
+cudaError_t launch_wgrad(const X* x, const X* lns, const X* lnb, const float* dy, float* part, X* g, int ntok, int c,
+                         int O, int D, cudaStream_t st) {
   if (!aligned16(x) || !aligned16(dy) || c % 16 != 0 || c > 96 || D % 16 != 0 || D > 96 || O % D != 0)
     return cudaErrorInvalidValue;
   const int nchunk = (ntok + TOKC - 1) / TOKC;
-  const size_t smem = (size_t)2 * TOK * (D + 8 + c + 8) * sizeof(float);
-  auto kern = D % 32 == 0 ? wgrad_kernel<BF16> : wgrad_kernel<BF16, true>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<dim3(nchunk, O / D), THREADS, smem, st>>>(x, lns, lnb, dy, part, ntok, c, O, D);
+  cudaError_t err;
+  if constexpr (sizeof(X) == 2) {
+    const size_t smem = (size_t)2 * TOK * (D + 4) * sizeof(float) + (size_t)(2 * TOK * (c + 8) + TOK * (D + 8)) * 2;
+    auto kern = D % 32 == 0 ? wgrad_bf16_kernel<false> : wgrad_bf16_kernel<true>;
+    if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) != cudaSuccess)
+      return err;
+    ++kernel_launches;
+    kern<<<dim3(nchunk, O / D), THREADS, smem, st>>>(x, lns, lnb, dy, part, ntok, c, O, D);
+  } else {
+    const size_t smem = (size_t)2 * TOK * (D + 8 + c + 8) * sizeof(float);
+    auto kern = D % 32 == 0 ? wgrad_kernel<false> : wgrad_kernel<true>;
+    if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) != cudaSuccess)
+      return err;
+    ++kernel_launches;
+    kern<<<dim3(nchunk, O / D), THREADS, smem, st>>>(x, lns, lnb, dy, part, ntok, c, O, D);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_sum_rows(part, g, nchunk, O * c + O, st);
 }
 
-template <int C, int O, typename T>
-cudaError_t launch_proj_ln_bwd(const float* x, const float* lns, const float* w, const float* dy, T* dx,
-                               float* lnpart, int ntok, cudaStream_t st) {
-  const size_t smem = (size_t)(C * (O + 4) + 2 * TOK * (O + 4) + TOK * (C + 4) + 16 * C) * sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(proj_ln_bwd_kernel<C, O, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// dx and the LN sums of one LN + projection pair (C channels, O outputs):
+// proj_ln_bwd_kernel on float32, proj_ln_bwd_bf16_kernel on bf16 x, LN
+// scale and W (dx in X either way, dy float32).
+template <int C, int O, typename X>
+cudaError_t launch_proj_ln_bwd(const X* x, const X* lns, const X* w, const float* dy, X* dx, float* lnpart, int ntok,
+                               cudaStream_t st) {
+  size_t smem;
+  auto kern = [] {
+    if constexpr (sizeof(X) == 2) return proj_ln_bwd_bf16_kernel<C, O>;
+    else return proj_ln_bwd_kernel<C, O>;
+  }();
+  if constexpr (sizeof(X) == 2)
+    smem = (size_t)O * (C + 8) * 2 + (size_t)2 * TOK * (O + 4) * sizeof(float) + (size_t)TOK * (O + 8) * 2 +
+           (size_t)(TOK * (C + 4) + 16 * C) * sizeof(float);
+  else
+    smem = (size_t)(C * (O + 4) + 2 * TOK * (O + 4) + TOK * (C + 4) + 16 * C) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int grid = 0;
   if (err != cudaSuccess || (err = persistent_grid(ntok / TOK, &grid)) != cudaSuccess || grid == 0) return err;
-  proj_ln_bwd_kernel<C, O, T><<<grid, THREADS, smem, st>>>(x, lns, w, dy, dx, lnpart, ntok / TOK);
+  ++kernel_launches;
+  kern<<<grid, THREADS, smem, st>>>(x, lns, w, dy, dx, lnpart, ntok / TOK);
   return cudaGetLastError();
 }
 
-// dx and the LN sums of one LN + projection pair, O = k D (k = 1: q, 2: kv).
-template <typename T>
-inline cudaError_t launch_proj_ln_bwd_any(const float* x, const float* lns, const float* w, const float* dy,
-                                          T* dx, float* lnpart, int ntok, int D, int k, cudaStream_t st) {
-  if (!aligned16(dy)) return cudaErrorMisalignedAddress;
+// launch_proj_ln_bwd at O = k D (k = 1: q, 2: kv).  bf16 W 16-byte aligned
+// (its rows are copied 16 bytes at a time).
+template <typename X>
+cudaError_t launch_proj_ln_bwd_any(const X* x, const X* lns, const X* w, const float* dy, X* dx, float* lnpart,
+                                   int ntok, int D, int k, cudaStream_t st) {
+  if (!aligned16(dy) || (sizeof(X) == 2 && !aligned16(w))) return cudaErrorMisalignedAddress;
   switch (D * 2 + k - 1) {
     case 32: return launch_proj_ln_bwd<16, 16>(x, lns, w, dy, dx, lnpart, ntok, st);
     case 33: return launch_proj_ln_bwd<16, 32>(x, lns, w, dy, dx, lnpart, ntok, st);
@@ -1101,36 +1565,36 @@ inline cudaError_t launch_proj_ln_bwd_any(const float* x, const float* lns, cons
 }
 
 // The backward of LN + the q and kv projections, from dq (B*L, D) and dkv
-// (B*L, 2D): dxq, dxkv; gq = [dWq | dbq], gkv = [dWkv | dbkv]; gln_q = [dqs
-// | dqb], gln_kv = [dks | dkb].  Scratch: wpart_q (S, D*D + D), wpart_kv (S,
+// (B*L, 2D), float32 and unrounded: dxq, dxkv; gq = [dWq | dbq], gkv = [dWkv
+// | dbkv]; gln_q = [dqs | dqb], gln_kv = [dks | dkb].  X: the type of xq,
+// xkv, the LN parameters, the weights, dx and the gradients — float32, or
+// bf16 (K3's and K5's bf16 backward: the bias sums take dq / dkv unrounded,
+// the products round them to bf16; each output written once, as bf16, by
+// the kernel that finishes it).  Scratch: wpart_q (S, D*D + D), wpart_kv (S,
 // 2D*D + 2D) with S = ceil(ntok / 512); lnpart_q, lnpart_kv (ntok / 64, 2D).
-// ntok % 64 == 0.  dxq and dxkv of type T: bf16 (K3's bf16 form) runs the
-// BF16 kernels on float32 inputs holding bf16 values.
-template <typename T>
-inline cudaError_t launch_ln_proj_bwd(const float* xq, const float* xkv, const float* qs, const float* qb,
-                                      const float* ks, const float* kb, const float* q_w, const float* kv_w,
-                                      const float* dqbuf, const float* dkvbuf, float* wpart_q, float* wpart_kv,
-                                      float* lnpart_q, float* lnpart_kv, T* dxq, T* dxkv, float* gq,
-                                      float* gkv, float* gln_q, float* gln_kv, int ntok, int D, cudaStream_t st) {
-  const float* xs[2] = {xq, xkv};
-  const float* lns[2] = {qs, ks};
-  const float* lnb[2] = {qb, kb};
-  const float* wts[2] = {q_w, kv_w};
+// ntok % 64 == 0.
+template <typename X>
+cudaError_t launch_ln_proj_bwd(const X* xq, const X* xkv, const X* qs, const X* qb, const X* ks, const X* kb,
+                               const X* q_w, const X* kv_w, const float* dqbuf, const float* dkvbuf, float* wpart_q,
+                               float* wpart_kv, float* lnpart_q, float* lnpart_kv, X* dxq, X* dxkv, X* gq, X* gkv,
+                               X* gln_q, X* gln_kv, int ntok, int D, cudaStream_t st) {
+  const X* xs[2] = {xq, xkv};
+  const X* lns[2] = {qs, ks};
+  const X* lnb[2] = {qb, kb};
+  const X* wts[2] = {q_w, kv_w};
   const float* dys[2] = {dqbuf, dkvbuf};
-  T* dxs[2] = {dxq, dxkv};
+  X* dxs[2] = {dxq, dxkv};
   float* lnparts[2] = {lnpart_q, lnpart_kv};
-  float* glns[2] = {gln_q, gln_kv};
+  X* glns[2] = {gln_q, gln_kv};
   float* wparts[2] = {wpart_q, wpart_kv};
-  float* gws[2] = {gq, gkv};
+  X* gws[2] = {gq, gkv};
   cudaError_t err;
   for (int k = 0; k < 2; ++k) {
     if ((err = launch_proj_ln_bwd_any(xs[k], lns[k], wts[k], dys[k], dxs[k], lnparts[k], ntok, D, k + 1, st)) !=
-        cudaSuccess)
-      return err;
-    if ((err = launch_sum_rows(lnparts[k], glns[k], ntok / TOK, 2 * D, st)) != cudaSuccess) return err;
-    if ((err = launch_wgrad<sizeof(T) == 2>(xs[k], lns[k], lnb[k], dys[k], wparts[k], gws[k], ntok, D, (k + 1) * D,
-                                            D, st)) !=
-        cudaSuccess)
+            cudaSuccess ||
+        (err = launch_sum_rows(lnparts[k], glns[k], ntok / TOK, 2 * D, st)) != cudaSuccess ||
+        (err = launch_wgrad(xs[k], lns[k], lnb[k], dys[k], wparts[k], gws[k], ntok, D, (k + 1) * D, D, st)) !=
+            cudaSuccess)
       return err;
   }
   return cudaSuccess;

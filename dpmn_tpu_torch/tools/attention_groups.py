@@ -44,7 +44,7 @@ ABLATIONS = {
            ("window_common.cuh", _QK_F32, "      s[0][0] = Qs[lane];\n")],
     "softmax": [("window_common.cuh", "    softmax_rows<true>(s);\n", "")],
     "pv": [("window_common.cuh", _PV_BF16, _PV_NONE), ("window_common.cuh", _PV_F32, _PV_NONE)],
-    "bias": [("window_common.cuh", "        float2 add = ldg_pair(bh + off);\n        if (mw) {",
+    "bias": [("window_common.cuh", "        float2 add = ldg_pair(bh + off);\n        if (gr.sh > 0) {",
               "        float2 add = make_float2(0.f, 0.f);\n        if (false) {")],
     "store": [("window_common.cuh", "          store4(orow + 8 * c + (odd ? 2 * t4 + 6 : 2 * t4), val, a.vec);",
                "          if (val.x == 12345.f) store4(orow + 8 * c + (odd ? 2 * t4 + 6 : 2 * t4), val, a.vec);")],

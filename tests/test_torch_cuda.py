@@ -277,6 +277,11 @@ WIDTHS = [(96, (2, 4, 8), 6, (1, 2, 4)), (64, (2, 8), 4, (1, 4)), (32, (4, 8), 2
 BATCHES = [1, 3, 5, 9]
 
 
+def geometry(width, shifted):
+    dim, windows, heads, shift = width
+    return dim, windows, heads, shift if shifted == "shifted" else (0,) * len(windows)
+
+
 def k1_inputs(dev, batch, dim=96, windows=(2, 4, 8), heads=6, shift=(1, 2, 4), faithful=True, with_ln=True,
               seed=0):
     """Tokens and the keyword arguments of `window_attention_block` for one
@@ -447,13 +452,22 @@ def check_bf16_core_on_card(mod, fn, plain, prim, biases, static, keep, seed=123
         assert (g.float() - r.float()).abs().max().item() <= 2.0**-6 * r.float().abs().max().item(), i
 
 
+# the bf16 backwards' geometries (K3, K5): head dim 16 at D = 96, 64, 32
+# (WIDTHS), 32 at D = 96 (3 heads), 8 at D = 48 and 16 (the mid and toy
+# blocks); windows 2, 4 and 8 among them
+BF16_WIDTHS = WIDTHS + [(96, (2, 4, 8), 3, (1, 2, 4)), (48, (2, 4, 8), 6, (1, 2, 4)), (16, (2, 4), 2, (1, 2))]
+BF16_IDS = [f"D{d}hd{d // h}" for d, _, h, _ in BF16_WIDTHS]
+
+
 @pytest.mark.parametrize("batch", [1, 3, 9])
-@pytest.mark.parametrize("width", WIDTHS, ids=lambda wd: f"D{wd[0]}")
+@pytest.mark.parametrize("width", BF16_WIDTHS, ids=BF16_IDS)
+@pytest.mark.parametrize("shifted", ["unshifted", "shifted"])
 @pytest.mark.parametrize("keep", [1.0, 0.9])
-def test_window_attention_train_kernel_bf16(dev, batch, width, keep):
+def test_window_attention_train_kernel_bf16(dev, batch, width, shifted, keep):
     """K3 on bf16 io forward and backward against autograd through its plain
-    version on the card (check_bf16_core_on_card)."""
-    dim, windows, heads, shift = width
+    version on the card (check_bf16_core_on_card), at head dims 8, 16 and 32
+    and D = 16 to 96, both shift sets."""
+    dim, windows, heads, shift = geometry(width, shifted)
     prim, biases, static = train_core_inputs(dev, shift, batch, dim=dim, windows=windows, heads=heads)
     prim, biases = bf16_core_args(prim, biases)
     check_bf16_core_on_card(WT, WT.window_attention_block_core, WT.window_attention_block_core_plain, prim, biases,
@@ -515,12 +529,14 @@ def test_window_attention_core_kernel_bf16_heads_and_scales(dev, scale, width):
 
 
 @pytest.mark.parametrize("batch", [1, 3, 9])
-@pytest.mark.parametrize("width", WIDTHS, ids=lambda wd: f"D{wd[0]}")
+@pytest.mark.parametrize("width", BF16_WIDTHS, ids=BF16_IDS)
+@pytest.mark.parametrize("shifted", ["unshifted", "shifted"])
 @pytest.mark.parametrize("keep", [1.0, 0.9])
-def test_window_attention_full_kernel_bf16(dev, batch, width, keep):
+def test_window_attention_full_kernel_bf16(dev, batch, width, shifted, keep):
     """K5 on bf16 io: all 18 primal gradients (bf16) and the bias gradients
-    (float32) against autograd through its plain version."""
-    dim, windows, heads, shift = width
+    (float32) against autograd through its plain version, at the geometries
+    of test_window_attention_train_kernel_bf16."""
+    dim, windows, heads, shift = geometry(width, shifted)
     prim, biases, static = train_core_inputs(dev, shift, batch, dim=dim, windows=windows, heads=heads)
     prim = [p.detach().bfloat16().requires_grad_() for p in prim]
     check_bf16_core_on_card(WF, WF.window_attention_full_core, WF.window_attention_full_core_plain, prim, biases,
@@ -589,11 +605,6 @@ GEOM_WIDTHS = [(96, (2, 4, 8), 3, (1, 2, 4)), (64, (2, 8), 2, (1, 4)), (96, (2, 
 GEOM_IDS = [f"D{d}hd{d // h}" for d, _, h, _ in GEOM_WIDTHS]
 GEOM_CASES = [(b, sh) for b in (1, 3) for sh in ("unshifted", "shifted")]
 DTYPES = [torch.float32, torch.bfloat16]
-
-
-def geometry(width, shifted):
-    dim, windows, heads, shift = width
-    return dim, windows, heads, shift if shifted == "shifted" else (0,) * len(windows)
 
 
 @pytest.mark.parametrize("batch,shifted", GEOM_CASES)
@@ -675,6 +686,33 @@ def test_window_kernels_rerun_bit_for_bit_at_new_head_dims(dev, width):
         cot = torch.randn(*p[0].shape, generator=gen).to(dev, p[0].dtype)
         runs = [run_train_core(fn, p, biases, static, 123, 0.9, "faithful", cot) for _ in range(2)]
         assert torch.equal(runs[0][0], runs[1][0]) and all(torch.equal(a, b) for a, b in zip(*[r[1] for r in runs]))
+
+
+@pytest.mark.parametrize("head_dim", [8, 16, 32])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("core", ["block", "attention", "full"])
+def test_unshifted_4x4_backward_at_every_head_dim(dev, head_dim, dtype, core):
+    """The null shift-mask fault's reproducer (ROADMAP §3): two groups of
+    4x4 windows, unshifted, one head a group, keep 0.9, B = 1, at D = 2
+    head_dim, so head dims 8, 16 and 32; each core on each io type against
+    its plain version."""
+    dim = 2 * head_dim
+    prim, biases, static = train_core_inputs(dev, (0, 0), 1, dim=dim, windows=(4, 4), heads=2)
+    mod, fn, plain = {"block": (WT, WT.window_attention_block_core, WT.window_attention_block_core_plain),
+                      "attention": (WC, WC.window_attention_core, WC.window_attention_core_plain),
+                      "full": (WF, WF.window_attention_full_core, WF.window_attention_full_core_plain)}[core]
+    if core == "attention":
+        gen = torch.Generator().manual_seed(11)
+        prim = ([torch.randn(1, 1024, dim, generator=gen).to(dev).requires_grad_() for _ in range(3)]
+                if dtype == torch.float32 else bf16_qkv(dev, 1, dim, kv_views=True))
+    elif core == "block":
+        prim = prim[:10]
+    if dtype == torch.float32:
+        check_core_on_card(mod, fn, plain, prim, biases, static, 0.9, "faithful")
+    else:
+        if core != "attention":
+            prim = [p.detach().bfloat16().requires_grad_() for p in prim]
+        check_bf16_core_on_card(mod, fn, plain, prim, biases, static, 0.9)
 
 
 def test_training_cores_reject_what_the_kernels_do_not_take(dev):
