@@ -74,7 +74,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      of its largest value, the dtypes (bf16, dbias float32); K3 also with 3
      heads a group and with a scale that is not a power of two; the times a
      call beside the float32 kernel on the same values (K4 also beside SDPA
-     on bf16); then the train path under train_dtype="bfloat16" with that
+     on bf16); the backwards of K3, K4 and K5 and K5's forward split by
+     sub-kernel, their launches a call held exact by the library's own
+     count; then the train path under train_dtype="bfloat16" with that
      core as phase 6, with exact launches (the bf16 kernel 12 + 12, no
      float32 training kernel, K2 11), the state float32 after the steps,
      the loss finite and falling over 5 steps on one repeated batch, and
@@ -179,15 +181,29 @@ TC_KERNELS = ("ln_proj_kernel", "ln_proj_bf16_kernel", "skconv_proj_kernel", "sk
 # the bf16 backwards' product kernels: bf16 m16n8k16 and no TF32 product in
 # their machine code (K3's and K5's libraries)
 BF16_BWD_KERNELS = ("window_attn_bwd_tc_bf16_kernel", "proj_ln_bwd_bf16_kernel", "wgrad_bf16_kernel")
-# the widening and narrowing passes the bf16 backwards of K3 and K5 no
-# longer launch (K4's bf16 backward keeps them)
+# the libraries that launch SKConv's token kernels on bf16 weights (K1's
+# serving forward, K5's bf16 forward), at every embedding width 16-96.  Its
+# products on bf16 weights take two TF32 passes where float32 weights take
+# three (mma_2xtf32: the widened weight is exact in TF32).
+# skconv_proj_kernel's runs over K = D, unrolled whole, so the bf16
+# instance holds two thirds of the float32 one's HMMA.  skconv_out_kernel's
+# runs over K = ch, a run-time count: the float32 instance keeps one k-step
+# (3 x its m16n8 tile pairs), which nvcc unrolls in the bf16 instance (7
+# steps at D = 96), so that instance holds a whole number of two-pass steps
+# of as many tile pairs.
+SKCONV_LIBS = ("window_attention", "window_attention_full")
+# the widening and narrowing passes that no bf16 backward (K3, K4, K5)
+# launches
 WIDENING_KERNELS = ("convert_kernel", "bf16_rows_kernel")
 # kernel launches of one bf16 backward call at the flagship geometry (three
-# window groups): K3 the LN + projection, each group's attention backward
-# and dbias sum, the two projections' dx, LN sums, dW and dW sums; K5 adds
-# SKConv's six (pass A, its dW sum, the gate, the fc gradients, pass B, its
-# dW sum)
-BF16_BWD_LAUNCHES = {"block": 15, "full": 21}
+# window groups): K4 each group's attention backward and dbias sum; K3 adds
+# the LN + projection, the two projections' dx, LN sums, dW and dW sums; K5
+# adds SKConv's six (pass A, its dW sum, the gate, the fc gradients, pass B,
+# its dW sum)
+BF16_BWD_LAUNCHES = {"block": 15, "attention": 6, "full": 21}
+# kernel launches of one bf16 forward call of K5: the LN + projection, the
+# attention forward (one launch for every group), SKConv's three
+BF16_FWD_LAUNCHES = {"full": 5}
 B = 64
 K1_TOL = 1e-4  # max abs error: float32, other summation orders over <= 96-term sums
 K2_TOL = 1e-5  # max abs error of a tanh-bounded state after <= 64 float32 steps
@@ -240,13 +256,16 @@ def host_ms(fn, iters=100, warmup=3):
     return ms
 
 
-def bound_ms(nbytes, flops, tc_flops=0.0, bf16_flops=0.0):
+def bound_ms(nbytes, flops, tc_flops=0.0, bf16_flops=0.0, tc2_flops=0.0):
     """The larger of the bytes at 3.35 TB/s and the operations: float32 on
     the CUDA cores at 67 TFLOP/s, plus tc_flops run as 3xTF32 on the tensor
     cores (3 x tc_flops at 495 TFLOP/s), plus bf16_flops on bf16 operands at
-    989 TFLOP/s."""
+    989 TFLOP/s, plus tc2_flops, float32 products whose other operand is
+    bf16-valued (SKConv's on bf16 weights), as two TF32 passes (2 x
+    tc2_flops at 495 TFLOP/s)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (flops / FP32_FLOP_PER_S + 3 * tc_flops / TF32_FLOP_PER_S + bf16_flops / BF16_FLOP_PER_S) * 1e3
+    t_ops = (flops / FP32_FLOP_PER_S + (3 * tc_flops + 2 * tc2_flops) / TF32_FLOP_PER_S
+             + bf16_flops / BF16_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -296,7 +315,7 @@ def log_split(tag, split, parts, library=None):
     launch, which stays right where the profiler drops some of a run's
     events) beside the bound of its part; parts: {kernel name: (bytes,
     float32 operations on CUDA cores, operations on tensor cores[, bf16
-    operations on tensor cores])} per path,
+    operations on tensor cores[, two-pass TF32 operations]])} per path,
     keyed by a kernel's name without template arguments, or by its name up
     to a comma of its template arguments (one instantiation's part, e.g.
     one window size's).  `library`: (kernel name, ms, what) logged beside
@@ -309,11 +328,12 @@ def log_split(tag, split, parts, library=None):
         key = next((k for k in parts if k.endswith(",") and name.replace(" ", "").startswith(k)),
                    base if base in parts else None)
         if key:
-            nbytes, flops, tc, bf = (*parts[key], 0.0)[:4]
-            b_ms, b_by = bound_ms(nbytes, flops, tc, bf)
-            kind = "bf16 on tensor cores" if bf else "3xTF32 on tensor cores" if tc else "float32 on CUDA cores"
+            nbytes, flops, tc, bf, tc2 = (*parts[key], 0.0, 0.0)[:5]
+            b_ms, b_by = bound_ms(nbytes, flops, tc, bf, tc2)
+            kind = ("bf16 on tensor cores" if bf else "3xTF32 on tensor cores" if tc else
+                    "2xTF32 on tensor cores" if tc2 else "float32 on CUDA cores")
             line += (f"; part {key} (all its launches): bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, "
-                     f"{(flops + tc + bf) / 1e9:.2f} GFLOP, {kind})")
+                     f"{(flops + tc + bf + tc2) / 1e9:.2f} GFLOP, {kind})")
         if library and base == library[0]:
             line += f"; library {library[1]:.4f} ms ({library[2]})"
         log(line)
@@ -338,17 +358,22 @@ def ln_proj_part(t, dim):
 
 
 def k1_ops(batch, l, dim, win, bf16=False):
-    """K1's operations a call on `batch` images of l tokens: (on float32
-    operands, on bf16 operands).  The projections (2 l D 3D) take bf16
-    operands in the bf16 form (ln_proj_bf16_kernel); the attention's scores
-    and P v (4 l ch N for a window of N tokens) and SKConv's products
-    (2 l D D + 2 l ch D) take float32 operands in both forms, since the bf16
-    form stores q and kv in float32 and runs the float32 attention
-    (block_forward in csrc/window_attention.cu)."""
+    """K1's operations a call on `batch` images of l tokens, as bound_ms's
+    (flops, tc_flops, bf16_flops, tc2_flops).  Float32 io: every product
+    on float32 operands.  bf16 io: the projections (2 l D 3D) on bf16
+    operands (ln_proj_bf16_kernel); the attention's scores and P v (4 l ch N
+    for a window of N tokens) on float32 q and kv (the bf16 form stores them
+    in float32 and runs the float32 attention, block_forward in
+    csrc/window_attention.cu), as the split counts them: the 2x2 windows' on
+    the CUDA cores, the others' at 3xTF32; SKConv's products (2 l D D +
+    2 l ch D) on bf16 weights, two TF32 passes."""
     ch = dim // len(win)
     proj = batch * 2 * l * dim * 3 * dim
-    rest = batch * (4 * l * ch * sum(ws * ws for ws in win) + 2 * l * dim * dim + 2 * l * ch * dim)
-    return (rest, proj) if bf16 else (rest + proj, 0.0)
+    attn = {ws: batch * 4 * l * ch * ws * ws for ws in win}
+    skconv = batch * (2 * l * dim * dim + 2 * l * ch * dim)
+    if not bf16:
+        return proj + sum(attn.values()) + skconv, 0.0, 0.0, 0.0
+    return attn.get(2, 0.0), sum(f for ws, f in attn.items() if ws != 2), proj, skconv
 
 
 def attn_fwd_parts(t, dim, win, io_bytes=4):
@@ -443,8 +468,12 @@ def check_hmma(kernels):
     width: 16, 32, 48, 64, 80, 96) bf16 m16n8k16 products
     (HMMA.16816.F32.BF16); every instance of the bf16 backwards' product
     kernels (BF16_BWD_KERNELS) holds bf16 m16n8k16 products and no TF32
-    product (no 3xTF32 split on bf16 operands), and K3's and K5's libraries
-    hold no widening or narrowing pass (WIDENING_KERNELS)."""
+    product (no 3xTF32 split on bf16 operands), and K3's, K4's and K5's
+    libraries hold no widening or narrowing pass (WIDENING_KERNELS); K1's and
+    K5's libraries hold SKConv's two token kernels on float32 and on bf16
+    weights at every embedding width, and each bf16-weight instance takes
+    two TF32 passes a product step where the float32 one takes three (see
+    SKCONV_LIBS)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     found, bf16, bf16_bwd, widening = {}, {}, {}, []
     for name in ("window_attention", "window_attention_train", "window_attention_core", "window_attention_full",
@@ -454,7 +483,8 @@ def check_hmma(kernels):
         funcs = re.split(r"\n\s*Function : ", sass)[1:]
         names = demangle([f.split(None, 1)[0] for f in funcs])
         for func, body in zip(names, funcs):
-            if name in ("window_attention_train", "window_attention_full") and base_name(func) in WIDENING_KERNELS:
+            if name in ("window_attention_train", "window_attention_core", "window_attention_full") and \
+                    base_name(func) in WIDENING_KERNELS:
                 widening.append(f"{name}: {func}")
             if base_name(func) in BF16_BWD_KERNELS:
                 bf16_bwd[f"{name}: {func}"] = (body.count("HMMA.16816.F32.BF16"), body.count("TF32"))
@@ -471,13 +501,32 @@ def check_hmma(kernels):
         log(f"  sass {lib}: HMMA instructions: {', '.join(rows)}")
     log(f"  sass bf16 m16n8k16 products (HMMA.16816.F32.BF16): {bf16}")
     log(f"  sass bf16 backwards (HMMA.16816.F32.BF16, TF32 instructions): {bf16_bwd}")
+    skconv = {}
+    for func, (hmma, _) in found.items():
+        if m := re.search(r"^(\w+): (skconv_(?:proj|out)_kernel)<(\d+), (float|__nv_bfloat16)>", func):
+            skconv.setdefault(m.group(1, 2, 3), {})[m.group(4)] = hmma
+    log(f"  sass SKConv TF32 HMMA, float32 / bf16 weights: {skconv}")
+    not_two_thirds = {}
+    for lib in SKCONV_LIBS:
+        for width in range(16, 97, 16):
+            for kern in ("skconv_proj_kernel", "skconv_out_kernel"):
+                n = skconv.get((lib, kern, str(width)), {})
+                f32, bf = n.get("float", 0), n.get("__nv_bfloat16", 0)
+                if kern == "skconv_proj_kernel":
+                    bad = not f32 or 3 * bf != 2 * f32
+                else:
+                    bad = not f32 or f32 % 3 or not bf or bf % (2 * f32 // 3)
+                if bad:
+                    not_two_thirds[(lib, kern, width)] = n
     missing = [f for f, n in found.items() if sum(n) == 0]
     absent = [k for k in TC_KERNELS if not any(base_name(f.split(": ", 1)[1]) == k for f in found)]
     tf32 = [f for f, (n16, n32) in bf16_bwd.items() if n16 == 0 or n32]
-    if missing or absent or len(bf16) < 4 or not all(bf16.values()) or tf32 or widening:
+    if missing or absent or len(bf16) < 4 or not all(bf16.values()) or tf32 or widening or not_two_thirds:
         raise AssertionError(f"no HMMA or HGMMA in {missing}; tensor-core kernels not found: {absent}; bf16 "
                              f"m16n8k16 products: {bf16}; bf16 backward kernels without bf16 products or with "
-                             f"TF32 ones: {tf32}; widening passes in K3's / K5's libraries: {widening}")
+                             f"TF32 ones: {tf32}; widening passes in K3's / K4's / K5's libraries: {widening}; "
+                             f"SKConv instances missing, or on bf16 weights not two TF32 passes a step: "
+                             f"{not_two_thirds}")
 
 
 def phase_window_attention(dev):
@@ -819,16 +868,19 @@ def phase_window_attention_bf16(dev):
     parts = {"ln_proj_bf16_kernel": (2 * (2 * t * dim + 3 * dim * dim + 3 * dim) + 4 * 3 * t * dim, 0.0, 0.0,
                                      2 * t * dim * 3 * dim),
              **attn_fwd_parts(t, dim, (2, 4, 8)),
-             "skconv_proj_kernel": (4 * (2 * t * dim + t // 64 * dim) + 2 * dim * dim, 0.0, 2 * t * dim * dim),
+             "skconv_proj_kernel": (4 * (2 * t * dim + t // 64 * dim) + 2 * dim * dim, 0.0, 0.0, 0.0,
+                                    2 * t * dim * dim),
              "skconv_gate_kernel": (4 * t // 64 * dim, 0.0, 0.0),
-             "skconv_out_kernel": (4 * 2 * t * dim + 2 * (2 * t * dim + dim * ch), 2 * t * dim, 2 * t * ch * dim)}
+             "skconv_out_kernel": (4 * 2 * t * dim + 2 * (2 * t * dim + dim * ch), 2 * t * dim, 0.0, 0.0,
+                                   2 * t * ch * dim)}
     log_split("K1 bf16", split, {k: tuple(12 * v for v in p) for k, p in parts.items()})
-    flops, proj = k1_ops(B, l, dim, (2, 4, 8), bf16=True)  # float32, on bf16 operands
+    ops = k1_ops(B, l, dim, (2, 4, 8), bf16=True)
     nbytes = 3 * B * l * dim * 2
-    b_ms, b_by = bound_ms(nbytes, flops, 0.0, proj)
+    b_ms, b_by = bound_ms(nbytes, *ops)
     for shift, (k_ms, p_ms) in times.items():
         log(f"K1 bf16 B={B} shift={shift}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; "
-            f"{nbytes / 1e6:.1f} MB, {proj / 1e9:.2f} GFLOP bf16 + {flops / 1e9:.2f} GFLOP float32)")
+            f"{nbytes / 1e6:.1f} MB; GFLOP: {ops[0] / 1e9:.2f} float32 on CUDA cores, {ops[1] / 1e9:.2f} 3xTF32, "
+            f"{ops[2] / 1e9:.2f} bf16, {ops[3] / 1e9:.2f} 2xTF32 on bf16 weights)")
     per_fwd = lambda i: 6 * (times[(0, 0, 0)][i] + times[(1, 2, 4)][i])
     return {"name": "window_attention_block_bf16", "route": "cuda",
             "source": "dpmn_tpu_torch/csrc/window_attention.cu",
@@ -1254,9 +1306,10 @@ def phase_core_bf16(dev, core):
     also with 3 heads a group (two groups of 48 channels) and with a scale
     that is not a power of two, at B = 9.  Times a call beside the float32
     kernel on the same values, and for K4 beside SDPA on bf16.  K3's and
-    K5's backward are also split by sub-kernel (torch.profiler), each part
-    beside its bound, with their launches a call held to BF16_BWD_LAUNCHES
-    and no widening pass among them.  Returns the
+    K4's and K5's backward are also split by sub-kernel (torch.profiler),
+    each part beside its bound, with their launches a call held to
+    BF16_BWD_LAUNCHES and no widening pass among them; so is K5's forward
+    (BF16_FWD_LAUNCHES).  Returns the
     kernels-line entries of its two entry points (per AMP train step: 6
     unshifted + 6 shifted calls, keep 0.9; the bound from bf16 bytes, the
     products on bf16 operands at the bf16 tensor-core peak and SKConv's
@@ -1274,7 +1327,7 @@ def phase_core_bf16(dev, core):
     gen = torch.Generator().manual_seed(5)
     bf = torch.bfloat16
     cot = torch.randn(B, h * w, dim, generator=gen).to(dev, bf)
-    worst_fwd, worst_grad, times, split_bwd = 0.0, 0.0, {}, {}
+    worst_fwd, worst_grad, times, split_bwd, split_fwd = 0.0, 0.0, {}, {}, {}
     if core == "block":
         # 3 heads a group (the thread-per-row attention backward), and a scale
         # that is not a power of two (head dim 12's), against the plain version
@@ -1324,25 +1377,34 @@ def phase_core_bf16(dev, core):
         if core in BF16_BWD_LAUNCHES:
             call = lambda: mod._backward_cuda(st, p_det, b_det, cot, kept)
             split = kernel_split(call)
-            check_bf16_bwd_launches(f"{tag} backward shift={shift}", name, call, split, BF16_BWD_LAUNCHES[core])
+            check_bf16_launches(f"{tag} backward shift={shift}", name, call, split, BF16_BWD_LAUNCHES[core])
             add_split(split_bwd, split, 6)
+        if core in BF16_FWD_LAUNCHES:
+            call = lambda: mod._forward_cuda(st, p_det, b_det)
+            split = kernel_split(call)
+            check_bf16_launches(f"{tag} forward shift={shift}", name, call, split, BF16_FWD_LAUNCHES[core])
+            add_split(split_fwd, split, 6)
         log(f"{tag} B={B} shift={shift} keep=0.9: forward {k_fwd:.4f} ms a call (float32 kernel on the same values "
             f"{f_fwd:.4f}), backward {k_bwd:.4f} (float32 {f_bwd:.4f}); plain forward {p_fwd:.4f}, backward "
             f"{p_bwd:.4f}{lib}")
     # bounds: bf16 bytes; the attention and projection products on bf16
-    # operands; K5's SKConv products in float32
+    # operands; K5's SKConv products on bf16 weights, forward as two TF32
+    # passes, backward in float32
     win, t = (2, 4, 8), B * h * w
     cost = {"block": k3_cost, "attention": k4_cost, "full": k5_cost}[core](B, (h, w), dim, win)
     skconv = 2 * t * dim * dim + 2 * t * (dim // 3) * dim if core == "full" else 0.0
-    fb_ms, fb_by = bound_ms(cost["fwd_bytes"] / 2, skconv, 0.0, cost["fwd_flops"] - skconv)
+    fb_ms, fb_by = bound_ms(cost["fwd_bytes"] / 2, 0.0, 0.0, cost["fwd_flops"] - skconv, skconv)
     bb_ms, bb_by = bound_ms(cost["bwd_bytes"] / 2, 3 * skconv, 0.0, cost["bwd_flops"] - 3 * skconv)
     log(f"{tag} bounds a call: forward {fb_ms:.4f} ms ({fb_by}; {cost['fwd_bytes'] / 2e6:.1f} MB, "
-        f"{(cost['fwd_flops'] - skconv) / 1e9:.2f} GFLOP on bf16 operands, {skconv / 1e9:.2f} in float32), backward "
+        f"{(cost['fwd_flops'] - skconv) / 1e9:.2f} GFLOP on bf16 operands, {skconv / 1e9:.2f} as 2xTF32), backward "
         f"{bb_ms:.4f} ({bb_by}; {cost['bwd_bytes'] / 2e6:.1f} MB, {(cost['bwd_flops'] - 3 * skconv) / 1e9:.2f} GFLOP "
         f"on bf16 operands, {3 * skconv / 1e9:.2f} in float32)")
     if core in BF16_BWD_LAUNCHES:
         log_split(f"{tag} backward", split_bwd, {k: tuple(12 * v for v in p)
                                                  for k, p in bf16_bwd_parts(core, t, dim, win, h, w).items()})
+    if core in BF16_FWD_LAUNCHES:
+        log_split(f"{tag} forward", split_fwd, {k: tuple(12 * v for v in p)
+                                                for k, p in bf16_fwd_parts(t, dim, win).items()})
     per_step = lambda i: 6 * (times[(0, 0, 0)][i] + times[(1, 2, 4)][i])
     common = {"route": "cuda", "source": f"dpmn_tpu_torch/csrc/{name}.cu"}
     fwd = {"name": f"{name}_forward_bf16", **common, "replaces": REPLACES[name][0], "max_abs_err": worst_fwd,
@@ -1361,11 +1423,11 @@ def port_kernel_names():
     return {n for f in csrc.glob("*.cu*") for n in re.findall(r"\b(\w+_kernel)\b", f.read_text())}
 
 
-def check_bf16_bwd_launches(tag, lib, call, split, want):
-    """One bf16 backward call() launches `want` kernels of the library `lib`
-    (its own host-side count, <lib>_kernel_launches: the wrapper's PyTorch
-    ops not counted), and none of the split's kernels (torch.profiler) is a
-    widening or narrowing pass.  The profiler is not asked for the count: it
+def check_bf16_launches(tag, lib, call, split, want):
+    """One bf16 forward or backward call() launches `want` kernels of the
+    library `lib` (its own host-side count, <lib>_kernel_launches: the
+    wrapper's PyTorch ops not counted), and none of the split's kernels
+    (torch.profiler) is a widening or narrowing pass.  The profiler is not asked for the count: it
     drops some of a profile's device events in some runs."""
     import ctypes
 
@@ -1386,17 +1448,39 @@ def check_bf16_bwd_launches(tag, lib, call, split, want):
         raise AssertionError(f"{tag}: {launches} launches a call, want {want}; widening passes {widening}")
 
 
+def bf16_fwd_parts(t, dim, win):
+    """{sub-kernel: (bytes, CUDA-core operations, 3xTF32 operations, bf16
+    operations[, 2xTF32 operations])} of one K5 bf16 forward call on t tokens: LN + projection
+    (bf16 xq, xkv and weights read, bf16 q, kv written; products on bf16),
+    the attention forward (bf16 q, k, v read, float32 tokens written; the
+    4x4 and 8x8 windows' products on bf16, the 2x2's on the CUDA cores),
+    SKConv's three passes (the tokens read by both products, feats written
+    and read back, the GAP partials; their products on bf16 weights, two
+    TF32 passes, in the fifth place)."""
+    ch = dim // len(win)
+    flops = {ws: 2 * 2 * t * ch * ws * ws for ws in win}
+    return {"ln_proj_bf16_kernel": (2 * (5 * t * dim + 3 * dim * dim + 3 * dim), 0.0, 0.0, 2 * t * dim * 3 * dim),
+            "window_attn_fwd_kernel": (2 * 3 * t * dim + 4 * t * dim, flops.get(2, 0.0), 0.0,
+                                       sum(f for ws, f in flops.items() if ws != 2)),
+            "skconv_proj_kernel": (4 * (2 * t * dim + t // 64 * dim) + 2 * dim * dim, 0.0, 0.0, 0.0,
+                                   2 * t * dim * dim),
+            "skconv_gate_kernel": (4 * t // 64 * dim, 0.0, 0.0, 0.0),
+            "skconv_out_kernel": (4 * 2 * t * dim + 2 * (t * dim + dim * ch), 2 * t * dim, 0.0, 0.0,
+                                  2 * t * ch * dim)}
+
+
 def bf16_bwd_parts(core, t, dim, win, h, w):
     """{sub-kernel: (bytes, CUDA-core operations, 3xTF32 operations, bf16
-    operations)} of one K3 ("block") or K5 ("full") bf16 backward call on t
-    tokens: q and kv recomputed in bf16 (ln_proj_bf16_kernel); per group the
-    attention backward reading bf16 q, k, v, dout and writing float32 dq,
-    dk, dv (the 2x2 windows' on the CUDA cores, the others' products on bf16
-    tensor cores); the projection backward and the weight gradients reading
-    bf16 x and weights and float32 dq / dkv, dx in bf16, the products on
-    bf16; the partial rows' sums (their outputs bf16); for K5 SKConv's
-    passes on bf16 dout, their products at 3xTF32 (the tokens' gradient
-    stored in bf16)."""
+    operations)} of one K3 ("block"), K4 ("attention") or K5 ("full") bf16
+    backward call on t tokens: q and kv recomputed in bf16
+    (ln_proj_bf16_kernel; not K4); per group the attention backward reading
+    bf16 q, k, v, dout and writing dq, dk, dv (float32; K4 bf16), the 2x2
+    windows' on the CUDA cores, the others' products on bf16 tensor cores
+    (K4: these and the partial rows' sums alone); the projection backward
+    and the weight gradients reading bf16 x and weights and float32 dq /
+    dkv, dx in bf16, the products on bf16; the partial rows' sums (their
+    outputs bf16); for K5 SKConv's passes on bf16 dout, their products at
+    3xTF32 (the tokens' gradient stored in bf16)."""
     ch = dim // len(win)
     batch = t // (h * w)
     wparts = -(-t // 512) * (3 * dim * dim + 3 * dim)
@@ -1406,9 +1490,16 @@ def bf16_bwd_parts(core, t, dim, win, h, w):
         floats = batch * attn_bwd_chunks(n, 2, (h // ws) * (w // ws)) * 2 * n * n
         partials += floats
         flops = 5 * 2 * t * ch * n
-        key = "window_attn_bwd4_kernel" if n == 4 else f"window_attn_bwd_tc_bf16_kernel<{n},"
-        parts[key] = (2 * 4 * t * ch + 4 * (3 * t * ch + floats), flops if n == 4 else 0.0, 0.0,
-                      0.0 if n == 4 else flops)
+        # K4's instances (bf16 outputs) have template arguments too long for
+        # the split's names: its 4x4 and 8x8 parts are one
+        key = ("window_attn_bwd4_kernel" if n == 4 else "window_attn_bwd_tc_bf16_kernel" if core == "attention"
+               else f"window_attn_bwd_tc_bf16_kernel<{n},")
+        out_bytes = 2 if core == "attention" else 4
+        part = (2 * 4 * t * ch + out_bytes * 3 * t * ch + 4 * floats, flops if n == 4 else 0.0, 0.0,
+                0.0 if n == 4 else flops)
+        parts[key] = tuple(a + b for a, b in zip(parts.get(key, (0.0,) * 4), part))
+    if core == "attention":
+        return {**parts, "sum_rows_kernel": (4 * partials, partials, 0.0, 0.0)}
     out = {"ln_proj_bf16_kernel": (2 * (5 * t * dim + 3 * dim * dim + 3 * dim), 0.0, 0.0, 2 * t * dim * 3 * dim),
            **parts,
            "proj_ln_bwd_bf16_kernel": (2 * 2 * t * dim + 4 * 3 * t * dim + 2 * 2 * t * dim + 4 * t // 64 * 4 * dim,
@@ -2802,8 +2893,7 @@ def geometry_k1(dev, geo, g, launches):
                 times.append((cuda_ms(lambda: window_attention_block(xq, xkv, **kw), iters=5),
                               cuda_ms(lambda: window_attention_block_plain(xq, xkv, **kw), iters=2)))
         l = h * w
-        f32, bf = k1_ops(B, l, dim, win, bf16=bool(sfx))
-        b_ms, b_by = bound_ms(3 * B * l * dim * (2 if sfx else 4), f32, 0.0, bf)
+        b_ms, b_by = bound_ms(3 * B * l * dim * (2 if sfx else 4), *k1_ops(B, l, dim, win, bf16=bool(sfx)))
         per = g["blocks"] // 2
         k_ms, p_ms = (per * sum(t[i] for t in times) for i in (0, 1))
         log(f"geometry {geo} K1{sfx} B={B}: {k_ms:.4f} ms a forward ({g['blocks']} calls), plain {p_ms:.4f}, "
@@ -2882,7 +2972,7 @@ def geometry_core(dev, geo, g, core, dtype, launches):
     t = B * h * w
     skconv = 2 * t * dim * dim + 2 * t * (dim // len(g["win"])) * dim if core == "full" else 0.0
     if amp:
-        fb = bound_ms(cost["fwd_bytes"] / 2, skconv, 0.0, cost["fwd_flops"] - skconv)
+        fb = bound_ms(cost["fwd_bytes"] / 2, 0.0, 0.0, cost["fwd_flops"] - skconv, skconv)
         bb = bound_ms(cost["bwd_bytes"] / 2, 3 * skconv, 0.0, cost["bwd_flops"] - 3 * skconv)
     else:
         fb, bb = bound_ms(cost["fwd_bytes"], cost["fwd_flops"]), bound_ms(cost["bwd_bytes"], cost["bwd_flops"])

@@ -96,6 +96,16 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4
   mma_tf32(d, ah, bh[0], bh[1]);
 }
 
+// mma_3xtf32 where b is exact in TF32 (a widened bf16 value: its 16 low
+// bits are clear, so split_tf32_fast gives hi = b and lo = +0, and the
+// ah . bl pass adds exact zeros): the two passes that remain, in the same
+// order, give the same sums up to the sign of a zero.
+__device__ __forceinline__ void mma_2xtf32(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2]) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
 template <int MT, int NT>
 __device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
 #pragma unroll
@@ -115,8 +125,10 @@ __device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
 // (strides 8 or 24 mod 32).  The warp owns the m16-tiles at rows m0 + 16 i
 // for i < mt and the n8-tiles at columns n0 + 8 j for j < nt (mt <= MT, nt
 // <= NT; the rest of the register tile stays untouched).  Per k-step the B
-// fragments are split once and serve all m-tiles.
-template <bool AT, bool BT, int MT, int NT>
+// fragments are split once and serve all m-tiles.  BX: every element of B
+// is exact in TF32 (SKConv's bf16 weights, widened as staged): B is not
+// split and each step takes two passes (mma_2xtf32).
+template <bool AT, bool BT, int MT, int NT, bool BX = false>
 __device__ __forceinline__ void mma_tile(float (&acc)[MT][NT][4], const float* __restrict__ A, int lda, int m0,
                                          const float* __restrict__ Bm, int ldb, int n0, int K, int mt = MT,
                                          int nt = NT) {
@@ -130,8 +142,13 @@ __device__ __forceinline__ void mma_tile(float (&acc)[MT][NT][4], const float* _
     for (int j = 0; j < NT; ++j) {
       if (j < nt) {
         const int n = n0 + 8 * j + g8;
-        split_tf32_fast(b_at(n, k0 + t4), bh[j][0], bl[j][0]);
-        split_tf32_fast(b_at(n, k0 + t4 + 4), bh[j][1], bl[j][1]);
+        if constexpr (BX) {
+          bh[j][0] = __float_as_uint(b_at(n, k0 + t4));
+          bh[j][1] = __float_as_uint(b_at(n, k0 + t4 + 4));
+        } else {
+          split_tf32_fast(b_at(n, k0 + t4), bh[j][0], bl[j][0]);
+          split_tf32_fast(b_at(n, k0 + t4 + 4), bh[j][1], bl[j][1]);
+        }
       }
     }
 #pragma unroll
@@ -145,7 +162,12 @@ __device__ __forceinline__ void mma_tile(float (&acc)[MT][NT][4], const float* _
         split_tf32_fast(a_at(m + 8, k0 + t4 + 4), ah[3], al[3]);
 #pragma unroll
         for (int j = 0; j < NT; ++j)
-          if (j < nt) mma_3xtf32(acc[i][j], ah, al, bh[j], bl[j]);
+          if (j < nt) {
+            if constexpr (BX)
+              mma_2xtf32(acc[i][j], ah, al, bh[j]);
+            else
+              mma_3xtf32(acc[i][j], ah, al, bh[j], bl[j]);
+          }
       }
     }
   }

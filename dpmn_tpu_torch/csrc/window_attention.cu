@@ -108,6 +108,37 @@ extern "C" int window_attention_block_forward(
                        n_group, ws, shifts, gh, dz, scale, corrected, stream);
 }
 
+// SKConv's tail alone, as block_forward runs it on its float32 tokens attn
+// (B, L, D): w holds proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ph_w,
+// ph_b; xkv (the residual, read where residual is set) and out (B, L, D);
+// scratch feats, partial, gate as block_forward's.  The entry points below
+// launch the float32-weight and the bf16-weight instances, so that a test
+// holds the one against the other on the same tokens.
+template <typename T>
+int skconv_tail(const float* attn, const T* const* w, const T* xkv, float* feats, float* partial, float* gate,
+                T* out, int B, int L, int D, int n_group, int dz, int residual, void* stream) {
+  return static_cast<int>(launch_skconv_t<T>(attn, w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], xkv, feats,
+                                             partial, gate, out, B, L, D, n_group, dz, residual,
+                                             static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int window_attention_skconv(const float* attn, const float* const* w, const float* xkv, float* feats,
+                                       float* partial, float* gate, float* out, int B, int L, int D, int n_group,
+                                       int dz, int residual, void* stream) {
+  return skconv_tail(attn, w, xkv, feats, partial, gate, out, B, L, D, n_group, dz, residual, stream);
+}
+
+extern "C" int window_attention_skconv_bf16(const float* attn, const __nv_bfloat16* const* w,
+                                            const __nv_bfloat16* xkv, float* feats, float* partial, float* gate,
+                                            __nv_bfloat16* out, int B, int L, int D, int n_group, int dz,
+                                            int residual, void* stream) {
+  return skconv_tail(attn, w, xkv, feats, partial, gate, out, B, L, D, n_group, dz, residual, stream);
+}
+
+// The kernels this library has launched since it was loaded
+// (kernel_launches, window_common.cuh).
+extern "C" unsigned long long window_attention_kernel_launches() { return kernel_launches; }
+
 // The same block on bf16 io (xq, xkv, the LN parameters, the weights and
 // out); the same arguments otherwise.
 extern "C" int window_attention_block_forward_bf16(

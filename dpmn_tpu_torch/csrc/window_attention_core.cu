@@ -45,42 +45,23 @@
 // in the backward P*M and dS rounded before their products, dbias summed
 // from the unrounded dS, dq (with the float32 scale), dk and dv rounded at
 // the store.  The forward is window_attn_fwd_kernel<DROP, bf16, float> on
-// the bf16 rows, as K3's bf16 form; the backward widens q (scaled), k, v and
-// dout to float32 once (bf16_rows), runs the float32 attention backward with
-// its BF16 rounding (window_train_common.cuh) and narrows dq, dk, dv.  k and
+// the bf16 rows, as K3's bf16 form; the backward is K3's bf16 attention
+// backward (window_train_common.cuh: window_attn_bwd_tc_bf16_kernel for the
+// 4x4 and 8x8 windows with 1-2 heads a group, products on bf16 m16n8k16, q
+// scaled as it is staged; the 2x2 and thread-per-row kernels on bf16 rows)
+// with OT = bf16: dq, dk and dv rounded once as the kernel stores them, so
+// no pass widens an input or narrows an output, and a call launches an
+// attention backward and a dbias sum per group (6 at three groups).  k and
 // v are rows of stride kvs (the halves of one kv projection: kvs = 2D), so
-// the caller copies nothing.  Bound at B = 64, flagship geometry: forward
+// the caller copies nothing; dk and dv are written at the same row stride
+// (the wrapper hands out the halves of one (B, L, 2D) buffer, or two
+// buffers where kvs < 2D).  Bound at B = 64, flagship geometry: forward
 // 50.3 MB of bf16 rows and 0.70 GFLOP = 15 us at 3.35 TB/s, backward 88.1 MB
 // = 26 us; both bound by bytes.
 
 #include "window_train_common.cuh"
 
 using bf16 = __nv_bfloat16;
-
-namespace {
-
-// The float32 scratch of the bf16 backward, carved from one buffer, every
-// piece a multiple of 4 floats (16-byte aligned): q (scaled), [k | v] and
-// dout widened; dq, [dk | dv]; the dbias partials.
-struct CoreBf16Work {
-  float *qf, *kvf, *doutf, *dq, *dkv, *dbias_part;
-  size_t floats;
-
-  CoreBf16Work(float* base, int B, int H, int W, int D, int n_group, const int* ws, int gh) {
-    const size_t nd = (size_t)B * H * W * D;
-    size_t off = 0;
-    auto take = [&](size_t n) {
-      float* p = base ? base + off : nullptr;
-      off += (n + 3) / 4 * 4;
-      return p;
-    };
-    qf = take(nd), kvf = take(2 * nd), doutf = take(nd), dq = take(nd), dkv = take(2 * nd);
-    dbias_part = take(attn_bwd_part_floats(B, H, W, n_group, ws, gh));
-    floats = off;
-  }
-};
-
-}  // namespace
 
 // Shapes: q, k, v, out (B, L, D) with L = H*W.  bias: per group
 // (gh, N_g, N_g), concatenated; mask: per shifted group (nW_g, N_g, N_g),
@@ -134,36 +115,22 @@ extern "C" int window_attention_core_forward_bf16(const bf16* q, const bf16* k, 
                                                  static_cast<cudaStream_t>(stream)));
 }
 
-// The floats of the bf16 backward's work buffer.
-extern "C" size_t window_attention_core_backward_bf16_work(int B, int H, int W, int D, int n_group, const int* ws,
-                                                           int gh) {
-  return CoreBf16Work(nullptr, B, H, W, D, n_group, ws, gh).floats;
-}
+// The kernels this library has launched since it was loaded
+// (kernel_launches, window_common.cuh).
+extern "C" unsigned long long window_attention_core_kernel_launches() { return kernel_launches; }
 
-// The bf16 backward: the forward's inputs, dout (B, L, D) bf16 and `work`
-// (window_attention_core_backward_bf16_work floats); outputs dq, dk, dv
-// (B, L, D) bf16 and dbias float32 laid out as bias.
+// The bf16 backward: the forward's inputs, dout (B, L, D) bf16 and
+// dbias_part (window_attention_core_backward_scratch floats); outputs dq
+// (B, L, D) bf16, dk and dv bf16 rows of stride kvs (as k and v), dbias
+// float32 laid out as bias.
 extern "C" int window_attention_core_backward_bf16(const bf16* q, const bf16* k, const bf16* v, const float* bias,
-                                                   const float* mask, const bf16* dout, float* work, bf16* dq,
+                                                   const float* mask, const bf16* dout, float* dbias_part, bf16* dq,
                                                    bf16* dk, bf16* dv, float* dbias, int kvs, int B, int H, int W,
                                                    int D, int n_group, const int* ws, const int* shifts, int gh,
                                                    float scale, uint32_t seed, uint32_t thresh, float inv_keep,
                                                    int drop, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t ntok = (int64_t)B * H * W;
-  const CoreBf16Work r(work, B, H, W, D, n_group, ws, gh);
-  cudaError_t err;
-  if ((err = bf16_rows(q, D, r.qf, D, ntok, D, bf16_scale(scale), st)) != cudaSuccess ||
-      (err = bf16_rows(k, kvs, r.kvf, 2 * D, ntok, D, 1.f, st)) != cudaSuccess ||
-      (err = bf16_rows(v, kvs, r.kvf + D, 2 * D, ntok, D, 1.f, st)) != cudaSuccess ||
-      (err = convert(dout, r.doutf, ntok * D, st)) != cudaSuccess)
-    return static_cast<int>(err);
-  err = launch_attn_bwd_groups_any<true>(r.qf, r.kvf, r.kvf + D, 2 * D, r.doutf, bias, mask, r.dq, r.dkv, r.dkv + D,
-                                         r.dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh,
-                                         inv_keep, drop, st);
-  if (err != cudaSuccess || (err = convert(r.dq, dq, ntok * D, st)) != cudaSuccess ||
-      (err = bf16_rows(r.dkv, 2 * D, dk, D, ntok, D, 1.f, st)) != cudaSuccess)
-    return static_cast<int>(err);
-  return static_cast<int>(bf16_rows(r.dkv + D, 2 * D, dv, D, ntok, D, 1.f, st));
+  return static_cast<int>(launch_attn_bwd_groups_any(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias,
+                                                     B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh,
+                                                     inv_keep, drop, static_cast<cudaStream_t>(stream)));
 }

@@ -755,11 +755,11 @@ extern "C" int window_attention_full_backward_bf16(const bf16* xq, const bf16* x
                             st)) != cudaSuccess ||
       (err = launch_skconv_bwd(dout, k, wt, r, g_fc, g_p, g_ph, B, L, D, n_group, dz, grid, st)) != cudaSuccess)
     return static_cast<int>(err);
-  err = launch_attn_bwd_groups_any<true>(static_cast<const bf16*>(qh), static_cast<const bf16*>(kvh),
-                                         static_cast<const bf16*>(kvh + D), 2 * D,
-                                         static_cast<const bf16*>(reinterpret_cast<bf16*>(r.dtok)), bias, mask, r.dq,
-                                         r.dkv, r.dkv + D, r.dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh,
-                                         scale, seed, thresh, inv_keep, drop, st);
+  err = launch_attn_bwd_groups_any(static_cast<const bf16*>(qh), static_cast<const bf16*>(kvh),
+                                   static_cast<const bf16*>(kvh + D), 2 * D,
+                                   static_cast<const bf16*>(reinterpret_cast<bf16*>(r.dtok)), bias, mask, r.dq,
+                                   r.dkv, r.dkv + D, r.dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh,
+                                   scale, seed, thresh, inv_keep, drop, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_ln_proj_bwd(xq, xkv, wt[0], wt[1], wt[2], wt[3], wt[4], wt[6], r.dq, r.dkv,
                                                   r.wpart_q, r.wpart_kv, r.lnpart_q, r.lnpart_kv, dxq, dxkv, g_q, g_kv,

@@ -218,10 +218,10 @@ extern "C" int window_attention_train_backward_bf16(
   // scales q as the forward does
   cudaError_t err = launch_ln_proj(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, r.qh, r.kvh, ntok, D, 1, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_attn_bwd_groups_any<true>(static_cast<const bf16*>(r.qh), static_cast<const bf16*>(r.kvh),
-                                         static_cast<const bf16*>(r.kvh + D), 2 * D, dout, bias, mask, r.dq, r.dkv,
-                                         r.dkv + D, r.dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale,
-                                         seed, thresh, inv_keep, drop, st);
+  err = launch_attn_bwd_groups_any(static_cast<const bf16*>(r.qh), static_cast<const bf16*>(r.kvh),
+                                   static_cast<const bf16*>(r.kvh + D), 2 * D, dout, bias, mask, r.dq, r.dkv,
+                                   r.dkv + D, r.dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale,
+                                   seed, thresh, inv_keep, drop, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_ln_proj_bwd(xq, xkv, qs, qb, ks, kb, q_w, kv_w, r.dq, r.dkv, r.wpart_q,
                                                   r.wpart_kv, r.lnpart_q, r.lnpart_kv, dxq, dxkv, gq, gkv, gln_q,

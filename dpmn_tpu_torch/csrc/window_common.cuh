@@ -1034,7 +1034,8 @@ struct TileWarp {
 // (c1) feats = attn Wp^T + bp, and per-tile sums of gelu(feats), on
 // persistent CTAs: Wp staged once (T = bf16: widened to float32), attn
 // tiles by cp.async (two stages), the product on the tensor cores
-// (mma_tile, 3xTF32).  A tile's sum is fixed in
+// (mma_tile, 3xTF32; for T = bf16 two passes, the widened weight being
+// exact in TF32).  A tile's sum is fixed in
 // order: each thread's 4 rows, a shuffle tree over the 8 row groups of a
 // warp, then the two m-groups.  Shared: w [D][D + 4], xs [2][TOK][D + 4],
 // red [2][D].
@@ -1071,7 +1072,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     __syncthreads();
     float acc[2][NT][4];
     zero_acc(acc);
-    mma_tile<false, false, 2, NT>(acc, xs + stage * TOK * S, S, tw.m0, w, S, tw.n0, D, 2, nt);
+    mma_tile<false, false, 2, NT, sizeof(T) == 2>(acc, xs + stage * TOK * S, S, tw.m0, w, S, tw.n0, D, 2, nt);
     float gs[NT][2];
 #pragma unroll
     for (int j = 0; j < NT; ++j) gs[j][0] = gs[j][1] = 0.f;
@@ -1160,8 +1161,9 @@ __global__ void skconv_gate_kernel(const float* __restrict__ partial, const T* _
 // (c3) out = [xkv +] feats + (sum_g gate_g * attn_g) Wph^T + bph, on
 // persistent CTAs: Wph staged once, attn tiles by cp.async (two stages),
 // the gated sum fv of each tile into shared memory, its product with Wph on
-// the tensor cores (mma_tile over K = ch).  T is the type of Wph, bph, xkv
-// and out: for bf16 the sum runs in float32 and is rounded once on store.
+// the tensor cores (mma_tile over K = ch; two TF32 passes for T = bf16, as
+// in c1).  T is the type of Wph, bph, xkv and out: for bf16 the sum runs in
+// float32 and is rounded once on store.
 // A tile lies in one image (L % TOK == 0).  Shared: w [D][ch + 4], xs [2][TOK][D + 4], fv [TOK][ch + 4].
 template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -1207,7 +1209,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     __syncthreads();
     float acc[2][NT][4];
     zero_acc(acc);
-    mma_tile<false, false, 2, NT>(acc, fv, SC, tw.m0, w, SC, tw.n0, ch, 2, nt);
+    mma_tile<false, false, 2, NT, sizeof(T) == 2>(acc, fv, SC, tw.m0, w, SC, tw.n0, ch, 2, nt);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -1235,27 +1237,30 @@ cudaError_t launch_skconv_d(const float* attn, const T* proj_w, const T* proj_b,
                             float* feats, float* partial, float* gate, T* out, int B, int L, int n_group, int dz,
                             int residual, cudaStream_t st) {
   const int ntile = B * L / TOK, ch = D / n_group;
-  int grid = 0;
-  cudaError_t err = persistent_grid(ntile, &grid);
-  if (err != cudaSuccess || grid == 0) return err;
+  if (ntile == 0) return cudaSuccess;
   const size_t smem_c1 = (size_t)(D * (D + 4) + 2 * TOK * (D + 4) + 2 * D) * sizeof(float);
-  if ((err = cudaFuncSetAttribute(skconv_proj_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem_c1)) != cudaSuccess)
-    return err;
+  const size_t smem_c3 = (size_t)(D * (ch + 4) + 2 * TOK * (D + 4) + TOK * (ch + 4)) * sizeof(float);
+  // As many CTAs an SM as its registers and shared memory hold (2 of each
+  // at D = 96), so that one CTA's tile loads, products and epilogue overlap
+  // another's; one CTA an SM left them waiting on one another (3.3-3.4x the
+  // bytes' bound on an H100, bf16 weights)
+  static GridCap cap_c1, cap_c3;
+  int cap = 0;
+  cudaError_t err = persistent_cap(cap_c1, skconv_proj_kernel<D, T>, THREADS, smem_c1, &cap);
+  if (err != cudaSuccess) return err;
+  const int grid_c1 = ntile < cap ? ntile : cap;
+  if ((err = persistent_cap(cap_c3, skconv_out_kernel<D, T>, THREADS, smem_c3, &cap)) != cudaSuccess) return err;
+  const int grid_c3 = ntile < cap ? ntile : cap;
   ++kernel_launches;
-  skconv_proj_kernel<D, T><<<grid, THREADS, smem_c1, st>>>(attn, proj_w, proj_b, feats, partial, ntile);
+  skconv_proj_kernel<D, T><<<grid_c1, THREADS, smem_c1, st>>>(attn, proj_w, proj_b, feats, partial, ntile);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t smem_c2 = (size_t)(D + 2 * dz + n_group * ch) * sizeof(float);
   ++kernel_launches;
   skconv_gate_kernel<T><<<B, 128, smem_c2, st>>>(partial, fc1_w, fc1_b, fc2_w, fc2_b, gate, L, D, dz, n_group, ch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t smem_c3 = (size_t)(D * (ch + 4) + 2 * TOK * (D + 4) + TOK * (ch + 4)) * sizeof(float);
-  if ((err = cudaFuncSetAttribute(skconv_out_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem_c3)) != cudaSuccess)
-    return err;
   ++kernel_launches;
-  skconv_out_kernel<D, T><<<grid, THREADS, smem_c3, st>>>(attn, feats, gate, ph_w, ph_b, xkv, out, L, n_group, ch,
-                                                          ntile, residual);
+  skconv_out_kernel<D, T><<<grid_c3, THREADS, smem_c3, st>>>(attn, feats, gate, ph_w, ph_b, xkv, out, L, n_group,
+                                                             ch, ntile, residual);
   return cudaGetLastError();
 }
 

@@ -7,23 +7,21 @@
 // per-block partials (sum_rows_kernel) that every cross-block sum goes
 // through: no float atomics, so reruns agree bit for bit.
 //
-// K4's bf16 form runs the float32 attention backward on bf16 values widened
-// to float32 (a bf16 value is exact in TF32, so the 3xTF32 products of two
-// of them are exact), with BF16 set where the JAX kernel rounds a float32
-// intermediate to its io dtype (dpmn_tpu/ops/pallas_window_train.py): the
-// attention backward takes q already scaled as the forward scales it,
-// round_bf16(q * bf16(scale)) (:208, :835; the caller widens it so,
-// `bf16_rows`), so the scores and dK take no further scale while dQ takes
-// the float32 scale (:114), and rounds P*M before dV and dS before dQ / dK
-// (:103, :111; dbias sums the unrounded dS).  K3's and K5's bf16 forms read
-// bf16 as it is: window_attn_bwd_tc_bf16_kernel (the 4x4 and 8x8 windows'
-// products on bf16 m16n8k16, q scaled as it is staged), the 2x2 and
-// thread-per-row kernels with T = bf16 (rows widened and q scaled as they
-// are staged, float32 arithmetic), and the projection backward
-// (proj_ln_bwd_bf16_kernel, wgrad_bf16_kernel) rounding dq / dkv before
-// dx_ln and dW (:488-502; db sums them unrounded) and the recomputed LN
-// before dW (:430-431) on bf16 m16n8k16, dx and the parameter gradients
-// written as bf16 by the kernels that finish them (:511-512).
+// On bf16 io (the bf16 AMP step) every core reads bf16 as it is, with the
+// rounding points of the JAX kernel (dpmn_tpu/ops/pallas_window_train.py):
+// window_attn_bwd_tc_bf16_kernel (the 4x4 and 8x8 windows' products on bf16
+// m16n8k16, q scaled as it is staged, round_bf16(q * bf16(scale)), :208,
+// :835, so the scores and dK take no further scale while dQ takes the
+// float32 scale, :114), the 2x2 and thread-per-row kernels with T = bf16
+// (rows widened and q scaled as they are staged, float32 arithmetic), P*M
+// rounded before dV and dS before dQ / dK (:103, :111; dbias sums the
+// unrounded dS).  dq, dk and dv are float32 for K3 and K5,
+// whose projection backward (proj_ln_bwd_bf16_kernel, wgrad_bf16_kernel)
+// rounds them before dx_ln and dW (:488-502; db sums them unrounded) and
+// the recomputed LN before dW (:430-431) on bf16 m16n8k16, dx and the
+// parameter gradients written as bf16 by the kernels that finish them
+// (:511-512); bf16 for K4 (OT = bf16), rounded once at the store as the JAX
+// kernel stores them in its io dtype (:260-263).
 //
 // The build hash of every csrc/*.cu covers this header (ops/kernels.py).
 
@@ -32,47 +30,6 @@
 #include "window_common.cuh"
 
 namespace {
-
-// dst[i] = src[i] converted (float32 <-> bf16, round to nearest even), a
-// grid-stride loop.
-template <typename S, typename D>
-__global__ void convert_kernel(const S* __restrict__ src, D* __restrict__ dst, int64_t n) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += (int64_t)gridDim.x * blockDim.x)
-    from_f(dst[i], to_f(src[i]));
-}
-
-template <typename S, typename D>
-cudaError_t convert(const S* src, D* dst, int64_t n, cudaStream_t st) {
-  if (n <= 0) return cudaSuccess;
-  const int64_t blocks = (n + THREADS - 1) / THREADS;
-  ++kernel_launches;
-  convert_kernel<<<(int)(blocks < 4096 ? blocks : 4096), THREADS, 0, st>>>(src, dst, n);
-  return cudaGetLastError();
-}
-
-// dst[r ds + c] = round_bf16(src[r ss + c] * mul), stored in D (bf16, or
-// float32 holding a bf16 value), r < rows, c < cols: a warp per row, 8 rows a
-// block, grid-stride.  With mul = bf16_scale(scale) it widens q as the bf16
-// forward scales it; with mul = 1 it widens bf16 rows of any stride, narrows
-// float32 rows, or rounds float32 rows in place (src == dst).
-template <typename S, typename D>
-__global__ void bf16_rows_kernel(const S* src, int64_t ss, D* dst, int64_t ds, int64_t rows, int cols, float mul) {
-  for (int64_t r = (int64_t)blockIdx.x * 8 + threadIdx.y; r < rows; r += (int64_t)gridDim.x * 8)
-    for (int c = threadIdx.x; c < cols; c += 32) from_f(dst[r * ds + c], round_bf16(to_f(src[r * ss + c]) * mul));
-}
-
-template <typename S, typename D>
-cudaError_t bf16_rows(const S* src, int64_t ss, D* dst, int64_t ds, int64_t rows, int cols, float mul,
-                      cudaStream_t st) {
-  if (rows <= 0) return cudaSuccess;
-  const int64_t blocks = (rows + 7) / 8;
-  ++kernel_launches;
-  bf16_rows_kernel<<<(int)(blocks < 4096 ? blocks : 4096), dim3(32, 8), 0, st>>>(src, ss, dst, ds, rows, cols, mul);
-  return cudaGetLastError();
-}
-
-// The scale as the JAX kernel multiplies a bf16 q by it: rounded to bf16.
-inline float bf16_scale(float scale) { return __bfloat162float(__float2bfloat16_rn(scale)); }
 
 // Tokens per block of the weight-gradient kernel.  At B = 64 (65536 tokens)
 // that is 128 blocks for a D-row weight, one wave of 132 SMs, and 256 for
@@ -90,20 +47,22 @@ constexpr int TOKC = 512;
 // (as in window_attn_fwd_kernel).  Shared:
 // scaled q, k, v and dout of the wpb windows [wpb][N][ch] each; dS and P*M
 // [wpb][gh][N][N + 1] (padded rows); the block's dbias sum [gh][N][N].
-// BF16: q arrives scaled (module comment); dS and P*M rounded to bf16 before
-// their products (dbias sums the unrounded dS).  HD: the head dim, 8, 16 or
-// 32.  T: the type of q, k, v and dout; bf16 (with BF16) widens the rows
-// and scales q as they are staged.
-template <int N, bool DROP, bool BF16 = false, int HD = 16, typename T = float>
+// HD: the head dim, 8, 16 or 32.  T: the type of q, k, v and dout; bf16
+// widens the rows and scales q as they are staged (module comment), and
+// rounds dS and P*M to bf16 before their products (dbias sums the
+// unrounded dS).  OT: the type of dq, dk, dv (bf16: K4's bf16 backward,
+// each rounded once as it is stored).
+template <int N, bool DROP, int HD = 16, typename T = float, typename OT = float>
 __global__ void window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                        const T* __restrict__ v, int kvs, const T* __restrict__ dout,
                                        const float* __restrict__ bias, const float* __restrict__ mask,
-                                       float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                                       OT* __restrict__ dq, OT* __restrict__ dk, OT* __restrict__ dv,
                                        float* __restrict__ dbias_part, int H, int W,
                                        int D, int g, int gh, int ws, int sh, int wpb, int wchunk, float scale,
                                        uint32_t seed, uint32_t thresh, float inv_keep) {
   extern __shared__ float sm[];
   constexpr int NP = N + 1;
+  constexpr bool BF16 = sizeof(T) == 2;
   const int ch = gh * HD, L = H * W;
   const int nwc = W / ws, nw = (H / ws) * nwc;
   const int b = blockIdx.y;
@@ -132,7 +91,7 @@ __global__ void window_attn_bwd_kernel(const T* __restrict__ q, const T* __restr
           vval = to_f(v[tok * kvs + g * ch + c]);
           dov = to_f(dout[(base + (int64_t)widx * N + j) * D + g * ch + c]);
         } else {
-          qv = BF16 ? q[tok * D + g * ch + c] : q[tok * D + g * ch + c] * scale;
+          qv = q[tok * D + g * ch + c] * scale;
           kval = k[tok * kvs + g * ch + c];
           vval = v[tok * kvs + g * ch + c];
           dov = dout[(base + (int64_t)widx * N + j) * D + g * ch + c];
@@ -207,9 +166,9 @@ __global__ void window_attn_bwd_kernel(const T* __restrict__ q, const T* __restr
 #pragma unroll
         for (int d = 0; d < HD; ++d) dqv[d] = fmaf(BF16 ? round_bf16(dsv) : dsv, kw[j * ch + d], dqv[d]);
       }
-      float* dqrow = dq + (base + window_token(widx, r, ws, nwc, sh, H, W)) * D + g * ch + hd * HD;
+      OT* dqrow = dq + (base + window_token(widx, r, ws, nwc, sh, H, W)) * D + g * ch + hd * HD;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) dqrow[d] = dqv[d] * scale;
+      for (int d = 0; d < HD; ++d) from_f(dqrow[d], dqv[d] * scale);
     } else {
       for (int j = 0; j < N; ++j) dsrow[j] = pdrow[j] = 0.f;
     }
@@ -234,8 +193,8 @@ __global__ void window_attn_bwd_kernel(const T* __restrict__ q, const T* __restr
       const int64_t off = (base + window_token(widx, r, ws, nwc, sh, H, W)) * kvs + g * ch + hd * HD;
 #pragma unroll
       for (int d = 0; d < HD; ++d) {
-        dk[off + d] = dkv_[d];
-        dv[off + d] = dvv[d];
+        from_f(dk[off + d], dkv_[d]);
+        from_f(dv[off + d], dvv[d]);
       }
     }
     for (int e = threadIdx.x; e < nb; e += blockDim.x) {
@@ -270,20 +229,21 @@ __host__ __device__ inline int bwd4_windows(int gh) { return gh >= 32 ? 1 : 32 /
 // fixed-order sum_rows_kernel adds the blocks; no float atomics).  At
 // least 4 blocks an SM with dropout (registers up to 128 a thread: 4 %
 // faster than 3 on an H100 SXM at 700 W), 3 without (it spills at 128).
-// BF16: q arrives scaled (module comment); dS and PM rounded to bf16 before
-// their products.  HD: the head dim, 8, 16 or 32 (2 blocks an SM at 32,
-// whose rows take twice the registers).  T: the type of q, k, v and dout;
-// bf16 (K3's and K5's bf16 backward, with BF16) widens the rows as they are
-// staged and scales q there, so the kernel computes as on float32 rows
-// holding those values.
-template <bool DROP, bool BF16 = false, int HD = 16, typename T = float>
+// HD: the head dim, 8, 16 or 32 (2 blocks an SM at 32, whose rows take
+// twice the registers).  T: the type of q, k, v and dout; bf16 (the bf16
+// backwards) widens the rows as they are staged and scales q there, so the
+// kernel computes as on float32 rows holding those values, and rounds dS
+// and PM to bf16 before their products.  OT: the type of dq, dk, dv (bf16: K4's bf16
+// backward, each rounded once as it is stored, in 8-byte pieces).
+template <bool DROP, int HD = 16, typename T = float, typename OT = float>
 __global__ void __launch_bounds__(128, HD > 16 ? 2 : DROP ? 4 : 3)
     window_attn_bwd4_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                             int kvs, const T* __restrict__ dout, const float* __restrict__ bias,
-                            const float* __restrict__ mask, float* __restrict__ dq, float* __restrict__ dk,
-                            float* __restrict__ dv, float* __restrict__ dbias_part, int H, int W, int D, int g,
+                            const float* __restrict__ mask, OT* __restrict__ dq, OT* __restrict__ dk,
+                            OT* __restrict__ dv, float* __restrict__ dbias_part, int H, int W, int D, int g,
                             int gh, int sh, float scale, uint32_t seed, uint32_t thresh, float inv_keep, int vec) {
   extern __shared__ __align__(16) float sm[];
+  constexpr bool BF16 = sizeof(T) == 2;
   const int ch = gh * HD, ld = ch + 4, L = H * W, nwc = W / 2, nw = (H / 2) * nwc, b = blockIdx.y;
   const int wb = bwd4_windows(gh), w0 = blockIdx.x * wb, span = wb * 4 * ld;
   const int64_t base = (int64_t)b * L;
@@ -470,9 +430,9 @@ __global__ void __launch_bounds__(128, HD > 16 ? 2 : DROP ? 4 : 3)
 // with dS and PM shared per head [N][N + 4].  dbias: each warp sums its dS
 // over its windows in registers, the slots are added in order into the
 // block's partial (dbias_part [block][gh][N][N]).  Shared per slot: q, k, v,
-// dout [N][CH + 4]; dS, PM [GH][N][N + 4].  BF16: q arrives scaled (module
-// comment); dS and PM shared rounded to bf16 (dbias sums the unrounded dS).
-template <int N, int GH, bool DROP, bool BF16 = false, int HD = 16>
+// dout [N][CH + 4]; dS, PM [GH][N][N + 4].  The bf16 backwards take
+// window_attn_bwd_tc_bf16_kernel.
+template <int N, int GH, bool DROP, int HD = 16>
 __global__ void __launch_bounds__(THREADS)
     window_attn_bwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                               int kvs, const float* __restrict__ dout, const float* __restrict__ bias,
@@ -534,8 +494,8 @@ __global__ void __launch_bounds__(THREADS)
         for (int r = 0; r < 2; ++r) {
           const int off = (i0 + 8 * r) * N + 8 * jn + 2 * t4;
           const float2 bb = __ldg(reinterpret_cast<const float2*>(bh + off));
-          float s0 = BF16 ? s[0][jn][2 * r] + bb.x : s[0][jn][2 * r] * scale + bb.x;
-          float s1 = BF16 ? s[0][jn][2 * r + 1] + bb.y : s[0][jn][2 * r + 1] * scale + bb.y;
+          float s0 = s[0][jn][2 * r] * scale + bb.x;
+          float s1 = s[0][jn][2 * r + 1] * scale + bb.y;
           if (sh > 0) {  // the shift, not the pointer, is tested (window_common.cuh)
             const float2 mm = __ldg(reinterpret_cast<const float2*>(mw + off));
             s0 += mm.x;
@@ -582,7 +542,7 @@ __global__ void __launch_bounds__(THREADS)
           }
           s[0][jn][e] = p;
           dp[0][jn][e] = d;
-          PMs[(i0 + 8 * r) * SN + j] = BF16 ? round_bf16(pm) : pm;
+          PMs[(i0 + 8 * r) * SN + j] = pm;
           rs[r] = fmaf(d, p, rs[r]);
         }
 #pragma unroll
@@ -598,8 +558,7 @@ __global__ void __launch_bounds__(THREADS)
           const float d1 = s[0][jn][2 * r + 1] * (dp[0][jn][2 * r + 1] - rs[r]);
           dbacc[jn][2 * r] += d0;
           dbacc[jn][2 * r + 1] += d1;
-          *reinterpret_cast<float2*>(dSs + (i0 + 8 * r) * SN + 8 * jn + 2 * t4) =
-              BF16 ? make_float2(round_bf16(d0), round_bf16(d1)) : make_float2(d0, d1);
+          *reinterpret_cast<float2*>(dSs + (i0 + 8 * r) * SN + 8 * jn + 2 * t4) = make_float2(d0, d1);
         }
       __syncwarp();
       if constexpr (HD == 32) {  // dQ in two passes of 16 columns
@@ -648,8 +607,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
           for (int jn = 0; jn < CT; ++jn) {
             *reinterpret_cast<float2*>(dk + off + 8 * jn + 2 * t4) =
-                BF16 ? make_float2(a[0][jn][2 * r], a[0][jn][2 * r + 1])
-                     : make_float2(a[0][jn][2 * r] * scale, a[0][jn][2 * r + 1] * scale);
+                make_float2(a[0][jn][2 * r] * scale, a[0][jn][2 * r + 1] * scale);
             *reinterpret_cast<float2*>(dv + off + 8 * jn + 2 * t4) =
                 make_float2(c[0][jn][2 * r], c[0][jn][2 * r + 1]);
           }
@@ -667,8 +625,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int jn = 0; jn < CT; ++jn) {
           *reinterpret_cast<float2*>(dk + off + 8 * jn + 2 * t4) =
-              BF16 ? make_float2(a[0][jn][2 * r], a[0][jn][2 * r + 1])
-                   : make_float2(a[0][jn][2 * r] * scale, a[0][jn][2 * r + 1] * scale);
+              make_float2(a[0][jn][2 * r] * scale, a[0][jn][2 * r + 1] * scale);
           *reinterpret_cast<float2*>(dv + off + 8 * jn + 2 * t4) = make_float2(c[0][jn][2 * r], c[0][jn][2 * r + 1]);
         }
       }
@@ -707,19 +664,22 @@ __global__ void __launch_bounds__(THREADS)
 //   dK = round(dS)^T qs, dV = round(PM)^T dO    mma_tile_bf16<true, true> (the warp's keys)
 // with round(dS) and round(PM) shared per head as bf16 [N][N + 8]; dbias
 // sums the unrounded dS in registers, the slots added in order as in the
-// float32 kernel; dq, dk, dv float32 (the projection backward's bias sums
-// take them unrounded).  Blocks, slots and warps as window_attn_bwd_tc_kernel.
+// float32 kernel.  OT: the type of dq, dk, dv: float32 for K3 and K5 (the
+// projection backward's bias sums take them unrounded), bf16 for K4 (each
+// rounded once as it is stored, dQ after its float32 scale, as the JAX
+// kernel stores in its io dtype).  Blocks, slots and warps as
+// window_attn_bwd_tc_kernel.
 // Shared per slot (bf16): q, k, v, dout [N][LD]; dS, PM [GH][N][N + 8].
 // Registers: up to 128 a thread for the 4x4 windows (2 CTAs an SM), up to
 // 255 for the 8x8 (whose 8 key tiles a row take more; left to itself ptxas
 // holds some instances to 80 or 128 and spills).
-template <int N, int GH, bool DROP, int HD>
+template <int N, int GH, bool DROP, int HD, typename OT = float>
 __global__ void __launch_bounds__(THREADS, N == 16 ? 2 : 1)
     window_attn_bwd_tc_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                                    const __nv_bfloat16* __restrict__ v, int kvs,
                                    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ bias,
-                                   const float* __restrict__ mask, float* __restrict__ dq, float* __restrict__ dk,
-                                   float* __restrict__ dv, float* __restrict__ dbias_part, int H, int W, int D, int g,
+                                   const float* __restrict__ mask, OT* __restrict__ dq, OT* __restrict__ dk,
+                                   OT* __restrict__ dv, float* __restrict__ dbias_part, int H, int W, int D, int g,
                                    int ws, int sh, int wchunk, float scale, uint32_t seed, uint32_t thresh,
                                    float inv_keep) {
   using bf16 = __nv_bfloat16;
@@ -858,8 +818,7 @@ __global__ void __launch_bounds__(THREADS, N == 16 ? 2 : 1)
         const int64_t tok = base + window_token(widx, i0 + 8 * r, ws, nwc, sh, H, W);
 #pragma unroll
         for (int c = 0; c < CT; ++c)
-          *reinterpret_cast<float2*>(dq + tok * D + g * CH + hd * HD + 8 * c + 2 * t4) =
-              make_float2(a[c][2 * r] * scale, a[c][2 * r + 1] * scale);
+          st2(dq + tok * D + g * CH + hd * HD + 8 * c + 2 * t4, make_float2(a[c][2 * r] * scale, a[c][2 * r + 1] * scale));
       }
     }
     __syncthreads();  // dS and PM of every head complete
@@ -874,8 +833,8 @@ __global__ void __launch_bounds__(THREADS, N == 16 ? 2 : 1)
         const int64_t off = (base + window_token(widx, i0 + 8 * r, ws, nwc, sh, H, W)) * kvs + g * CH + hd * HD;
 #pragma unroll
         for (int jn = 0; jn < CT; ++jn) {
-          *reinterpret_cast<float2*>(dk + off + 8 * jn + 2 * t4) = make_float2(a[0][jn][2 * r], a[0][jn][2 * r + 1]);
-          *reinterpret_cast<float2*>(dv + off + 8 * jn + 2 * t4) = make_float2(c[0][jn][2 * r], c[0][jn][2 * r + 1]);
+          st2(dk + off + 8 * jn + 2 * t4, make_float2(a[0][jn][2 * r], a[0][jn][2 * r + 1]));
+          st2(dv + off + 8 * jn + 2 * t4, make_float2(c[0][jn][2 * r], c[0][jn][2 * r + 1]));
         }
       }
     }
@@ -1349,9 +1308,10 @@ inline int attn_bwd_chunks(int n, int gh, int nw) {
   return (nw + 4 * wpb - 1) / (4 * wpb);
 }
 
-template <int N, bool DROP, bool BF16, int HD, typename T = float>
+// OT: the type of dq, dk, dv, float32 or (with T bf16) bf16.
+template <int N, bool DROP, int HD, typename T = float, typename OT = float>
 cudaError_t launch_attn_bwd(const T* q, const T* k, const T* v, int kvs, const T* dout,
-                            const float* bias, const float* mask, float* dq, float* dk, float* dv, float* dbias_part,
+                            const float* bias, const float* mask, OT* dq, OT* dk, OT* dv, float* dbias_part,
                             float* dbias, int B, int H, int W, int D, int g, int gh, int ws, int sh, float scale,
                             uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t st) {
   const int wpb = (N * gh >= 128) ? 1 : 128 / (N * gh);
@@ -1362,11 +1322,11 @@ cudaError_t launch_attn_bwd(const T* q, const T* k, const T* v, int kvs, const T
                     aligned16(dk) && aligned16(dv);
     const int wb = bwd4_windows(gh);
     const size_t smem4 = (size_t)4 * wb * 4 * (gh * HD + 4) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(window_attn_bwd4_kernel<DROP, BF16, HD, T>,
+    cudaError_t err = cudaFuncSetAttribute(window_attn_bwd4_kernel<DROP, HD, T, OT>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem4);
     if (err != cudaSuccess) return err;
     ++kernel_launches;
-    window_attn_bwd4_kernel<DROP, BF16, HD, T><<<dim3(nchunk, B), wb * gh * 4, smem4, st>>>(
+    window_attn_bwd4_kernel<DROP, HD, T, OT><<<dim3(nchunk, B), wb * gh * 4, smem4, st>>>(
         q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, H, W, D, g, gh, sh, scale, seed, thresh, inv_keep,
         vec);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -1376,8 +1336,8 @@ cudaError_t launch_attn_bwd(const T* q, const T* k, const T* v, int kvs, const T
     // cp.async rows are 16-byte aligned
     if constexpr (sizeof(T) == 2) {
       if ((gh == 1 || gh == 2) && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)) {
-        auto kern = gh == 1 ? window_attn_bwd_tc_bf16_kernel<N, 1, DROP, HD>
-                            : window_attn_bwd_tc_bf16_kernel<N, 2, DROP, HD>;
+        auto kern = gh == 1 ? window_attn_bwd_tc_bf16_kernel<N, 1, DROP, HD, OT>
+                            : window_attn_bwd_tc_bf16_kernel<N, 2, DROP, HD, OT>;
         const size_t smem_tc =
             (size_t)wpb * (4 * N * fwd_ldq<HD>(gh * HD) + 2 * gh * N * (N + 8)) * sizeof(__nv_bfloat16);
         cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_tc);
@@ -1389,8 +1349,7 @@ cudaError_t launch_attn_bwd(const T* q, const T* k, const T* v, int kvs, const T
         return launch_sum_rows(dbias_part, dbias, B * nchunk, gh * N * N, st);
       }
     } else if ((gh == 1 || gh == 2) && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)) {
-      auto kern = gh == 1 ? window_attn_bwd_tc_kernel<N, 1, DROP, BF16, HD>
-                          : window_attn_bwd_tc_kernel<N, 2, DROP, BF16, HD>;
+      auto kern = gh == 1 ? window_attn_bwd_tc_kernel<N, 1, DROP, HD> : window_attn_bwd_tc_kernel<N, 2, DROP, HD>;
       const size_t smem_tc = (size_t)wpb * (4 * N * (gh * HD + 4) + 2 * gh * N * (N + 4)) * sizeof(float);
       cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_tc);
       if (err != cudaSuccess) return err;
@@ -1404,10 +1363,10 @@ cudaError_t launch_attn_bwd(const T* q, const T* k, const T* v, int kvs, const T
     const int threads = wpb * gh * N;
     const size_t smem =
         (size_t)(4 * wpb * N * gh * HD + 2 * wpb * gh * N * (N + 1) + gh * N * N) * sizeof(float);
-    cudaFuncSetAttribute(window_attn_bwd_kernel<N, DROP, BF16, HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
+    cudaFuncSetAttribute(window_attn_bwd_kernel<N, DROP, HD, T, OT>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     ++kernel_launches;
-    window_attn_bwd_kernel<N, DROP, BF16, HD, T><<<dim3(nchunk, B), threads, smem, st>>>(
+    window_attn_bwd_kernel<N, DROP, HD, T, OT><<<dim3(nchunk, B), threads, smem, st>>>(
         q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, H, W, D, g, gh, ws, sh, wpb, 4 * wpb, scale, seed,
         thresh, inv_keep);
     cudaError_t err = cudaGetLastError();
@@ -1419,9 +1378,9 @@ cudaError_t launch_attn_bwd(const T* q, const T* k, const T* v, int kvs, const T
 // The attention backward of every group.  dbias_part holds, per group, B *
 // attn_bwd_chunks rows of gh * N^2 floats (attn_bwd_part_floats); dbias is
 // laid out as the concatenated bias.
-template <bool DROP, bool BF16, int HD, typename T>
+template <bool DROP, int HD, typename T, typename OT>
 cudaError_t launch_attn_bwd_groups_hd(const T* q, const T* k, const T* v, int kvs, const T* dout,
-                                      const float* bias, const float* mask, float* dq, float* dk, float* dv,
+                                      const float* bias, const float* mask, OT* dq, OT* dk, OT* dv,
                                       float* dbias_part, float* dbias, int B, int H, int W, int D, int n_group,
                                       const int* ws, const int* shifts, int gh, float scale, uint32_t seed,
                                       uint32_t thresh, float inv_keep, cudaStream_t st) {
@@ -1431,9 +1390,9 @@ cudaError_t launch_attn_bwd_groups_hd(const T* q, const T* k, const T* v, int kv
     const float* mg = sh > 0 ? mask + moff : nullptr;
     cudaError_t err;
     switch (ws[g]) {
-      case 2: err = launch_attn_bwd<4, DROP, BF16, HD, T>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 2, sh, scale, seed, thresh, inv_keep, st); break;
-      case 4: err = launch_attn_bwd<16, DROP, BF16, HD, T>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 4, sh, scale, seed, thresh, inv_keep, st); break;
-      case 8: err = launch_attn_bwd<64, DROP, BF16, HD, T>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 8, sh, scale, seed, thresh, inv_keep, st); break;
+      case 2: err = launch_attn_bwd<4, DROP, HD, T, OT>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 2, sh, scale, seed, thresh, inv_keep, st); break;
+      case 4: err = launch_attn_bwd<16, DROP, HD, T, OT>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 4, sh, scale, seed, thresh, inv_keep, st); break;
+      case 8: err = launch_attn_bwd<64, DROP, HD, T, OT>(q, k, v, kvs, dout, bias + boff, mg, dq, dk, dv, dbias_part + poff, dbias + boff, B, H, W, D, g, gh, 8, sh, scale, seed, thresh, inv_keep, st); break;
       default: err = cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return err;
@@ -1447,30 +1406,30 @@ cudaError_t launch_attn_bwd_groups_hd(const T* q, const T* k, const T* v, int kv
 
 // The attention backward of every group, at the head dim D / n_group / gh
 // (8, 16 or 32).
-template <bool DROP, bool BF16, typename T>
+template <bool DROP, typename T, typename OT>
 cudaError_t launch_attn_bwd_groups(const T* q, const T* k, const T* v, int kvs, const T* dout,
-                                   const float* bias, const float* mask, float* dq, float* dk, float* dv,
+                                   const float* bias, const float* mask, OT* dq, OT* dk, OT* dv,
                                    float* dbias_part, float* dbias, int B, int H, int W, int D, int n_group,
                                    const int* ws, const int* shifts, int gh, float scale, uint32_t seed,
                                    uint32_t thresh, float inv_keep, cudaStream_t st) {
   switch (head_dim(D, n_group, gh)) {
-    case 8: return launch_attn_bwd_groups_hd<DROP, BF16, 8, T>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
-    case 16: return launch_attn_bwd_groups_hd<DROP, BF16, 16, T>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
-    case 32: return launch_attn_bwd_groups_hd<DROP, BF16, 32, T>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
+    case 8: return launch_attn_bwd_groups_hd<DROP, 8, T, OT>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
+    case 16: return launch_attn_bwd_groups_hd<DROP, 16, T, OT>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
+    case 32: return launch_attn_bwd_groups_hd<DROP, 32, T, OT>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool BF16 = false, typename T = float>
+template <typename T, typename OT>
 inline cudaError_t launch_attn_bwd_groups_any(const T* q, const T* k, const T* v, int kvs,
-                                              const T* dout, const float* bias, const float* mask, float* dq,
-                                              float* dk, float* dv, float* dbias_part, float* dbias, int B, int H,
+                                              const T* dout, const float* bias, const float* mask, OT* dq,
+                                              OT* dk, OT* dv, float* dbias_part, float* dbias, int B, int H,
                                               int W, int D, int n_group, const int* ws, const int* shifts, int gh,
                                               float scale, uint32_t seed, uint32_t thresh, float inv_keep, int drop,
                                               cudaStream_t st) {
-  return drop ? launch_attn_bwd_groups<true, BF16, T>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W,
+  return drop ? launch_attn_bwd_groups<true, T, OT>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W,
                                              D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st)
-              : launch_attn_bwd_groups<false, BF16, T>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W,
+              : launch_attn_bwd_groups<false, T, OT>(q, k, v, kvs, dout, bias, mask, dq, dk, dv, dbias_part, dbias, B, H, W,
                                               D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, st);
 }
 

@@ -132,20 +132,28 @@ def _forward_bf16_cuda(st: WT._Static, primals, biases):
 
 
 def _backward_bf16_cuda(st: WT._Static, primals, biases, dout: torch.Tensor):
-    """The bf16 backward: dq, dk, dv bf16 (contiguous), the per-group bias
-    gradients float32."""
+    """The bf16 backward: dq (contiguous), dk, dv bf16 and the per-group
+    bias gradients float32.  The kernels write dk and dv at k's and v's row
+    stride kvs: for kvs >= 2D (k and v the halves of one kv tensor) into one
+    (B, L, kvs) buffer whose halves are returned, else into two (B, L, kvs)
+    buffers, so that no pass copies them."""
     kvs, b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare_bf16(st, primals, biases)
     dev = primals[0].device
     kernels.check_cuda_tensor("dout", dout, (b, h * w, dim), dev, torch.bfloat16)
-    n_work = kernels.bind(_NAME, "window_attention_core_backward_bf16_work",
-                          [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int], ctypes.c_size_t)
-    work = torch.empty(n_work(b, h, w, dim, len(st.window_sizes), ws_arr, st.gnum_heads), device=dev)
-    dq, dk, dv = (torch.empty(b, h * w, dim, device=dev, dtype=torch.bfloat16) for _ in range(3))
+    dbias_part = torch.empty(WT.scratch_floats(_NAME, "window_attention_core_backward_scratch", b, h, w,
+                                               len(st.window_sizes), ws_arr, st.gnum_heads), device=dev)
+    dq = torch.empty(b, h * w, dim, device=dev, dtype=torch.bfloat16)
+    rows = lambda: torch.empty(b, h * w, kvs, device=dev, dtype=torch.bfloat16)
+    if kvs >= 2 * dim:
+        dkv = rows()
+        dk, dv = dkv[..., :dim], dkv[..., dim:2 * dim]
+    else:
+        dk, dv = rows()[..., :dim], rows()[..., :dim]
     dbias = torch.empty(bias.numel(), device=dev)
     fn = kernels.bind(_NAME, "window_attention_core_backward_bf16",
                       [ctypes.c_void_p] * 11 + [ctypes.c_int] + WT.core_argtypes(0))
-    err = fn(*[kernels.ptr(t) for t in (*primals, bias, mask, dout, work, dq, dk, dv, dbias)], kvs, b, h, w, dim,
-             len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, float(st.scale), *WT.drop_args(st),
+    err = fn(*[kernels.ptr(t) for t in (*primals, bias, mask, dout, dbias_part, dq, dk, dv, dbias)], kvs, b, h, w,
+             dim, len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, float(st.scale), *WT.drop_args(st),
              kernels.stream_ptr(dev))
     kernels.check_launch(err, "window_attention_core_backward_bf16")
     backward_bf16_counter.launches += 1

@@ -11,9 +11,10 @@ normalized first: the address comments dropped, the whitespace collapsed,
 the branch labels (.L_x_N, numbered across a library) renumbered within the
 function, the anonymous namespace's per-build hash blanked.  Functions are
 keyed by their demangled name with template arguments that name their
-defaults dropped (a trailing `float` type argument: the io type of a kernel
+defaults dropped (trailing `float` type arguments: the io types of a kernel
 that later gained a bf16 form; the parent's `wgrad_kernel<false, R16>` is
-the change's `wgrad_kernel<R16>`), so a kernel that kept its code under a
+the change's `wgrad_kernel<R16>`; the parent's bool BF16 argument of the
+attention backward kernels, since derived from their io type), so a kernel that kept its code under a
 longer template list still matches.  Needs the card's toolkit (nvcc,
 cuobjdump, cu++filt); prints one JSON object a library and a total.
 """
@@ -40,8 +41,16 @@ def key(name: str) -> str:
     name = re.sub(r"\((int|bool|unsigned int|float)\)|\(anonymous namespace\)::|<unnamed>::|^void ", "", name)
     name = name.split("(")[0].strip()  # cu++filt's casts of template values and namespaces gone: the arguments
     name = re.sub(r"wgrad_kernel<(false|0), (true|false|1|0)>", r"wgrad_kernel<\2>", name)
+    # the attention backward's former BF16 argument, dropped where it equals
+    # what the io type now implies (1 for bf16 rows, 0 for float32 ones)
+    m = re.match(r"(window_attn_bwd4_kernel<\w+|window_attn_bwd_kernel<\w+, \w+|window_attn_bwd_tc_kernel<\w+, \w+, "
+                 r"\w+), ([01]|true|false)(, .*|>)$", name)
+    if m and (m.group(2) in ("1", "true")) == ("__nv_bfloat16" in m.group(3)):
+        name = m.group(1) + m.group(3)
     name = re.sub(r"<float>$", "", name)
-    return re.sub(r", float>$", ">", name)
+    while name.endswith(", float>"):  # trailing io-type arguments at their default, one or several
+        name = name[: -len(", float>")] + ">"
+    return name
 
 
 def functions(lib: str) -> dict:

@@ -66,6 +66,23 @@ def test_bf16_values_are_exact_in_tf32(bits):
     assert x.view(np.float32)[0] - hi.view(np.float32)[0] == 0.0
 
 
+def test_split_tf32_fast_of_every_bf16_value():
+    """split_tf32_fast (csrc/tc_common.cuh) on each of the 65,536 bf16 bit
+    patterns widened to float32: for every finite value hi is the value
+    itself and lo = x - hi is +0 (all bits clear).  So SKConv's pass of a's
+    high part times the low part of a bf16 weight adds exact zeros, and its
+    two remaining passes (mma_2xtf32) give the three passes' sums, up to the
+    sign of a zero sum."""
+    x = np.arange(1 << 16, dtype=np.uint32) << np.uint32(16)
+    f = x.view(np.float32)
+    finite = np.isfinite(f)
+    hi = (x + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    lo = (f - hi.view(np.float32)).view(np.uint32)
+    assert finite.sum() == (1 << 16) - 2 * 128  # exponent all ones: 2 signs x 128 significands
+    assert np.array_equal(hi[finite], x[finite])
+    assert not lo[finite].any()
+
+
 class _MatmulF64(torch.autograd.Function):
     """a @ b evaluated in float64 and rounded to float32 once, forward and
     backward: the exact products' sums, without float32's summation error."""

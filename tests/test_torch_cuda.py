@@ -505,27 +505,102 @@ def bf16_qkv(dev, batch, dim, seed=11, kv_views=False):
     return [q, kv[..., :dim], kv[..., dim:]]
 
 
-@pytest.mark.parametrize("batch", [1, 3, 9])
-@pytest.mark.parametrize("width", K4_WIDTHS + WIDTHS[:1], ids=lambda wd: f"D{wd[0]}g{len(wd[1])}")
+@pytest.mark.parametrize("batch", [1, 9])
+@pytest.mark.parametrize("width", BF16_WIDTHS + K4_WIDTHS[-1:], ids=BF16_IDS + ["D96hd16g2"])
+@pytest.mark.parametrize("shifted", ["unshifted", "shifted"])
 @pytest.mark.parametrize("keep", [1.0, 0.9])
-def test_window_attention_core_kernel_bf16(dev, batch, width, keep):
-    """K4 on bf16 io, k and v the halves of one kv tensor (row stride 2D) at
-    D = 96 and contiguous otherwise, against autograd through its plain
-    version (check_bf16_core_on_card)."""
-    dim, windows, heads, shift = width
+@pytest.mark.parametrize("kv", ["kv_halves", "separate"])
+def test_window_attention_core_kernel_bf16(dev, batch, width, shifted, keep, kv):
+    """K4 on bf16 io against autograd through its plain version
+    (check_bf16_core_on_card) at head dims 8, 16 and 32, D = 16 to 96,
+    windows 2, 4 and 8 (and 3 heads a group: the thread-per-row backward),
+    both shift sets, k and v the halves of one kv tensor (row stride 2D) or
+    tensors of their own."""
+    dim, windows, heads, shift = geometry(width, shifted)
     _, biases, static = train_core_inputs(dev, shift, batch, dim=dim, windows=windows, heads=heads)
-    qkv = bf16_qkv(dev, batch, dim, kv_views=dim == 96)
+    qkv = bf16_qkv(dev, batch, dim, kv_views=kv == "kv_halves")
     check_bf16_core_on_card(WC, WC.window_attention_core, WC.window_attention_core_plain, qkv, biases, static, keep)
 
 
 @pytest.mark.parametrize("scale", BF16_SCALES)
 @pytest.mark.parametrize("width", BF16_HEADS, ids=lambda wd: f"g{len(wd[1])}h{wd[2] // len(wd[1])}")
-def test_window_attention_core_kernel_bf16_heads_and_scales(dev, scale, width):
+@pytest.mark.parametrize("keep", [1.0, 0.9])
+def test_window_attention_core_kernel_bf16_heads_and_scales(dev, scale, width, keep):
     dim, windows, heads, shift = width
     _, biases, static = train_core_inputs(dev, shift, 3, dim=dim, windows=windows, heads=heads)
     qkv = bf16_qkv(dev, 3, dim, kv_views=True)
     check_bf16_core_on_card(WC, WC.window_attention_core, WC.window_attention_core_plain, qkv, biases,
-                            dict(static, scale=scale), 0.9)
+                            dict(static, scale=scale), keep)
+
+
+@pytest.mark.parametrize("kv", ["kv_halves", "separate"])
+def test_window_attention_core_bf16_backward_launches_and_layout(dev, kv):
+    """K4's bf16 backward launches an attention backward and a dbias sum a
+    window group, 6 at the flagship's three (the library's own count), and
+    writes dk and dv at k's and v's row stride: the halves of one (B, L, 2D)
+    buffer where k and v are the halves of one kv tensor, contiguous
+    otherwise."""
+    import ctypes
+
+    from dpmn_tpu_torch.ops import kernels
+
+    dim, windows, heads, shift = WIDTHS[0]
+    _, biases, static = train_core_inputs(dev, shift, 3, dim=dim, windows=windows, heads=heads)
+    qkv = [t.detach() for t in bf16_qkv(dev, 3, dim, kv_views=kv == "kv_halves")]
+    st = WT.make_static(static["masks"], 123, 0.9, static["window_sizes"], static["shifts"], static["gnum_heads"],
+                        static["scale"], static["hw_shape"])
+    cot = torch.randn(3, 1024, dim, generator=torch.Generator().manual_seed(9)).to(dev, torch.bfloat16)
+    count = kernels.bind("window_attention_core", "window_attention_core_kernel_launches", [], ctypes.c_ulonglong)
+    torch.cuda.synchronize()
+    before = count()
+    dq, dk, dv, *_ = WC._backward_cuda(st, qkv, [b.detach() for b in biases], cot)
+    torch.cuda.synchronize()
+    assert count() - before == 6
+    assert dq.is_contiguous() and all(t.dtype == torch.bfloat16 for t in (dq, dk, dv))
+    if kv == "kv_halves":
+        assert dk.stride(1) == dv.stride(1) == 2 * dim and dv.data_ptr() == dk.data_ptr() + 2 * dim
+    else:
+        assert dk.is_contiguous() and dv.is_contiguous()
+
+
+@pytest.mark.parametrize("width", BF16_WIDTHS, ids=BF16_IDS)
+@pytest.mark.parametrize("residual", [0, 1])
+def test_skconv_bf16_weights_match_float32_weights(dev, width, residual):
+    """SKConv's bf16-weight instances (two TF32 passes a product step: the
+    widened weight is exact in TF32) against its float32-weight instances
+    fed the same weights widened, on the same float32 tokens: feats, the GAP
+    partials and the gate bit for bit, and out equal to the float32 result
+    rounded to bf16."""
+    import ctypes
+
+    from dpmn_tpu_torch.ops import kernels
+
+    dim, windows, heads, _ = width
+    batch, n_group = 3, len(windows)
+    blk = SwinTransformerBlock(dim, (16, 64), heads, list(windows), [0] * n_group)
+    init_weights(blk, seed=4)
+    gen = torch.Generator().manual_seed(4)
+    w16 = [(t.detach() if t.dim() == 2 else 0.1 * torch.randn(*t.shape, generator=gen)).to(dev, torch.bfloat16)
+           for t in blk.attn.SKConv.weights()]
+    dz = w16[2].shape[0]
+    attn = torch.randn(batch, 1024, dim, generator=gen).to(dev)
+    xkv = torch.randn(batch, 1024, dim, generator=gen).to(dev, torch.bfloat16)
+    vp = ctypes.c_void_p
+    runs = []
+    for name, w, x in (("window_attention_skconv", [t.float() for t in w16], xkv.float()),
+                       ("window_attention_skconv_bf16", w16, xkv)):
+        fn = kernels.bind("window_attention", name, [vp] * 7 + [ctypes.c_int] * 6 + [vp])
+        bufs = [torch.empty(batch, 1024, dim, device=dev), torch.empty(batch, 1024 // 64, dim, device=dev),
+                torch.empty(batch, n_group, dim // n_group, device=dev), torch.empty_like(x)]
+        ptrs = (vp * 8)(*[t.data_ptr() for t in w])
+        err = fn(vp(attn.data_ptr()), ptrs, vp(x.data_ptr()), *[vp(t.data_ptr()) for t in bufs], batch, 1024, dim,
+                 n_group, dz, residual, kernels.stream_ptr(dev))
+        assert err == 0
+        runs.append(bufs)
+    torch.cuda.synchronize()
+    (feats, part, gate, out), (feats16, part16, gate16, out16) = runs
+    assert torch.equal(feats16, feats) and torch.equal(part16, part) and torch.equal(gate16, gate)
+    assert out16.dtype == torch.bfloat16 and torch.equal(out16, out.bfloat16())
 
 
 @pytest.mark.parametrize("batch", [1, 3, 9])
