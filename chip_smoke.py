@@ -13,8 +13,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the backward of the 4x4 and 8x8 windows and the per-window tiles K8 of
      more than 8 tokens on mma.sync; the Mlp conv pair's mix on wgmma) no
      spill and HMMA or HGMMA instructions in their machine code (cuobjdump
-     -sass), and bf16 m16n8k16 products in the bf16 attention forwards (K7's, and
-     K3's on bf16 io with a float32 bias);
+     -sass), and bf16 m16n8k16 products in the bf16 attention forwards (K7's,
+     and the training cores' on bf16 io with a float32 bias: K4's
+     window_attn_fwd_train_kernel, K3's and K5's one-launch
+     window_block_fwd_bf16_kernel);
   2. the window-attention kernel against its plain PyTorch version on the
      card at B = 64 and the flagship geometry: both shift sets, both layouts;
      the device time of each of its sub-kernels (torch.profiler) beside the
@@ -177,7 +179,11 @@ BF16_FLOP_PER_S = 989e12  # dense, on the tensor cores
 TC_KERNELS = ("ln_proj_kernel", "ln_proj_bf16_kernel", "skconv_proj_kernel", "skconv_out_kernel", "proj_ln_bwd_kernel", "wgrad_kernel",
               "window_attn_bwd_tc_kernel", "skconv_bwd_a_kernel", "skconv_bwd_b_kernel", "mlp_convs_kernel",
               "window_attn_fwd_kernel", "tile_attn_tc_kernel", "window_attn_bwd_tc_bf16_kernel",
-              "proj_ln_bwd_bf16_kernel", "wgrad_bf16_kernel")
+              "proj_ln_bwd_bf16_kernel", "wgrad_bf16_kernel", "window_attn_fwd_train_kernel",
+              "window_block_fwd_bf16_kernel")
+# the training cores' bf16 forward kernels (K4's attention, K3's one launch,
+# K5's front): bf16 m16n8k16 products in every instance
+BF16_FWD_KERNELS = ("window_attn_fwd_train_kernel", "window_block_fwd_bf16_kernel")
 # the bf16 backwards' product kernels: bf16 m16n8k16 and no TF32 product in
 # their machine code (K3's and K5's libraries)
 BF16_BWD_KERNELS = ("window_attn_bwd_tc_bf16_kernel", "proj_ln_bwd_bf16_kernel", "wgrad_bf16_kernel")
@@ -201,9 +207,10 @@ WIDENING_KERNELS = ("convert_kernel", "bf16_rows_kernel")
 # adds SKConv's six (pass A, its dW sum, the gate, the fc gradients, pass B,
 # its dW sum)
 BF16_BWD_LAUNCHES = {"block": 15, "attention": 6, "full": 21}
-# kernel launches of one bf16 forward call of K5: the LN + projection, the
-# attention forward (one launch for every group), SKConv's three
-BF16_FWD_LAUNCHES = {"full": 5}
+# kernel launches of one bf16 forward call: K3 one (LN, projections and the
+# attention of every group), K4 one (the attention of every group), K5 K3's
+# one with float32 tokens and SKConv's three
+BF16_FWD_LAUNCHES = {"block": 1, "attention": 1, "full": 4}
 B = 64
 K1_TOL = 1e-4  # max abs error: float32, other summation orders over <= 96-term sums
 K2_TOL = 1e-5  # max abs error of a tanh-bounded state after <= 64 float32 steps
@@ -464,7 +471,8 @@ def ptxas_functions(report):
 def check_hmma(kernels):
     """Each tensor-core sub-kernel holds HMMA (mma.sync) or HGMMA (wgmma)
     instructions (cuobjdump -sass), and every bf16 attention forward (K7's,
-    each head dim 8, 16, 32) and K1's bf16 LN + projection (one an embedding
+    each head dim 8, 16, 32; the training cores' BF16_FWD_KERNELS, each head
+    dim and dropout flag) and K1's bf16 LN + projection (one an embedding
     width: 16, 32, 48, 64, 80, 96) bf16 m16n8k16 products
     (HMMA.16816.F32.BF16); every instance of the bf16 backwards' product
     kernels (BF16_BWD_KERNELS) holds bf16 m16n8k16 products and no TF32
@@ -490,8 +498,8 @@ def check_hmma(kernels):
                 bf16_bwd[f"{name}: {func}"] = (body.count("HMMA.16816.F32.BF16"), body.count("TF32"))
             if base_name(func) in TC_KERNELS + ("gru_large_kernel",):
                 found[f"{name}: {func}"] = (body.count("HMMA"), body.count("HGMMA"))
-                if base_name(func) == "ln_proj_bf16_kernel" or (base_name(func) == "window_attn_fwd_kernel"
-                                                                and "bfloat16" in func):
+                if base_name(func) in ("ln_proj_bf16_kernel",) + BF16_FWD_KERNELS or (
+                        base_name(func) == "window_attn_fwd_kernel" and "bfloat16" in func):
                     bf16[func] = body.count("HMMA.16816.F32.BF16")
     by_lib = {}
     for func, (hmma, hgmma) in found.items():
@@ -521,9 +529,12 @@ def check_hmma(kernels):
     missing = [f for f, n in found.items() if sum(n) == 0]
     absent = [k for k in TC_KERNELS if not any(base_name(f.split(": ", 1)[1]) == k for f in found)]
     tf32 = [f for f, (n16, n32) in bf16_bwd.items() if n16 == 0 or n32]
-    if missing or absent or len(bf16) < 4 or not all(bf16.values()) or tf32 or widening or not_two_thirds:
+    fwd_instances = sum(base_name(f) in BF16_FWD_KERNELS for f in bf16)
+    if missing or absent or len(bf16) < 4 or fwd_instances < 12 or not all(bf16.values()) or tf32 or widening or \
+            not_two_thirds:
         raise AssertionError(f"no HMMA or HGMMA in {missing}; tensor-core kernels not found: {absent}; bf16 "
-                             f"m16n8k16 products: {bf16}; bf16 backward kernels without bf16 products or with "
+                             f"m16n8k16 products: {bf16} ({fwd_instances} training-forward instances, want 12 "
+                             f"or more); bf16 backward kernels without bf16 products or with "
                              f"TF32 ones: {tf32}; widening passes in K3's / K4's / K5's libraries: {widening}; "
                              f"SKConv instances missing, or on bf16 weights not two TF32 passes a step: "
                              f"{not_two_thirds}")
@@ -1308,12 +1319,13 @@ def phase_core_bf16(dev, core):
     kernel on the same values, and for K4 beside SDPA on bf16.  K3's and
     K4's and K5's backward are also split by sub-kernel (torch.profiler),
     each part beside its bound, with their launches a call held to
-    BF16_BWD_LAUNCHES and no widening pass among them; so is K5's forward
-    (BF16_FWD_LAUNCHES).  Returns the
+    BF16_BWD_LAUNCHES and no widening pass among them; so are the three
+    forwards (BF16_FWD_LAUNCHES: K3 and K4 one launch, K5 four).  Returns the
     kernels-line entries of its two entry points (per AMP train step: 6
     unshifted + 6 shifted calls, keep 0.9; the bound from bf16 bytes, the
     products on bf16 operands at the bf16 tensor-core peak and SKConv's
-    (K5) in float32)."""
+    (K5) as two TF32 passes in the forward and 3xTF32 in the backward, as
+    its kernels run them)."""
     import importlib
 
     import torch.nn.functional as F
@@ -1389,22 +1401,22 @@ def phase_core_bf16(dev, core):
             f"{p_bwd:.4f}{lib}")
     # bounds: bf16 bytes; the attention and projection products on bf16
     # operands; K5's SKConv products on bf16 weights, forward as two TF32
-    # passes, backward in float32
+    # passes, backward at 3xTF32 on the tensor cores (skconv_bwd_a / _b)
     win, t = (2, 4, 8), B * h * w
     cost = {"block": k3_cost, "attention": k4_cost, "full": k5_cost}[core](B, (h, w), dim, win)
     skconv = 2 * t * dim * dim + 2 * t * (dim // 3) * dim if core == "full" else 0.0
     fb_ms, fb_by = bound_ms(cost["fwd_bytes"] / 2, 0.0, 0.0, cost["fwd_flops"] - skconv, skconv)
-    bb_ms, bb_by = bound_ms(cost["bwd_bytes"] / 2, 3 * skconv, 0.0, cost["bwd_flops"] - 3 * skconv)
+    bb_ms, bb_by = bound_ms(cost["bwd_bytes"] / 2, 0.0, 3 * skconv, cost["bwd_flops"] - 3 * skconv)
     log(f"{tag} bounds a call: forward {fb_ms:.4f} ms ({fb_by}; {cost['fwd_bytes'] / 2e6:.1f} MB, "
         f"{(cost['fwd_flops'] - skconv) / 1e9:.2f} GFLOP on bf16 operands, {skconv / 1e9:.2f} as 2xTF32), backward "
         f"{bb_ms:.4f} ({bb_by}; {cost['bwd_bytes'] / 2e6:.1f} MB, {(cost['bwd_flops'] - 3 * skconv) / 1e9:.2f} GFLOP "
-        f"on bf16 operands, {3 * skconv / 1e9:.2f} in float32)")
+        f"on bf16 operands, {3 * skconv / 1e9:.2f} at 3xTF32)")
     if core in BF16_BWD_LAUNCHES:
         log_split(f"{tag} backward", split_bwd, {k: tuple(12 * v for v in p)
                                                  for k, p in bf16_bwd_parts(core, t, dim, win, h, w).items()})
     if core in BF16_FWD_LAUNCHES:
         log_split(f"{tag} forward", split_fwd, {k: tuple(12 * v for v in p)
-                                                for k, p in bf16_fwd_parts(t, dim, win).items()})
+                                                for k, p in bf16_fwd_parts(core, t, dim, win).items()})
     per_step = lambda i: 6 * (times[(0, 0, 0)][i] + times[(1, 2, 4)][i])
     common = {"route": "cuda", "source": f"dpmn_tpu_torch/csrc/{name}.cu"}
     fwd = {"name": f"{name}_forward_bf16", **common, "replaces": REPLACES[name][0], "max_abs_err": worst_fwd,
@@ -1448,20 +1460,25 @@ def check_bf16_launches(tag, lib, call, split, want):
         raise AssertionError(f"{tag}: {launches} launches a call, want {want}; widening passes {widening}")
 
 
-def bf16_fwd_parts(t, dim, win):
+def bf16_fwd_parts(core, t, dim, win):
     """{sub-kernel: (bytes, CUDA-core operations, 3xTF32 operations, bf16
-    operations[, 2xTF32 operations])} of one K5 bf16 forward call on t tokens: LN + projection
-    (bf16 xq, xkv and weights read, bf16 q, kv written; products on bf16),
-    the attention forward (bf16 q, k, v read, float32 tokens written; the
-    4x4 and 8x8 windows' products on bf16, the 2x2's on the CUDA cores),
-    SKConv's three passes (the tokens read by both products, feats written
-    and read back, the GAP partials; their products on bf16 weights, two
-    TF32 passes, in the fifth place)."""
+    operations[, 2xTF32 operations])} of one K3 ("block"), K4 ("attention")
+    or K5 ("full") bf16 forward call on t tokens.  K3's one launch reads
+    bf16 xq, xkv and weights and writes out (bf16; K5 float32 tokens), its
+    projections and the attention's products on bf16 (the 2x2 windows' too);
+    K4's reads bf16 q, k, v and writes bf16 out; K5 adds SKConv's three
+    passes (the tokens read by both products, feats written and read back,
+    the GAP partials; their products on bf16 weights, two TF32 passes, in
+    the fifth place)."""
     ch = dim // len(win)
-    flops = {ws: 2 * 2 * t * ch * ws * ws for ws in win}
-    return {"ln_proj_bf16_kernel": (2 * (5 * t * dim + 3 * dim * dim + 3 * dim), 0.0, 0.0, 2 * t * dim * 3 * dim),
-            "window_attn_fwd_kernel": (2 * 3 * t * dim + 4 * t * dim, flops.get(2, 0.0), 0.0,
-                                       sum(f for ws, f in flops.items() if ws != 2)),
+    attn = sum(2 * 2 * t * ch * ws * ws for ws in win)
+    if core == "attention":
+        return {"window_attn_fwd_train_kernel": (2 * 4 * t * dim, 0.0, 0.0, attn)}
+    block = {"window_block_fwd_bf16_kernel": (2 * (2 * t * dim + 3 * dim * dim + 7 * dim) + (4 if core == "full" else 2)
+                                              * t * dim, 0.0, 0.0, 2 * t * dim * 3 * dim + attn)}
+    if core == "block":
+        return block
+    return {**block,
             "skconv_proj_kernel": (4 * (2 * t * dim + t // 64 * dim) + 2 * dim * dim, 0.0, 0.0, 0.0,
                                    2 * t * dim * dim),
             "skconv_gate_kernel": (4 * t // 64 * dim, 0.0, 0.0, 0.0),
@@ -2973,7 +2990,7 @@ def geometry_core(dev, geo, g, core, dtype, launches):
     skconv = 2 * t * dim * dim + 2 * t * (dim // len(g["win"])) * dim if core == "full" else 0.0
     if amp:
         fb = bound_ms(cost["fwd_bytes"] / 2, 0.0, 0.0, cost["fwd_flops"] - skconv, skconv)
-        bb = bound_ms(cost["bwd_bytes"] / 2, 3 * skconv, 0.0, cost["bwd_flops"] - 3 * skconv)
+        bb = bound_ms(cost["bwd_bytes"] / 2, 0.0, 3 * skconv, cost["bwd_flops"] - 3 * skconv)
     else:
         fb, bb = bound_ms(cost["fwd_bytes"], cost["fwd_flops"]), bound_ms(cost["bwd_bytes"], cost["bwd_flops"])
     per = g["blocks"] // 2

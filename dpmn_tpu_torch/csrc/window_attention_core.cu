@@ -44,8 +44,10 @@
 // dropout in float32; P rounded to bf16 once before P v; out rounded once;
 // in the backward P*M and dS rounded before their products, dbias summed
 // from the unrounded dS, dq (with the float32 scale), dk and dv rounded at
-// the store.  The forward is window_attn_fwd_kernel<DROP, bf16, float> on
-// the bf16 rows, as K3's bf16 form; the backward is K3's bf16 attention
+// the store.  The forward is window_common.cuh window_attn_fwd_train_kernel
+// (the training cores' bf16 attention, one launch: steps of 64 tokens of one
+// group staged a step ahead, the 4x4 and 8x8 windows on bf16 m16n8k16, the
+// 2x2 windows on the CUDA cores from shared memory); the backward is K3's bf16 attention
 // backward (window_train_common.cuh: window_attn_bwd_tc_bf16_kernel for the
 // 4x4 and 8x8 windows with 1-2 heads a group, products on bf16 m16n8k16, q
 // scaled as it is staged; the 2x2 and thread-per-row kernels on bf16 rows)
@@ -101,18 +103,19 @@ extern "C" int window_attention_core_backward(const float* q, const float* k, co
                                                      drop, static_cast<cudaStream_t>(stream)));
 }
 
-// The bf16 forward: the arguments of window_attention_core_forward with q,
-// k, v and out bf16 (bias, mask float32), and kvs the row stride of k and v
-// (q and out rows have stride D).
-extern "C" int window_attention_core_forward_bf16(const bf16* q, const bf16* k, const bf16* v, const float* bias,
-                                                  const float* mask, bf16* out, int kvs, int B, int H, int W, int D,
-                                                  int n_group, const int* ws, const int* shifts, int gh, float scale,
-                                                  uint32_t seed, uint32_t thresh, float inv_keep, int drop,
-                                                  void* stream) {
+// The bf16 forward (window_attn_fwd_train_kernel, one launch): the
+// arguments of window_attention_core_forward with q, k, v and out bf16, the
+// tables as per-group pointers (biases[g] (gh, N_g, N_g), masks[g] (nW_g,
+// N_g, N_g), float32; masks[g] read only where shifts[g] > 0), and kvs the
+// row stride of k and v (q and out rows have stride D).
+extern "C" int window_attention_core_forward_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                                  const float* const* biases, const float* const* masks, bf16* out,
+                                                  int kvs, int B, int H, int W, int D, int n_group, const int* ws,
+                                                  const int* shifts, int gh, float scale, uint32_t seed,
+                                                  uint32_t thresh, float inv_keep, int drop, void* stream) {
   if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_attn_groups_any(q, k, v, kvs, bias, mask, out, B, H, W, D, n_group, ws, shifts, gh,
-                                                 scale, 0, seed, thresh, inv_keep, drop,
-                                                 static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_train_attn(q, k, v, kvs, biases, masks, out, B, H, W, D, n_group, ws, shifts, gh,
+                                            scale, seed, thresh, inv_keep, drop, static_cast<cudaStream_t>(stream)));
 }
 
 // The kernels this library has launched since it was loaded

@@ -59,11 +59,11 @@
 // and dS rounded before their products, dbias from the unrounded dS; dq /
 // dkv in float32, rounded before the projection backward (:917-933; the
 // bias sums take them unrounded); the 16 weight gradients summed in float32
-// and rounded once (:971).  The forward runs K1's bf16 LN + projection
-// (ln_proj_bf16_kernel storing q / kv in bf16), the attention forward on
-// bf16 rows writing float32 tokens (window_attn_fwd_kernel<DROP, bf16,
-// float, float>) and SKConv on bf16 weights in float32 sums
-// (launch_skconv_t<bf16>, K1's bf16 tail without the residual).  The
+// and rounded once (:971).  The forward runs K3's one-launch bf16 forward
+// writing float32 tokens (window_block_fwd_bf16_kernel<DROP, float>: LN,
+// projections and attention, q and kv kept in shared memory) and SKConv on
+// bf16 weights in float32 sums (launch_skconv_t<bf16>, K1's bf16 tail
+// without the residual): 4 launches.  The
 // backward reads every bf16 tensor as it is (21 launches at three window
 // groups): q and kv recomputed in bf16 (ln_proj_bf16_kernel); SKConv's
 // backward in float32 (its products at 3xTF32) on dout and the weights
@@ -665,37 +665,32 @@ extern "C" int window_attention_full_backward(const float* xq, const float* xkv,
 }
 
 // The bf16 forward: the arguments of window_attention_full_forward with xq,
-// xkv, the 16 weights of wt and out bf16 (bias, mask, tok, partial, gate
-// float32) and scratch of window_attention_full_forward_bf16_scratch floats.
+// xkv, the 16 weights of wt and out bf16 (tok, partial, gate float32), the
+// tables as per-group pointers (biases[g], masks[g], float32; masks[g] read
+// only where shifts[g] > 0) and scratch of
+// window_attention_full_forward_bf16_scratch floats (feats).  Four
+// launches: K3's one-launch bf16 forward writing float32 tokens
+// (window_block_fwd_bf16_kernel<DROP, float>), then SKConv's three.
 extern "C" size_t window_attention_full_forward_bf16_scratch(int B, int H, int W, int D) {
-  const size_t T = (size_t)B * H * W;
   Carver c{nullptr};
-  c.take(T * D / 2);
-  c.take(T * D);
-  c.take(T * D);
+  c.take((size_t)B * H * W * D);
   return c.n;
 }
 
 extern "C" int window_attention_full_forward_bf16(const bf16* xq, const bf16* xkv, const bf16* const* wt,
-                                                  const float* bias, const float* mask, float* scratch, bf16* out,
-                                                  float* tok, float* partial, float* gate, int B, int H, int W,
-                                                  int D, int n_group, const int* ws, const int* shifts, int gh,
-                                                  int dz, float scale, uint32_t seed, uint32_t thresh,
-                                                  float inv_keep, int drop, void* stream) {
+                                                  const float* const* biases, const float* const* masks,
+                                                  float* scratch, bf16* out, float* tok, float* partial, float* gate,
+                                                  int B, int H, int W, int D, int n_group, const int* ws,
+                                                  const int* shifts, int gh, int dz, float scale, uint32_t seed,
+                                                  uint32_t thresh, float inv_keep, int drop, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
   const int L = H * W;
-  const size_t T = (size_t)B * L;
   Carver c{scratch};
-  bf16* qbuf = reinterpret_cast<bf16*>(c.take(T * D / 2));
-  bf16* kvbuf = reinterpret_cast<bf16*>(c.take(T * D));
-  float* feats = c.take(T * D);
-  cudaError_t err = launch_ln_proj(xq, xkv, wt[0], wt[1], wt[2], wt[3], wt[4], wt[5], wt[6], wt[7], qbuf, kvbuf,
-                                   B * L, D, 1, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_attn_groups_any(static_cast<const bf16*>(qbuf), static_cast<const bf16*>(kvbuf),
-                               static_cast<const bf16*>(kvbuf + D), 2 * D, bias, mask, tok, B, H, W, D, n_group, ws,
-                               shifts, gh, scale, 0, seed, thresh, inv_keep, drop, st);
+  float* feats = c.take((size_t)B * L * D);
+  cudaError_t err = launch_block_fwd_bf16(xq, xkv, wt[0], wt[1], wt[2], wt[3], wt[4], wt[5], wt[6], wt[7], biases,
+                                          masks, tok, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh,
+                                          inv_keep, drop, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_skconv_t(static_cast<const float*>(tok), wt[8], wt[9], wt[10], wt[11], wt[12],
                                           wt[13], wt[14], wt[15], static_cast<const bf16*>(nullptr), feats, partial,

@@ -58,10 +58,15 @@
 // (dbias sums the unrounded dS), dq / dkv in float32 rounded to bf16 before
 // the projection backward (db sums them unrounded), weight, bias and LN
 // gradients summed in float32 and rounded once, dx through the float32 LN
-// backward rounded once.  The forward runs K1's bf16 LN + projection
-// (ln_proj_bf16_kernel, bf16 m16n8k16) writing q / kv in bf16 and the
-// attention forward on bf16 io with the float32 bias
-// (window_attn_fwd_kernel<DROP, bf16, float>).  The backward reads every
+// backward rounded once.  The forward is one launch
+// (window_common.cuh window_block_fwd_bf16_kernel): per step of 64 tokens of
+// one group, the xq and xkv rows by cp.async, the LN and the group's q, k, v
+// projections on bf16 m16n8k16 into shared memory, then the attention step
+// there, so q and kv never reach device memory (the JAX kernel's reason for
+// its fusion, pallas_window_train.py:331-332): a call moves xq, xkv and out,
+// 37.7 MB at the flagship geometry, where the two launches it replaces
+// (ln_proj_bf16_kernel writing bf16 q / kv, then the attention forward)
+// moved 113 MB.  The backward reads every
 // bf16 tensor as it is and runs its products on bf16 m16n8k16 with float32
 // accumulation (a product of two bf16 values is exact in float32, so one
 // pass computes what 3xTF32 computed on widened copies, up to the order of
@@ -173,21 +178,32 @@ extern "C" int window_attention_train_backward(
                                              lnpart_q, lnpart_kv, dxq, dxkv, gq, gkv, gln_q, gln_kv, ntok, D, st));
 }
 
-// The bf16 forward: the arguments of window_attention_train_forward with
-// xq ... kv_b, qbuf, kvbuf and out in bf16 and bias, mask float32.
+// The bf16 forward in one launch (window_block_fwd_bf16_kernel): the
+// arguments of window_attention_train_forward with xq ... kv_b and out in
+// bf16, no q / kv scratch, and the tables as per-group pointers: biases[g]
+// (gh, N_g, N_g) and masks[g] (nW_g, N_g, N_g; read only where shifts[g] >
+// 0), float32.
 extern "C" int window_attention_train_forward_bf16(
     const bf16* xq, const bf16* xkv, const bf16* qs, const bf16* qb, const bf16* ks, const bf16* kb, const bf16* q_w,
-    const bf16* q_b, const bf16* kv_w, const bf16* kv_b, const float* bias, const float* mask, bf16* qbuf,
-    bf16* kvbuf, bf16* out, int B, int H, int W, int D, int n_group, const int* ws, const int* shifts, int gh,
-    float scale, uint32_t seed, uint32_t thresh, float inv_keep, int drop, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const bf16* q_b, const bf16* kv_w, const bf16* kv_b, const float* const* biases, const float* const* masks,
+    bf16* out, int B, int H, int W, int D, int n_group, const int* ws, const int* shifts, int gh, float scale,
+    uint32_t seed, uint32_t thresh, float inv_keep, int drop, void* stream) {
   if (!head_dim(D, n_group, gh)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = launch_ln_proj(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, B * H * W, D, 1, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_attn_groups_any(static_cast<const bf16*>(qbuf), static_cast<const bf16*>(kvbuf),
-                               static_cast<const bf16*>(kvbuf + D), 2 * D, bias, mask, out, B, H, W, D, n_group, ws,
-                               shifts, gh, scale, 0, seed, thresh, inv_keep, drop, st);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_block_fwd_bf16(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, biases, masks, out, B,
+                                                H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep, drop,
+                                                static_cast<cudaStream_t>(stream)));
+}
+
+// The LN + projection of the bf16 forward alone, q (ntok, D) and kv (ntok,
+// 2D) in bf16 (ln_proj_bf16_kernel, as the bf16 backward recomputes them):
+// with window_attention_core_forward_bf16 on them, the two-launch
+// composition that the one-launch forward equals bit for bit.
+extern "C" int window_attention_train_ln_proj_bf16(const bf16* xq, const bf16* xkv, const bf16* qs, const bf16* qb,
+                                                   const bf16* ks, const bf16* kb, const bf16* q_w, const bf16* q_b,
+                                                   const bf16* kv_w, const bf16* kv_b, bf16* qbuf, bf16* kvbuf,
+                                                   int ntok, int D, void* stream) {
+  return static_cast<int>(launch_ln_proj(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, D, 1,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 // The floats of the bf16 backward's work buffer.

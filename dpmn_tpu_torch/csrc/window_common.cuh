@@ -5,8 +5,10 @@
 // kernel (persistent CTAs, the product on the tensor cores; a bf16-io form
 // on bf16 m16n8k16 for K1's bf16 serving path), the per-group
 // window-attention forward (float32 or bf16 io, every group in one launch;
-// the 4x4 and 8x8 windows on the tensor cores through attn_tile.cuh; with
-// bf16 io and a float32 bias, K3's bf16 form, P rounded to bf16 once), the
+// the 4x4 and 8x8 windows on the tensor cores through attn_tile.cuh), the
+// training cores' bf16 forward (bf16 io and a float32 bias, P rounded to
+// bf16 once: K4's attention in 64-token steps from a ring of staged slots,
+// and K3's LN + projections + attention in one launch), the
 // counter-based hash
 // that draws the attention-dropout mask, and SKConv's three forward kernels
 // (the two products on the tensor cores; weights, residual and output
@@ -205,6 +207,71 @@ __device__ __forceinline__ void ln_rows_inplace(T* tile, int ld, int r0, int ste
   }
 }
 
+// The LN of one row of a bf16 tile (c channels, a multiple of 8 up to 96)
+// in place by a quad of lanes, lane % 4 taking the 8-channel chunks lane % 4,
+// + 4, + 8 as 16-byte pieces; `valid` false for a row past the tile's end
+// (the quad still joins the shuffles).  float32 statistics, summed in chunk
+// order within a lane and then over the quad, var = E[x^2] - mean^2 clamped
+// at 0, eps 1e-6, * s + b (bf16 vectors of c, 16-byte aligned), the result
+// rounded to bf16.  A warp normalizes 8 rows at once, so a row's reductions
+// and divisions are shared by 4 lanes where ln_rows_inplace spends a warp on
+// them: about a third of its instructions a row.  The bf16 forwards of the
+// training cores (window_block_fwd_bf16_kernel, ln_proj_bf16_kernel<D, bf16>
+// for the backwards' recompute of q and kv) normalize with it, so the two
+// agree bit for bit.
+__device__ __forceinline__ void ln_row_quad(__nv_bfloat16* row, bool valid, int c, const __nv_bfloat16* __restrict__ s,
+                                            const __nv_bfloat16* __restrict__ b) {
+  const int q4 = threadIdx.x & 3, nch = c / 8;
+  float v[3][8];
+  float sum = 0.f, sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int ch = q4 + 4 * j;
+    if (valid && ch < nch) {
+      const uint4 u = *reinterpret_cast<const uint4*>(row + 8 * ch);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float2 f = __bfloat1622float2(h[m]);
+        v[j][2 * m] = f.x, v[j][2 * m + 1] = f.y;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        sum += v[j][e];
+        sq += v[j][e] * v[j][e];
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  }
+  const float mean = sum / c;
+  const float var = fmaxf(sq / c - mean * mean, 0.f);
+  const float rstd = 1.0f / sqrtf(var + 1e-6f);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int ch = q4 + 4 * j;
+    if (valid && ch < nch) {
+      const uint4 su = __ldg(reinterpret_cast<const uint4*>(s + 8 * ch));
+      const uint4 bu = __ldg(reinterpret_cast<const uint4*>(b + 8 * ch));
+      const __nv_bfloat162* sh = reinterpret_cast<const __nv_bfloat162*>(&su);
+      const __nv_bfloat162* bh = reinterpret_cast<const __nv_bfloat162*>(&bu);
+      uint4 o;
+      uint32_t* op = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float2 sf = __bfloat1622float2(sh[m]), bf = __bfloat1622float2(bh[m]);
+        const __nv_bfloat162 r = __floats2bfloat162_rn((v[j][2 * m] - mean) * rstd * sf.x + bf.x,
+                                                       (v[j][2 * m + 1] - mean) * rstd * sf.y + bf.y);
+        op[m] = *reinterpret_cast<const uint32_t*>(&r);
+      }
+      *reinterpret_cast<uint4*>(row + 8 * ch) = o;
+    }
+  }
+}
+
 // LN + projections, q = ln(xq) Wq^T + bq and kv = ln(xkv) Wkv^T + bkv, on
 // persistent CTAs.  Each CTA stages [Wq; Wkv] (3D x D) once into shared
 // memory, then walks the tiles of TOK tokens blockIdx.x, + gridDim.x, ...:
@@ -389,9 +456,16 @@ __global__ void __launch_bounds__(LNP_THREADS, 1)
     cp_async_wait(next < ntile ? 1 : 0);
     __syncthreads();  // this tile's rows (and, the first time, w) are in shared memory
     __nv_bfloat16* xt = xs + stage * 2 * TOK * S;
-    if (do_ln) {  // rows warp, warp + 12, ... of each stream
-      ln_rows_inplace<(TOK + LNP_WARPS - 1) / LNP_WARPS>(xt, S, warp, LNP_WARPS, TOK, D, lsq, lbq);
-      ln_rows_inplace<(TOK + LNP_WARPS - 1) / LNP_WARPS>(xt + TOK * S, S, warp, LNP_WARPS, TOK, D, lsk, lbk);
+    if (do_ln) {
+      if constexpr (sizeof(OT) == 2) {  // groups of 8 rows (both streams) warp, warp + 12, ..., a row a quad
+        for (int p = warp; p < 2 * TOK / 8; p += LNP_WARPS) {
+          const int st = p >= TOK / 8, r = (p % (TOK / 8)) * 8 + (lane >> 2);
+          ln_row_quad(xt + (st * TOK + r) * S, (int64_t)tile * TOK + r < ntok, D, st ? ks : qs, st ? kb : qb);
+        }
+      } else {  // rows warp, warp + 12, ... of each stream
+        ln_rows_inplace<(TOK + LNP_WARPS - 1) / LNP_WARPS>(xt, S, warp, LNP_WARPS, TOK, D, lsq, lbq);
+        ln_rows_inplace<(TOK + LNP_WARPS - 1) / LNP_WARPS>(xt + TOK * S, S, warp, LNP_WARPS, TOK, D, lsk, lbk);
+      }
       __syncthreads();
     }
     const __nv_bfloat16* A = xt + (is_q ? 0 : TOK * S);
@@ -461,6 +535,20 @@ __device__ __forceinline__ uint32_t hash_step(uint32_t h, uint32_t v) { return f
 
 __device__ __forceinline__ uint32_t dropout_row_key(uint32_t seed, int b, int g, int hd, int widx, int i) {
   return hash_step(hash_step(hash_step(hash_step(hash_step(seed, b), g), hd), widx), i);
+}
+
+// hash_step(h, j) in two parts, the same bits for 0 <= j < 2^15: fmix32's
+// first step x ^ (x >> 16) distributes over the xor of h and v = j +
+// 0x9e3779b9, and v >> 16 is 0x9e37 for such j, so hash_row(h) takes the
+// row's share once and hash_step_row the rest, four integer operations an
+// entry fewer.
+__device__ __forceinline__ uint32_t hash_row(uint32_t h) { return h ^ (h >> 16) ^ 0x9e37u; }
+__device__ __forceinline__ uint32_t hash_step_row(uint32_t hr, uint32_t j) {
+  uint32_t x = hr ^ (j + 0x9e3779b9u);
+  x *= 0x85ebca6bu;
+  x ^= x >> 13;
+  x *= 0xc2b2ae35u;
+  return x ^ (x >> 16);
 }
 
 // Token (raster index) of position j of window widx after the -sh roll:
@@ -937,6 +1025,504 @@ inline cudaError_t launch_attn_groups_any(const T* q, const T* k, const T* v, in
                                           corrected, seed, thresh, inv_keep, st);
 }
 
+// ------------------------------------------- the training cores' bf16 forward
+//
+// K3, K4 and K5 on bf16 io with a float32 bias (p_rounded_once: the JAX
+// kernel's rounding points, dpmn_tpu/ops/pallas_window_train.py:301-316)
+// run their attention forward in steps of STEP = 64 tokens of one channel
+// group of one image: one 8x8 window, four 4x4 windows or sixteen 2x2
+// windows, in window order (step row r = window r / N, position r % N).  A
+// step's q, k and v land in a shared slot [3][STEP][ldq] (ldq = fwd_ldq).
+// Its 4x4 and 8x8 windows run as 4 gh tasks (gh heads x 4 m16-tiles of
+// query rows) on bf16 m16n8k16, the tables read straight into the score
+// registers (the mask only where the group is shifted); its 2x2 windows on
+// the CUDA cores, a lane pair per (head, query row) reading the slot.  The
+// dropout draw takes fmix32's first step once a row (hash_row).
+//
+// What bounds it (PERF.md §6, tools/attention_groups.py --train): not the
+// loads (a step's staging alone runs at the bytes' bound) but each step's
+// chain of products, table reads, softmax and the draw's integer work, a
+// task a warp between two barriers.
+//
+// Two producers fill the slot:
+//  * window_attn_fwd_train_kernel (K4's forward, the attention of K5's
+//    form on projected q, k, v): the step's rows of q, k, v by cp.async into
+//    one of TRAIN_STAGES slots, the next step's landing while one is
+//    computed;
+//  * window_block_fwd_bf16_kernel (K3's forward, K5's front): the step's
+//    xq and xkv rows, all D channels, by cp.async; the LN in float32
+//    rounded to bf16 in place (ln_row_quad, as ln_proj_bf16_kernel<D, bf16>);
+//    the group's q, k and v slices projected on bf16 m16n8k16 (k-steps in
+//    ln_proj_bf16_kernel's order, its bias added in float32 and the sum
+//    rounded to bf16) straight into the slot.  q and kv never reach device
+//    memory; each q / k / v value is the same dot product of the same bf16
+//    values as ln_proj_bf16_kernel<D, bf16>'s, so the fused output equals
+//    that kernel + window_attn_fwd_train_kernel bit for bit.
+// Both walk one work list on persistent CTAs, group-major (train_unit): on an
+// H100 at B = 64 the fused kernel ran 7-9 % faster than image-major (every
+// group's steps of image b before image b + 1; PERF.md §6), which keeps the
+// groups' re-reads of an image's rows closer in time; at the flagship the
+// whole of xq and xkv (25 MB) fits the 50 MB L2 either way.
+
+constexpr int STEP = 64;         // tokens a step (THREADS / 4: a quad of threads gathers a row)
+constexpr int TRAIN_STAGES = 2;  // the slots of window_attn_fwd_train_kernel's ring
+static_assert(STEP * 4 == THREADS, "a quad of threads stages each row of a step");
+
+// One channel group of a training forward: its tables, window and shift.
+struct TrainGroup {
+  const float* bias;  // (gh, N, N)
+  const float* mask;  // (nW, N, N), read only where sh > 0
+  int ws, sh;
+};
+
+// The arguments of one training-forward launch (a __grid_constant__
+// parameter): q, k, v for the attention-only kernel (rows of stride D for
+// q, kvs for k and v), xq ... kvbias for the fused one; grp in group order.
+template <typename OT>
+struct TrainFwdArgs {
+  const __nv_bfloat16 *q, *k, *v;
+  const __nv_bfloat16 *xq, *xkv, *qs, *qb, *ks, *kb, *qw, *qbias, *kvw, *kvbias;
+  OT* out;
+  int kvs, B, H, W, D, gh, n_group, vec, ldq, n_units;
+  float scale, inv_keep;
+  uint32_t seed, thresh;
+  TrainGroup grp[MAX_ATTN_GROUPS];
+};
+
+// A unit of the work list: image b, group g, the step's first window w0.
+// The list is group-major (every image's steps of group g before group g +
+// 1), so that a CTA's consecutive units run one window size's code.
+struct TrainUnit {
+  int b, g, w0;
+};
+template <typename OT>
+__device__ __forceinline__ TrainUnit train_unit(const TrainFwdArgs<OT>& a, int u) {
+  const int spi = a.H * a.W / STEP, per_group = a.B * spi;
+  const int g = u / per_group, r = u - g * per_group, b = r / spi;
+  const int ws = a.grp[g].ws;
+  return TrainUnit{b, g, (r - b * spi) * (STEP / (ws * ws))};
+}
+
+// The token (raster index within the image) of step row r.
+__device__ __forceinline__ int step_token(int ws, int w0, int r, int sh, int H, int W) {
+  if (ws == 8) return window_token_c<8>(w0 + r / 64, r % 64, W / 8, sh, H, W);
+  if (ws == 4) return window_token_c<4>(w0 + r / 16, r % 16, W / 4, sh, H, W);
+  return window_token_c<2>(w0 + r / 4, r % 4, W / 2, sh, H, W);
+}
+
+// HH adjacent bf16 values in shared memory (8-byte aligned, HH a multiple of
+// 4) as float32.
+template <int HH>
+__device__ __forceinline__ void smem_row(float (&x)[HH], const __nv_bfloat16* p) {
+#pragma unroll
+  for (int c = 0; c < HH / 4; ++c) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p + 4 * c);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    x[4 * c] = lo.x, x[4 * c + 1] = lo.y, x[4 * c + 2] = hi.x, x[4 * c + 3] = hi.y;
+  }
+}
+
+// A 4x4 or 8x8 step of the training forward on the slot's q, k, v (rows
+// STEP apart, stride ldq), on the tensor cores: warp w takes tasks w, w + 8,
+// ... of the 4 gh (head, m-tile) tasks; K and V of an 8x8 step are all 64
+// rows, of a 4x4 step the task's own window's 16.  The tables are read
+// straight into the score registers (the mask where the group is shifted).
+template <int WS, bool DROP, int HD, typename OT>
+__device__ __forceinline__ void train_step(const TrainFwdArgs<OT>& a, const TrainUnit& t, const __nv_bfloat16* slot) {
+  constexpr int N = WS * WS, NT = N / 8, CT = HD / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const TrainGroup& gr = a.grp[t.g];
+  const int ch = a.gh * HD, ldq = a.ldq;
+  const int64_t base = (int64_t)t.b * a.H * a.W;
+  for (int task = warp; task < 4 * a.gh; task += THREADS / 32) {
+    const int hd = task >> 2, mi = task & 3;
+    const int k0 = N == 64 ? 0 : 16 * mi;  // the task's first key row
+    float s[NT][4] = {};
+    qk_tile_bf16<NT, true, HD>(s, slot + 16 * mi * ldq + hd * HD, ldq, slot + (STEP + k0) * ldq + hd * HD, ldq,
+                               a.scale);
+    int widx[2], qi[2];  // window and position of query rows g8, g8 + 8 of the tile
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * mi + g8 + 8 * r;
+      widx[r] = t.w0 + row / N;
+      qi[r] = row % N;
+    }
+    const float* bh = gr.bias + hd * N * N;
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int off = qi[r] * N + 8 * jn + 2 * t4;  // the lane's keys 2 t4, 2 t4 + 1 of key tile jn
+        float2 add = ldg_pair(bh + off);  // the head's bias, then where shifted the window's mask
+        if (gr.sh > 0) {
+          const float2 mm = __ldg(reinterpret_cast<const float2*>(gr.mask + (int64_t)widx[r] * N * N + off));
+          add.x += mm.x;
+          add.y += mm.y;
+        }
+        s[jn][2 * r] += add.x;
+        s[jn][2 * r + 1] += add.y;
+      }
+    softmax_rows<true, NT>(s);
+    if (DROP) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t hr = hash_row(dropout_row_key(a.seed, t.b, t.g, hd, widx[r], qi[r]));
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& p = s[jn][2 * r + e];
+            p = (hash_step_row(hr, 8 * jn + 2 * t4 + e) & 0x7fffffffu) < a.thresh ? p * a.inv_keep : 0.f;
+          }
+      }
+    }
+    float o[CT][4] = {};
+    pv_tile_bf16<NT, true, HD>(o, s, slot + (2 * STEP + k0) * ldq + hd * HD, ldq);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // the faithful raw layout: row widx N + i
+      OT* orow = a.out + (base + widx[r] * N + qi[r]) * a.D + t.g * ch + hd * HD;
+      if constexpr (HD == 8) {  // lane t4 holds columns 2 t4, 2 t4 + 1
+        OT* p = orow + 2 * t4;
+        if (a.vec) {
+          st2(p, make_float2(o[0][2 * r], o[0][2 * r + 1]));
+        } else {
+          from_f(p[0], o[0][2 * r]);
+          from_f(p[1], o[0][2 * r + 1]);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < CT; c += 2) {  // the lane-pair swap of attn_step_tc: 4 adjacent columns a lane
+          const bool odd = t4 & 1;
+          const float sx = odd ? o[c][2 * r] : o[c + 1][2 * r], sy = odd ? o[c][2 * r + 1] : o[c + 1][2 * r + 1];
+          const float rx = __shfl_xor_sync(0xffffffffu, sx, 1), ry = __shfl_xor_sync(0xffffffffu, sy, 1);
+          const float4 val = odd ? make_float4(rx, ry, o[c + 1][2 * r], o[c + 1][2 * r + 1])
+                                 : make_float4(o[c][2 * r], o[c][2 * r + 1], rx, ry);
+          store4(orow + 8 * c + 2 * t4 + (odd ? 6 : 0), val, a.vec);
+        }
+      }
+    }
+  }
+}
+
+// A 2x2 step (16 windows) on the CUDA cores: a lane pair per (head, query
+// row) of the slot, each lane half of the head's channels (HH = HD / 2): its
+// half of the q row scaled as the tensor-core steps scale it, its half of
+// the window's 4 k rows (the pair's partial scores summed by one shuffle)
+// and of the 4 v rows read from shared memory, the softmax and dropout of
+// the 4 scores in both lanes, and its HH outputs.
+template <bool DROP, int HD, typename OT>
+__device__ __forceinline__ void train_step4(const TrainFwdArgs<OT>& a, const TrainUnit& t,
+                                            const __nv_bfloat16* slot) {
+  constexpr int HH = HD / 2;
+  const TrainGroup& gr = a.grp[t.g];
+  const int ch = a.gh * HD, ldq = a.ldq;
+  const int64_t base = (int64_t)t.b * a.H * a.W;
+  for (int item = threadIdx.x; item < 2 * STEP * a.gh; item += THREADS) {  // whole pairs: 2 STEP gh is even
+    const int half = item & 1, hd = item / (2 * STEP), r = (item >> 1) - hd * STEP, i = r & 3, r0 = r - i;
+    const int widx = t.w0 + r / 4, col = hd * HD + half * HH;
+    float qv[HH], sc[4];
+    smem_row<HH>(qv, slot + r * ldq + col);
+#pragma unroll
+    for (int d = 0; d < HH; ++d) qv[d] = round_bf16(qv[d] * a.scale);
+    const float* brow = gr.bias + (hd * 4 + i) * 4;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float kv[HH];
+      smem_row<HH>(kv, slot + (STEP + r0 + j) * ldq + col);
+      float acc = 0.f;
+#pragma unroll
+      for (int d = 0; d < HH; ++d) acc = fmaf(qv[d], kv[d], acc);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);  // the pair's halves, in lane order
+      acc += __ldg(brow + j);
+      if (gr.sh > 0) acc += __ldg(gr.mask + ((int64_t)widx * 4 + i) * 4 + j);  // the window's mask
+      sc[j] = acc;
+      mx = fmaxf(mx, acc);
+    }
+    float den = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      sc[j] = __expf(sc[j] - mx);
+      den += sc[j];
+    }
+    const float inv = 1.0f / den;
+    const uint32_t hr = DROP ? hash_row(dropout_row_key(a.seed, t.b, t.g, hd, widx, i)) : 0u;
+    float o[HH];
+#pragma unroll
+    for (int d = 0; d < HH; ++d) o[d] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float p = sc[j] * inv;
+      if (DROP) p = (hash_step_row(hr, j) & 0x7fffffffu) < a.thresh ? p * a.inv_keep : 0.f;
+      p = round_bf16(p);
+      float vv[HH];
+      smem_row<HH>(vv, slot + (2 * STEP + r0 + j) * ldq + col);
+#pragma unroll
+      for (int d = 0; d < HH; ++d) o[d] = fmaf(p, vv[d], o[d]);
+    }
+    store_row(a.out + (base + widx * 4 + i) * a.D + t.g * ch + col, o, a.vec);  // raw row widx 4 + i
+  }
+}
+
+// train_step at the unit's window size.
+template <bool DROP, int HD, typename OT>
+__device__ __forceinline__ void train_step_any(const TrainFwdArgs<OT>& a, const TrainUnit& t,
+                                               const __nv_bfloat16* slot) {
+  const int ws = a.grp[t.g].ws;
+  if (ws == 8)
+    train_step<8, DROP, HD>(a, t, slot);
+  else if (ws == 4)
+    train_step<4, DROP, HD>(a, t, slot);
+  else
+    train_step4<DROP, HD>(a, t, slot);
+}
+
+// Stage unit u's q, k, v rows (the group's ch channels of each of the step's
+// tokens) into a slot: 16-byte pieces by cp.async where `vec`, else element
+// by element.
+template <typename OT>
+__device__ __forceinline__ void train_stage(const TrainFwdArgs<OT>& a, int u, int ch, __nv_bfloat16* slot) {
+  const TrainUnit t = train_unit(a, u);
+  const TrainGroup& gr = a.grp[t.g];
+  const int64_t base = (int64_t)t.b * a.H * a.W;
+  const int col = t.g * ch, ldq = a.ldq, per = a.vec ? ch / 8 : ch, each = a.vec ? 8 : 1;
+  for (int e = threadIdx.x; e < STEP * per; e += THREADS) {
+    const int r = e / per, c = (e - r * per) * each;
+    const int64_t tok = base + step_token(gr.ws, t.w0, r, gr.sh, a.H, a.W);
+    const __nv_bfloat16* qs = a.q + tok * a.D + col + c;
+    const __nv_bfloat16* ks = a.k + tok * a.kvs + col + c;
+    const __nv_bfloat16* vs = a.v + tok * a.kvs + col + c;
+    __nv_bfloat16* dst = slot + r * ldq + c;
+    if (a.vec) {
+      cp_async16_bytes(dst, qs);
+      cp_async16_bytes(dst + STEP * ldq, ks);
+      cp_async16_bytes(dst + 2 * STEP * ldq, vs);
+    } else {
+      dst[0] = qs[0];
+      dst[STEP * ldq] = ks[0];
+      dst[2 * STEP * ldq] = vs[0];
+    }
+  }
+}
+
+// The attention forward of the training cores on bf16 io (K4's forward),
+// every group in one launch: persistent CTAs of 8 warps walk the work list
+// blockIdx.x, + gridDim.x, ..., each step staged TRAIN_STAGES - 1 steps
+// ahead into a ring of slots.  Shared: TRAIN_STAGES x [3][STEP][ldq] bf16.
+template <bool DROP, typename OT, int HD>
+__global__ void __launch_bounds__(THREADS, 2)
+    window_attn_fwd_train_kernel(const __grid_constant__ TrainFwdArgs<OT> a) {
+  extern __shared__ __align__(16) unsigned char train_smem[];
+  const int ch = a.gh * HD;
+  auto slot = [&](int k) { return reinterpret_cast<__nv_bfloat16*>(train_smem) + k * 3 * STEP * a.ldq; };
+  auto stage = [&](int u, int k) {
+    if (u < a.n_units) train_stage(a, u, ch, slot(k));
+    cp_async_commit();  // one group a step, empty past the end: the wait counts steps
+  };
+#pragma unroll
+  for (int k = 0; k < TRAIN_STAGES - 1; ++k) stage(blockIdx.x + k * gridDim.x, k);
+  int k = 0;
+  for (int u = blockIdx.x; u < a.n_units; u += gridDim.x) {
+    stage(u + (TRAIN_STAGES - 1) * gridDim.x, k == 0 ? TRAIN_STAGES - 1 : k - 1);  // the slot computed last
+    cp_async_wait(TRAIN_STAGES - 1);
+    __syncthreads();  // this step's rows are in shared memory
+    train_step_any<DROP, HD>(a, train_unit(a, u), slot(k));
+    __syncthreads();  // every warp is done with this slot before it is refilled
+    k = k + 1 == TRAIN_STAGES ? 0 : k + 1;
+  }
+}
+
+// K3's bf16 forward (and K5's front) in one launch: LN + the q / kv
+// projections + the attention, q and kv kept in shared memory.  Each CTA
+// stages [Wq; Wkv] (3D x D) once; a unit's xq and xkv rows land by cp.async
+// while the previous unit's attention runs.  Warp w projects the n8-tiles
+// w, w + 8, ... of the group's 3 ch output columns (q, then k, then v) over
+// the 4 m16-tiles of the step, two tiles at a time.  Shared: w [3D][D + 8],
+// xs [2][STEP][D + 8], slot [3][STEP][ldq], all bf16 (102 KB at D = 96: 2
+// CTAs an SM, up to 128 registers; at head dim 32 one CTA an SM, whose
+// registers hold the wider rows without spilling).
+template <bool DROP, typename OT, int HD>
+__global__ void __launch_bounds__(THREADS, HD == 32 ? 1 : 2)
+    window_block_fwd_bf16_kernel(const __grid_constant__ TrainFwdArgs<OT> a) {
+  extern __shared__ __align__(16) unsigned char block_smem[];
+  const int D = a.D, S = D + 8, ch = a.gh * HD, ldq = a.ldq;
+  __nv_bfloat16* w = reinterpret_cast<__nv_bfloat16*>(block_smem);
+  __nv_bfloat16* xs = w + 3 * D * S;
+  __nv_bfloat16* slot = xs + 2 * STEP * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int r8 = lane & 7, hi8 = (lane >> 3) & 1, quad = lane >> 4;
+  auto gather = [&](int u) {  // unit u's xq and xkv rows, all D channels
+    const TrainUnit t = train_unit(a, u);
+    const TrainGroup& gr = a.grp[t.g];
+    const int r = threadIdx.x >> 2;  // a row's D / 8 pieces by a quad (THREADS / 4 = STEP rows)
+    const int64_t tok = (int64_t)t.b * a.H * a.W + step_token(gr.ws, t.w0, r, gr.sh, a.H, a.W);
+    for (int c = 8 * (threadIdx.x & 3); c < D; c += 32) {
+      cp_async16_bytes(xs + r * S + c, a.xq + tok * D + c);
+      cp_async16_bytes(xs + (STEP + r) * S + c, a.xkv + tok * D + c);
+    }
+  };
+  if (blockIdx.x < a.n_units) gather(blockIdx.x);
+  cp_async_commit();
+  stage_rows(w, a.qw, D, D, S);
+  stage_rows(w + D * S, a.kvw, 2 * D, D, S);
+  const int nct = ch / 8, ntot = 3 * nct;  // n8-tiles a stream, and of q, k, v together
+  for (int u = blockIdx.x; u < a.n_units; u += gridDim.x) {
+    const TrainUnit t = train_unit(a, u);
+    cp_async_wait(0);
+    __syncthreads();  // the unit's rows (the first time, the weights) are in shared memory; the slot is free
+    for (int p = warp; p < 2 * STEP / 8; p += THREADS / 32) {  // groups of 8 rows of both streams, a row a quad
+      const int st = p >= STEP / 8, r = (p % (STEP / 8)) * 8 + (lane >> 2);
+      ln_row_quad(xs + (st * STEP + r) * S, true, D, st ? a.ks : a.qs, st ? a.kb : a.qb);
+    }
+    __syncthreads();
+    for (int j0 = warp; j0 < ntot; j0 += 16) {
+      const bool two = j0 + 8 < ntot;
+      int st[2], cs[2];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int j = j0 + 8 * p;
+        st[p] = j / nct;  // 0 q, 1 k, 2 v
+        cs[p] = (j - st[p] * nct) * 8;
+      }
+      const __nv_bfloat16* A0 = xs + (st[0] ? STEP * S : 0);
+      const __nv_bfloat16* A1 = xs + (st[1] ? STEP * S : 0);
+      const __nv_bfloat16* W0 = w + (st[0] * D + t.g * ch + cs[0] + r8) * S + 8 * hi8;
+      const __nv_bfloat16* W1 = w + (st[1] * D + t.g * ch + cs[1] + r8) * S + 8 * hi8;
+      float acc[4][2][4];
+      zero_acc(acc);
+      for (int k0 = 0; k0 < D; k0 += 16) {  // ln_proj_bf16_kernel's k-steps
+        uint32_t b0[2], b1[2] = {0u, 0u};
+        ldmatrix_x2(b0, W0 + k0);
+        if (two) ldmatrix_x2(b1, W1 + k0);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          uint32_t a0[4];
+          ldmatrix_x4(a0, A0 + (16 * i + r8 + 8 * hi8) * S + k0 + 8 * quad);
+          mma_bf16(acc[i][0], a0, b0[0], b0[1]);
+          if (two) {
+            if (A1 != A0) ldmatrix_x4(a0, A1 + (16 * i + r8 + 8 * hi8) * S + k0 + 8 * quad);
+            mma_bf16(acc[i][1], a0, b1[0], b1[1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        if (p == 1 && !two) continue;
+        const int o = t.g * ch + cs[p] + 2 * t4;  // the output column within its stream
+        const __nv_bfloat16* bsrc = st[p] ? a.kvbias + (st[p] - 1) * D + o : a.qbias + o;
+        const float bx = to_f(bsrc[0]), by = to_f(bsrc[1]);
+        __nv_bfloat16* dst = slot + st[p] * STEP * ldq + cs[p] + 2 * t4;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<__nv_bfloat162*>(dst + (16 * i + g8 + 8 * h) * ldq) =
+                __floats2bfloat162_rn(acc[i][p][2 * h] + bx, acc[i][p][2 * h + 1] + by);
+      }
+    }
+    __syncthreads();  // the slot holds the step's q, k, v; xs is free
+    if (u + gridDim.x < a.n_units) gather(u + gridDim.x);
+    cp_async_commit();
+    train_step_any<DROP, HD>(a, t, slot);
+  }
+}
+
+// Launch a training forward of every group (FUSED: window_block_fwd_bf16
+// on a.xq ...; else window_attn_fwd_train on a.q, a.k, a.v), the args' grp,
+// scale and dropout fields set by the caller.  L = H W a multiple of STEP,
+// 1 to MAX_ATTN_GROUPS groups of windows 2, 4 or 8 dividing H and W, a
+// head dim of 8, 16 or 32.
+template <bool FUSED, bool DROP, int HD, typename OT>
+cudaError_t launch_train_fwd_hd(TrainFwdArgs<OT>& a, cudaStream_t st) {
+  const int ch = a.gh * HD;
+  a.ldq = fwd_ldq<HD>(ch);
+  const size_t slot = (size_t)3 * STEP * a.ldq * sizeof(__nv_bfloat16);
+  const size_t smem = FUSED ? (size_t)(3 * a.D + 2 * STEP) * (a.D + 8) * sizeof(__nv_bfloat16) + slot
+                            : TRAIN_STAGES * slot;
+  void (*kern)(TrainFwdArgs<OT>);
+  if constexpr (FUSED)
+    kern = window_block_fwd_bf16_kernel<DROP, OT, HD>;
+  else
+    kern = window_attn_fwd_train_kernel<DROP, OT, HD>;
+  static GridCap cache;
+  int cap = 0;
+  const cudaError_t err = persistent_cap(cache, kern, THREADS, smem, &cap);
+  if (err != cudaSuccess) return err;
+  const int grid = a.n_units < cap ? a.n_units : cap;
+  if (grid == 0) return cudaSuccess;
+  ++kernel_launches;
+  kern<<<grid, THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// Fill a's geometry, tables and dropout fields and launch (see
+// launch_train_fwd_hd); biases[g], masks[g] are group g's tables (masks[g]
+// read only where shifts[g] > 0).
+template <bool FUSED, typename OT>
+cudaError_t launch_train_fwd(TrainFwdArgs<OT>& a, const float* const* biases,
+                             const float* const* masks, int B, int H, int W, int D, int n_group, const int* ws,
+                             const int* shifts, int gh, float scale, uint32_t seed, uint32_t thresh, float inv_keep,
+                             int drop, cudaStream_t st) {
+  if (n_group < 1 || n_group > MAX_ATTN_GROUPS || (H * W) % STEP) return cudaErrorInvalidValue;
+  a.B = B, a.H = H, a.W = W, a.D = D, a.gh = gh, a.n_group = n_group;
+  a.scale = __bfloat162float(__float2bfloat16_rn(scale));
+  a.inv_keep = inv_keep, a.seed = seed, a.thresh = thresh;
+  for (int g = 0; g < n_group; ++g) {
+    if ((ws[g] != 2 && ws[g] != 4 && ws[g] != 8) || H % ws[g] || W % ws[g]) return cudaErrorInvalidValue;
+    a.grp[g] = TrainGroup{biases[g], shifts[g] > 0 ? masks[g] : nullptr, ws[g], shifts[g]};
+  }
+  a.n_units = B * n_group * (H * W / STEP);
+  const int hd = head_dim(D, n_group, gh);
+  switch (hd * 2 + (drop ? 1 : 0)) {
+    case 16: return launch_train_fwd_hd<FUSED, false, 8>(a, st);
+    case 17: return launch_train_fwd_hd<FUSED, true, 8>(a, st);
+    case 32: return launch_train_fwd_hd<FUSED, false, 16>(a, st);
+    case 33: return launch_train_fwd_hd<FUSED, true, 16>(a, st);
+    case 64: return launch_train_fwd_hd<FUSED, false, 32>(a, st);
+    case 65: return launch_train_fwd_hd<FUSED, true, 32>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The attention forward of the training cores on bf16 q, k, v (q and out
+// rows of stride D, k and v of stride kvs, a multiple of 8), one launch.
+template <typename OT>
+cudaError_t launch_train_attn(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, int kvs,
+                              const float* const* biases, const float* const* masks, OT* out, int B, int H, int W,
+                              int D, int n_group, const int* ws, const int* shifts, int gh, float scale,
+                              uint32_t seed, uint32_t thresh, float inv_keep, int drop, cudaStream_t st) {
+  TrainFwdArgs<OT> a = {};
+  a.q = q, a.k = k, a.v = v, a.out = out, a.kvs = kvs;
+  a.vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) && kvs % 8 == 0;
+  return launch_train_fwd<false>(a, biases, masks, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh,
+                          inv_keep, drop, st);
+}
+
+// K3's bf16 forward in one launch: LN (scales qs, ks, biases qb, kb) + the
+// projections (q_w (D, D), kv_w (2D, D) in torch Linear layout) + the
+// attention, out (B, L, D) of OT (bf16, or float32 for K5's tokens).  xq,
+// xkv, q_w and kv_w 16-byte aligned; D a multiple of 16 up to 96.
+template <typename OT>
+cudaError_t launch_block_fwd_bf16(const __nv_bfloat16* xq, const __nv_bfloat16* xkv, const __nv_bfloat16* qs,
+                                  const __nv_bfloat16* qb, const __nv_bfloat16* ks, const __nv_bfloat16* kb,
+                                  const __nv_bfloat16* q_w, const __nv_bfloat16* q_b, const __nv_bfloat16* kv_w,
+                                  const __nv_bfloat16* kv_b, const float* const* biases, const float* const* masks,
+                                  OT* out, int B, int H, int W, int D, int n_group, const int* ws, const int* shifts,
+                                  int gh, float scale, uint32_t seed, uint32_t thresh, float inv_keep, int drop,
+                                  cudaStream_t st) {
+  if (!aligned16(xq) || !aligned16(xkv) || !aligned16(q_w) || !aligned16(kv_w) || !aligned16(qs) || !aligned16(qb) ||
+      !aligned16(ks) || !aligned16(kb))
+    return cudaErrorMisalignedAddress;
+  if (D % 16 || D < 16 || D > 96) return cudaErrorInvalidValue;
+  TrainFwdArgs<OT> a = {};
+  a.xq = xq, a.xkv = xkv, a.qs = qs, a.qb = qb, a.ks = ks, a.kb = kb, a.qw = q_w, a.qbias = q_b, a.kvw = kv_w,
+  a.kvbias = kv_b, a.out = out;
+  a.vec = aligned16(out);
+  return launch_train_fwd<true>(a, biases, masks, B, H, W, D, n_group, ws, shifts, gh, scale, seed, thresh, inv_keep,
+                          drop, st);
+}
+
 template <int D>
 cudaError_t launch_ln_proj_d(const float* xq, const float* xkv, const float* qs, const float* qb, const float* ks,
                              const float* kb, const float* q_w, const float* q_b, const float* kv_w,
@@ -999,6 +1585,8 @@ inline cudaError_t launch_ln_proj(const __nv_bfloat16* xq, const __nv_bfloat16* 
                                   const __nv_bfloat16* kv_b, OT* qbuf, OT* kvbuf, int ntok, int D, int do_ln,
                                   cudaStream_t st) {
   if (!aligned16(xq) || !aligned16(xkv) || !aligned16(q_w) || !aligned16(kv_w)) return cudaErrorMisalignedAddress;
+  if (sizeof(OT) == 2 && do_ln && (!aligned16(qs) || !aligned16(qb) || !aligned16(ks) || !aligned16(kb)))
+    return cudaErrorMisalignedAddress;  // ln_row_quad's 16-byte parameter pieces
   switch (D) {
     case 16: return launch_ln_proj_bf16_d<16>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);
     case 32: return launch_ln_proj_bf16_d<32>(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv_b, qbuf, kvbuf, ntok, do_ln, st);

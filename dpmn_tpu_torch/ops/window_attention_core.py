@@ -64,11 +64,12 @@ def _prepare(st: WT._Static, primals, biases):
     return (b, *st.hw_shape, dim, *WT.pack_tables(st, biases, q.device))
 
 
-def _prepare_bf16(st: WT._Static, primals, biases):
+def _prepare_bf16(st: WT._Static, primals, biases, packed=True):
     """Check what the bf16 kernels take: q contiguous, k and v of one row
     stride kvs (a multiple of 8 elements, at least D; contiguous or the
     halves of one kv tensor), all bf16, float32 tables.  Returns (kvs, B, H,
-    W, D, bias, mask, ws_arr, sh_arr)."""
+    W, D, bias, mask, ws_arr, sh_arr), the tables concatenated or, where
+    not `packed` (the forward), as C arrays of their pointers."""
     q, k, v = primals
     b, l, dim = q.shape
     WT.check_geometry(_NAME, st, l, dim)
@@ -79,7 +80,7 @@ def _prepare_bf16(st: WT._Static, primals, biases):
         if t.stride() != (l * kvs, kvs, 1) or kvs % 8 or kvs < dim:
             raise ValueError(f"{name}: strides {t.stride()}, the bf16 kernel takes rows of one stride for k and v "
                              f"(a multiple of 8 and at least {dim}; k has {kvs})")
-    return (kvs, b, *st.hw_shape, dim, *WT.pack_tables(st, biases, q.device))
+    return (kvs, b, *st.hw_shape, dim, *(WT.pack_tables if packed else WT.group_tables)(st, biases, q.device))
 
 
 def _forward_cuda(st: WT._Static, primals, biases):
@@ -118,14 +119,15 @@ def _backward_cuda(st: WT._Static, primals, biases, dout: torch.Tensor, kept=())
 
 
 def _forward_bf16_cuda(st: WT._Static, primals, biases):
-    """The bf16 forward: (out bf16, ())."""
-    kvs, b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare_bf16(st, primals, biases)
+    """The bf16 forward, one launch: (out bf16, ())."""
+    kvs, b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare_bf16(st, primals, biases, packed=False)
     dev = primals[0].device
     out = torch.empty(b, h * w, dim, device=dev, dtype=torch.bfloat16)
     fn = kernels.bind(_NAME, "window_attention_core_forward_bf16",
                       [ctypes.c_void_p] * 6 + [ctypes.c_int] + WT.core_argtypes(0))
-    err = fn(*[kernels.ptr(t) for t in (*primals, bias, mask, out)], kvs, b, h, w, dim, len(st.window_sizes), ws_arr,
-             sh_arr, st.gnum_heads, float(st.scale), *WT.drop_args(st), kernels.stream_ptr(dev))
+    err = fn(*[kernels.ptr(t) for t in primals], bias, mask, kernels.ptr(out), kvs, b, h, w, dim,
+             len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, float(st.scale), *WT.drop_args(st),
+             kernels.stream_ptr(dev))
     kernels.check_launch(err, "window_attention_core_forward_bf16")
     forward_bf16_counter.launches += 1
     return out, ()

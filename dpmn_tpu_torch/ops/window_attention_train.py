@@ -343,23 +343,43 @@ def check_geometry(what: str, st: _Static, l: int, dim: int, backward: bool = Tr
     check_window_geometry(what, st.hw_shape, l, dim, st.window_sizes, st.gnum_heads, backward)
 
 
-def pack_tables(st: _Static, biases, dev, bias_dtype=torch.float32):
-    """Check the per-group bias (of `bias_dtype`) and float32 mask tables;
-    returns (bias, mask, ws_arr, sh_arr): the tables concatenated (masks of
-    shifted groups only) and the windows and shifts as C int arrays."""
+def check_tables(st: _Static, biases, dev, bias_dtype=torch.float32) -> None:
+    """Raise unless each group's bias is a CUDA tensor of `bias_dtype` and
+    shape (heads, N, N) and, where the group is shifted, its mask a float32
+    one of shape (nW, N, N), all contiguous on `dev`."""
     h, w = st.hw_shape
-    n_group = len(st.window_sizes)
     for i, (ws, sh) in enumerate(zip(st.window_sizes, st.shifts)):
         n = ws * ws
         kernels.check_cuda_tensor(f"bias {i}", biases[i], (st.gnum_heads, n, n), dev, bias_dtype)
         if sh > 0:
             kernels.check_cuda_tensor(f"mask {i}", st.masks[i], ((h // ws) * (w // ws), n, n), dev)
+
+
+def table_pointers(st: _Static, biases):
+    """(biases, masks, ws_arr, sh_arr) as the bf16 forwards' C entry points
+    take them: each group's bias and mask pointer (null for an unshifted
+    group's mask) and its window and shift, C arrays in group order."""
+    n_group = len(st.window_sizes)
+    masks = [m.data_ptr() if sh > 0 else None for m, sh in zip(st.masks, st.shifts)]
+    return ((ctypes.c_void_p * n_group)(*[bb.data_ptr() for bb in biases]), (ctypes.c_void_p * n_group)(*masks),
+            (ctypes.c_int * n_group)(*st.window_sizes), (ctypes.c_int * n_group)(*st.shifts))
+
+
+def group_tables(st: _Static, biases, dev, bias_dtype=torch.float32):
+    """check_tables, then table_pointers: the tables as they are, no copy."""
+    check_tables(st, biases, dev, bias_dtype)
+    return table_pointers(st, biases)
+
+
+def pack_tables(st: _Static, biases, dev, bias_dtype=torch.float32):
+    """Check the per-group bias (of `bias_dtype`) and float32 mask tables;
+    returns (bias, mask, ws_arr, sh_arr): the tables concatenated (masks of
+    shifted groups only) and the windows and shifts as C int arrays."""
+    check_tables(st, biases, dev, bias_dtype)
     bias = torch.cat([bb.reshape(-1) for bb in biases])
     shifted = [m.reshape(-1) for m, sh in zip(st.masks, st.shifts) if sh > 0]
     mask = torch.cat(shifted) if shifted else torch.zeros(1, device=dev)
-    ws_arr = (ctypes.c_int * n_group)(*st.window_sizes)
-    sh_arr = (ctypes.c_int * n_group)(*st.shifts)
-    return bias, mask, ws_arr, sh_arr
+    return (bias, mask, *table_pointers(st, biases)[2:])
 
 
 def split_bias_grad(dbias: torch.Tensor, biases):
@@ -371,10 +391,11 @@ def split_bias_grad(dbias: torch.Tensor, biases):
     return out
 
 
-def _prepare(st: _Static, primals, biases, io=torch.float32):
+def _prepare(st: _Static, primals, biases, io=torch.float32, packed=True):
     """Check what the K3 kernels take (primals of dtype `io`, float32
     biases); returns (B, H, W, D, bias, mask, ws_arr, sh_arr) with the
-    per-group tables concatenated."""
+    per-group tables concatenated (`pack_tables`), or, where not `packed`,
+    as C arrays of their pointers (`group_tables`, the bf16 forwards')."""
     xq = primals[0]
     b, l, dim = xq.shape
     check_geometry("window_attention_train", st, l, dim)
@@ -383,7 +404,7 @@ def _prepare(st: _Static, primals, biases, io=torch.float32):
               "q_w": (dim, dim), "q_b": (dim,), "kv_w": (2 * dim, dim), "kv_b": (2 * dim,)}
     for name, t in zip(_PRIMALS, primals):
         kernels.check_cuda_tensor(name, t, shapes[name], dev, io)
-    return (b, *st.hw_shape, dim, *pack_tables(st, biases, dev))
+    return (b, *st.hw_shape, dim, *(pack_tables if packed else group_tables)(st, biases, dev))
 
 
 def scratch_floats(name, fn, b, h, w, n_group, ws_arr, gnum_heads) -> int:
@@ -460,18 +481,33 @@ def _backward_cuda(st: _Static, primals, biases, dout: torch.Tensor, kept=()):
 
 
 def _forward_bf16_cuda(st: _Static, primals, biases):
-    """The bf16 forward: (out bf16, ())."""
-    b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases, torch.bfloat16)
+    """The bf16 forward, one launch (LN, projections and attention; q and kv
+    stay on chip): (out bf16, ())."""
+    b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases, torch.bfloat16, packed=False)
     dev = primals[0].device
-    l = h * w
-    qbuf, kvbuf, out = (torch.empty(b, l, k * dim, device=dev, dtype=torch.bfloat16) for k in (1, 2, 1))
-    fn = kernels.bind("window_attention_train", "window_attention_train_forward_bf16", core_argtypes(15))
-    ptrs = [kernels.ptr(t) for t in (*primals, bias, mask, qbuf, kvbuf, out)]
-    err = fn(*ptrs, b, h, w, dim, len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, float(st.scale),
-             *drop_args(st), kernels.stream_ptr(dev))
+    out = torch.empty(b, h * w, dim, device=dev, dtype=torch.bfloat16)
+    fn = kernels.bind("window_attention_train", "window_attention_train_forward_bf16", core_argtypes(13))
+    err = fn(*[kernels.ptr(t) for t in primals], bias, mask, kernels.ptr(out), b, h, w, dim, len(st.window_sizes),
+             ws_arr, sh_arr, st.gnum_heads, float(st.scale), *drop_args(st), kernels.stream_ptr(dev))
     kernels.check_launch(err, "window_attention_train_forward_bf16")
     forward_bf16_counter.launches += 1
     return out, ()
+
+
+def ln_proj_bf16_cuda(primals):
+    """q (B, L, D) and kv (B, L, 2D) in bf16 from K3's bf16 primals by the
+    LN + projection kernel alone (what the bf16 backward recomputes); with
+    K4's bf16 forward on them, the two-launch composition that
+    `_forward_bf16_cuda` equals bit for bit."""
+    xq = primals[0]
+    b, l, dim = xq.shape
+    q = torch.empty(b, l, dim, device=xq.device, dtype=torch.bfloat16)
+    kv = torch.empty(b, l, 2 * dim, device=xq.device, dtype=torch.bfloat16)
+    fn = kernels.bind("window_attention_train", "window_attention_train_ln_proj_bf16",
+                      [ctypes.c_void_p] * 12 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    err = fn(*[kernels.ptr(t) for t in (*primals, q, kv)], b * l, dim, kernels.stream_ptr(xq.device))
+    kernels.check_launch(err, "window_attention_train_ln_proj_bf16")
+    return q, kv
 
 
 def _backward_bf16_cuda(st: _Static, primals, biases, dout: torch.Tensor):

@@ -11,8 +11,10 @@ calls after 3), the float32 kernel on the same values beside it, the
 library's own count of kernel launches a call (`<lib>_kernel_launches`,
 host-side) and torch.profiler's split of a call by kernel (device ms and
 launches).  With --forward also the bf16 forward at keep 1 (no dropout
-draw) and the float32 forward's split, and the core "eval" (K1's bf16
-forward, no dropout) is taken.
+draw), the float32 forward's split and the host's wall time of a bf16
+forward call of the wrapper (its checks, table pointers, allocations and
+launches; the device idle before the timed calls), and the core "eval"
+(K1's bf16 forward, no dropout) is taken.
 Prints one JSON object a core with the times per train step or forward (6
 unshifted + 6 shifted calls), the card's name and power limit first, and
 the registers and spill bytes of the library's forward kernels that the
@@ -99,6 +101,23 @@ def event_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters=100, warmup=3):
+    """The host's wall time a call of fn, with the device idle before the
+    timed calls."""
+    import time
+
+    with torch.no_grad():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        ms = (time.perf_counter() - t0) * 1e3 / iters
+        torch.cuda.synchronize()
+    return ms
+
+
 def split(fn, iters=5, warmup=2, attempts=3):
     """{kernel: [device ms, launches]} a call of fn, by torch.profiler over one
     cycle of `iters` runs after `warmup`; a profile with no device event is
@@ -175,6 +194,7 @@ def run(core, dev, forward):
     gen = torch.Generator().manual_seed(5)
     cot = torch.randn(B, H * W, DIM, generator=gen).to(dev, torch.bfloat16)
     ms = f32 = keep1 = 0.0
+    hosts = []
     total, total32, counts = {}, {}, []
     for shift in ((0, 0, 0), (1, 2, 4)):
         if core == "eval":
@@ -188,6 +208,7 @@ def run(core, dev, forward):
                 call = lambda st=st, prim=prim, biases=biases: mod._forward_cuda(st, prim, biases)
                 call32 = lambda st=st, p32=p32, biases=biases: mod._forward_cuda(st, p32, biases)
                 keep1 += 6 * event_ms(lambda: mod._forward_cuda(st1, prim, biases))
+                hosts.append(host_ms(call))
             else:
                 kept = mod._forward_cuda(st, prim, biases)[1]
                 kept32 = mod._forward_cuda(st, p32, biases)[1]
@@ -211,6 +232,7 @@ def run(core, dev, forward):
                                  sorted(total.items(), key=lambda kv: -kv[1][0])}}
     if forward and core != "eval":
         out["bf16_forward_keep1_ms_per_step"] = keep1
+        out["bf16_forward_host_ms_per_call"] = hosts
     if kind == "forward":
         out["float32_split_ms_per_step"] = {k: [round(t, 4), round(n, 3)] for k, (t, n) in
                                             sorted(total32.items(), key=lambda kv: -kv[1][0])}

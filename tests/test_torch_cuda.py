@@ -628,6 +628,61 @@ def test_window_attention_full_kernel_bf16_heads_and_scales(dev, scale, width):
                             dict(static, scale=scale), 0.9)
 
 
+def bf16_forward_static(static, keep, seed=123):
+    return WT.make_static(static["masks"], seed, keep, static["window_sizes"], static["shifts"],
+                          static["gnum_heads"], static["scale"], static["hw_shape"])
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("width", BF16_WIDTHS, ids=BF16_IDS)
+@pytest.mark.parametrize("shifted", ["unshifted", "shifted"])
+@pytest.mark.parametrize("keep", [1.0, 0.9])
+def test_block_forward_bf16_equals_ln_proj_and_core_forward(dev, batch, width, shifted, keep):
+    """K3's one-launch bf16 forward (LN, projections and attention; q and kv
+    never reach device memory) equals, bit for bit, the LN + projection
+    kernel's bf16 q and kv (`ln_proj_bf16_cuda`) run through K4's bf16
+    forward (each q / k / v value is the same dot product in the same order,
+    and the attention step is one routine), and K5's bf16 forward keeps the
+    same attention in float32 tokens (rounded, K3's output), at head dims 8,
+    16 and 32, D = 16 to 96, both shift sets."""
+    dim, windows, heads, shift = geometry(width, shifted)
+    prim, biases, static = train_core_inputs(dev, shift, batch, dim=dim, windows=windows, heads=heads)
+    prim = [p.detach().bfloat16() for p in prim]
+    biases = [b.detach() for b in biases]
+    st = bf16_forward_static(static, keep)
+    out = WT._forward_bf16_cuda(st, prim[:10], biases)[0]
+    q, kv = WT.ln_proj_bf16_cuda(prim[:10])
+    ref = WC._forward_cuda(st, [q, kv[..., :dim], kv[..., dim:]], biases)[0]
+    tok = WF._forward_cuda(st, prim, biases)[1][0]
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    assert torch.equal(out, ref)
+    assert tok.dtype == torch.float32 and torch.equal(tok.bfloat16(), out)
+
+
+def test_bf16_forwards_launch_once_and_k5_four_times(dev):
+    """A bf16 forward call launches, by its library's own count, one kernel
+    for K3 (LN, projections, attention) and K4 (the attention of every
+    group), four for K5 (K3's with float32 tokens, SKConv's three)."""
+    import ctypes
+
+    from dpmn_tpu_torch.ops import kernels
+
+    prim, biases, static = train_core_inputs(dev, (1, 2, 4), 2)
+    prim = [p.detach().bfloat16() for p in prim]
+    biases = [b.detach() for b in biases]
+    st = bf16_forward_static(static, 0.9)
+    qkv = [t.detach() for t in bf16_qkv(dev, 2, 96, kv_views=True)]
+    for mod, lib, p, want in ((WT, "window_attention_train", prim[:10], 1), (WC, "window_attention_core", qkv, 1),
+                              (WF, "window_attention_full", prim, 4)):
+        count = kernels.bind(lib, f"{lib}_kernel_launches", [], ctypes.c_ulonglong)
+        torch.cuda.synchronize()
+        before = count()
+        mod._forward_cuda(st, p, biases)
+        torch.cuda.synchronize()
+        assert count() - before == want, lib
+
+
 def test_window_attention_train_kernel_bf16_reruns_bit_for_bit_and_refuses(dev):
     """K3, K4 and K5 on bf16 io: forward and every gradient equal across two
     runs; mixed dtypes and bf16 biases raise on the card, and K4 refuses k

@@ -62,3 +62,79 @@ def test_attention_ablations_find_their_source_text():
     for variant, edits in attention_groups.ABLATIONS.items():
         for name, text, _ in edits:
             assert (kernels.CSRC / name).read_text().count(text) == 1, (variant, name)
+
+
+def test_training_attention_ablations_find_their_source_text():
+    """Each --train variant of tools/attention_groups.py (those of the
+    earlier training forward in window_attn_fwd_kernel and of
+    window_attn_fwd_train_kernel) and each --block variant takes out
+    text that occurs exactly once in the current kernel sources, this tree's
+    --train variants are the ones chosen, and the trimmed K4 library keeps
+    its forwards and the launch count alone."""
+    import re
+
+    from dpmn_tpu_torch.tools import attention_groups
+
+    assert attention_groups.train_ablations() is attention_groups.TRAIN_ABLATIONS["window_attn_fwd_train_kernel"]
+    for kernel, variants in {**attention_groups.TRAIN_ABLATIONS, "block": attention_groups.BLOCK_ABLATIONS}.items():
+        for variant, edits in variants.items():
+            for name, text, _ in edits:
+                assert (kernels.CSRC / name).read_text().count(text) == 1, (kernel, variant, name)
+    source = (kernels.CSRC / f"{attention_groups.TRAIN_LIB}.cu").read_text()
+    kept = re.findall(r'extern "C" [^(]*?(\w+)\(', attention_groups.trim_to_forward(source))
+    assert kept == ["window_attention_core_forward", "window_attention_core_forward_bf16",
+                    "window_attention_core_kernel_launches"]
+
+
+@pytest.mark.parametrize("shifts", [(0, 0, 0), (1, 0, 4), (1, 2, 4)])
+def test_table_pointers_are_the_tables_as_they_are(shifts):
+    """The bf16 forwards' per-group tables: each group's bias pointer, its
+    mask pointer where the group is shifted and null where not (the kernels
+    read an unshifted group's mask never), its window and shift, in group
+    order; no table is copied.  On the CPU the launch-side check refuses
+    them."""
+    import ctypes
+
+    from dpmn_tpu_torch.ops import window_attention_train as WT
+
+    windows, hw, heads = (2, 4, 8), (16, 64), 2
+    biases = [torch.randn(heads, ws * ws, ws * ws) for ws in windows]
+    masks = [torch.randn((hw[0] // ws) * (hw[1] // ws), ws * ws, ws * ws) if sh else None
+             for ws, sh in zip(windows, shifts)]
+    st = WT.make_static(masks, 0, 1.0, windows, shifts, heads, 0.25, hw)
+    bias_arr, mask_arr, ws_arr, sh_arr = WT.table_pointers(st, biases)
+    assert all(isinstance(a, ctypes.Array) and len(a) == 3 for a in (bias_arr, mask_arr, ws_arr, sh_arr))
+    assert list(bias_arr) == [b.data_ptr() for b in biases]
+    assert list(mask_arr) == [m.data_ptr() if sh else None for m, sh in zip(masks, shifts)]
+    assert list(ws_arr) == list(windows) and list(sh_arr) == list(shifts)
+    with pytest.raises(ValueError, match="bias 0: expected a tensor on cuda"):
+        WT.group_tables(st, biases, torch.device("cuda:0"))
+
+
+def test_hash_step_in_two_parts_draws_the_same_bits():
+    """The training forward's dropout draw hash_step(h, j) =
+    fmix32(h ^ (j + 0x9e3779b9)) taken as hash_step_row(hash_row(h), j)
+    (csrc/window_common.cuh): fmix32's first step distributes over the xor
+    and (j + 0x9e3779b9) >> 16 = 0x9e37 for 0 <= j < 2^15, so every key draws
+    the same bits."""
+    import numpy as np
+
+    def fmix32(x):
+        x = x ^ (x >> np.uint32(16))
+        x = x * np.uint32(0x85EBCA6B)
+        x = x ^ (x >> np.uint32(13))
+        x = x * np.uint32(0xC2B2AE35)
+        return x ^ (x >> np.uint32(16))
+
+    rng = np.random.default_rng(0)
+    h = rng.integers(0, 2**32, size=(4096, 1), dtype=np.uint64).astype(np.uint32)
+    j = np.concatenate([np.arange(64), rng.integers(64, 2**15, 64), [2**15 - 1]]).astype(np.uint32)[None, :]
+    with np.errstate(over="ignore"):
+        v = j + np.uint32(0x9E3779B9)
+        whole = fmix32(h ^ v)
+        hr = h ^ (h >> np.uint32(16)) ^ np.uint32(0x9E37)
+        x = (hr ^ v) * np.uint32(0x85EBCA6B)
+        x = (x ^ (x >> np.uint32(13))) * np.uint32(0xC2B2AE35)
+        parts = x ^ (x >> np.uint32(16))
+    assert whole.dtype == parts.dtype == np.uint32
+    assert np.array_equal(whole, parts)
