@@ -1465,17 +1465,19 @@ def bf16_fwd_parts(core, t, dim, win):
     operations[, 2xTF32 operations])} of one K3 ("block"), K4 ("attention")
     or K5 ("full") bf16 forward call on t tokens.  K3's one launch reads
     bf16 xq, xkv and weights and writes out (bf16; K5 float32 tokens), its
-    projections and the attention's products on bf16 (the 2x2 windows' too);
-    K4's reads bf16 q, k, v and writes bf16 out; K5 adds SKConv's three
-    passes (the tokens read by both products, feats written and read back,
-    the GAP partials; their products on bf16 weights, two TF32 passes, in
-    the fifth place)."""
+    projections and the 4x4 and 8x8 windows' products on bf16, the 2x2
+    windows' on the CUDA cores; K4's reads bf16 q, k, v and writes bf16
+    out, its products split so too; K5 adds SKConv's three passes (the
+    tokens read by both products, feats written and read back, the GAP
+    partials; their products on bf16 weights, two TF32 passes, in the fifth
+    place)."""
     ch = dim // len(win)
-    attn = sum(2 * 2 * t * ch * ws * ws for ws in win)
+    flops = {ws: 2 * 2 * t * ch * ws * ws for ws in win}
+    attn, attn2 = sum(f for ws, f in flops.items() if ws != 2), flops.get(2, 0.0)
     if core == "attention":
-        return {"window_attn_fwd_train_kernel": (2 * 4 * t * dim, 0.0, 0.0, attn)}
+        return {"window_attn_fwd_train_kernel": (2 * 4 * t * dim, attn2, 0.0, attn)}
     block = {"window_block_fwd_bf16_kernel": (2 * (2 * t * dim + 3 * dim * dim + 7 * dim) + (4 if core == "full" else 2)
-                                              * t * dim, 0.0, 0.0, 2 * t * dim * 3 * dim + attn)}
+                                              * t * dim, attn2, 0.0, 2 * t * dim * 3 * dim + attn)}
     if core == "block":
         return block
     return {**block,

@@ -1,6 +1,7 @@
 // Attention tiles on the tensor cores, shared by the window-attention
-// forward (window_common.cuh window_attn_fwd_kernel: K1, K3, K4, K5, K7) and
-// the per-window attention tiles (window_tile_attention.cu, K8).
+// forwards (window_common.cuh: window_attn_fwd_kernel, K1, K7 and the
+// float32 K3-K5; the training cores' bf16 forward), their backwards and the
+// per-window attention tiles (window_tile_attention.cu, K8).
 //
 // A warp owns 16 query rows.  float32: S = Q K^T and O = P V run on mma.sync
 // m16n8k8 with the 3xTF32 split of tc_common.cuh (hi*hi + hi*lo + lo*hi).
@@ -235,7 +236,7 @@ __device__ __forceinline__ void qk_tile_bf16(float (&s)[NT][4], const __nv_bfloa
 
 // o[c] += P . V for the warp's 16 rows and one head's output columns 8 c +
 // (0..7), c < HD / 8: p in qk_tile_bf16's accumulator layout over NT x 8
-// keys (float32, split into bf16 hi + lo; with ONCE, K3's bf16 form, rounded
+// keys (float32, split into bf16 hi + lo; with ONCE, the training cores' bf16 form, rounded
 // to bf16 once: hi alone), key n of V at V[n * ldv] in shared memory (bf16,
 // read transposed).
 template <int NT, bool ONCE = false, int HD = 16>

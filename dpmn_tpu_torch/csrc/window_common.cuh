@@ -632,17 +632,6 @@ struct AttnArgs {
   AttnGroup<T, BT> grp[MAX_ATTN_GROUPS];
 };
 
-// bf16 io with a float32 bias is the training cores' bf16 form (K3, K4,
-// K5): q is multiplied by the scale rounded to bf16 and the product rounded
-// to bf16 (dpmn_tpu/ops/pallas_window_train.py:301, a bf16 array times a
-// weakly typed Python float; launch_attn rounds the scale), the scores take
-// no further scale, and P is rounded to bf16 once before P V, as :316 casts
-// it (K7's bf16 keeps P as bf16 hi + lo, attn_tile.cuh).
-template <typename T, typename BT>
-__host__ __device__ constexpr bool p_rounded_once() {
-  return sizeof(T) == 2 && sizeof(BT) == 4;
-}
-
 // A 2x2-window unit on the CUDA cores: a thread per (window, head, query
 // row), THREADS rows a unit; its q row and the window's k and v rows read as
 // 16-byte pieces (the 4 threads of a window and head share them through
@@ -662,10 +651,6 @@ __device__ __forceinline__ void attn_unit4(const AttnArgs<T, BT, OT>& a, const A
   for (int j = 0; j < 4; ++j) tok[j] = window_token_c<2>(widx, j, nwc, gr.sh, a.H, a.W);
   float qv[HD], s[4];
   load_row(qv, a.q + (base + tok[i]) * a.D + col, a.vec);
-  if constexpr (p_rounded_once<T, BT>()) {
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qv[d] = round_bf16(qv[d] * a.scale);
-  }
   const BT* brow = gr.bias + (hd * 4 + i) * 4;
   float mx = -INFINITY;
 #pragma unroll
@@ -675,10 +660,7 @@ __device__ __forceinline__ void attn_unit4(const AttnArgs<T, BT, OT>& a, const A
     float acc = 0.f;
 #pragma unroll
     for (int d = 0; d < HD; ++d) acc = fmaf(qv[d], kv[d], acc);
-    if constexpr (p_rounded_once<T, BT>())
-      acc += ldg_one(brow + j);
-    else
-      acc = acc * a.scale + ldg_one(brow + j);
+    acc = acc * a.scale + ldg_one(brow + j);
     if (gr.sh > 0) acc += __ldg(gr.mask + ((int64_t)widx * 4 + i) * 4 + j);
     s[j] = acc;
     mx = fmaxf(mx, acc);
@@ -698,7 +680,6 @@ __device__ __forceinline__ void attn_unit4(const AttnArgs<T, BT, OT>& a, const A
   for (int j = 0; j < 4; ++j) {
     float p = s[j] * inv;
     if (DROP) p = (hash_step(rkey, j) & 0x7fffffffu) < a.thresh ? p * a.inv_keep : 0.f;
-    if constexpr (p_rounded_once<T, BT>()) p = round_bf16(p);
     float vv[HD];
     load_row(vv, a.v + (base + tok[j]) * a.kvs + col, a.vec);
 #pragma unroll
@@ -770,8 +751,7 @@ __device__ __forceinline__ void attn_step_tc(const AttnArgs<T, BT, OT>& a, const
     const T* Qs = sb + lw * slot;
     float s[NT][4] = {};
     if constexpr (sizeof(T) == 2)
-      qk_tile_bf16<NT, p_rounded_once<T, BT>(), HD>(s, Qs + 16 * mi * ldq + hd * HD, ldq, Qs + N * ldq + hd * HD,
-                                                   ldq, a.scale);
+      qk_tile_bf16<NT, false, HD>(s, Qs + 16 * mi * ldq + hd * HD, ldq, Qs + N * ldq + hd * HD, ldq);
     else
       qk_tile<NT>(s, Qs + 16 * mi * ldq + hd * HD, ldq, Qs + N * ldq + hd * HD, ldq, HD);
     const BT* bh = gr.bias + hd * N * N;
@@ -788,13 +768,8 @@ __device__ __forceinline__ void attn_step_tc(const AttnArgs<T, BT, OT>& a, const
           add.x += mm.x;
           add.y += mm.y;
         }
-        if constexpr (p_rounded_once<T, BT>()) {
-          s[jn][2 * r] += add.x;
-          s[jn][2 * r + 1] += add.y;
-        } else {
-          s[jn][2 * r] = s[jn][2 * r] * a.scale + add.x;
-          s[jn][2 * r + 1] = s[jn][2 * r + 1] * a.scale + add.y;
-        }
+        s[jn][2 * r] = s[jn][2 * r] * a.scale + add.x;
+        s[jn][2 * r + 1] = s[jn][2 * r + 1] * a.scale + add.y;
       }
     softmax_rows<true>(s);
     if (DROP) {
@@ -813,7 +788,7 @@ __device__ __forceinline__ void attn_step_tc(const AttnArgs<T, BT, OT>& a, const
     }
     float o[CT][4] = {};
     if constexpr (sizeof(T) == 2)
-      pv_tile_bf16<NT, p_rounded_once<T, BT>(), HD>(o, s, Qs + 2 * N * ldq + hd * HD, ldv);
+      pv_tile_bf16<NT, false, HD>(o, s, Qs + 2 * N * ldq + hd * HD, ldv);
     else
       pv_tile<NT, CT>(o, s, Qs + 2 * N * ldq + hd * HD, ldv);
 #pragma unroll
@@ -856,18 +831,17 @@ __device__ __forceinline__ void attn_stage_any(const AttnArgs<T, BT, OT>& a, con
     attn_stage<16, HD>(a, gr, unit - gr.unit0, dst);
 }
 
-// The windowed attention forward of every channel group in one launch, the
-// one routine of K1, K3, K4, K5 and K7.  q rows have stride D; k and v rows
+// The windowed attention forward of every channel group in one launch: K1's
+// and K7's, and the float32 forms' of K3, K4 and K5 (their bf16 forms run
+// the training cores' bf16 forward below).  q rows have stride D; k and v rows
 // stride kvs (2D where they are the halves of one kv buffer, D where they
 // are tensors of their own).  Per (image b, window widx) and head of group
 // g: the -sh roll (window_token), S = scale q k^T + bias [+ mask], P =
 // softmax(S), with DROP P times the dropout mask (kept entries by
 // inv_keep), and P v, written to raw row widx N + i (faithful) or to the
-// query's token row (corrected).  T is the io type of q, k, v, OT out's
-// (T, or float32 for K5's bf16 form, whose tokens stay unrounded), BT the
-// bias's (float, or bf16 for K7; bf16 io with a float32 bias for the
-// training cores' bf16 form, p_rounded_once); the mask is float32 and every
-// sum runs in float32.  `vec`: q, k, v and out are 16-byte aligned, so rows move in
+// query's token row (corrected).  T is the io type of q, k, v (float32, or
+// bf16 for K7's bf16), BT the bias's and OT out's, T in every instance; the
+// mask is float32 and every sum runs in float32.  `vec`: q, k, v and out are 16-byte aligned, so rows move in
 // 16-byte pieces; otherwise element by element (the same arithmetic).
 //
 // Persistent CTAs of 8 warps walk one work list of units, blockIdx.x, +
@@ -879,8 +853,8 @@ __device__ __forceinline__ void attn_stage_any(const AttnArgs<T, BT, OT>& a, con
 // dispatch is per unit, so the groups share one launch and one tail.  At
 // least 2 CTAs an SM in float32 (up to 128 registers a thread), 3 in K7's
 // bf16 (up to 80, no spill; faster than 2 on an H100 SXM, where 4 spill:
-// tools/attention_groups.py `ctas2`), 2 in K3's bf16 form (it spills at 80)
-// and at head dims 8 and 32 (K7's bf16 spills at 80 there too).  HD: the
+// tools/attention_groups.py `ctas2`), 2 at head dims 8 and 32 (K7's bf16
+// spills at 80 there).  HD: the
 // head dim, 8, 16 or 32.
 template <bool DROP, typename T, typename BT = T, typename OT = T, int HD = 16>
 __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 && sizeof(BT) == 2 && HD == 16 ? 3 : 2)
@@ -929,7 +903,7 @@ cudaError_t launch_attn_hd(const T* q, const T* k, const T* v, int kvs, const BT
   a.q = q, a.k = k, a.v = v, a.out = out;
   a.kvs = kvs, a.B = B, a.H = H, a.W = W, a.D = D, a.gh = gh, a.corrected = corrected;
   a.vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
-  a.scale = p_rounded_once<T, BT>() ? __bfloat162float(__float2bfloat16_rn(scale)) : scale;
+  a.scale = scale;
   a.inv_keep = inv_keep, a.seed = seed, a.thresh = thresh;
   const int ch = gh * HD;
   int n = 0, units = 0, buf_elems = 0;
@@ -1027,11 +1001,13 @@ inline cudaError_t launch_attn_groups_any(const T* q, const T* k, const T* v, in
 
 // ------------------------------------------- the training cores' bf16 forward
 //
-// K3, K4 and K5 on bf16 io with a float32 bias (p_rounded_once: the JAX
-// kernel's rounding points, dpmn_tpu/ops/pallas_window_train.py:301-316)
-// run their attention forward in steps of STEP = 64 tokens of one channel
-// group of one image: one 8x8 window, four 4x4 windows or sixteen 2x2
-// windows, in window order (step row r = window r / N, position r % N).  A
+// K3, K4 and K5 on bf16 io with a float32 bias (the JAX kernel's rounding
+// points, dpmn_tpu/ops/pallas_window_train.py:301-316: q times the scale
+// rounded to bf16, the product rounded; scores, softmax and dropout in
+// float32; P rounded to bf16 once before P V, as :316 casts it) run their
+// attention forward in steps of STEP = 64 tokens of one channel group of
+// one image: one 8x8 window, four 4x4 windows or sixteen 2x2 windows, in
+// window order (step row r = window r / N, position r % N).  A
 // step's q, k and v land in a shared slot [3][STEP][ldq] (ldq = fwd_ldq).
 // Its 4x4 and 8x8 windows run as 4 gh tasks (gh heads x 4 m16-tiles of
 // query rows) on bf16 m16n8k16, the tables read straight into the score

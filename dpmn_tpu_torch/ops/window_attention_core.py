@@ -64,12 +64,10 @@ def _prepare(st: WT._Static, primals, biases):
     return (b, *st.hw_shape, dim, *WT.pack_tables(st, biases, q.device))
 
 
-def _prepare_bf16(st: WT._Static, primals, biases, packed=True):
+def _check_bf16(st: WT._Static, primals):
     """Check what the bf16 kernels take: q contiguous, k and v of one row
     stride kvs (a multiple of 8 elements, at least D; contiguous or the
-    halves of one kv tensor), all bf16, float32 tables.  Returns (kvs, B, H,
-    W, D, bias, mask, ws_arr, sh_arr), the tables concatenated or, where
-    not `packed` (the forward), as C arrays of their pointers."""
+    halves of one kv tensor), all bf16.  Returns (kvs, B, H, W, D)."""
     q, k, v = primals
     b, l, dim = q.shape
     WT.check_geometry(_NAME, st, l, dim)
@@ -80,7 +78,13 @@ def _prepare_bf16(st: WT._Static, primals, biases, packed=True):
         if t.stride() != (l * kvs, kvs, 1) or kvs % 8 or kvs < dim:
             raise ValueError(f"{name}: strides {t.stride()}, the bf16 kernel takes rows of one stride for k and v "
                              f"(a multiple of 8 and at least {dim}; k has {kvs})")
-    return (kvs, b, *st.hw_shape, dim, *(WT.pack_tables if packed else WT.group_tables)(st, biases, q.device))
+    return (kvs, b, *st.hw_shape, dim)
+
+
+def _prepare_bf16(st: WT._Static, primals, biases):
+    """_check_bf16, then the float32 tables concatenated (the backward's):
+    (kvs, B, H, W, D, bias, mask, ws_arr, sh_arr)."""
+    return (*_check_bf16(st, primals), *WT.pack_tables(st, biases, primals[0].device))
 
 
 def _forward_cuda(st: WT._Static, primals, biases):
@@ -120,8 +124,9 @@ def _backward_cuda(st: WT._Static, primals, biases, dout: torch.Tensor, kept=())
 
 def _forward_bf16_cuda(st: WT._Static, primals, biases):
     """The bf16 forward, one launch: (out bf16, ())."""
-    kvs, b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare_bf16(st, primals, biases, packed=False)
+    kvs, b, h, w, dim = _check_bf16(st, primals)
     dev = primals[0].device
+    bias, mask, ws_arr, sh_arr = WT.group_tables(st, biases, dev)
     out = torch.empty(b, h * w, dim, device=dev, dtype=torch.bfloat16)
     fn = kernels.bind(_NAME, "window_attention_core_forward_bf16",
                       [ctypes.c_void_p] * 6 + [ctypes.c_int] + WT.core_argtypes(0))

@@ -73,21 +73,25 @@ def window_attention_full_core_plain(xq, xkv, qs, qb, ks, kb, q_w, q_b, kv_w, kv
     return skconv(tokens, *(t.float() for t in primals[10:]), len(window_sizes)).to(torch.bfloat16)
 
 
-def _prepare(st: WT._Static, primals, biases, packed=True):
-    """Check what the kernels take (the 18 primals all float32 or all bf16,
-    float32 tables); returns (B, H, W, D, dz, wt, bias, mask, ws_arr, sh_arr)
-    with wt the 16 weights' pointers as a C array and the tables
-    concatenated, or, where not `packed` (the bf16 forward), as C arrays of
-    their pointers."""
+def _check(st: WT._Static, primals):
+    """Check the 18 primals (all float32 or all bf16) and the geometry;
+    returns (B, H, W, D, dz, wt) with wt the 16 weights' pointers as a C
+    array."""
     io = primals[0].dtype
-    b, h, w, dim, bias, mask, ws_arr, sh_arr = WT._prepare(st, primals[:10], biases, io, packed)
+    b, h, w, dim = WT.check_primals(st, primals[:10], io)
     dz, ch = primals[12].shape[0], dim // len(st.window_sizes)
     shapes = {"proj_w": (dim, dim), "proj_b": (dim,), "fc1_w": (dz, dim), "fc1_b": (dz,), "fc2_w": (dim, dz),
               "fc2_b": (dim,), "ph_w": (dim, ch), "ph_b": (dim,)}
     for name, t in zip(_SKCONV, primals[10:]):
         kernels.check_cuda_tensor(name, t, shapes[name], primals[0].device, io)
     wt = (ctypes.c_void_p * 16)(*[t.data_ptr() for t in primals[2:]])
-    return b, h, w, dim, dz, wt, bias, mask, ws_arr, sh_arr
+    return b, h, w, dim, dz, wt
+
+
+def _prepare(st: WT._Static, primals, biases):
+    """_check, then the float32 tables concatenated: (B, H, W, D, dz, wt,
+    bias, mask, ws_arr, sh_arr)."""
+    return (*_check(st, primals), *WT.pack_tables(st, biases, primals[0].device))
 
 
 def _names(primals):
@@ -116,15 +120,20 @@ def _forward_cuda(st: WT._Static, primals, biases):
     """(out, kept): SKConv's output and what the backward takes besides the
     inputs (`kept_shapes`)."""
     suffix, counter, _ = _names(primals)
-    b, h, w, dim, dz, wt, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases, packed=not suffix)
+    b, h, w, dim, dz, wt = _check(st, primals)
     dev = primals[0].device
+    if suffix:  # the bf16 forward takes each group's table pointers
+        bias, mask, ws_arr, sh_arr = WT.group_tables(st, biases, dev)
+        tables = (bias, mask)
+    else:
+        bias, mask, ws_arr, sh_arr = WT.pack_tables(st, biases, dev)
+        tables = (kernels.ptr(bias), kernels.ptr(mask))
     size = kernels.bind(_NAME, f"window_attention_full_forward{suffix}_scratch", [ctypes.c_int] * 4,
                         ctypes.c_size_t)
     scratch = torch.empty(size(b, h, w, dim), device=dev)
     out = torch.empty(b, h * w, dim, device=dev, dtype=primals[0].dtype)
     kept = tuple(torch.empty(shape, device=dev) for shape in kept_shapes(b, h * w, dim))
     fn = kernels.bind(_NAME, f"window_attention_full_forward{suffix}", _argtypes(10))
-    tables = (kernels.ptr(bias), kernels.ptr(mask)) if not suffix else (bias, mask)
     err = fn(kernels.ptr(primals[0]), kernels.ptr(primals[1]), wt, *tables, kernels.ptr(scratch), kernels.ptr(out),
              *[kernels.ptr(t) for t in kept], b, h, w, dim,
              len(st.window_sizes), ws_arr, sh_arr, st.gnum_heads, dz, float(st.scale), *WT.drop_args(st),

@@ -391,20 +391,23 @@ def split_bias_grad(dbias: torch.Tensor, biases):
     return out
 
 
-def _prepare(st: _Static, primals, biases, io=torch.float32, packed=True):
-    """Check what the K3 kernels take (primals of dtype `io`, float32
-    biases); returns (B, H, W, D, bias, mask, ws_arr, sh_arr) with the
-    per-group tables concatenated (`pack_tables`), or, where not `packed`,
-    as C arrays of their pointers (`group_tables`, the bf16 forwards')."""
+def check_primals(st: _Static, primals, io=torch.float32):
+    """Check K3's primals (all of dtype `io`) and the geometry; returns (B,
+    H, W, D)."""
     xq = primals[0]
     b, l, dim = xq.shape
     check_geometry("window_attention_train", st, l, dim)
-    dev = xq.device
     shapes = {"xq": (b, l, dim), "xkv": (b, l, dim), "qs": (dim,), "qb": (dim,), "ks": (dim,), "kb": (dim,),
               "q_w": (dim, dim), "q_b": (dim,), "kv_w": (2 * dim, dim), "kv_b": (2 * dim,)}
     for name, t in zip(_PRIMALS, primals):
-        kernels.check_cuda_tensor(name, t, shapes[name], dev, io)
-    return (b, *st.hw_shape, dim, *(pack_tables if packed else group_tables)(st, biases, dev))
+        kernels.check_cuda_tensor(name, t, shapes[name], xq.device, io)
+    return (b, *st.hw_shape, dim)
+
+
+def _prepare(st: _Static, primals, biases, io=torch.float32):
+    """check_primals, then the float32 tables concatenated (`pack_tables`):
+    (B, H, W, D, bias, mask, ws_arr, sh_arr)."""
+    return (*check_primals(st, primals, io), *pack_tables(st, biases, primals[0].device))
 
 
 def scratch_floats(name, fn, b, h, w, n_group, ws_arr, gnum_heads) -> int:
@@ -483,8 +486,9 @@ def _backward_cuda(st: _Static, primals, biases, dout: torch.Tensor, kept=()):
 def _forward_bf16_cuda(st: _Static, primals, biases):
     """The bf16 forward, one launch (LN, projections and attention; q and kv
     stay on chip): (out bf16, ())."""
-    b, h, w, dim, bias, mask, ws_arr, sh_arr = _prepare(st, primals, biases, torch.bfloat16, packed=False)
+    b, h, w, dim = check_primals(st, primals, torch.bfloat16)
     dev = primals[0].device
+    bias, mask, ws_arr, sh_arr = group_tables(st, biases, dev)
     out = torch.empty(b, h * w, dim, device=dev, dtype=torch.bfloat16)
     fn = kernels.bind("window_attention_train", "window_attention_train_forward_bf16", core_argtypes(13))
     err = fn(*[kernels.ptr(t) for t in primals], bias, mask, kernels.ptr(out), b, h, w, dim, len(st.window_sizes),

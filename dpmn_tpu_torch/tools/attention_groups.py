@@ -19,8 +19,8 @@ one-launch bf16 forward at the flagship geometry with its parts taken out
 the next unit's gather; the image-major work list; 1 CTA an SM), and the
 launches' grid sizes.  `base` is the package as it is; every other variant
 is a copy of the package under `_build/ablation/` with one part of the
-attention forward taken out of its source (ABLATIONS, or with --train
-`train_ablations()`), built and timed in a process of its own.  Those copies
+attention forward taken out of its source (ABLATIONS, TRAIN_ABLATIONS or
+BLOCK_ABLATIONS), built and timed in a process of its own.  Those copies
 compute wrong results: they measure time only (the work-list and CTA
 variants excepted).  With no variant it runs every one, `base` first and
 last.
@@ -40,10 +40,9 @@ import torch
 PACKAGE = Path(__file__).resolve().parent.parent
 CASES = (((8,), (4,)), ((4,), (2,)), ((2,), (1,)), ((2, 4, 8), (1, 2, 4)))
 
-_QK_BF16 = ("      qk_tile_bf16<NT, p_rounded_once<T, BT>(), HD>(s, Qs + 16 * mi * ldq + hd * HD, ldq, Qs + N * ldq + hd * HD,\n"
-            "                                                   ldq, a.scale);\n")
+_QK_BF16 = "      qk_tile_bf16<NT, false, HD>(s, Qs + 16 * mi * ldq + hd * HD, ldq, Qs + N * ldq + hd * HD, ldq);\n"
 _QK_F32 = "      qk_tile<NT>(s, Qs + 16 * mi * ldq + hd * HD, ldq, Qs + N * ldq + hd * HD, ldq, HD);\n"
-_PV_BF16 = "      pv_tile_bf16<NT, p_rounded_once<T, BT>(), HD>(o, s, Qs + 2 * N * ldq + hd * HD, ldv);\n"
+_PV_BF16 = "      pv_tile_bf16<NT, false, HD>(o, s, Qs + 2 * N * ldq + hd * HD, ldv);\n"
 _PV_F32 = "      pv_tile<NT, CT>(o, s, Qs + 2 * N * ldq + hd * HD, ldv);\n"
 _PV_NONE = ("      for (int e = 0; e < 4; ++e) o[0][e] = s[e][e] + s[NT - 1][e], o[CT - 1][e] += s[e + 1][e] * s[2][e];\n")
 # variant: [(source under csrc/, text, replacement)], each text found exactly once
@@ -66,15 +65,9 @@ ABLATIONS = {
                "__launch_bounds__(THREADS, 2)")],
 }
 
-# The training form's variants (--train), for the kernel that the tree's K4
-# bf16 forward runs (`train_ablations`): the earlier form in window_attn_fwd_kernel
-# (K7's variants, with the 2x2 units' table reads and the products of both
-# routes taken out too, and the training form held to 3 CTAs an SM), or
-# window_attn_fwd_train_kernel (the same parts of its 64-token steps, the
-# 2x2 steps' table reads too, and its two staged steps grown to a ring of 3
-# or 4)
-_UNIT4_BIAS = "      acc += ldg_one(brow + j);\n    else"
-_UNIT4_MASK = "    if (gr.sh > 0) acc += __ldg(gr.mask + ((int64_t)widx * 4 + i) * 4 + j);\n"
+# The training form's variants (--train), for window_attn_fwd_train_kernel:
+# K7's parts of its 64-token steps, the 2x2 steps' table reads too, and its
+# two staged steps grown to a ring of 3 or 4
 _TRAIN_QK = ("    qk_tile_bf16<NT, true, HD>(s, slot + 16 * mi * ldq + hd * HD, ldq, slot + (STEP + k0) * ldq + hd * HD, ldq,\n"
              "                               a.scale);\n")
 _TRAIN_PV = "    pv_tile_bf16<NT, true, HD>(o, s, slot + (2 * STEP + k0) * ldq + hd * HD, ldq);\n"
@@ -84,42 +77,22 @@ _TRAIN_TABLES = ("        float2 add = ldg_pair(bh + off);  // the head's bias, 
 _TRAIN4_BIAS = "      acc += __ldg(brow + j);\n"
 _TRAIN4_MASK = "      if (gr.sh > 0) acc += __ldg(gr.mask + ((int64_t)widx * 4 + i) * 4 + j);  // the window's mask\n"
 TRAIN_ABLATIONS = {
-    "window_attn_fwd_kernel": {
-        **{k: ABLATIONS[k] for k in ("stage", "wait", "compute", "softmax", "store")},
-        "tables": ABLATIONS["bias"] + [("window_common.cuh", _UNIT4_BIAS, "      acc += 0.f;\n    else"),
-                                       ("window_common.cuh", _UNIT4_MASK, "")],
-        "products": ABLATIONS["qk"] + ABLATIONS["pv"],
-        "ctas3": [("window_common.cuh",
-                   "__launch_bounds__(THREADS, sizeof(T) == 2 && sizeof(BT) == 2 && HD == 16 ? 3 : 2)",
-                   "__launch_bounds__(THREADS, sizeof(T) == 2 && HD == 16 ? 3 : 2)")],
-    },
-    "window_attn_fwd_train_kernel": {
-        "stage": [("window_common.cuh", "    if (u < a.n_units) train_stage(a, u, ch, slot(k));\n", "")],
-        "wait": [("window_common.cuh", "    cp_async_wait(TRAIN_STAGES - 1);\n", "")],
-        "compute": [("window_common.cuh", "    train_step_any<DROP, HD>(a, train_unit(a, u), slot(k));\n", "")],
-        "softmax": [("window_common.cuh", "    softmax_rows<true, NT>(s);\n", "")],
-        "tables": [("window_common.cuh", _TRAIN_TABLES, _TRAIN_TABLES.replace("ldg_pair(bh + off)", "make_float2(0.f, 0.f)")
-                    .replace("gr.sh > 0", "false")),
-                   ("window_common.cuh", _TRAIN4_BIAS, ""), ("window_common.cuh", _TRAIN4_MASK, "")],
-        "products": [("window_common.cuh", _TRAIN_QK, "    s[0][0] = __bfloat162float(slot[lane]);\n"),
-                     ("window_common.cuh", _TRAIN_PV, _PV_NONE)],
-        "store": [("window_common.cuh", "          store4(orow + 8 * c + 2 * t4 + (odd ? 6 : 0), val, a.vec);",
-                   "          if (val.x == 12345.f) store4(orow + 8 * c + 2 * t4 + (odd ? 6 : 0), val, a.vec);")],
-        "ctas3": [("window_common.cuh", "__launch_bounds__(THREADS, 2)\n    window_attn_fwd_train_kernel",
-                   "__launch_bounds__(THREADS, 3)\n    window_attn_fwd_train_kernel")],
-        "stages3": [("window_common.cuh", "constexpr int TRAIN_STAGES = 2;", "constexpr int TRAIN_STAGES = 3;")],
-        "stages4": [("window_common.cuh", "constexpr int TRAIN_STAGES = 2;", "constexpr int TRAIN_STAGES = 4;")],
-    },
+    "stage": [("window_common.cuh", "    if (u < a.n_units) train_stage(a, u, ch, slot(k));\n", "")],
+    "wait": [("window_common.cuh", "    cp_async_wait(TRAIN_STAGES - 1);\n", "")],
+    "compute": [("window_common.cuh", "    train_step_any<DROP, HD>(a, train_unit(a, u), slot(k));\n", "")],
+    "softmax": [("window_common.cuh", "    softmax_rows<true, NT>(s);\n", "")],
+    "tables": [("window_common.cuh", _TRAIN_TABLES, _TRAIN_TABLES.replace("ldg_pair(bh + off)", "make_float2(0.f, 0.f)")
+                .replace("gr.sh > 0", "false")),
+               ("window_common.cuh", _TRAIN4_BIAS, ""), ("window_common.cuh", _TRAIN4_MASK, "")],
+    "products": [("window_common.cuh", _TRAIN_QK, "    s[0][0] = __bfloat162float(slot[lane]);\n"),
+                 ("window_common.cuh", _TRAIN_PV, _PV_NONE)],
+    "store": [("window_common.cuh", "          store4(orow + 8 * c + 2 * t4 + (odd ? 6 : 0), val, a.vec);",
+               "          if (val.x == 12345.f) store4(orow + 8 * c + 2 * t4 + (odd ? 6 : 0), val, a.vec);")],
+    "ctas3": [("window_common.cuh", "__launch_bounds__(THREADS, 2)\n    window_attn_fwd_train_kernel",
+               "__launch_bounds__(THREADS, 3)\n    window_attn_fwd_train_kernel")],
+    "stages3": [("window_common.cuh", "constexpr int TRAIN_STAGES = 2;", "constexpr int TRAIN_STAGES = 3;")],
+    "stages4": [("window_common.cuh", "constexpr int TRAIN_STAGES = 2;", "constexpr int TRAIN_STAGES = 4;")],
 }
-
-
-def train_ablations(package: Path = PACKAGE) -> dict:
-    """The --train variants for the package at `package`: those of the
-    kernel its K4 bf16 forward runs."""
-    source = (package / "csrc" / "window_common.cuh").read_text()
-    return TRAIN_ABLATIONS["window_attn_fwd_train_kernel" if "window_attn_fwd_train_kernel" in source
-                           else "window_attn_fwd_kernel"]
-
 
 TRAIN_LIB = "window_attention_core"
 # K3's one-launch bf16 forward (--block): its parts taken out one at a time
@@ -163,7 +136,7 @@ def trim_to_forward(source: str, keep=lambda name: "backward" not in name) -> st
 
 def ablated_copy(variant: str, mode: str = "") -> Path:
     """A copy of the package with the variant's parts taken out (mode
-    "train": train_ablations(), K4's library trimmed to its forwards;
+    "train": TRAIN_ABLATIONS, K4's library trimmed to its forwards;
     "block": BLOCK_ABLATIONS, K3's library to its bf16 forward); returns the
     directory to run it from."""
     root = PACKAGE / "_build" / "ablation" / ((mode + "-" if mode else "") + variant)
@@ -174,7 +147,7 @@ def ablated_copy(variant: str, mode: str = "") -> Path:
         keep = (lambda n: "backward" not in n) if mode == "train" else (lambda n: "forward_bf16" in n or "launches" in n)
         path = root / PACKAGE.name / "csrc" / f"{lib}.cu"
         path.write_text(trim_to_forward(path.read_text(), keep))
-    edits = {"train": train_ablations, "block": lambda: BLOCK_ABLATIONS}.get(mode, lambda: ABLATIONS)()
+    edits = {"train": TRAIN_ABLATIONS, "block": BLOCK_ABLATIONS}.get(mode, ABLATIONS)
     for name, text, replacement in edits.get(variant, []):
         path = root / PACKAGE.name / "csrc" / name
         source = path.read_text()
@@ -324,7 +297,7 @@ def measure_block(variant: str) -> None:
 def main(argv=None) -> None:
     args = list(argv if argv is not None else sys.argv[1:])
     mode = "train" if "--train" in args else "block" if "--block" in args else ""
-    ablations = {"train": train_ablations, "block": lambda: BLOCK_ABLATIONS}.get(mode, lambda: ABLATIONS)()
+    ablations = {"train": TRAIN_ABLATIONS, "block": BLOCK_ABLATIONS}.get(mode, ABLATIONS)
     variants = [a for a in args if a not in ("--train", "--block")] or ["base", *ablations, "base"]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)

@@ -3,6 +3,7 @@
 card: a call's device time, its sub-kernels and its launches.
 
     python -m dpmn_tpu_torch.tools.bf16_backward_split [--cores block attention full] [--forward] [--tag NAME]
+    python -m dpmn_tpu_torch.tools.bf16_backward_split --pair
 
 At B = 64 on the flagship geometry (16x64 grid, dim 96, windows 2/4/8, 6
 heads), keep 0.9, for each shift set (none, and 1/2/4): the bf16 backward's
@@ -23,6 +24,14 @@ were already built).  It reaches the kernels through the wrappers' entry
 points alone, so the same file times another tree of the package when run
 from that tree's root (PERF.md's parent → change comparisons, in one call:
 parent, change, change, parent).
+
+With --pair it times K3's bf16 forward two ways over the same values, keep
+0.9, both shift sets: the one launch (`window_block_fwd_bf16_kernel`) and
+the two-launch composition of the same tree's kernels (`ln_proj_bf16_cuda`,
+ln_proj_bf16_kernel<D, bf16> writing q and kv, then K4's bf16 forward,
+window_attn_fwd_train_kernel, on q and kv's halves), in the order one,
+composition, composition, one: ms a step by CUDA events and the profiler's
+split of each (device ms a step).
 """
 
 from __future__ import annotations
@@ -240,11 +249,46 @@ def run(core, dev, forward):
     return out
 
 
+def pair(dev):
+    """K3's bf16 forward as one launch and as ln_proj + K4's forward: the
+    four readings (one, composition, composition, one) of ms a step by
+    events, and each way's split."""
+    from dpmn_tpu_torch.ops import window_attention_core as wc
+    from dpmn_tpu_torch.ops import window_attention_train as wt
+
+    gen = torch.Generator().manual_seed(5)
+    readings, splits = [0.0] * 4, {"one": {}, "composition": {}}
+    for shift in ((0, 0, 0), (1, 2, 4)):
+        prim, biases, masks, static = inputs("block", shift, dev, gen)
+        st = wt.make_static(masks, 4321, 0.9, *static)
+
+        def composition(st=st, prim=prim, biases=biases):
+            q, kv = wt.ln_proj_bf16_cuda(prim)
+            return wc._forward_cuda(st, [q, kv[..., :DIM], kv[..., DIM:]], biases)
+
+        ways = {"one": lambda st=st, prim=prim, biases=biases: wt._forward_cuda(st, prim, biases),
+                "composition": composition}
+        for i, way in enumerate(("one", "composition", "composition", "one")):
+            readings[i] += 6 * event_ms(ways[way])
+        for way, fn in ways.items():
+            for name, (t, n) in split(fn).items():
+                acc = splits[way].setdefault(name, [0.0, 0.0])
+                acc[0] += 6 * t
+                acc[1] += n / 2
+    return {"core": "pair", "one_ms_per_step": [readings[0], readings[3]],
+            "composition_ms_per_step": [readings[1], readings[2]],
+            **{f"{way}_split_ms_per_step": {k: [round(t, 4), round(n, 3)] for k, (t, n) in
+                                            sorted(d.items(), key=lambda kv: -kv[1][0])}
+               for way, d in splits.items()}}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cores", nargs="+", default=["block", "full"], choices=sorted(MODULES))
     ap.add_argument("--forward", action="store_true", help="time the bf16 forward instead of the backward")
     ap.add_argument("--tag", default="", help="a label printed with each result (e.g. the tree's name)")
+    ap.add_argument("--pair", action="store_true",
+                    help="time K3's bf16 forward as one launch against ln_proj + K4's forward (no --cores)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -257,6 +301,9 @@ def main():
     print(smi.stdout.strip().splitlines()[0], flush=True)
     print(json.dumps({"tag": args.tag, "build_s": kernels.build_all()}), flush=True)
     dev = torch.device("cuda:0")
+    if args.pair:
+        print(json.dumps({"tag": args.tag, **pair(dev)}), flush=True)
+        return
     for core in args.cores:
         print(json.dumps({"tag": args.tag, **run(core, dev, args.forward)}), flush=True)
 

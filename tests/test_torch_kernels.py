@@ -65,21 +65,19 @@ def test_attention_ablations_find_their_source_text():
 
 
 def test_training_attention_ablations_find_their_source_text():
-    """Each --train variant of tools/attention_groups.py (those of the
-    earlier training forward in window_attn_fwd_kernel and of
-    window_attn_fwd_train_kernel) and each --block variant takes out
-    text that occurs exactly once in the current kernel sources, this tree's
-    --train variants are the ones chosen, and the trimmed K4 library keeps
-    its forwards and the launch count alone."""
+    """Each --train variant of tools/attention_groups.py (those of
+    window_attn_fwd_train_kernel) and each --block variant (those of
+    window_block_fwd_bf16_kernel) takes out text that occurs exactly once
+    in the current kernel sources, and the trimmed K4 library keeps its
+    forwards and the launch count alone."""
     import re
 
     from dpmn_tpu_torch.tools import attention_groups
 
-    assert attention_groups.train_ablations() is attention_groups.TRAIN_ABLATIONS["window_attn_fwd_train_kernel"]
-    for kernel, variants in {**attention_groups.TRAIN_ABLATIONS, "block": attention_groups.BLOCK_ABLATIONS}.items():
+    for mode, variants in (("train", attention_groups.TRAIN_ABLATIONS), ("block", attention_groups.BLOCK_ABLATIONS)):
         for variant, edits in variants.items():
             for name, text, _ in edits:
-                assert (kernels.CSRC / name).read_text().count(text) == 1, (kernel, variant, name)
+                assert (kernels.CSRC / name).read_text().count(text) == 1, (mode, variant, name)
     source = (kernels.CSRC / f"{attention_groups.TRAIN_LIB}.cu").read_text()
     kept = re.findall(r'extern "C" [^(]*?(\w+)\(', attention_groups.trim_to_forward(source))
     assert kept == ["window_attention_core_forward", "window_attention_core_forward_bf16",
